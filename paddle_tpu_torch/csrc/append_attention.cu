@@ -1,0 +1,246 @@
+// Append attention for Hopper (sm_90a): S queries at offset `pos` against a
+// dense KV buffer, grouped-query heads in-kernel, streaming f32 softmax.
+//
+// Replaces: paddle_tpu/ops/pallas/append_attention.py, `_kernel` (called
+// from `_append_jit` / `append_attention`). The same kernel serves the
+// causal, no-window forward of paddle_tpu/ops/pallas/flash_attention.py
+// `flash_attention_bshd` (the splash kernel's bottom-aligned causal mask is
+// this kernel's mask at pos = s_kv - s_q).
+//
+// Bound on the H100: at prefill (S = T = bucket) the work is the
+// 4 * D * (visible query/key pairs) operations of the two products, which
+// for a bucket of 1024 is well above the card's ratio of operations to
+// bytes: bound by operations. For short chunks against a long buffer it
+// becomes bound by the bytes of K and V.
+//
+// Design (simple and right first):
+// - Grid (B, hk, ceil(g*S / BM)). The TPU grid of one cell per (b, kv head)
+//   would give 8 blocks at prefill for 132 SMs; here each block takes a
+//   tile of BM query rows of the g heads that share one KV head, so every
+//   K/V tile staged in shared memory serves all of them.
+// - Row r of a tile is query position s = r % S of head j = r / S, read
+//   from the JAX layout q[B, S, hk, g, D] by index arithmetic.
+// - Loop over KV tiles of BN rows with running max, sum and accumulator in
+//   f32; tiles past the last visible column of the tile's rows are never
+//   loaded (the Pallas kernel's `cond` skip). Masked columns are -inf and
+//   contribute exactly 0, as in the plain einsum.
+// - Products are f32 FMAs on CUDA cores from padded shared-memory tiles
+//   (conflict-free reads). The tensor cores (mma.sync / wgmma) and TMA are
+//   the next step; this kernel is the correctness baseline.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 128;    // head width, fixed
+constexpr int BM = 64;    // query rows per block
+constexpr int BN = 64;    // key rows per tile
+constexpr int NT = 256;   // threads per block
+constexpr int QS = D + 1; // padded shared-memory row strides
+constexpr int KS = D + 1;
+constexpr int PS = BN + 1;
+constexpr int SMEM_FLOATS = BM * QS + BN * KS + BN * D + BM * PS + 3 * BM;
+constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const uint8_t* __restrict__ allowed,
+                        T* __restrict__ out, int S, int T_, int hk, int g, int pos,
+                        float scale) {
+  extern __shared__ float smem[];
+  float* Qs = smem;              // [BM][QS]
+  float* Ks = Qs + BM * QS;      // [BN][KS]
+  float* Vs = Ks + BN * KS;      // [BN][D]
+  float* Ps = Vs + BN * D;       // [BM][PS] scores, then probabilities
+  float* m_s = Ps + BM * PS;     // running max per row
+  float* l_s = m_s + BM;         // running sum per row
+  float* a_s = l_s + BM;         // rescale factor of the current tile
+  __shared__ int lim_s[BM];      // last visible column per row, -1 = no row
+
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int rows = g * S;
+  const int r0 = blockIdx.z * BM;
+  const int H = hk * g;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < BM * D; i += NT) {
+    const int rr = i / D, dd = i % D, r = r0 + rr;
+    float val = 0.f;
+    if (r < rows) {
+      const int j = r / S, s = r % S;
+      val = to_f(q[(((size_t)b * S + s) * H + kh * g + j) * D + dd]) * scale;
+    }
+    Qs[rr * QS + dd] = val;
+  }
+  if (tid < BM) {
+    const int r = r0 + tid;
+    lim_s[tid] = r < rows ? pos + r % S : -1;
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  __syncthreads();
+
+  // columns past the largest visible one of this tile's rows are skipped
+  const int r_last = min(r0 + BM, rows) - 1;
+  const int s_max = (r0 / S == r_last / S) ? r_last % S : S - 1;
+  const int kv_end = min(T_, pos + s_max + 1);
+
+  const int tx = tid % 16, ty = tid / 16;  // rows ty + 16i, cols tx + 16j
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
+
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BN) {
+    for (int i = tid; i < BN * D; i += NT) {
+      const int c = i / D, dd = i % D, col = kv0 + c;
+      float kv = 0.f, vv = 0.f;
+      if (col < T_) {
+        const size_t off = (((size_t)b * T_ + col) * hk + kh) * D + dd;
+        kv = to_f(k[off]);
+        vv = to_f(v[off]);
+      }
+      Ks[c * KS + dd] = kv;
+      Vs[c * D + dd] = vv;
+    }
+    __syncthreads();
+
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int dd = 0; dd < D; ++dd) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QS + dd];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * KS + dd];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j, col = kv0 + c;
+        const bool ok = col < T_ && col <= lim_s[rr] &&
+                        (allowed == nullptr || allowed[(size_t)b * T_ + col] != 0);
+        Ps[rr * PS + c] = ok ? sc[i][j] : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    {  // online softmax: four neighbouring lanes per row
+      const int rr = tid >> 2, part = tid & 3;
+      float mx = -INFINITY;
+      for (int c = part; c < BN; c += 4) mx = fmaxf(mx, Ps[rr * PS + c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_old = m_s[rr];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int c = part; c < BN; c += 4) {
+        const float sv = Ps[rr * PS + c];
+        const float p = sv == -INFINITY ? 0.f : expf(sv - m_new);
+        Ps[rr * PS + c] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (part == 0) {
+        const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
+        m_s[rr] = m_new;
+        l_s[rr] = l_s[rr] * alpha + sum;
+        a_s[rr] = alpha;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float al = a_s[ty + 16 * i];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) acc[i][jj] *= al;
+    }
+#pragma unroll 4
+    for (int c = 0; c < BN; ++c) {
+      float pv[4], vv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PS + c];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) vv[jj] = Vs[c * D + tx + 16 * jj];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(pv[i], vv[jj], acc[i][jj]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = ty + 16 * i, r = r0 + rr;
+    if (r >= rows) continue;
+    const int j = r / S, s = r % S;
+    const float l = l_s[rr];
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    T* orow = out + (((size_t)b * S + s) * H + kh * g + j) * D;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) orow[tx + 16 * jj] = from_f<T>(acc[i][jj] * inv);
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, void* out,
+           int B, int S, int T_, int H, int hk, int pos, float scale, cudaStream_t stream) {
+  auto kernel = append_attention_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int g = H / hk;
+  dim3 grid(B, hk, (g * S + BM - 1) / BM);
+  kernel<<<grid, NT, SMEM_BYTES, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      allowed, static_cast<T*>(out), S, T_, hk, g, pos, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, out [B, S, H, D]; k, v [B, T, hk, D]; allowed [B, T] bytes or null.
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+extern "C" int pt_append_attention(const void* q, const void* k, const void* v,
+                                   const void* allowed, void* out, int B, int S, int T_,
+                                   int H, int hk, int pos, float scale, int dtype,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* a = static_cast<const uint8_t*>(allowed);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, a, out, B, S, T_, H, hk, pos, scale, s);
+  return launch<float>(q, k, v, a, out, B, S, T_, H, hk, pos, scale, s);
+}
+
+extern "C" const char* pt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,180 @@
+// Fused RMSNorm and residual-add + RMSNorm for Hopper (sm_90a).
+//
+// Replaces: paddle_tpu/ops/pallas/fused_norm.py, `_rmsnorm_fwd_kernel`
+// (called from `rms_norm`) and `_add_rmsnorm_kernel` (called from
+// `add_rms_norm`).
+//
+// Bound on the H100: device-memory bytes. Per launch `rms_norm` moves
+// 2*rows*d*es + d*es bytes (x in, out, weight) and `add_rms_norm`
+// 4*rows*d*es + d*es (x and residual in, normed and new residual out,
+// weight); the arithmetic is a few operations per element, far below the
+// card's ratio of operations to bytes.
+//
+// Design: one block per row, 16-byte vector loads (8 bf16 or 4 f32 per
+// thread per access), an f32 sum of squares reduced with warp shuffles and
+// one shared-memory hop, then a second pass over the same row (served from
+// L1/L2, so device memory still sees each byte once) that writes the
+// outputs. The cast points are the Pallas kernels': the normalised value is
+// computed in f32, rounded to the storage type, then multiplied by the
+// weight in the storage type; `add_rms_norm` normalises the f32 sum
+// x + residual and stores that sum, rounded, as the new residual.
+// Not done here: several rows per block for small d, and keeping the row
+// in registers between the passes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as XLA and torch do
+}
+
+// Sum of `v` over the whole block, returned to every thread.
+__device__ float block_sum(float v) {
+  __shared__ float partial[32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) partial[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = (blockDim.x + 31) >> 5;
+    v = lane < n_warps ? partial[lane] : 0.f;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) partial[0] = v;
+  }
+  __syncthreads();
+  return partial[0];
+}
+
+template <typename T>
+__global__ void rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                                T* __restrict__ out, int d, float eps) {
+  constexpr int N = 16 / sizeof(T);
+  const size_t row = blockIdx.x;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+  const uint4* wr = reinterpret_cast<const uint4*>(w);
+  uint4* orow = reinterpret_cast<uint4*>(out + row * d);
+  const int n_vec = d / N;
+
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    uint4 raw = xr[i];
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float v = to_f(e[k]);
+      ss += v * v;
+    }
+  }
+  const float inv = rsqrtf(block_sum(ss) / d + eps);
+
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    uint4 raw = xr[i], wraw = wr[i], o;
+    const T* e = reinterpret_cast<const T*>(&raw);
+    const T* we = reinterpret_cast<const T*>(&wraw);
+    T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      oe[k] = from_f<T>(to_f(from_f<T>(to_f(e[k]) * inv)) * to_f(we[k]));
+    orow[i] = o;
+  }
+}
+
+template <typename T>
+__global__ void add_rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                                    const T* __restrict__ w, T* __restrict__ out,
+                                    T* __restrict__ h_out, int d, float eps) {
+  constexpr int N = 16 / sizeof(T);
+  const size_t row = blockIdx.x;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
+  const uint4* rr = reinterpret_cast<const uint4*>(r + row * d);
+  const uint4* wr = reinterpret_cast<const uint4*>(w);
+  uint4* orow = reinterpret_cast<uint4*>(out + row * d);
+  uint4* hrow = reinterpret_cast<uint4*>(h_out + row * d);
+  const int n_vec = d / N;
+
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    uint4 xa = xr[i], ra = rr[i];
+    const T* xe = reinterpret_cast<const T*>(&xa);
+    const T* re = reinterpret_cast<const T*>(&ra);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float h = to_f(xe[k]) + to_f(re[k]);
+      ss += h * h;
+    }
+  }
+  const float inv = rsqrtf(block_sum(ss) / d + eps);
+
+  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
+    uint4 xa = xr[i], ra = rr[i], wa = wr[i], o, hv;
+    const T* xe = reinterpret_cast<const T*>(&xa);
+    const T* re = reinterpret_cast<const T*>(&ra);
+    const T* we = reinterpret_cast<const T*>(&wa);
+    T* oe = reinterpret_cast<T*>(&o);
+    T* he = reinterpret_cast<T*>(&hv);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float h = to_f(xe[k]) + to_f(re[k]);
+      he[k] = from_f<T>(h);
+      oe[k] = from_f<T>(to_f(from_f<T>(h * inv)) * to_f(we[k]));
+    }
+    orow[i] = o;
+    hrow[i] = hv;
+  }
+}
+
+int threads_for(int n_vec) {
+  int t = ((n_vec + 31) / 32) * 32;
+  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+extern "C" int pt_rms_norm(const void* x, const void* w, void* out, int rows, int d,
+                           float eps, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    rms_norm_kernel<__nv_bfloat16><<<rows, threads_for(d / 8), 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+        static_cast<__nv_bfloat16*>(out), d, eps);
+  } else {
+    rms_norm_kernel<float><<<rows, threads_for(d / 4), 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<float*>(out), d, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pt_add_rms_norm(const void* x, const void* r, const void* w, void* out,
+                               void* h_out, int rows, int d, float eps, int dtype,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    add_rms_norm_kernel<__nv_bfloat16><<<rows, threads_for(d / 8), 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(r),
+        static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
+        static_cast<__nv_bfloat16*>(h_out), d, eps);
+  } else {
+    add_rms_norm_kernel<float><<<rows, threads_for(d / 4), 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(r),
+        static_cast<const float*>(w), static_cast<float*>(out),
+        static_cast<float*>(h_out), d, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* pt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

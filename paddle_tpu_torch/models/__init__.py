@@ -1,0 +1,2 @@
+"""Model families of the port."""
+from .llama import LlamaConfig, LlamaForCausalLM  # noqa: F401

@@ -1,0 +1,372 @@
+"""Llama-3 decoder for serving — counterpart of ``paddle_tpu/models/llama.py``.
+
+The serving-relevant parts only: the config and its presets, rope tables
+(default, ``llama3`` and ``linear`` scaling), RMSNorm, attention over the
+static KV caches (dense prefill cache and paged pool), the gated MLP, the
+decoder layer on the discrete path, ``LlamaModel.forward_cached`` and the
+causal-LM head. The non-cached forward, training and the fused decode tail
+are not ported yet.
+
+Parameter names equal the JAX package's (``llama.layers.0.self_attn.
+q_proj.weight``, ``lm_head.weight``, ...), and Linear weights keep Paddle's
+[in, out] layout, so ``weights.from_jax_state`` moves a state across as is.
+
+Every norm runs the fused-norm kernels; cached attention routes through
+``generation.cached_attention`` / ``paged_cached_attention``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn as tnn
+
+from .. import nn
+from ..framework.random import default_device, default_generator
+from ..ops.hopper import fused_norm
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    return dtype if isinstance(dtype, torch.dtype) else _DTYPES[str(dtype)]
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    max_position_embeddings: int = 8192
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    initializer_range: float = 0.02
+    tie_word_embeddings: bool = False
+    # HF-style rope_scaling dict: {"rope_type": "llama3", "factor": 8.0,
+    # "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+    # "original_max_position_embeddings": 8192} or {"rope_type": "linear",
+    # "factor": N}; yarn and longrope are not ported yet
+    rope_scaling: Optional[dict] = None
+    # attention head width decoupled from hidden_size / num_heads
+    head_dim: Optional[int] = None
+    # fraction of head_dim that rotates
+    partial_rotary_factor: float = 1.0
+    # causal sliding window, uniform or per layer through layer_types
+    sliding_window: Optional[int] = None
+    layer_types: Optional[tuple] = None
+    use_flash_attention: bool = True
+    # "silu" (SwiGLU) or "gelu_pytorch_tanh" (GeGLU)
+    hidden_act: str = "silu"
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.hidden_act not in ("silu", "gelu_pytorch_tanh"):
+            raise NotImplementedError(
+                f"hidden_act must be 'silu' or 'gelu_pytorch_tanh', "
+                f"got {self.hidden_act!r}")
+        if not (0.0 < self.partial_rotary_factor <= 1.0):
+            raise ValueError(
+                f"partial_rotary_factor must be in (0, 1], got "
+                f"{self.partial_rotary_factor}")
+        if _rope_type(self.rope_scaling) not in SUPPORTED_ROPE_SCALING:
+            raise NotImplementedError(
+                f"rope_scaling type {_rope_type(self.rope_scaling)!r} is not "
+                f"ported (supported: {', '.join(SUPPORTED_ROPE_SCALING)})")
+        if self.layer_types is not None:
+            self.layer_types = tuple(self.layer_types)
+            if len(self.layer_types) != self.num_hidden_layers:
+                raise ValueError(
+                    f"layer_types has {len(self.layer_types)} entries for "
+                    f"{self.num_hidden_layers} layers")
+
+    @staticmethod
+    def llama3_8b(**kw):
+        return LlamaConfig(**kw)
+
+    @staticmethod
+    def llama3_70b(**kw):
+        base = dict(hidden_size=8192, intermediate_size=28672,
+                    num_hidden_layers=80, num_attention_heads=64,
+                    num_key_value_heads=8)
+        base.update(kw)
+        return LlamaConfig(**base)
+
+    @staticmethod
+    def tiny(**kw):
+        base = dict(vocab_size=512, hidden_size=128, intermediate_size=256,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=2, max_position_embeddings=256,
+                    dtype="float32")
+        base.update(kw)
+        return LlamaConfig(**base)
+
+
+def layer_window(config, layer_idx: int):
+    """Layer ``layer_idx``'s sliding window (uniform, or per layer through
+    ``layer_types``)."""
+    lt = getattr(config, "layer_types", None)
+    if not lt:
+        return config.sliding_window
+    return (config.sliding_window if lt[layer_idx] == "sliding_attention"
+            else None)
+
+
+def head_dim_of(config) -> int:
+    hd = getattr(config, "head_dim", None)
+    return int(hd) if hd else config.hidden_size // config.num_attention_heads
+
+
+def rope_dim_of(config) -> int:
+    """Rotary table width: head_dim scaled by partial_rotary_factor, floored
+    to even."""
+    r = int(head_dim_of(config) * getattr(config, "partial_rotary_factor",
+                                          1.0))
+    return r - (r % 2)
+
+
+SUPPORTED_ROPE_SCALING = ("default", "none", "llama3", "linear")
+
+
+def _rope_type(scaling: Optional[dict]):
+    if not scaling:
+        return "default"
+    return scaling.get("rope_type", scaling.get("type", None))
+
+
+def _scale_inv_freq(inv_freq, scaling: Optional[dict]):
+    """HF-style rope_scaling on the base frequencies ("llama3": long
+    wavelengths divided by ``factor``, short kept, the band between
+    interpolated; "linear": all divided by ``factor``)."""
+    rope_type = _rope_type(scaling)
+    if rope_type in ("default", "none"):
+        return inv_freq
+    factor = float(scaling["factor"])
+    if rope_type == "linear":
+        return inv_freq / factor
+    if rope_type == "llama3":
+        low = float(scaling["low_freq_factor"])
+        high = float(scaling["high_freq_factor"])
+        orig = float(scaling["original_max_position_embeddings"])
+        wavelen = 2.0 * math.pi / inv_freq
+        low_wavelen = orig / low
+        high_wavelen = orig / high
+        smooth = (orig / wavelen - low) / (high - low)
+        interp = (1.0 - smooth) / factor + smooth
+        scaled = torch.where(wavelen > low_wavelen, inv_freq / factor,
+                             inv_freq)
+        in_band = (wavelen <= low_wavelen) & (wavelen >= high_wavelen)
+        return torch.where(in_band, interp * inv_freq, scaled)
+    raise NotImplementedError(f"rope_scaling type {rope_type!r} is not ported")
+
+
+def _rope_tables(seq_len, head_dim, theta, scaling=None, device=None):
+    """(cos, sin) [seq_len, head_dim] f32, rotate-half layout."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                             dtype=torch.float32,
+                                             device=device) / head_dim))
+    inv_freq = _scale_inv_freq(inv_freq, scaling)
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+class LlamaRMSNorm(tnn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.variance_epsilon = config.rms_norm_eps
+        self.weight = tnn.Parameter(
+            torch.ones(config.hidden_size, device=device,
+                       dtype=torch_dtype(config.dtype)), requires_grad=False)
+
+    def forward(self, x):
+        return fused_norm.rms_norm(x, self.weight, self.variance_epsilon)
+
+
+class LlamaAttention(tnn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.hidden_size = config.hidden_size
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = head_dim_of(config)
+        self.window = config.sliding_window
+        dt = torch_dtype(config.dtype)
+        h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
+        self.q_proj = nn.Linear(self.hidden_size, h * d, device=device, dtype=dt)
+        self.k_proj = nn.Linear(self.hidden_size, hk * d, device=device, dtype=dt)
+        self.v_proj = nn.Linear(self.hidden_size, hk * d, device=device, dtype=dt)
+        self.o_proj = nn.Linear(h * d, self.hidden_size, device=device, dtype=dt)
+
+    def cached_attn_core(self, q, k, v, cos, sin, kv_cache):
+        """Attention against the serving caches: the paged pool (decode) or
+        a dense [B, T, hk, D] buffer (prefill). Returns (out [b, s, H*D]
+        before o_proj, new cache dict)."""
+        from ..generation import cached_attention, paged_cached_attention
+
+        b, s = q.shape[0], q.shape[1]
+        hd = self.num_heads * self.head_dim
+        if "k_pages" in kv_cache:
+            out, kp, vp = paged_cached_attention(
+                q, k, v, cos, sin, kv_cache["k_pages"], kv_cache["v_pages"],
+                kv_cache["page_indices"], kv_cache["lengths"],
+                kv_cache["page_size"], window=self.window)
+            new = dict(kv_cache)
+            new.update(k_pages=kp, v_pages=vp,
+                       lengths=kv_cache["lengths"] + s)
+            return out.reshape(b, s, hd), new
+        out, k_buf, v_buf = cached_attention(
+            q, k, v, cos, sin, kv_cache["k"], kv_cache["v"], kv_cache["pos"],
+            kv_cache.get("allowed"), kv_cache.get("row_pos"),
+            use_flash=self.config.use_flash_attention,
+            prefill=bool(kv_cache.get("prefill", False)), window=self.window)
+        new = {"k": k_buf, "v": v_buf, "pos": kv_cache["pos"] + s}
+        if "allowed" in kv_cache:
+            new["allowed"] = kv_cache["allowed"]
+        if "row_pos" in kv_cache:
+            new["row_pos"] = kv_cache["row_pos"] + s
+        return out.reshape(b, s, hd), new
+
+    def forward(self, hidden_states, cos, sin, kv_cache):
+        if not isinstance(kv_cache, dict):
+            raise NotImplementedError(
+                "paddle_tpu_torch ports the cached (serving) attention path "
+                "only; the non-cached forward comes with the training slice")
+        b, s = hidden_states.shape[0], hidden_states.shape[1]
+        h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
+        q = self.q_proj(hidden_states).reshape(b, s, h, d)
+        k = self.k_proj(hidden_states).reshape(b, s, hk, d)
+        v = self.v_proj(hidden_states).reshape(b, s, hk, d)
+        out, new = self.cached_attn_core(q, k, v, cos, sin, kv_cache)
+        return self.o_proj(out), new
+
+
+class LlamaMLP(tnn.Module):
+    """Gated MLP: SwiGLU (silu gate) or GeGLU (tanh-gelu gate)."""
+
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        dt = torch_dtype(config.dtype)
+        self.hidden_act = config.hidden_act
+        self.gate_proj = nn.Linear(config.hidden_size, config.intermediate_size,
+                                   device=device, dtype=dt)
+        self.up_proj = nn.Linear(config.hidden_size, config.intermediate_size,
+                                 device=device, dtype=dt)
+        self.down_proj = nn.Linear(config.intermediate_size,
+                                   config.hidden_size, device=device, dtype=dt)
+
+    def forward(self, x):
+        gate = self.gate_proj(x)
+        up = self.up_proj(x)
+        if self.hidden_act == "gelu_pytorch_tanh":
+            act = torch.nn.functional.gelu(gate, approximate="tanh") * up
+        else:
+            act = torch.nn.functional.silu(gate) * up
+        return self.down_proj(act)
+
+
+class LlamaDecoderLayer(tnn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.self_attn = LlamaAttention(config, device=device)
+        self.mlp = LlamaMLP(config, device=device)
+        self.input_layernorm = LlamaRMSNorm(config, device=device)
+        self.post_attention_layernorm = LlamaRMSNorm(config, device=device)
+
+    def forward(self, hidden_states, cos, sin, kv_cache):
+        residual = hidden_states
+        hidden_states = self.input_layernorm(hidden_states)
+        hidden_states, kv_cache = self.self_attn(hidden_states, cos, sin,
+                                                 kv_cache)
+        # fused residual-add + RMSNorm: h = residual + attn_out is written
+        # once and normed in the same pass; h is the next residual
+        norm = self.post_attention_layernorm
+        hidden_states, residual = fused_norm.add_rms_norm(
+            hidden_states, residual, norm.weight, norm.variance_epsilon)
+        return residual + self.mlp(hidden_states), kv_cache
+
+
+class LlamaModel(tnn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
+                                         device=device,
+                                         dtype=torch_dtype(config.dtype))
+        layers = []
+        for i in range(config.num_hidden_layers):
+            layer = LlamaDecoderLayer(config, device=device)
+            layer.self_attn.window = layer_window(config, i)
+            layers.append(layer)
+        self.layers = tnn.ModuleList(layers)
+        self.norm = LlamaRMSNorm(config, device=device)
+        # plain tensors keyed by table length — nothing traced is cached
+        self._rope_cache: dict = {}
+
+    def _rope(self, seq_len):
+        pair = self._rope_cache.get(seq_len)
+        if pair is None:
+            pair = _rope_tables(seq_len, rope_dim_of(self.config),
+                                self.config.rope_theta,
+                                scaling=self.config.rope_scaling,
+                                device=self.embed_tokens.weight.device)
+            self._rope_cache[seq_len] = pair
+        return pair
+
+    def forward_cached(self, input_ids, kv_caches, rope_len):
+        """Forward over the static KV caches (one dict per layer, see
+        ``generation.cached_attention``). Returns (normed hidden,
+        new caches)."""
+        cos, sin = self._rope(rope_len)
+        hidden = self.embed_tokens(input_ids).to(torch_dtype(self.config.dtype))
+        new_caches = []
+        for layer, cache in zip(self.layers, kv_caches):
+            hidden, c = layer(hidden, cos, sin, cache)
+            new_caches.append(c)
+        return self.norm(hidden), new_caches
+
+
+class LlamaForCausalLM(tnn.Module):
+    """Causal LM for serving. ``device=None`` means the current CUDA device,
+    and raises where there is none (pass ``device="cpu"`` for the plain
+    versions). Weights are drawn from ``generator`` (default: the port's
+    generator on ``device``): Normal(0, initializer_range) for embeddings
+    and projections, ones for norms."""
+
+    def __init__(self, config: LlamaConfig, device=None, generator=None):
+        super().__init__()
+        device = default_device(device)
+        self.config = config
+        self.llama = LlamaModel(config, device=device)
+        self.lm_head = (None if config.tie_word_embeddings else
+                        nn.Linear(config.hidden_size, config.vocab_size,
+                                  device=device,
+                                  dtype=torch_dtype(config.dtype)))
+        self.requires_grad_(False)
+        self.reset_parameters(generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.llama.embed_tokens.weight.device
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        gen = generator or default_generator(self.device)
+        std = self.config.initializer_range
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, std, generator=gen)
+
+    def lm_head_logits(self, hidden):
+        if self.lm_head is None:
+            return torch.matmul(hidden, self.llama.embed_tokens.weight.t())
+        return self.lm_head(hidden)

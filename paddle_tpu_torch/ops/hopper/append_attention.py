@@ -1,0 +1,111 @@
+"""Append attention: a chunk of S queries at offset ``pos`` against a dense
+KV buffer, grouped-query heads in-kernel (CUDA kernel in
+csrc/append_attention.cu).
+
+Counterpart of ``paddle_tpu/ops/pallas/append_attention.py``, with its
+signature and layouts: q [B, S, H, D] (already roped), k_buf/v_buf
+[B, T, hk, D] (chunk already written at ``pos``), ``allowed`` an optional
+[B, T] column mask. Query s sees columns t <= pos + s that are allowed.
+
+On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
+kernel or raises. The kernel takes head width 128 and float32 / bfloat16.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+_STEM = "append_attention"
+HEAD_DIM = 128
+
+
+def grouped_attention_plain(q, k, v, mask, scale):
+    """f32 ``softmax(q k^T * scale) v`` with grouped-query heads: q
+    [B, S, H, D], k/v [B, T, hk, D], ``mask`` None or [B or 1, S, T] bool
+    (True = visible). The plain attention every kernel here is held to."""
+    B, S, H, D = q.shape
+    hk = k.shape[2]
+    qg = q.reshape(B, S, hk, H // hk, D).float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None):
+    """The einsum branch of ``generation.cached_attention`` (no softcap):
+    f32 scores over the whole buffer with the causal, column and sliding
+    window masks, f32 softmax. The kernel takes no window."""
+    S, T = q.shape[1], k_buf.shape[1]
+    pos = int(pos)
+    t_idx = torch.arange(T, device=q.device)
+    qpos = pos + torch.arange(S, device=q.device)
+    mask = (t_idx[None, :] <= qpos[:, None])[None]              # [1, S, T]
+    if window is not None and allowed is None:
+        mask = mask & (t_idx[None, :] > qpos[:, None] - window)
+    if allowed is not None:
+        mask = mask & allowed.bool()[:, None, :]
+        if window is not None:
+            # right-padded rows: the window counts true positions, i.e.
+            # allowed columns before the query's slot
+            colpos = torch.cumsum(allowed.int(), dim=1) - 1      # [B, T]
+            curpos = colpos[:, pos:pos + S]                      # [B, S]
+            mask = mask & (colpos[:, None, :] > curpos[:, :, None] - window)
+    return grouped_attention_plain(q, k_buf, v_buf, mask,
+                                   1.0 / math.sqrt(q.shape[-1]))
+
+
+def launch(q, k_buf, v_buf, pos, allowed, scale, counter):
+    """Run the CUDA kernel; ``counter`` names the wrapper whose launch this
+    is (append attention and the causal flash forward share the kernel)."""
+    tensors = [q, k_buf, v_buf] + ([allowed] if allowed is not None else [])
+    _build.require_cuda(*tensors)
+    code = _build.dtype_code(q)
+    B, S, H, D = q.shape
+    _build.require(k_buf.dim() == 4 and v_buf.shape == k_buf.shape,
+                   f"{counter}: k/v must be [B, T, hk, D] of one shape")
+    T, hk = k_buf.shape[1], k_buf.shape[2]
+    _build.require(k_buf.shape[0] == B and k_buf.shape[3] == D,
+                   f"{counter}: q {tuple(q.shape)} and k {tuple(k_buf.shape)} "
+                   "disagree")
+    _build.require(D == HEAD_DIM, f"{counter}: the kernel takes head_dim "
+                                  f"{HEAD_DIM}, got {D}")
+    _build.require(H % hk == 0, f"{counter}: {H} heads over {hk} KV heads")
+    _build.require(k_buf.dtype == q.dtype and v_buf.dtype == q.dtype,
+                   f"{counter}: q, k and v must share one dtype")
+    _build.require(0 <= int(pos), f"{counter}: pos must be >= 0")
+    a_ptr = None
+    if allowed is not None:
+        _build.require(tuple(allowed.shape) == (B, T),
+                       f"{counter}: allowed must be [B, T] = ({B}, {T})")
+        allowed = allowed.contiguous()
+        if allowed.dtype != torch.uint8:
+            allowed = allowed.to(torch.uint8)
+        a_ptr = _build.ptr(allowed)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    fn = _build.function(_STEM, "pt_append_attention", [
+        _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP,
+        _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+        _build.INT, _build.FLOAT, _build.INT, _build.VOIDP])
+    err = fn(_build.ptr(q), _build.ptr(k_buf), _build.ptr(v_buf), a_ptr,
+             _build.ptr(out), B, S, T, H, hk, int(pos), float(scale), code,
+             _build.stream(q.device))
+    _build.launches[counter] += 1
+    _build.check(err, _STEM, counter)
+    return out
+
+
+def append_attention(q, k_buf, v_buf, pos, allowed=None):
+    """q [B,S,H,D] against k_buf/v_buf [B,T,hk,D] at offset ``pos`` with an
+    optional [B,T] column mask. Returns [B,S,H,D] in q's dtype."""
+    if q.device.type == "cpu":
+        return append_attention_plain(q, k_buf, v_buf, pos, allowed)
+    return launch(q, k_buf, v_buf, pos, allowed,
+                  1.0 / math.sqrt(q.shape[-1]), "append_attention")

@@ -1,0 +1,365 @@
+"""Continuous batching over a paged KV pool — counterpart of
+``paddle_tpu/serving.py`` ``ContinuousBatchEngine`` (first sub-slice).
+
+Requests join at any time; every ``step()`` decodes one token for every
+active slot (sample + forward in one call), a finished request frees its
+slot at once, and the FIFO queue refills it. Admission runs one bucketed
+prefill into a dense cache (flash kernel for a prompt that fills its
+power-of-two bucket, append-attention kernel for a padded one) and copies
+that cache into the slot's pages of the pool.
+
+Ported: the pool layout, ``add_request``, FIFO admission, ``_bucket``,
+``_bucketed_prefill``, ``_prefill_into``, ``_scatter_prefill``, ``step``,
+``run_until_done``, ``cancel``, ``finish_reason``, ``logprobs`` and
+``stats``. Not ported yet: prefix cache, chunked prefill, priorities and
+deadlines, preemption, migration and handoff, speculation, OOM
+degradation, tracing and metrics.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .framework.random import default_generator
+from .generation import (_PrefillStep, _SelectDecodeRowsStep,
+                         _SelectDecodeStep)
+from .models.llama import head_dim_of, torch_dtype
+
+
+def _page_tiles(buf, page_size):
+    """[n_tokens, hk, D] dense rows -> [hk, n_pages, page_size, D] page
+    tiles (the pool layout)."""
+    n_pages = buf.shape[0] // page_size
+    hk, d = buf.shape[1], buf.shape[2]
+    return buf.reshape(n_pages, page_size, hk, d).movedim(2, 0)
+
+
+class _Request:
+    __slots__ = ("rid", "ids", "max_new_tokens", "tokens", "sampling",
+                 "on_token", "stop_token_ids", "logprobs", "want_logprobs")
+
+    def __init__(self, rid, ids, max_new_tokens, sampling=None, on_token=None,
+                 stop_token_ids=None, want_logprobs=False):
+        self.rid = rid
+        self.ids = np.asarray(ids).reshape(-1)
+        self.max_new_tokens = int(max_new_tokens)
+        self.tokens: List[int] = []
+        self.sampling = sampling  # (do_sample, temperature, top_k, top_p)
+        self.on_token = on_token  # callback (rid, token, done)
+        # additive to the engine eos
+        self.stop_token_ids = (frozenset(int(s) for s in stop_token_ids)
+                               if stop_token_ids else None)
+        self.want_logprobs = bool(want_logprobs)
+        self.logprobs: List[float] = []
+
+
+class ContinuousBatchEngine:
+    """In-flight batching: ``add_request()`` any time, ``step()`` decodes one
+    token for every active slot.
+
+    >>> eng = ContinuousBatchEngine(model, max_batch=4, max_len=256)
+    >>> rid = eng.add_request(prompt_ids, max_new_tokens=64)
+    >>> done = eng.run_until_done()   # {rid: np.ndarray of generated ids}
+
+    The engine runs where the model's weights lie."""
+
+    def __init__(self, model, max_batch: int, max_len: int,
+                 page_size: int = 16, eos_token_id: Optional[int] = None,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0):
+        if max_len % page_size != 0:
+            raise ValueError("max_len must be a multiple of page_size")
+        cfg = model.config
+        if max_len > cfg.max_position_embeddings:
+            raise ValueError(f"max_len {max_len} exceeds "
+                             f"max_position_embeddings "
+                             f"{cfg.max_position_embeddings}")
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature} "
+                             "(0 decodes greedily)")
+        self.model = model
+        self.device = model.device
+        self.max_batch, self.max_len, self.page_size = (max_batch, max_len,
+                                                        page_size)
+        self.eos_token_id = eos_token_id
+        self._sample_cfg = (bool(do_sample), float(temperature), int(top_k),
+                            float(top_p))
+        self._generator = default_generator(self.device)
+
+        # the pool: slot s owns pages [s*pps, (s+1)*pps) of every layer
+        self._pages_per_slot = max_len // page_size
+        hk, d = cfg.num_key_value_heads, head_dim_of(cfg)
+        n_pages = max_batch * self._pages_per_slot
+        dt = torch_dtype(cfg.dtype)
+        page_indices = torch.arange(n_pages, dtype=torch.int32,
+                                    device=self.device).reshape(
+                                        max_batch, self._pages_per_slot)
+        self._lengths = np.zeros(max_batch, np.int32)   # tokens per slot
+        self._caches = [{
+            "k_pages": torch.zeros(hk, n_pages, page_size, d, dtype=dt,
+                                   device=self.device),
+            "v_pages": torch.zeros(hk, n_pages, page_size, d, dtype=dt,
+                                   device=self.device),
+            "page_indices": page_indices,
+            "page_size": page_size,
+        } for _ in range(cfg.num_hidden_layers)]
+        self._last = torch.zeros(max_batch, cfg.vocab_size,
+                                 dtype=torch.float32, device=self.device)
+        self._slots: List[Optional[_Request]] = [None] * max_batch
+        self._queue: List[_Request] = []
+        self._finished: Dict[int, np.ndarray] = {}
+        self._finished_reason: Dict[int, str] = {}
+        self._finished_logprobs: Dict[int, list] = {}
+        self._next_rid = 0
+        self._n_requests = self._n_finished = self._n_cancelled = 0
+        self._n_tokens = self._n_steps = 0
+        self._steps: dict = {}
+
+    # ---- public API -----------------------------------------------------
+    def add_request(self, ids, max_new_tokens: int = 64, do_sample=None,
+                    temperature=None, top_k=None, top_p=None,
+                    stop_token_ids=None, want_logprobs=False,
+                    on_token=None) -> int:
+        """Queue one request (admitted at once when a slot is free).
+        Sampling knobs default to the engine's; any override routes decoding
+        through the per-row program. ``stop_token_ids`` retires the request
+        on any of them, in addition to the engine eos; ``want_logprobs``
+        keeps the chosen-token logprobs; ``on_token(rid, token, done)``
+        streams each token."""
+        ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor)
+                         else ids).reshape(-1)
+        if ids.size + int(max_new_tokens) > self.max_len:
+            raise ValueError(
+                f"prompt ({ids.size}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds engine max_len {self.max_len}")
+        if temperature is not None and temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature} "
+                             "(0 decodes greedily)")
+        sampling = self._merge_sampling(do_sample, temperature, top_k, top_p)
+        rid = self._next_rid
+        self._next_rid += 1
+        self._n_requests += 1
+        self._queue.append(_Request(rid, ids, max_new_tokens, sampling,
+                                    on_token, stop_token_ids, want_logprobs))
+        self._admit()
+        return rid
+
+    def finish_reason(self, rid: int):
+        """"stop" | "length" | "cancelled" once finished, else None."""
+        return self._finished_reason.get(rid)
+
+    def logprobs(self, rid: int):
+        """Chosen-token logprobs of a finished request that asked for them."""
+        return self._finished_logprobs.get(rid)
+
+    @property
+    def num_active(self) -> int:
+        return sum(r is not None for r in self._slots)
+
+    def stats(self) -> dict:
+        active = self.num_active
+        return {
+            "requests_admitted": self._n_requests,
+            "requests_finished": self._n_finished,
+            "requests_cancelled": self._n_cancelled,
+            "requests_active": active,
+            "requests_queued": len(self._queue),
+            "decode_steps": self._n_steps,
+            "tokens_generated": self._n_tokens,
+            "slot_utilization": active / self.max_batch,
+        }
+
+    def cancel(self, rid: int) -> bool:
+        """Drop a queued request or free an active one's slot; True if it
+        was live."""
+        for i, req in enumerate(self._queue):
+            if req.rid == rid:
+                del self._queue[i]
+                self._record_reason(rid, "cancelled")
+                return True
+        for s, req in enumerate(self._slots):
+            if req is not None and req.rid == rid:
+                self._release_slot(s)
+                self._record_reason(rid, "cancelled")
+                self._admit()
+                return True
+        return False
+
+    def step(self) -> Dict[int, np.ndarray]:
+        """Decode one token for every active slot; returns the requests
+        that finished {rid: generated ids}."""
+        self._admit()
+        if self.num_active == 0:
+            return self._drain_finished()
+        lengths = torch.from_numpy(self._lengths).to(self.device)
+        for c in self._caches:
+            c["lengths"] = lengths
+        if any(r is not None and r.sampling is not None for r in self._slots):
+            rows = [(r.sampling or self._sample_cfg) if r is not None
+                    else self._sample_cfg for r in self._slots]
+            dev = self.device
+            step = self._step_unit("rows", lambda: _SelectDecodeRowsStep(
+                self.model, self.max_len))
+            nxt, logps, self._last, self._caches = step(
+                self._last, self._generator,
+                torch.tensor([r[0] for r in rows], dtype=torch.bool, device=dev),
+                torch.tensor([r[1] for r in rows], dtype=torch.float32,
+                             device=dev),
+                torch.tensor([r[2] for r in rows], dtype=torch.int32,
+                             device=dev),
+                torch.tensor([r[3] for r in rows], dtype=torch.float32,
+                             device=dev),
+                self._caches)
+        else:
+            step = self._step_unit(self._sample_cfg, lambda: _SelectDecodeStep(
+                self.model, self.max_len, *self._sample_cfg))
+            nxt, logps, self._last, self._caches = step(
+                self._last, self._generator, self._caches)
+        # the one device -> host sync of the step
+        toks = nxt.cpu().numpy()
+        lps = logps.cpu().numpy()
+        self._n_steps += 1
+        retiring, events = [], []
+        for s, req in enumerate(self._slots):
+            if req is None:
+                continue
+            t = int(toks[s])
+            req.tokens.append(t)
+            self._n_tokens += 1
+            if req.want_logprobs:
+                req.logprobs.append(float(lps[s]))
+            stopped = ((self.eos_token_id is not None
+                        and t == self.eos_token_id)
+                       or (req.stop_token_ids is not None
+                           and t in req.stop_token_ids))
+            finished = stopped or len(req.tokens) >= req.max_new_tokens
+            if finished:
+                self._record_reason(
+                    req.rid, "stop" if stopped else "length",
+                    logprobs=list(req.logprobs) if req.want_logprobs else None)
+                retiring.append(s)
+            if req.on_token is not None:
+                events.append((req.on_token, req.rid, t, finished))
+        active = np.array([r is not None for r in self._slots])
+        self._lengths = np.where(active, self._lengths + 1, 0).astype(np.int32)
+        for s in retiring:
+            req = self._slots[s]
+            self._finished[req.rid] = np.asarray(req.tokens, np.int64)
+            self._n_finished += 1
+            self._release_slot(s)
+        for cb, rid, t, done in events:   # after the state is consistent
+            cb(rid, t, done)
+        self._admit()
+        return self._drain_finished()
+
+    def run_until_done(self, max_steps: Optional[int] = None
+                       ) -> Dict[int, np.ndarray]:
+        out: Dict[int, np.ndarray] = {}
+        steps = 0
+        while self._queue or self.num_active:
+            out.update(self.step())
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        out.update(self._drain_finished())
+        return out
+
+    # ---- internals ------------------------------------------------------
+    def _merge_sampling(self, do_sample, temperature, top_k, top_p):
+        """Engine defaults overlaid with the request's overrides; None when
+        the result equals the engine config."""
+        if all(v is None for v in (do_sample, temperature, top_k, top_p)):
+            return None
+        eng_s, eng_t, eng_k, eng_p = self._sample_cfg
+        sampling = (bool(eng_s if do_sample is None else do_sample),
+                    float(eng_t if temperature is None else temperature),
+                    int(eng_k if top_k is None else top_k),
+                    float(eng_p if top_p is None else top_p))
+        return None if sampling == self._sample_cfg else sampling
+
+    def _step_unit(self, key, factory):
+        unit = self._steps.get(key)
+        if unit is None:
+            unit = self._steps[key] = factory()
+        return unit
+
+    def _record_reason(self, rid, reason, logprobs=None):
+        if reason == "cancelled":
+            self._n_cancelled += 1
+        self._finished_reason[rid] = reason
+        if logprobs is not None:
+            self._finished_logprobs[rid] = logprobs
+
+    def _drain_finished(self):
+        done, self._finished = self._finished, {}
+        return done
+
+    def _alloc_slot(self) -> int:
+        for s, r in enumerate(self._slots):
+            if r is None:
+                return s
+        return -1
+
+    def _release_slot(self, s: int) -> None:
+        self._slots[s] = None
+        self._lengths[s] = 0
+
+    def _bucket(self, n: int) -> int:
+        """Prompt-length bucket: next power of two times the page size,
+        capped at max_len."""
+        b = self.page_size
+        while b < n:
+            b *= 2
+        return min(b, self.max_len)
+
+    def _admit(self):
+        """FIFO admission: prefill queued requests into free slots."""
+        while self._queue:
+            slot = self._alloc_slot()
+            if slot < 0:
+                return
+            req = self._queue.pop(0)
+            self._prefill_into(slot, req)
+            self._slots[slot] = req
+
+    def _bucketed_prefill(self, req: _Request):
+        """One prompt through the bucketed prefill. Returns (last [1, V],
+        per-layer dense caches, S0, bucket)."""
+        S0 = int(req.ids.size)
+        bucket = self._bucket(S0)
+        ragged = S0 != bucket
+        pad_mask = None
+        if ragged:
+            pad_mask = torch.zeros(1, bucket, dtype=torch.bool,
+                                   device=self.device)
+            pad_mask[0, :S0] = True
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :S0] = req.ids
+        prefill = self._step_unit(("prefill", bucket, ragged),
+                                  lambda: _PrefillStep(self.model, bucket,
+                                                       ragged,
+                                                       rope_len=self.max_len))
+        last, caches = prefill(torch.from_numpy(ids).to(self.device),
+                               torch.tensor([S0], dtype=torch.int32,
+                                            device=self.device), pad_mask)
+        return last, caches, S0, bucket
+
+    def _prefill_into(self, slot: int, req: _Request):
+        last, caches, S0, bucket = self._bucketed_prefill(req)
+        self._scatter_prefill(slot, last, caches, bucket)
+        self._lengths[slot] = S0
+
+    @torch.inference_mode()
+    def _scatter_prefill(self, slot: int, last, caches, bucket: int):
+        """Copy one prefill's dense caches into ``slot``'s first pages of
+        every layer (in place) and seed its last-logit row."""
+        ps = self.page_size
+        n = bucket // ps
+        base = slot * self._pages_per_slot
+        for c_eng, c_new in zip(self._caches, caches):
+            for key, pool in (("k", "k_pages"), ("v", "v_pages")):
+                c_eng[pool][:, base:base + n].copy_(
+                    _page_tiles(c_new[key][0], ps))
+        self._last[slot] = last[0].float()
