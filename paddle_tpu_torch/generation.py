@@ -53,9 +53,9 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
     takes the flash kernel (causal attention over the prompt is causal
     self-attention on the S new tokens), any other multi-token chunk the
     append-attention kernel (the mask counts buffer slots, so per-row rope
-    positions do not change it); the plain einsum serves only what the
-    kernels do not take (a sliding window, single tokens, or
-    ``use_flash=False``).
+    positions do not change it). On CUDA the append kernel also takes single
+    tokens and ``use_flash=False``; the plain einsum serves CPU tensors (as
+    every wrapper does) and a sliding window, which no kernel takes.
     Returns (out [B,S,H,D], k_buf, v_buf)."""
     S = q.shape[1]
     pos = int(pos)
@@ -68,13 +68,13 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
     k_buf[:, pos:pos + S] = k.to(k_buf.dtype)
     v_buf[:, pos:pos + S] = v.to(v_buf.dtype)
 
-    if use_flash and S > 1 and window is None:
-        if allowed is None and row_pos is None and (prefill or pos == 0):
-            out = flash_attention_bshd(q, k, v, causal=True)
-        else:
-            out = append_attention(q, k_buf, v_buf, pos, allowed=allowed)
-        return out, k_buf, v_buf
-    out = append_attention_plain(q, k_buf, v_buf, pos, allowed, window)
+    if window is not None:
+        out = append_attention_plain(q, k_buf, v_buf, pos, allowed, window)
+    elif (use_flash and S > 1 and allowed is None and row_pos is None
+          and (prefill or pos == 0)):
+        out = flash_attention_bshd(q, k, v, causal=True)
+    else:
+        out = append_attention(q, k_buf, v_buf, pos, allowed=allowed)
     return out, k_buf, v_buf
 
 

@@ -225,3 +225,36 @@ def test_flash_refuses_unported_masks_on_cuda(kwargs, monkeypatch):
     fq = q.as_subclass(_Fake)
     with pytest.raises(NotImplementedError, match="not ported"):
         port_flash.flash_attention_bshd(fq, fq, fq, **kwargs)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("prefill", "flash"), ("prefill_padded", "append"), ("chunk", "append"),
+    ("single_token", "append"), ("no_flash", "append"),
+    ("row_pos", "append"), ("window", "plain")])
+def test_cached_attention_routes_to_the_kernels(case, want, monkeypatch):
+    """Every windowless chunk reaches a kernel wrapper (which runs the kernel
+    on CUDA); only a sliding window calls the plain einsum directly."""
+    calls = []
+    for name, tag in (("flash_attention_bshd", "flash"),
+                      ("append_attention", "append"),
+                      ("append_attention_plain", "plain")):
+        real = getattr(port_gen, name)
+        monkeypatch.setattr(
+            port_gen, name,
+            lambda *a, _real=real, _tag=tag, **kw: (calls.append(_tag),
+                                                    _real(*a, **kw))[1])
+    B, T, H, hk, D = 1, 16, 4, 1, 128
+    S = 1 if case == "single_token" else 8
+    pos = 4 if case in ("chunk", "single_token", "row_pos", "window") else 0
+    q, k, v = (torch.randn(B, S, n, D) for n in (H, hk, hk))
+    cos, sin = torch.ones(T, D), torch.zeros(T, D)
+    allowed = torch.ones(B, T, dtype=torch.bool) if case.endswith(
+        "padded") else None
+    port_gen.cached_attention(
+        q, k, v, cos, sin, torch.zeros(B, T, hk, D), torch.zeros(B, T, hk, D),
+        pos, allowed=allowed,
+        row_pos=torch.tensor([pos], dtype=torch.int32)
+        if case == "row_pos" else None,
+        use_flash=case != "no_flash", prefill=pos == 0,
+        window=3 if case == "window" else None)
+    assert calls == [want]

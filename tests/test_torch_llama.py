@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import SMALL, build_pair, mix_prompts
+from test_torch_pair import SMALL, build_pair, mix_prompts
 
 from paddle_tpu.generation import _get_prefill_step
 from paddle_tpu.models.llama import _rope_tables as jax_rope_tables

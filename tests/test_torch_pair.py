@@ -1,5 +1,6 @@
-"""Shared set-up of the port parity tests: one small Llama built in both
-packages from the same numpy weights.
+"""Shared set-up of the port parity tests (``test_torch_llama``,
+``test_torch_serving``): one small Llama built in both packages from the
+same numpy weights, and a check that the pair really shares them.
 
 The config has head_dim 128 (the real one) at a small width. Weights are
 drawn with numpy from a seed with a wider spread than the initializer's
@@ -49,3 +50,15 @@ def build_pair(max_len=128, seed=0, **overrides):
 def mix_prompts(seed=0, lengths=(5, 16, 32, 40, 64), vocab=512):
     rng = np.random.RandomState(seed)
     return [rng.randint(0, vocab, size=n).astype(np.int32) for n in lengths]
+
+
+def test_build_pair_shares_every_weight():
+    jax_model, port_model, state = build_pair(max_len=32)
+    jax_state = jax_model.functional_state()
+    port_state = dict(port_model.named_parameters())
+    assert set(jax_state) == set(port_state) == set(state)
+    for name, arr in state.items():
+        np.testing.assert_array_equal(np.asarray(jax_state[name]), arr,
+                                      err_msg=name)
+        np.testing.assert_array_equal(port_state[name].detach().numpy(), arr,
+                                      err_msg=name)

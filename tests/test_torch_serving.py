@@ -9,7 +9,7 @@ import sys
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import build_pair, mix_prompts
+from test_torch_pair import build_pair, mix_prompts
 
 from paddle_tpu.serving import ContinuousBatchEngine as JaxEngine
 from paddle_tpu_torch.serving import ContinuousBatchEngine as PortEngine
