@@ -9,10 +9,12 @@ Phases (any failure raises, so the script exits non-zero):
 1. Device and build: the card's name and power limit, then every kernel
    of ``paddle_tpu_torch/csrc`` compiled by nvcc from the checkout.
 2. Each kernel against its plain PyTorch version on the card, in bf16 at
-   the serving path's shapes, with its time (CUDA events, median of 20
-   after warm-up), the plain version's time, the least time the card could
-   take (bound), and one PyTorch library call computing the same function
-   as a yardstick only (the port never calls it).
+   the serving and training paths' shapes, with its time (CUDA events,
+   median of 20 after warm-up; 5 for the sequence-4096 attention rows),
+   the plain version's time, the least time the card could take (bound),
+   and one PyTorch library call computing the same function as a yardstick
+   only (the port never calls it). The attention backward is held against
+   ``torch.autograd`` through the plain forward.
 3. The serving path at full width: Llama-3-8B (bf16, all 32 layers, random
    weights from a seeded generator on the card) behind
    ``ContinuousBatchEngine(max_batch=8, max_len=2048)``, ten greedy
@@ -21,7 +23,18 @@ Phases (any failure raises, so the script exits non-zero):
 4. Wiring: two layers at full width in f32, the same weights on the card
    (kernels) and on the CPU (plain versions); greedy tokens must be
    identical and the prefill logits must agree.
-5. The kernels line, then the card line, then the result line
+5. The training path at full width: the Llama-3-8B training recipe of the
+   JAX package's ``bench.py`` (``_bench_config("8b")``: tied embeddings,
+   chunked fused lm-head + CE, bf16 parameters, AdamW with f32 masters and
+   bf16 moments, sequence 4096, batch 1) at depth 4, random weights from a
+   seeded generator, one fixed random batch; ``train_step`` once to warm
+   up, then 5 timed steps; one more step under ``torch.profiler`` for the
+   kernels' share of the step. Launch counts are zeroed just before the
+   first step and read just after the last timed one.
+6. Training wiring: two layers at full width in f32, sequence 128, the
+   same weights on the card and on the CPU; one ``train_step`` each; the
+   losses, every gradient and every parameter after the step must agree.
+7. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -35,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -47,6 +61,8 @@ REPLACES = {
     "append_attention": "paddle_tpu/ops/pallas/append_attention.py:135",
     "flash_attention_bshd": "paddle_tpu/ops/pallas/flash_attention.py:122",
     "paged_attention": "paddle_tpu/generation.py:289",
+    "fused_rope": "paddle_tpu/ops/pallas/fused_norm.py:289",
+    "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:122",
 }
 SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -54,7 +70,15 @@ SOURCES = {
     "append_attention": "paddle_tpu_torch/csrc/append_attention.cu",
     "flash_attention_bshd": "paddle_tpu_torch/csrc/append_attention.cu",
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
+    "fused_rope": "paddle_tpu_torch/csrc/fused_norm.cu",
+    "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
 }
+# the kernels each main path must launch
+SERVING_KERNELS = ("rms_norm", "add_rms_norm", "append_attention",
+                   "flash_attention_bshd", "paged_attention")
+TRAINING_KERNELS = ("rms_norm", "add_rms_norm", "fused_rope",
+                    "flash_attention_bshd", "flash_attention_bwd")
+TRAIN_SEQ, TRAIN_DEPTH, TRAIN_STEPS = 4096, 4, 5
 
 
 def log(*a):
@@ -69,6 +93,7 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps=20, warmup=3):
+    """Median ms of ``reps`` calls, each between two CUDA events."""
     import torch
 
     for _ in range(warmup):
@@ -140,7 +165,8 @@ def check_kernels(results):
     # another order; norms: two bf16 roundings (normalised value, then the
     # weight product) after an f32 value that may differ in its last bit
     log("phase 2: kernels vs plain versions (bf16; tolerance "
-        "|k - p| <= 2e-3 + 2^-7 |p|, norms 1e-6 + 2^-6 |p|)")
+        "|k - p| <= 2e-3 + 2^-7 |p|, norms 1e-6 + 2^-6 |p|, rope 2^-7 |p|, "
+        "lse 1e-3, attention gradients 2^-6 max |p|)")
     d = 4096
     for rows in (8, 512):
         x, r, w = randn(rows, d), randn(rows, d), randn(d, scale=0.5) + 1
@@ -245,6 +271,103 @@ def check_kernels(results):
                q, kp, vp, lengths, page_indices)),
            time_ms(lambda: sdpa_gqa(q4, kg, vg, mask=pmask)),
            bound(nbytes, 4 * H * D * n_tok, "bfloat16"), True)
+    del kp, vp, kg, vg
+    check_training_kernels(record, close_bf16, randn)
+    torch.cuda.empty_cache()
+
+
+def check_training_kernels(record, close_bf16, randn):
+    """The training path's kernels at Llama-3-8B widths, sequence 4096."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.hopper import (append_attention, flash_attention,
+                                             fused_norm)
+
+    S, H, hk, D = TRAIN_SEQ, 32, 8, 128
+    cos, sin = _rope_tables(S, D, 500000.0, device="cuda")
+    for heads in (H, hk):
+        x = randn(1, S, heads, D)
+        out = fused_norm.fused_rope(x, cos, sin)
+        ref = fused_norm._rope_ref_full(x, cos, sin)
+        # the kernel rounds as the plain version does: bit-identical expected
+        err, ok = close_bf16(out, ref, atol=0.0, rtol=2.0 ** -7)
+        record("fused_rope", f"x=[1,{S},{heads},{D}]", err, ok,
+               time_ms(lambda: fused_norm.fused_rope(x, cos, sin)),
+               time_ms(lambda: fused_norm._rope_ref_full(x, cos, sin)),
+               None, bound(2 * x.numel() * 2 + 2 * S * D * 4, 3 * x.numel(),
+                           "bfloat16"), heads == H)
+
+    scale = 1.0 / math.sqrt(D)
+    q, k, v = randn(1, S, H, D), randn(1, S, hk, D), randn(1, S, hk, D)
+    dout = randn(1, S, H, D)
+    pairs = S * (S + 1) // 2
+
+    def fwd():
+        return append_attention.launch(q, k, v, 0, None, scale,
+                                       "flash_attention_bshd", with_lse=True)
+
+    out, lse = fwd()
+    with torch.no_grad():
+        ref = flash_attention.flash_attention_plain(q, k, v, causal=True)
+        qg = q.reshape(1, S, hk, H // hk, D).float()
+        sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+        vis = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        ref_lse = torch.logsumexp(sc.masked_fill(~vis, float("-inf")),
+                                  dim=-1).reshape(1, H, S)
+        del qg, sc
+    err, ok = close_bf16(out, ref)
+    lse_err = float((lse - ref_lse).abs().max())
+    ok = ok and lse_err <= 1e-3        # f32, sums in another order
+    log(f"  flash lse vs plain: max abs err {lse_err:.3e} (tolerance 1e-3)")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    record("flash_attention_bshd", f"S={S} causal, lse", err, ok,
+           time_ms(fwd, reps=5, warmup=1),
+           time_ms(lambda: flash_attention.flash_attention_plain(
+               q, k, v, causal=True), reps=5, warmup=1),
+           time_ms(lambda: sdpa_gqa(qt, kt, vt, causal=True), reps=5,
+                   warmup=1),
+           bound(2 * S * (H + hk) * D * 2 + H * S * 4, 4 * D * H * pairs,
+                 "bfloat16"), True)
+    del ref, ref_lse
+
+    def bwd():
+        return flash_attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                   scale)
+
+    grads = bwd()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    plain_out = flash_attention.flash_attention_plain(*leaves, causal=True)
+
+    def plain_bwd():
+        return torch.autograd.grad(plain_out, leaves, dout, retain_graph=True)
+
+    ref_grads = plain_bwd()
+    # f32 sums on both sides; the kernel's delta uses the rounded bf16 out:
+    # two bf16 ulps of the largest entry of each gradient
+    err, ok = 0.0, True
+    for name, g, rg in zip(("dq", "dk", "dv"), grads, ref_grads):
+        e = float((g.float() - rg.float()).abs().max())
+        lim = 2.0 ** -6 * float(rg.float().abs().max())
+        log(f"  flash_attention_bwd {name}: max abs err {e:.3e} "
+            f"(tolerance {lim:.3e})")
+        err, ok = max(err, e), ok and e <= lim
+    del ref_grads
+    lib_leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    lib_out = sdpa_gqa(*lib_leaves, causal=True)
+    dout_t = dout.transpose(1, 2).contiguous()
+    nbytes = (3 * S * H * D + 2 * S * hk * D) * 2 + H * S * 4 + (
+        S * H * D + 2 * S * hk * D) * 2
+    # S, dP, dV, dK and dQ: five products of 2 * D operations per pair
+    record("flash_attention_bwd", f"S={S} causal", err, ok,
+           time_ms(bwd, reps=5, warmup=1),
+           time_ms(plain_bwd, reps=5, warmup=1),
+           time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, dout_t,
+                                               retain_graph=True),
+                   reps=5, warmup=1),
+           bound(nbytes, 10 * D * H * pairs, "bfloat16"), True)
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -298,6 +421,8 @@ def serve_full_width(profile=False):
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in lens]
     # the main path's run: counts zeroed just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     rids = [eng.add_request(p, max_new_tokens=m)
@@ -321,7 +446,8 @@ def serve_full_width(profile=False):
     dec_ms = sum(eng.step_ms)
     card = card_line()
     log(f"  [{card}] {len(rids)} requests, {dec_tokens} tokens, {steps} "
-        f"decode steps, wall {wall:.2f}s")
+        f"decode steps, wall {wall:.2f}s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for n, ms in eng.prefill_ms:
         log(f"  [{card}] prefill prompt={n} bucket={eng._bucket(n)} "
             f"ms={ms:.2f}")
@@ -329,10 +455,7 @@ def serve_full_width(profile=False):
         f" mean={dec_ms / steps:.3f}; decode tokens/s="
         f"{dec_tokens / (dec_ms / 1e3):.1f}")
     log(f"  launches: {json.dumps(counts)}")
-    for name in SOURCES:
-        if counts.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+    require_launched(counts, SERVING_KERNELS, "serving")
     if counts["paged_attention"] != n_layers * steps:
         raise AssertionError(f"paged_attention launched "
                              f"{counts['paged_attention']} times for "
@@ -342,6 +465,13 @@ def serve_full_width(profile=False):
     del eng, model
     torch.cuda.empty_cache()
     return counts
+
+
+def require_launched(counts, names, path):
+    for name in names:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{path} path")
 
 
 def profile_decode(model, card, n_steps=10):
@@ -426,6 +556,183 @@ def wiring_check():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 5 --
+
+def train_config(**kw):
+    """The JAX package's 8B training recipe (bench.py ``_bench_config``)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    base = dict(max_position_embeddings=TRAIN_SEQ, tie_word_embeddings=True,
+                fuse_linear_cross_entropy=True, dtype="bfloat16")
+    base.update(kw)
+    return LlamaConfig.llama3_8b(**base)
+
+
+def make_train_step(model):
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(3e-4, parameters=model.parameters(), weight_decay=0.1,
+                moment_dtype="bfloat16")
+    return train_step(model, lambda m, x, y: m(x, labels=y)[0], opt)
+
+
+def token_batch(vocab, seq, seed, device):
+    """(inputs, labels) [1, seq] of one random token row."""
+    import torch
+
+    ids = np.random.RandomState(seed).randint(0, vocab, size=(1, seq + 1))
+    ids = torch.from_numpy(ids).to(device)
+    return ids[:, :-1], ids[:, 1:]
+
+
+def train_full_width():
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+
+    cfg = train_config(num_hidden_layers=TRAIN_DEPTH)
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(2))
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(model)
+    x, y = token_batch(cfg.vocab_size, TRAIN_SEQ, 0, "cuda")
+    card = card_line()
+    log(f"phase 5: training, Llama-3-8B widths, {TRAIN_DEPTH} layers, "
+        f"{n_params / 1e9:.3f}B parameters, bf16, seq {TRAIN_SEQ}, batch 1, "
+        f"AdamW(3e-4, wd 0.1, bf16 moments, f32 masters)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: counts zeroed just before, read just after
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(1 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms[1:])
+    log(f"  [{card}] losses {[round(v, 4) for v in losses]}")
+    log(f"  [{card}] step ms: warm-up {step_ms[0]:.1f}, then "
+        f"{[round(v, 1) for v in step_ms[1:]]}; median {med:.1f} ms, "
+        f"{TRAIN_SEQ / (med / 1e3):.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"  launches ({1 + TRAIN_STEPS} steps): {json.dumps(counts)}")
+    require_launched(counts, TRAINING_KERNELS, "training")
+    # logits at init: normed hidden (rms 1) times the tied embedding (std
+    # 0.02) have std 0.02 * sqrt(hidden); for V such logits the expected
+    # loss is ln V + std^2 / 2
+    sigma = cfg.initializer_range * np.sqrt(cfg.hidden_size)
+    expect = np.log(cfg.vocab_size) + sigma ** 2 / 2
+    log(f"  first loss {losses[0]:.4f}: expected {expect:.4f} (ln V = "
+        f"{np.log(cfg.vocab_size):.4f}, + std^2/2 with std {sigma:.3f}); "
+        f"ratio {losses[0] / expect:.4f}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if abs(losses[0] / expect - 1) > 0.05:
+        raise AssertionError("first loss is not within 5% of its expectation")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on a fixed batch: {losses}")
+    for name, p in model.named_parameters():
+        if p.grad is None or not float(p.grad.abs().max()) > 0:
+            raise AssertionError(f"{name} got no gradient")
+    profile_train_step(step, x, y, card, med)
+    del step, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_train_step(step, x, y, card, step_ms):
+    """Device time of one more step by kernel, from ``torch.profiler``; one
+    stream, so kernel times add up, and their sum over the unprofiled step
+    time ``step_ms`` is the device's busy share. The port's kernels are
+    named ``*_kernel`` in csrc."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x, y)
+        torch.cuda.synchronize()
+    rows = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    ours, groups = {}, {"port kernels": 0.0, "GEMMs": 0.0, "other": 0.0}
+    for ms, _, key in rows:
+        tag = next((t for t in ("append_attention_kernel",
+                                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                                "flash_bwd_delta_kernel", "rope_kernel",
+                                "add_rms_norm_kernel", "rms_norm_kernel")
+                    if t in key), None)
+        if tag is not None:
+            ours[tag] = ours.get(tag, 0.0) + ms
+            groups["port kernels"] += ms
+        elif any(t in key for t in ("nvjet", "gemm", "cutlass", "xmma")):
+            groups["GEMMs"] += ms
+        else:
+            groups["other"] += ms
+    log(f"profile: [{card}] one training step: {step_ms:.1f} ms wall "
+        f"(unprofiled median), device busy {busy:.1f} ms (share "
+        f"{busy / step_ms:.3f}); by group (ms): "
+        f"{json.dumps({k: round(v, 2) for k, v in groups.items()})}; the "
+        f"port's kernels (ms): "
+        f"{json.dumps({k: round(v, 2) for k, v in ours.items()})}")
+    for ms, count, key in rows[:16]:
+        log(f"  {ms:9.3f} ms {count:5d}x  {key[:80]}")
+
+
+# ---------------------------------------------------------------- phase 6 --
+
+def train_wiring_check():
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config(num_hidden_layers=2, dtype="float32")
+    m_gpu = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(3))
+    m_cpu = LlamaForCausalLM(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    m_cpu.load_state_dict(m_gpu.state_dict())
+    losses = []
+    for model in (m_gpu, m_cpu):
+        x, y = token_batch(cfg.vocab_size, 128, 4, model.device)
+        losses.append(float(make_train_step(model)(x, y)))
+    # f32 on both sides, sums in another order on the card. An Adam step
+    # moves a weight by about lr * g / (|g| + eps), so where |g| is at the
+    # rounding noise the step may differ: the bulk must agree within 1e-6,
+    # at most 0.1% of a tensor may differ, and by no more than 2 * lr
+    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    g_err = p_err = p_share = 0.0
+    cpu_params = dict(m_cpu.named_parameters())
+    for name, p in m_gpu.named_parameters():
+        q = cpu_params[name]
+        g_err = max(g_err, float((p.grad.cpu() - q.grad).abs().max()
+                                 / q.grad.abs().max()))
+        d = (p.detach().cpu() - q.detach()).abs()
+        p_err = max(p_err, float(d.max()))
+        p_share = max(p_share, float((d > 1e-6).float().mean()))
+    log(f"phase 6: training wiring, 2 layers at full width, f32, seq 128: "
+        f"loss card {losses[0]:.6f} cpu {losses[1]:.6f} (rel err "
+        f"{loss_err:.2e}, tolerance 1e-5); gradients max rel err "
+        f"{g_err:.2e} (tolerance 1e-4); parameters after the step max abs "
+        f"err {p_err:.2e} (tolerance 6e-4), largest share off by > 1e-6 "
+        f"{p_share:.2e} (tolerance 1e-3)")
+    if not (loss_err <= 1e-5 and g_err <= 1e-4 and p_err <= 6e-4
+            and p_share <= 1e-3):
+        raise AssertionError("card and CPU training steps differ")
+    del m_gpu, m_cpu
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -454,8 +761,10 @@ def main(argv=None) -> int:
 
     results: dict = {}
     check_kernels(results)
-    counts = serve_full_width(args.profile)
+    counts = Counter(serve_full_width(args.profile))
     wiring_check()
+    counts.update(train_full_width())
+    train_wiring_check()
 
     kernels = []
     for name in SOURCES:

@@ -27,6 +27,9 @@
 // - Products are f32 FMAs on CUDA cores from padded shared-memory tiles
 //   (conflict-free reads). The tensor cores (mma.sync / wgmma) and TMA are
 //   the next step; this kernel is the correctness baseline.
+// - Optional f32 logsumexp `lse` [B, H, S] of the scaled scores, the
+//   residual the flash backward (csrc/flash_attention.cu) needs. It is
+//   written only when a pointer is given, so serving launches skip it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,8 +63,8 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const uint8_t* __restrict__ allowed,
-                        T* __restrict__ out, int S, int T_, int hk, int g, int pos,
-                        float scale) {
+                        T* __restrict__ out, float* __restrict__ lse, int S, int T_,
+                        int hk, int g, int pos, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;              // [BM][QS]
   float* Ks = Qs + BM * QS;      // [BN][KS]
@@ -209,11 +212,17 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) orow[tx + 16 * jj] = from_f<T>(acc[i][jj] * inv);
   }
+  if (lse != nullptr && tid < BM && r0 + tid < rows) {
+    const int r = r0 + tid, j = r / S, s = r % S;
+    const float l = l_s[tid];
+    lse[((size_t)b * H + kh * g + j) * S + s] = l > 0.f ? m_s[tid] + logf(l) : -INFINITY;
+  }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, void* out,
-           int B, int S, int T_, int H, int hk, int pos, float scale, cudaStream_t stream) {
+           float* lse, int B, int S, int T_, int H, int hk, int pos, float scale,
+           cudaStream_t stream) {
   auto kernel = append_attention_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
@@ -222,23 +231,25 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, 
   dim3 grid(B, hk, (g * S + BM - 1) / BM);
   kernel<<<grid, NT, SMEM_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      allowed, static_cast<T*>(out), S, T_, hk, g, pos, scale);
+      allowed, static_cast<T*>(out), lse, S, T_, hk, g, pos, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out [B, S, H, D]; k, v [B, T, hk, D]; allowed [B, T] bytes or null.
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+// q, out [B, S, H, D]; k, v [B, T, hk, D]; allowed [B, T] bytes or null;
+// lse [B, H, S] f32 or null. dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError() after launch.
 extern "C" int pt_append_attention(const void* q, const void* k, const void* v,
-                                   const void* allowed, void* out, int B, int S, int T_,
-                                   int H, int hk, int pos, float scale, int dtype,
-                                   void* stream) {
+                                   const void* allowed, void* out, void* lse, int B,
+                                   int S, int T_, int H, int hk, int pos, float scale,
+                                   int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* a = static_cast<const uint8_t*>(allowed);
+  float* l = static_cast<float*>(lse);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, a, out, B, S, T_, H, hk, pos, scale, s);
-  return launch<float>(q, k, v, a, out, B, S, T_, H, hk, pos, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, a, out, l, B, S, T_, H, hk, pos, scale, s);
+  return launch<float>(q, k, v, a, out, l, B, S, T_, H, hk, pos, scale, s);
 }
 
 extern "C" const char* pt_error_string(int code) {

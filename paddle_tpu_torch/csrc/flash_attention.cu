@@ -1,0 +1,370 @@
+// Causal flash-attention backward for Hopper (sm_90a): dq, dk, dv with
+// grouped-query heads, FlashAttention-2 style, in three launches.
+//
+// Replaces: the backward of the bundled splash attention kernel that
+// paddle_tpu/ops/pallas/flash_attention.py `flash_attention_bshd` builds
+// with `make_splash_mha` (`_splash_kernel`): splash's dq and dkv Pallas
+// kernels, which its custom VJP runs, under the bottom-aligned causal mask
+// (q row i sees kv columns j <= i + s_kv - s_q).
+//
+// Inputs: q, dout [B, S, H, D]; k, v [B, T, hk, D]; out [B, S, H, D] and the
+// f32 logsumexp lse [B, H, S] of the forward (csrc/append_attention.cu with
+// an lse pointer); `scale` multiplies q k^T. Outputs dq, dk, dv in the input
+// type; every sum runs in f32.
+//
+// Bound on the H100: operations. The backward recomputes P = exp(scale q k^T
+// - lse) twice (once per dk/dv block, once per dq block) and runs five
+// products of 2 * D operations per visible (query, key) pair and head:
+// S and dP in both kernels, dV, dK and dQ once. At S = T = 4096 that is far
+// above the card's ratio of operations to bytes.
+//
+// Design (simple and right first):
+// 1. delta = rowsum(dout * out) in f32, [B, H, S]: one warp per row.
+// 2. dk/dv: grid (B, hk, ceil(T / BC)). A block keeps its K and V tile in
+//    shared memory and loops over the g = H / hk query heads of its KV head
+//    and, for each, over the q tiles from the first one that sees the tile
+//    (the diagonal) to the end. It recomputes P and dS = P * (dout v^T -
+//    delta) and accumulates dV += P^T dout and dK += dS^T (scale q) in
+//    registers. The g heads are summed inside the block: no atomics, the
+//    result is deterministic. Tiles with low kv index do the most work and
+//    are scheduled first.
+// 3. dq: grid (B, H, ceil(S / BR)), heaviest q tiles first. A block keeps
+//    its q and dout tile and loops over the KV tiles up to the diagonal,
+//    accumulating dQ += dS K; dq = scale * dQ.
+// Masked entries of P are exactly 0, so they add nothing to any sum. The
+// products are f32 FMAs on CUDA cores from padded shared-memory tiles
+// (conflict-free reads), as in the forward; tensor cores (mma.sync / wgmma)
+// and TMA are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 128;     // head width, fixed
+constexpr int BR = 64;     // query rows per tile
+constexpr int BC = 64;     // key rows per tile
+constexpr int NT = 256;    // threads per block (16 x 16)
+constexpr int LS = D + 1;  // padded shared-memory row stride of [*, D] tiles
+constexpr int PS = BC + 1; // padded row stride of the [BR, BC] tiles
+// K, V, Q, dout tiles + P and dS + lse and delta
+constexpr size_t DKDV_SMEM = (size_t)(2 * BC * LS + 2 * BR * LS + 2 * BR * PS + 2 * BR) *
+                             sizeof(float);
+// Q, dout, K, V tiles + dS + lse and delta
+constexpr size_t DQ_SMEM = (size_t)(2 * BR * LS + 2 * BC * LS + BR * PS + 2 * BR) *
+                           sizeof(float);
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// rows [row0, row0 + 64) of one head of a [B, n_rows, n_heads, D] tensor into
+// a padded f32 tile, times `mul`; rows past n_rows read as 0
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int b,
+                                          int row0, int n_rows, int n_heads, int head,
+                                          float mul) {
+  for (int i = threadIdx.x; i < 64 * D; i += NT) {
+    const int rr = i / D, dd = i % D, row = row0 + rr;
+    float val = 0.f;
+    if (row < n_rows)
+      val = to_f(src[(((size_t)b * n_rows + row) * n_heads + head) * D + dd]) * mul;
+    dst[rr * LS + dd] = val;
+  }
+}
+
+// a[i][j] += sum_d X[ty + 16 i][d] Y[tx + 16 j][d] for two pairs at once:
+// s = Xa Ya^T and p = Xb Yb^T, each a 4 x 4 register tile
+__device__ __forceinline__ void two_products(const float* Xa, const float* Ya,
+                                             const float* Xb, const float* Yb, int tx,
+                                             int ty, float (&s)[4][4], float (&p)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = p[i][j] = 0.f;
+#pragma unroll 2
+  for (int dd = 0; dd < D; ++dd) {
+    float xa[4], ya[4], xb[4], yb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      xa[i] = Xa[(ty + 16 * i) * LS + dd];
+      xb[i] = Xb[(ty + 16 * i) * LS + dd];
+      ya[i] = Ya[(tx + 16 * i) * LS + dd];
+      yb[i] = Yb[(tx + 16 * i) * LS + dd];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(xa[i], ya[j], s[i][j]);
+        p[i][j] = fmaf(xb[i], yb[j], p[i][j]);
+      }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                       float* __restrict__ delta, int rows, int S, int H) {
+  const int warp = (blockIdx.x * NT + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (warp >= rows) return;
+  // warp = (b * S + s) * H + h, a row of the [B, S, H, D] layout
+  const size_t base = (size_t)warp * D;
+  float acc = 0.f;
+#pragma unroll
+  for (int dd = lane; dd < D; dd += 32) acc += to_f(out[base + dd]) * to_f(dout[base + dd]);
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) {
+    const int h = warp % H, bs = warp / H, s = bs % S, b = bs / S;
+    delta[((size_t)b * H + h) * S + s] = acc;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, int S, int T_, int hk, int g,
+                      int pos, float scale) {
+  extern __shared__ float smem[];
+  float* Ks = smem;              // [BC][LS]
+  float* Vs = Ks + BC * LS;      // [BC][LS]
+  float* Qs = Vs + BC * LS;      // [BR][LS], q * scale
+  float* dOs = Qs + BR * LS;     // [BR][LS]
+  float* Ps = dOs + BR * LS;     // [BR][PS]
+  float* dSs = Ps + BR * PS;     // [BR][PS]
+  float* lse_s = dSs + BR * PS;  // [BR]
+  float* dl_s = lse_s + BR;      // [BR]
+
+  const int b = blockIdx.x, kh = blockIdx.y, kv0 = blockIdx.z * BC;
+  const int H = hk * g;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  load_tile(Ks, k, b, kv0, T_, hk, kh, 1.f);
+  load_tile(Vs, v, b, kv0, T_, hk, kh, 1.f);
+
+  // dk[c][d], dv[c][d] for c = ty + 16 i, d = tx + 16 jj
+  float adk[4][8], adv[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) adk[i][jj] = adv[i][jj] = 0.f;
+
+  // the first query row that sees column kv0 is kv0 - pos
+  const int q_first = max(0, kv0 - pos) / BR * BR;
+  for (int j = 0; j < g; ++j) {
+    const int h = kh * g + j;
+    for (int q0 = q_first; q0 < S; q0 += BR) {
+      load_tile(Qs, q, b, q0, S, H, h, scale);
+      load_tile(dOs, dout, b, q0, S, H, h, 1.f);
+      if (tid < BR) {
+        const int s = q0 + tid;
+        lse_s[tid] = s < S ? lse[((size_t)b * H + h) * S + s] : 0.f;
+        dl_s[tid] = s < S ? delta[((size_t)b * H + h) * S + s] : 0.f;
+      }
+      __syncthreads();
+
+      float sc[4][4], dp[4][4];
+      two_products(Qs, Ks, dOs, Vs, tx, ty, sc, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = ty + 16 * i, s = q0 + rr;
+#pragma unroll
+        for (int jc = 0; jc < 4; ++jc) {
+          const int c = tx + 16 * jc, col = kv0 + c;
+          const bool ok = s < S && col < T_ && col <= s + pos;
+          const float p = ok ? expf(sc[i][jc] - lse_s[rr]) : 0.f;
+          Ps[rr * PS + c] = p;
+          dSs[rr * PS + c] = p * (dp[i][jc] - dl_s[rr]);
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 2
+      for (int rr = 0; rr < BR; ++rr) {
+        float pv[4], sv[4], ov[8], qv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pv[i] = Ps[rr * PS + ty + 16 * i];
+          sv[i] = dSs[rr * PS + ty + 16 * i];
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          ov[jj] = dOs[rr * LS + tx + 16 * jj];
+          qv[jj] = Qs[rr * LS + tx + 16 * jj];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            adv[i][jj] = fmaf(pv[i], ov[jj], adv[i][jj]);
+            adk[i][jj] = fmaf(sv[i], qv[jj], adk[i][jj]);
+          }
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int col = kv0 + ty + 16 * i;
+    if (col >= T_) continue;
+    const size_t off = (((size_t)b * T_ + col) * hk + kh) * D;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      dk[off + tx + 16 * jj] = from_f<T>(adk[i][jj]);
+      dv[off + tx + 16 * jj] = from_f<T>(adv[i][jj]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, int S, int T_, int H, int g, int pos, float scale) {
+  extern __shared__ float smem[];
+  float* Qs = smem;              // [BR][LS], q * scale
+  float* dOs = Qs + BR * LS;     // [BR][LS]
+  float* Ks = dOs + BR * LS;     // [BC][LS]
+  float* Vs = Ks + BC * LS;      // [BC][LS]
+  float* dSs = Vs + BC * LS;     // [BR][PS]
+  float* lse_s = dSs + BR * PS;  // [BR]
+  float* dl_s = lse_s + BR;      // [BR]
+
+  const int b = blockIdx.x, h = blockIdx.y, kh = h / g, hk = H / g;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BR;  // heaviest tiles first
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  load_tile(Qs, q, b, q0, S, H, h, scale);
+  load_tile(dOs, dout, b, q0, S, H, h, 1.f);
+  if (tid < BR) {
+    const int s = q0 + tid;
+    lse_s[tid] = s < S ? lse[((size_t)b * H + h) * S + s] : 0.f;
+    dl_s[tid] = s < S ? delta[((size_t)b * H + h) * S + s] : 0.f;
+  }
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
+
+  // columns past the last row's diagonal are never visible
+  const int kv_end = min(T_, min(S, q0 + BR) - 1 + pos + 1);
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BC) {
+    load_tile(Ks, k, b, kv0, T_, hk, kh, 1.f);
+    load_tile(Vs, v, b, kv0, T_, hk, kh, 1.f);
+    __syncthreads();
+
+    float sc[4][4], dp[4][4];
+    two_products(Qs, Ks, dOs, Vs, tx, ty, sc, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = ty + 16 * i, s = q0 + rr;
+#pragma unroll
+      for (int jc = 0; jc < 4; ++jc) {
+        const int c = tx + 16 * jc, col = kv0 + c;
+        const bool ok = s < S && col < T_ && col <= s + pos;
+        const float p = ok ? expf(sc[i][jc] - lse_s[rr]) : 0.f;
+        dSs[rr * PS + c] = p * (dp[i][jc] - dl_s[rr]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int c = 0; c < BC; ++c) {
+      float sv[4], kv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty + 16 * i) * PS + c];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) kv[jj] = Ks[c * LS + tx + 16 * jj];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(sv[i], kv[jj], acc[i][jj]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = q0 + ty + 16 * i;
+    if (s >= S) continue;
+    T* row = dq + (((size_t)b * S + s) * H + h) * D;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) row[tx + 16 * jj] = from_f<T>(acc[i][jj] * scale);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, float* delta, void* dq, void* dk,
+               void* dv, int B, int S, int T_, int H, int hk, int pos, float scale,
+               cudaStream_t stream) {
+  auto dkdv = flash_bwd_dkdv_kernel<T>;
+  auto dqk = flash_bwd_dq_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKDV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int g = H / hk;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+
+  const int rows = B * S * H;
+  flash_bwd_delta_kernel<T><<<(rows + NT / 32 - 1) / (NT / 32), NT, 0, stream>>>(
+      static_cast<const T*>(out), dot, delta, rows, S, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  dkdv<<<dim3(B, hk, (T_ + BC - 1) / BC), NT, DKDV_SMEM, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, T_, hk, g,
+      pos, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  dqk<<<dim3(B, H, (S + BR - 1) / BR), NT, DQ_SMEM, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), S, T_, H, g, pos, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, out, dout, dq [B, S, H, D]; k, v, dk, dv [B, T, hk, D]; lse, delta
+// [B, H, S] f32 (delta is scratch, written here); causal at pos = T - S.
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
+// three launches (the first error stops the sequence).
+extern "C" int pt_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                      const void* out, const void* dout, const void* lse,
+                                      void* delta, void* dq, void* dk, void* dv, int B,
+                                      int S, int T_, int H, int hk, int pos, float scale,
+                                      int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, T_, H,
+                                     hk, pos, scale, s);
+  return launch_bwd<float>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, T_, H, hk, pos,
+                           scale, s);
+}
+
+extern "C" const char* pt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

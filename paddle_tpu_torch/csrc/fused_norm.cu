@@ -20,6 +20,17 @@
 // x + residual and stores that sum, rounded, as the new residual.
 // Not done here: several rows per block for small d, and keeping the row
 // in registers between the passes.
+//
+// Fused rotate-half RoPE, forward. Replaces: paddle_tpu/ops/pallas/
+// fused_norm.py `_rope_kernel` (called from `fused_rope`). x [B, S, H, D]
+// (any even D) against f32 cos / sin [S, D]: out = x * cos +
+// rotate_half(x) * sin in f32, cast once to the storage type; the output
+// is contiguous. Bound by device-memory bytes (x in, out written; the
+// tables are read by all B * H rows of a position and stay in L2). One
+// thread per V pairs (i, i + D/2) of a row, 16-byte loads when D/2 is a
+// multiple of the vector width. The products and the sum are rounded one
+// by one (no fused multiply-add), as the plain PyTorch version rounds them,
+// so the two agree bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,7 +150,70 @@ int threads_for(int n_vec) {
   return t < 32 ? 32 : (t > 1024 ? 1024 : t);
 }
 
+template <typename T, int V> struct alignas(sizeof(T) * V) Pack { T e[V]; };
+
+template <typename T, int V>
+__global__ void rope_kernel(const T* __restrict__ x, const float* __restrict__ cos,
+                            const float* __restrict__ sin, T* __restrict__ out,
+                            int64_t rows, int S, int H, int D) {
+  const int half = D / 2, per_row = half / V;
+  const int64_t total = rows * per_row;
+  for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; idx < total;
+       idx += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t row = idx / per_row;             // (b * S + s) * H + h
+    const int i0 = (int)(idx % per_row) * V;
+    const int s = (int)((row / H) % S);
+    const T* xr = x + row * D;
+    const float* c = cos + (size_t)s * D;
+    const float* sn = sin + (size_t)s * D;
+    const Pack<T, V> a = *reinterpret_cast<const Pack<T, V>*>(xr + i0);
+    const Pack<T, V> b = *reinterpret_cast<const Pack<T, V>*>(xr + half + i0);
+    Pack<T, V> oa, ob;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = i0 + k;
+      const float x1 = to_f(a.e[k]), x2 = to_f(b.e[k]);
+      oa.e[k] = from_f<T>(__fadd_rn(__fmul_rn(x1, c[i]), __fmul_rn(-x2, sn[i])));
+      ob.e[k] = from_f<T>(__fadd_rn(__fmul_rn(x2, c[half + i]), __fmul_rn(x1, sn[half + i])));
+    }
+    T* orow = out + row * D;
+    *reinterpret_cast<Pack<T, V>*>(orow + i0) = oa;
+    *reinterpret_cast<Pack<T, V>*>(orow + half + i0) = ob;
+  }
+}
+
+template <typename T>
+int launch_rope(const void* x, const float* cos, const float* sin, void* out, int64_t rows,
+                int S, int H, int D, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = (D / 2) % V == 0;
+  const int64_t work = rows * ((D / 2) / (vec ? V : 1));
+  const int threads = 256;
+  int64_t blocks = (work + threads - 1) / threads;
+  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond 32 blocks per SM
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  const dim3 grid((unsigned)blocks);
+  if (vec)
+    rope_kernel<T, V><<<grid, threads, 0, s>>>(xt, cos, sin, ot, rows, S, H, D);
+  else
+    rope_kernel<T, 1><<<grid, threads, 0, s>>>(xt, cos, sin, ot, rows, S, H, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// x, out [B, S, H, D] (rows = B * S * H); cos, sin [S, D] f32; D even.
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+extern "C" int pt_fused_rope(const void* x, const void* cos, const void* sin, void* out,
+                             int64_t rows, int S, int H, int D, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(cos);
+  const float* sn = static_cast<const float*>(sin);
+  if (rows == 0) return 0;
+  if (dtype == 1) return launch_rope<__nv_bfloat16>(x, c, sn, out, rows, S, H, D, s);
+  return launch_rope<float>(x, c, sn, out, rows, S, H, D, s);
+}
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
 extern "C" int pt_rms_norm(const void* x, const void* w, void* out, int rows, int d,

@@ -1,11 +1,14 @@
-"""Llama-3 decoder for serving — counterpart of ``paddle_tpu/models/llama.py``.
+"""Llama-3 decoder — counterpart of ``paddle_tpu/models/llama.py``.
 
-The serving-relevant parts only: the config and its presets, rope tables
-(default, ``llama3`` and ``linear`` scaling), RMSNorm, attention over the
-static KV caches (dense prefill cache and paged pool), the gated MLP, the
-decoder layer on the discrete path, ``LlamaModel.forward_cached`` and the
-causal-LM head. The non-cached forward, training and the fused decode tail
-are not ported yet.
+Ported: the config and its presets, rope tables (default, ``llama3`` and
+``linear`` scaling), RMSNorm, attention over the static KV caches (dense
+prefill cache and paged pool) and without a cache (the training forward:
+fused RoPE, then causal flash attention), the gated MLP, the decoder layer
+on the discrete path, ``LlamaModel.forward`` / ``forward_cached``, the
+causal-LM head, ``LlamaForCausalLM.forward`` with labels (the chunked fused
+lm-head + cross-entropy, or the logits and ``causal_lm_loss``). Not ported:
+the fused decode tail, context parallelism (the port has no process
+group), attention soft-capping, qk-norm and layer recompute.
 
 Parameter names equal the JAX package's (``llama.layers.0.self_attn.
 q_proj.weight``, ``lm_head.weight``, ...), and Linear weights keep Paddle's
@@ -25,7 +28,9 @@ from torch import nn as tnn
 
 from .. import nn
 from ..framework.random import default_device, default_generator
+from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.hopper import fused_norm
+from ..ops.hopper.flash_attention import flash_attention_bshd
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -64,8 +69,24 @@ class LlamaConfig:
     # "silu" (SwiGLU) or "gelu_pytorch_tanh" (GeGLU)
     hidden_act: str = "silu"
     dtype: str = "bfloat16"
+    # training loss through the chunked fused lm-head + CE
+    # (ops/fused_loss.py) instead of the full logits
+    fuse_linear_cross_entropy: bool = False
+    # not ported; each raises NotImplementedError when asked for
+    attn_logit_softcapping: Optional[float] = None
+    qk_norm: bool = False
+    recompute: bool = False
 
     def __post_init__(self):
+        for name, where in (
+                ("attn_logit_softcapping", "paddle_tpu/models/llama.py:637, "
+                 ":708 (_sdpa_ref softcap)"),
+                ("qk_norm", "paddle_tpu/models/llama.py:624-632"),
+                ("recompute", "paddle_tpu/models/llama.py:903-906 "
+                 "(RecomputeLayer)")):
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"{name} is not ported to paddle_tpu_torch (JAX: {where})")
         if self.hidden_act not in ("silu", "gelu_pytorch_tanh"):
             raise NotImplementedError(
                 f"hidden_act must be 'silu' or 'gelu_pytorch_tanh', "
@@ -183,7 +204,7 @@ class LlamaRMSNorm(tnn.Module):
         self.variance_epsilon = config.rms_norm_eps
         self.weight = tnn.Parameter(
             torch.ones(config.hidden_size, device=device,
-                       dtype=torch_dtype(config.dtype)), requires_grad=False)
+                       dtype=torch_dtype(config.dtype)))
 
     def forward(self, x):
         return fused_norm.rms_norm(x, self.weight, self.variance_epsilon)
@@ -234,18 +255,28 @@ class LlamaAttention(tnn.Module):
             new["row_pos"] = kv_cache["row_pos"] + s
         return out.reshape(b, s, hd), new
 
-    def forward(self, hidden_states, cos, sin, kv_cache):
-        if not isinstance(kv_cache, dict):
-            raise NotImplementedError(
-                "paddle_tpu_torch ports the cached (serving) attention path "
-                "only; the non-cached forward comes with the training slice")
+    def forward(self, hidden_states, cos, sin, kv_cache=None):
+        """With a cache dict: the serving path, returns (out, new cache).
+        Without: RoPE on q and k (fused kernel), then causal flash attention
+        over the sequence (``llama.py:644-710``), returns out. On a CPU
+        tensor the plain flash version runs, the same math as the JAX
+        ``_sdpa_ref`` fallback."""
         b, s = hidden_states.shape[0], hidden_states.shape[1]
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(hidden_states).reshape(b, s, h, d)
         k = self.k_proj(hidden_states).reshape(b, s, hk, d)
         v = self.v_proj(hidden_states).reshape(b, s, hk, d)
-        out, new = self.cached_attn_core(q, k, v, cos, sin, kv_cache)
-        return self.o_proj(out), new
+        if isinstance(kv_cache, dict):
+            out, new = self.cached_attn_core(q, k, v, cos, sin, kv_cache)
+            return self.o_proj(out), new
+        if kv_cache is not None:
+            raise NotImplementedError(
+                "the (k, v) tuple cache of the non-cached forward "
+                "(paddle_tpu/models/llama.py:712-716) is not ported")
+        q = fused_norm.apply_rope(q, cos, sin)
+        k = fused_norm.apply_rope(k, cos, sin)
+        out = flash_attention_bshd(q, k, v, causal=True, window=self.window)
+        return self.o_proj(out.reshape(b, s, h * d))
 
 
 class LlamaMLP(tnn.Module):
@@ -280,17 +311,24 @@ class LlamaDecoderLayer(tnn.Module):
         self.input_layernorm = LlamaRMSNorm(config, device=device)
         self.post_attention_layernorm = LlamaRMSNorm(config, device=device)
 
-    def forward(self, hidden_states, cos, sin, kv_cache):
+    def forward(self, hidden_states, cos, sin, kv_cache=None):
+        """Returns hidden, or (hidden, new cache) when given a cache."""
         residual = hidden_states
         hidden_states = self.input_layernorm(hidden_states)
-        hidden_states, kv_cache = self.self_attn(hidden_states, cos, sin,
-                                                 kv_cache)
+        if kv_cache is not None:
+            hidden_states, kv_cache = self.self_attn(hidden_states, cos, sin,
+                                                     kv_cache)
+        else:
+            hidden_states = self.self_attn(hidden_states, cos, sin)
         # fused residual-add + RMSNorm: h = residual + attn_out is written
         # once and normed in the same pass; h is the next residual
         norm = self.post_attention_layernorm
         hidden_states, residual = fused_norm.add_rms_norm(
             hidden_states, residual, norm.weight, norm.variance_epsilon)
-        return residual + self.mlp(hidden_states), kv_cache
+        hidden_states = residual + self.mlp(hidden_states)
+        if kv_cache is not None:
+            return hidden_states, kv_cache
+        return hidden_states
 
 
 class LlamaModel(tnn.Module):
@@ -320,6 +358,14 @@ class LlamaModel(tnn.Module):
             self._rope_cache[seq_len] = pair
         return pair
 
+    def forward(self, input_ids):
+        """Non-cached forward over [B, S] ids; returns the normed hidden."""
+        cos, sin = self._rope(input_ids.shape[1])
+        hidden = self.embed_tokens(input_ids).to(torch_dtype(self.config.dtype))
+        for layer in self.layers:
+            hidden = layer(hidden, cos, sin)
+        return self.norm(hidden)
+
     def forward_cached(self, input_ids, kv_caches, rope_len):
         """Forward over the static KV caches (one dict per layer, see
         ``generation.cached_attention``). Returns (normed hidden,
@@ -334,7 +380,7 @@ class LlamaModel(tnn.Module):
 
 
 class LlamaForCausalLM(tnn.Module):
-    """Causal LM for serving. ``device=None`` means the current CUDA device,
+    """Causal LM. ``device=None`` means the current CUDA device,
     and raises where there is none (pass ``device="cpu"`` for the plain
     versions). Weights are drawn from ``generator`` (default: the port's
     generator on ``device``): Normal(0, initializer_range) for embeddings
@@ -349,7 +395,6 @@ class LlamaForCausalLM(tnn.Module):
                         nn.Linear(config.hidden_size, config.vocab_size,
                                   device=device,
                                   dtype=torch_dtype(config.dtype)))
-        self.requires_grad_(False)
         self.reset_parameters(generator)
 
     @property
@@ -370,3 +415,29 @@ class LlamaForCausalLM(tnn.Module):
         if self.lm_head is None:
             return torch.matmul(hidden, self.llama.embed_tokens.weight.t())
         return self.lm_head(hidden)
+
+    def forward(self, input_ids, labels=None):
+        """Logits without labels; with labels (loss, None) through the fused
+        chunked loss when ``fuse_linear_cross_entropy``, else (loss,
+        logits)."""
+        hidden = self.llama(input_ids)
+        if labels is not None and self.config.fuse_linear_cross_entropy:
+            if self.lm_head is None:   # tied: embedding weight [vocab, hidden]
+                w, layout = self.llama.embed_tokens.weight, "vh"
+            else:
+                w, layout = self.lm_head.weight, "hv"
+            return fused_linear_cross_entropy(hidden, w, labels, layout), None
+        logits = self.lm_head_logits(hidden)
+        if labels is None:
+            return logits
+        return causal_lm_loss(logits, labels), logits
+
+
+def causal_lm_loss(logits, labels):
+    """Token-mean causal-LM cross entropy in f32; labels < 0 are ignored."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    idx = labels.long()
+    mask = idx >= 0
+    nll = -logp.gather(-1, torch.where(mask, idx, 0)[..., None])[..., 0]
+    nll = torch.where(mask, nll, 0.0)
+    return nll.sum() / torch.clamp(mask.float().sum(), min=1.0)

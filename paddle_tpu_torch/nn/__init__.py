@@ -17,8 +17,7 @@ class Linear(nn.Module):
                  dtype=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_features, out_features,
-                                               device=device, dtype=dtype),
-                                   requires_grad=False)
+                                               device=device, dtype=dtype))
 
     def forward(self, x):
         return torch.matmul(x, self.weight)
@@ -29,8 +28,7 @@ class Embedding(nn.Module):
                  dtype=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num_embeddings, embedding_dim,
-                                               device=device, dtype=dtype),
-                                   requires_grad=False)
+                                               device=device, dtype=dtype))
 
     def forward(self, ids):
         return torch.nn.functional.embedding(ids.long(), self.weight)

@@ -138,7 +138,8 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-VOIDP, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+VOIDP, INT, INT64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                            ctypes.c_float)
 
 
 def dtype_code(t) -> int:
@@ -155,6 +156,22 @@ def dtype_code(t) -> int:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(what)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a graph through these inputs."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def require_no_grad(what: str, *tensors) -> None:
+    """A kernel with no backward refuses inputs that need a gradient: its
+    output would carry no ``grad_fn`` and cut the graph silently."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what} on CUDA has no backward; call it on tensors that need "
+            "no gradient (serving runs under torch.inference_mode())")
 
 
 def require_cuda(*tensors) -> None:

@@ -60,9 +60,10 @@ def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None):
                                    1.0 / math.sqrt(q.shape[-1]))
 
 
-def launch(q, k_buf, v_buf, pos, allowed, scale, counter):
+def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False):
     """Run the CUDA kernel; ``counter`` names the wrapper whose launch this
-    is (append attention and the causal flash forward share the kernel)."""
+    is (append attention and the causal flash forward share the kernel).
+    Returns out, or (out, lse [B, H, S] f32) with ``with_lse``."""
     tensors = [q, k_buf, v_buf] + ([allowed] if allowed is not None else [])
     _build.require_cuda(*tensors)
     code = _build.dtype_code(q)
@@ -88,24 +89,29 @@ def launch(q, k_buf, v_buf, pos, allowed, scale, counter):
             allowed = allowed.to(torch.uint8)
         a_ptr = _build.ptr(allowed)
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
-    fn = _build.function(_STEM, "pt_append_attention", [
-        _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP,
-        _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
-        _build.INT, _build.FLOAT, _build.INT, _build.VOIDP])
-    err = fn(_build.ptr(q), _build.ptr(k_buf), _build.ptr(v_buf), a_ptr,
-             _build.ptr(out), B, S, T, H, hk, int(pos), float(scale), code,
-             _build.stream(q.device))
-    _build.launches[counter] += 1
-    _build.check(err, _STEM, counter)
-    return out
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if q.numel() > 0:
+        fn = _build.function(_STEM, "pt_append_attention", [
+            _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP,
+            _build.VOIDP, _build.VOIDP, _build.INT, _build.INT, _build.INT,
+            _build.INT, _build.INT, _build.INT, _build.FLOAT, _build.INT,
+            _build.VOIDP])
+        err = fn(_build.ptr(q), _build.ptr(k_buf), _build.ptr(v_buf), a_ptr,
+                 _build.ptr(out), None if lse is None else _build.ptr(lse),
+                 B, S, T, H, hk, int(pos), float(scale), code,
+                 _build.stream(q.device))
+        _build.launches[counter] += 1
+        _build.check(err, _STEM, counter)
+    return (out, lse) if with_lse else out
 
 
 def append_attention(q, k_buf, v_buf, pos, allowed=None):
     """q [B,S,H,D] against k_buf/v_buf [B,T,hk,D] at offset ``pos`` with an
-    optional [B,T] column mask. Returns [B,S,H,D] in q's dtype."""
+    optional [B,T] column mask. Returns [B,S,H,D] in q's dtype. On CUDA it
+    has no backward and refuses inputs that need a gradient."""
     if q.device.type == "cpu":
         return append_attention_plain(q, k_buf, v_buf, pos, allowed)
+    _build.require_no_grad("append_attention", q, k_buf, v_buf)
     return launch(q, k_buf, v_buf, pos, allowed,
                   1.0 / math.sqrt(q.shape[-1]), "append_attention")

@@ -5,11 +5,17 @@ Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``
 no-window forward launches the append-attention kernel
 (csrc/append_attention.cu) at ``pos = s_kv - s_q``: that is exactly
 splash's bottom-aligned causal mask (q row i sees kv columns
-j <= i + s_kv - s_q). The splash kernel's other masks (sliding window,
-full) and its backward are not ported yet: on CUDA they raise
+j <= i + s_kv - s_q). When an input needs a gradient the forward also
+writes the f32 logsumexp, and the backward runs the dq / dk / dv kernels of
+csrc/flash_attention.cu (``flash_attention_bwd``), as splash's custom VJP
+runs its dq and dkv kernels. The splash kernel's other masks (sliding
+window, full) are not ported yet: on CUDA they raise
 ``NotImplementedError`` rather than run plain code.
 
-On a CPU tensor it runs the plain version.
+On a CPU tensor it runs the plain version, differentiated by autograd.
+
+Scale: JAX pre-scales q in q's dtype before splash (``q * scale`` rounds in
+bf16); the kernels here scale in f32 inside, as the plain version does.
 """
 from __future__ import annotations
 
@@ -17,7 +23,10 @@ import math
 
 import torch
 
+from . import _build
 from . import append_attention as _append
+
+_STEM = "flash_attention"
 
 
 def flash_attention_plain(q, k, v, causal=False, sm_scale=None, window=None):
@@ -34,6 +43,63 @@ def flash_attention_plain(q, k, v, causal=False, sm_scale=None, window=None):
     return _append.grouped_attention_plain(q, k, v, mask, scale)
 
 
+def flash_attention_bwd(q, k, v, out, lse, dout, scale):
+    """(dq, dk, dv) of the causal attention at pos = s_kv - s_q from the
+    forward's ``out`` and f32 ``lse`` [B, H, S]: three CUDA launches (delta =
+    rowsum(dout * out), then dk/dv, then dq), counted once."""
+    _build.require_cuda(q, k, v, out, lse, dout)
+    code = _build.dtype_code(q)
+    B, S, H, D = q.shape
+    T, hk = k.shape[1], k.shape[2]
+    _build.require(D == _append.HEAD_DIM, f"flash_attention_bwd: the kernel "
+                                          f"takes head_dim {_append.HEAD_DIM}")
+    _build.require(k.dim() == 4 and v.shape == k.shape and k.shape[0] == B
+                   and k.shape[3] == D and H % hk == 0 and T >= S,
+                   f"flash_attention_bwd: q {tuple(q.shape)} and k "
+                   f"{tuple(k.shape)} disagree")
+    _build.require(all(t.dtype == q.dtype for t in (k, v, out, dout))
+                   and out.shape == q.shape and dout.shape == q.shape,
+                   "flash_attention_bwd: q, k, v, out and dout must share one "
+                   "dtype, and out/dout q's shape")
+    _build.require(lse.dtype == torch.float32
+                   and tuple(lse.shape) == (B, H, S),
+                   f"flash_attention_bwd: lse must be f32 [{B}, {H}, {S}]")
+    if q.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = _build.function(_STEM, "pt_flash_attention_bwd", [_build.VOIDP] * 10 + [
+        _build.INT, _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+        _build.FLOAT, _build.INT, _build.VOIDP])
+    err = fn(*(_build.ptr(t) for t in (q, k, v, out, dout, lse, delta, dq, dk,
+                                       dv)),
+             B, S, T, H, hk, T - S, float(scale), code,
+             _build.stream(q.device))
+    _build.launches["flash_attention_bwd"] += 1
+    _build.check(err, _STEM, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+class _FlashCausal(torch.autograd.Function):
+    """Causal flash attention on CUDA: forward with logsumexp, kernel
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _append.launch(q, k, v, k.shape[1] - q.shape[1], None,
+                                  scale, "flash_attention_bshd", with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         ctx.scale)
+        return dq, dk, dv, None
+
+
 def flash_attention_bshd(q, k, v, causal: bool = False,
                          sm_scale: float | None = None,
                          window: int | None = None):
@@ -44,17 +110,16 @@ def flash_attention_bshd(q, k, v, causal: bool = False,
         return flash_attention_plain(q, k, v, causal, sm_scale, window)
     if not causal or window is not None:
         raise NotImplementedError(
-            "flash_attention_bshd on CUDA runs the causal, no-window forward "
+            "flash_attention_bshd on CUDA runs the causal, no-window mask "
             "only; the splash kernel's full and sliding-window masks "
             "(paddle_tpu/ops/pallas/flash_attention.py) are not ported yet")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention_bshd on CUDA has no backward yet (the splash "
-            "backward is not ported); call it on tensors that need no grad")
     s_q, s_kv = q.shape[1], k.shape[1]
     if s_kv < s_q:
         raise ValueError(f"causal attention needs s_kv >= s_q, got "
                          f"{s_kv} < {s_q}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _build.needs_grad(q, k, v):
+        return _FlashCausal.apply(q, k, v, scale)
     return _append.launch(q, k, v, s_kv - s_q, None, scale,
                           "flash_attention_bshd")

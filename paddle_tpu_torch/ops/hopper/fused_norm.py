@@ -1,13 +1,21 @@
-"""RMSNorm and residual-add + RMSNorm (CUDA kernels in csrc/fused_norm.cu),
-and the plain rotary helpers the cached path uses.
+"""RMSNorm, residual-add + RMSNorm and rotate-half RoPE (CUDA kernels in
+csrc/fused_norm.cu), each differentiable.
 
 Counterpart of ``paddle_tpu/ops/pallas/fused_norm.py``. The plain versions
 put their casts where the Pallas kernels put them (which is what the TPU
 runs): the normalised value is computed in f32, rounded to the input type,
 then multiplied by the weight; ``add_rms_norm`` normalises the f32 sum
-``x + residual`` and returns that sum, rounded, as the new residual.
+``x + residual`` and returns that sum, rounded, as the new residual; RoPE
+computes ``x * cos + rotate_half(x) * sin`` in f32 and rounds once.
 
-On a CPU tensor each function runs its plain version; on a CUDA tensor it
+Gradients follow the JAX custom VJPs, which recompute the *reference*
+formulation through autodiff (``_rms_bwd``, ``_add_rms_bwd``,
+``_rope_bwd``): the backward passes here are PyTorch ops, as the JAX
+package's are XLA ops. ``add_rms_norm``'s reference differentiates
+``x + residual`` rounded to the input type, while its forward normalises
+the f32 sum; both are kept as the JAX package has them.
+
+On a CPU tensor each forward runs its plain version; on a CUDA tensor it
 launches its kernel or raises.
 """
 from __future__ import annotations
@@ -33,6 +41,25 @@ def add_rms_norm_plain(x, residual, weight, eps=1e-6):
     return _normalize(h, weight, eps, x.dtype), h.to(x.dtype)
 
 
+def _add_rms_ref(x, residual, weight, eps):
+    """``_add_rms_ref``: the sum rounded to the input type first (what the
+    JAX VJP differentiates)."""
+    h = x + residual
+    return rms_norm_plain(h, weight, eps), h
+
+
+def _recompute_grad(fn, inputs, needs, grads):
+    """VJP of ``fn`` at ``inputs`` by recomputing it under autograd, for the
+    inputs whose ``needs`` flag is set (None for the others)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    wanted = [t for t in leaves if t.requires_grad]
+    got = iter(torch.autograd.grad(outs, wanted, grads)) if wanted else iter(())
+    return [next(got) if n else None for n in needs]
+
+
 def _check(x, weight, *others):
     _build.require_cuda(x, weight, *others)
     code = _build.dtype_code(x)
@@ -50,8 +77,7 @@ def _check(x, weight, *others):
     return code, x.numel() // d, d
 
 
-def rms_norm(x, weight, eps=1e-6):
-    """RMSNorm over the last axis; weight [hidden]."""
+def _rms_norm_forward(x, weight, eps):
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, eps)
     code, rows, d = _check(x, weight)
@@ -68,8 +94,7 @@ def rms_norm(x, weight, eps=1e-6):
     return out
 
 
-def add_rms_norm(x, residual, weight, eps=1e-6):
-    """(rmsnorm(x + residual) * weight, x + residual) in one pass."""
+def _add_rms_norm_forward(x, residual, weight, eps):
     if x.device.type == "cpu":
         return add_rms_norm_plain(x, residual, weight, eps)
     code, rows, d = _check(x, weight, residual)
@@ -88,7 +113,56 @@ def add_rms_norm(x, residual, weight, eps=1e-6):
     return out, h
 
 
-# ---------------- rotary (plain: the cached path ropes outside any kernel) ---
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_norm_forward(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = _recompute_grad(
+            lambda a, w: rms_norm_plain(a, w, ctx.eps), (x, weight),
+            ctx.needs_input_grad[:2], (g,))
+        return dx, dw, None
+
+
+class _AddRmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, residual, weight, eps):
+        ctx.save_for_backward(x, residual, weight)
+        ctx.eps = eps
+        return _add_rms_norm_forward(x, residual, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g_out, g_h):
+        dx, dr, dw = _recompute_grad(
+            lambda a, r, w: _add_rms_ref(a, r, w, ctx.eps), ctx.saved_tensors,
+            ctx.needs_input_grad[:3], (g_out, g_h))
+        return dx, dr, dw, None
+
+
+# Each wrapper enters its autograd Function only when a graph is recorded:
+# serving runs under inference mode, and its launches skip the Function's
+# per-call host cost.
+
+def rms_norm(x, weight, eps=1e-6):
+    """RMSNorm over the last axis; weight [hidden]."""
+    if _build.needs_grad(x, weight):
+        return _RmsNorm.apply(x, weight, eps)
+    return _rms_norm_forward(x, weight, eps)
+
+
+def add_rms_norm(x, residual, weight, eps=1e-6):
+    """(rmsnorm(x + residual) * weight, x + residual) in one pass."""
+    if _build.needs_grad(x, residual, weight):
+        return _AddRmsNorm.apply(x, residual, weight, eps)
+    return _add_rms_norm_forward(x, residual, weight, eps)
+
+
+# ---------------- rotary -----------------------------------------------------
 
 def partial_rope(full_fn, x, cos, sin, *args):
     """Tables narrower than the head rotate only the leading slice through
@@ -120,3 +194,57 @@ def rope_ref(x, cos, sin):
     """Rotate-half RoPE on [B, S, H, D]; cos/sin [S, D] f32 (full width or
     an even partial width)."""
     return partial_rope(_rope_ref_full, x, cos, sin)
+
+
+def _fused_rope_forward(x, cos, sin):
+    if x.device.type == "cpu":
+        return _rope_ref_full(x, cos, sin)
+    x = x.contiguous()          # a partial width hands in a strided slice
+    _build.require_cuda(x, cos, sin)
+    code = _build.dtype_code(x)
+    _build.require(x.dim() == 4, f"fused_rope: x must be [B, S, H, D], got "
+                                 f"{tuple(x.shape)}")
+    B, S, H, D = x.shape
+    _build.require(D % 2 == 0, f"fused_rope: head width {D} must be even")
+    _build.require(cos.dtype == torch.float32 and sin.dtype == torch.float32
+                   and tuple(cos.shape) == (S, D)
+                   and tuple(sin.shape) == (S, D),
+                   f"fused_rope: cos/sin must be f32 [{S}, {D}]")
+    _build.require(all(t.data_ptr() % 16 == 0 for t in (x, cos, sin)),
+                   "fused_rope: inputs must be 16-byte aligned")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    fn = _build.function(_STEM, "pt_fused_rope", [
+        _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.INT64,
+        _build.INT, _build.INT, _build.INT, _build.INT, _build.VOIDP])
+    err = fn(_build.ptr(x), _build.ptr(cos), _build.ptr(sin), _build.ptr(out),
+             B * S * H, S, H, D, code, _build.stream(x.device))
+    _build.launches["fused_rope"] += 1
+    _build.check(err, _STEM, "fused_rope")
+    return out
+
+
+class _FusedRope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cos, sin):
+        ctx.save_for_backward(x, cos, sin)
+        return _fused_rope_forward(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(_recompute_grad(rope_ref, ctx.saved_tensors,
+                                     ctx.needs_input_grad, (g,)))
+
+
+def fused_rope(x, cos, sin):
+    """Rotate-half RoPE on x [B, S, H, D] against f32 cos/sin [S, D] (the
+    full head width)."""
+    if _build.needs_grad(x, cos, sin):
+        return _FusedRope.apply(x, cos, sin)
+    return _fused_rope_forward(x, cos, sin)
+
+
+def apply_rope(x, cos, sin):
+    """Width-aware rotary over the fused kernel (see ``partial_rope``)."""
+    return partial_rope(fused_rope, x, cos, sin)

@@ -53,10 +53,12 @@ def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices,
 
 def paged_attention(q, k_pages, v_pages, lengths, page_indices):
     """Decode attention of q [B,H,D] over each row's pages; returns
-    [B,H,D] in q's dtype."""
+    [B,H,D] in q's dtype. On CUDA it has no backward and refuses inputs
+    that need a gradient."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, lengths,
                                      page_indices)
+    _build.require_no_grad("paged_attention", q, k_pages, v_pages)
     _build.require_cuda(q, k_pages, v_pages, lengths, page_indices)
     code = _build.dtype_code(q)
     B, H, D = q.shape

@@ -1,8 +1,10 @@
 """Port parity of the attention kernels' modules (plain versions, CPU)
 against the JAX package: append attention and splash flash attention in
-Pallas interpret mode, paged decode through ``paged_decode_attention``
-(its gather reference off the TPU). f32 throughout; tolerance 2e-5 for
-sums taken in another order."""
+Pallas interpret mode (the flash gradients through splash's own backward
+kernels), paged decode through ``paged_decode_attention`` (its gather
+reference off the TPU). f32 unless a test says otherwise; tolerance 2e-5
+for sums taken in another order."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -206,14 +208,9 @@ def test_paged_cached_attention_decode_step_matches():
     assert gkp is tkp and gvp is tvp            # the pool is updated in place
 
 
-@pytest.mark.parametrize("kwargs", [dict(causal=False),
-                                    dict(causal=True, window=8)])
-def test_flash_refuses_unported_masks_on_cuda(kwargs, monkeypatch):
-    """On a CUDA tensor the unported splash masks raise instead of running
-    plain code; the device check runs first, so a CPU tensor posing as CUDA
-    exercises the refusal without a card."""
-    q = torch.zeros(1, 16, 4, 128)
-
+def _as_cuda(t):
+    """A CPU tensor that reports a CUDA device, so the wrappers take their
+    CUDA branch up to the first check that needs a card."""
     class _Dev:
         type = "cuda"
 
@@ -222,7 +219,16 @@ def test_flash_refuses_unported_masks_on_cuda(kwargs, monkeypatch):
         def device(self):
             return _Dev()
 
-    fq = q.as_subclass(_Fake)
+    return t.as_subclass(_Fake)
+
+
+@pytest.mark.parametrize("kwargs", [dict(causal=False),
+                                    dict(causal=True, window=8)])
+def test_flash_refuses_unported_masks_on_cuda(kwargs, monkeypatch):
+    """On a CUDA tensor the unported splash masks raise instead of running
+    plain code; the device check runs first, so a CPU tensor posing as CUDA
+    exercises the refusal without a card."""
+    fq = _as_cuda(torch.zeros(1, 16, 4, 128))
     with pytest.raises(NotImplementedError, match="not ported"):
         port_flash.flash_attention_bshd(fq, fq, fq, **kwargs)
 
@@ -258,3 +264,89 @@ def test_cached_attention_routes_to_the_kernels(case, want, monkeypatch):
         use_flash=case != "no_flash", prefill=pos == 0,
         window=3 if case == "window" else None)
     assert calls == [want]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_grads_match_splash_interpret(dtype):
+    """Forward and (dq, dk, dv) of causal flash attention at [1, 256, 4 | 2,
+    128] against ``jax.grad`` through splash in interpret mode (its own dq
+    and dkv kernels). f32: forward within 2e-5, gradients within 1e-5
+    (sums in another order). bf16: within 2^-6 times the largest entry of
+    each (two bf16 ulps there): JAX rounds q * scale to bf16 before splash,
+    the port scales in f32."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    q, k, v = _qkv(1, 256, 256, 4, 2, seed=12)
+    g = np.random.RandomState(13).randn(*q.shape).astype(np.float32)
+    want, vjp = jax.vjp(
+        lambda a, b, c: jax_flash.flash_attention_bshd(a, b, c, causal=True,
+                                                       interpret=True),
+        *(jnp.asarray(t, jdt) for t in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g, jdt))
+    ts = [_t(t).to(tdt).requires_grad_() for t in (q, k, v)]
+    got = port_flash.flash_attention_bshd(*ts, causal=True)
+    got.backward(_t(g).to(tdt))
+    pairs = [(got, want, ATOL)] + [(t.grad, w, 1e-5)
+                                   for t, w in zip(ts, want_grads)]
+    for a, b, f32_tol in pairs:
+        a = a.detach().float().numpy()
+        b = np.asarray(b).astype(np.float32)
+        tol = f32_tol if dtype == "float32" else 2.0 ** -6 * np.abs(b).max()
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol)
+
+
+def test_flash_function_keeps_the_graph(monkeypatch):
+    """The CUDA route's autograd Function, with stand-ins for its launches
+    that return detached results as a ctypes launch does: the output keeps
+    a ``grad_fn``, the backward hands the forward's out and lse to
+    ``flash_attention_bwd``, and the gradients are the plain version's."""
+    q, k, v = (_t(a).requires_grad_() for a in _qkv(1, 16, 24, 4, 2, seed=14))
+    seen = {}
+
+    def fake_launch(q_, k_, v_, pos, allowed, scale, counter, with_lse=False):
+        seen["launch"] = (pos, allowed, counter, with_lse)
+        with torch.no_grad():
+            out = port_flash.flash_attention_plain(q_, k_, v_, causal=True,
+                                                   sm_scale=scale)
+        return out, torch.zeros(1, 4, 16)
+
+    def fake_bwd(q_, k_, v_, out, lse, dout, scale):
+        seen["bwd"] = (out.shape, lse.shape)
+        leaves = [t.detach().requires_grad_() for t in (q_, k_, v_)]
+        with torch.enable_grad():
+            o = port_flash.flash_attention_plain(*leaves, causal=True,
+                                                 sm_scale=scale)
+        return torch.autograd.grad(o, leaves, dout)
+
+    monkeypatch.setattr(port_flash._append, "launch", fake_launch)
+    monkeypatch.setattr(port_flash, "flash_attention_bwd", fake_bwd)
+    out = port_flash._FlashCausal.apply(q, k, v, 0.125)
+    assert out.grad_fn is not None
+    assert seen["launch"] == (8, None, "flash_attention_bshd", True)
+    out.square().sum().backward()
+    assert seen["bwd"] == (q.shape, (1, 4, 16))
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    port_flash.flash_attention_plain(q, k, v, causal=True,
+                                     sm_scale=0.125).square().sum().backward()
+    for a, t in zip(got, (q, k, v)):
+        assert a.abs().max() > 0
+        torch.testing.assert_close(a, t.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("kernel", ["append", "paged"])
+def test_kernels_without_backward_refuse_grad_inputs(kernel):
+    """append_attention and paged_attention have no backward: on CUDA they
+    raise for an input that needs a gradient instead of cutting the graph."""
+    if kernel == "append":
+        q = _as_cuda(torch.zeros(1, 4, 4, 128, requires_grad=True))
+        kv = _as_cuda(torch.zeros(1, 8, 1, 128))
+        call = lambda: port_append.append_attention(q, kv, kv, 0)  # noqa: E731
+    else:
+        q = _as_cuda(torch.zeros(2, 4, 128, requires_grad=True))
+        kv = _as_cuda(torch.zeros(1, 4, 16, 128))
+        idx = torch.zeros(2, 2, dtype=torch.int32)
+        call = lambda: port_paged.paged_attention(  # noqa: E731
+            q, kv, kv, torch.ones(2, dtype=torch.int32), idx)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()

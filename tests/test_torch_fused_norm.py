@@ -1,7 +1,10 @@
 """Port parity: paddle_tpu_torch.ops.hopper.fused_norm (plain versions, CPU)
-against paddle_tpu.ops.pallas.fused_norm. At rows % 8 == 0 and
-d % 128 == 0 the JAX functions run their Pallas kernels in interpret mode;
-elsewhere their references. The port follows the kernels' cast order."""
+against paddle_tpu.ops.pallas.fused_norm, forward and gradients. At
+rows % 8 == 0 and d % 128 == 0 (norms) or d % 128 == 0 (RoPE) the JAX
+functions run their Pallas kernels in interpret mode; elsewhere their
+references. The port follows the kernels' cast order, and its gradients
+the JAX custom VJPs."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,3 +120,145 @@ def test_cuda_wrappers_refuse_what_the_kernel_does_not_take():
     x = torch.zeros(4, 12)
     with pytest.raises(ValueError):
         port_norm._check(x, torch.zeros(12))
+
+
+def _tables(S, half, seed):
+    ang = np.outer(np.arange(S),
+                   np.random.RandomState(seed).rand(half) * 0.5)
+    ang = np.concatenate([ang, ang], -1)
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def _bits_f32(t):
+    return t.detach().float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_rope_and_grad_match_the_pallas_kernel(dtype):
+    """fused_rope at [2, 256, 4, 128] against the Pallas kernel in interpret
+    mode, and its gradient against the JAX custom VJP. f32: forward within
+    1e-6 (XLA fuses the products into multiply-adds; the port rounds each);
+    bf16: forward within 2 bf16 ulps for the same reason. The gradient, a
+    recompute of rope_ref in both packages, is bit-identical."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    rng = np.random.RandomState(6)
+    x = rng.randn(2, 256, 4, 128).astype(np.float32)
+    g = rng.randn(*x.shape).astype(np.float32)
+    cos, sin = _tables(256, 64, 7)
+    want, vjp = jax.vjp(
+        lambda a: jax_norm.fused_rope(a, jnp.asarray(cos), jnp.asarray(sin)),
+        jnp.asarray(x, jdt))
+    (want_dx,) = vjp(jnp.asarray(g, jdt))
+    tx = torch.from_numpy(x).to(tdt).requires_grad_()
+    got = port_norm.fused_rope(tx, torch.from_numpy(cos), torch.from_numpy(sin))
+    got.backward(torch.from_numpy(g).to(tdt))
+    assert got.is_contiguous() and got.dtype == tdt
+    if dtype == "float32":
+        np.testing.assert_allclose(_bits_f32(got), _np(want), rtol=0,
+                                   atol=1e-6)
+    else:
+        assert _ulps_bf16(_bits_f32(got), _np(want)).max() <= 2
+    np.testing.assert_array_equal(_bits_f32(tx.grad), _np(want_dx))
+
+
+def test_apply_rope_partial_width_matches_jax():
+    """A table narrower than the head rotates the leading lanes only; f32
+    forward and gradient within 1e-6."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(1, 16, 2, 128).astype(np.float32)
+    g = rng.randn(*x.shape).astype(np.float32)
+    cos, sin = _tables(16, 32, 9)                  # rope width 64
+    want, vjp = jax.vjp(
+        lambda a: jax_norm.apply_rope(a, jnp.asarray(cos), jnp.asarray(sin)),
+        jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = port_norm.apply_rope(tx, torch.from_numpy(cos), torch.from_numpy(sin))
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), _np(want), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(tx.grad.numpy(), _np(want_dx), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_gradients_match_the_jax_vjps(dtype):
+    """Gradients of rms_norm and add_rms_norm (both outputs carrying a
+    cotangent) against the JAX custom VJPs at the Pallas kernel shape
+    [16, 256]. f32: within 1e-5. bf16: dx and dresidual bit-identical; the
+    weight gradient is a bf16 sum over 16 rows that the two packages take
+    in another order and precision, so it is held within 2^-5 * max |dw|,
+    four bf16 ulps of its largest entry (two seen)."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    x, r, w = _inputs((16, 256), 10)
+    rng = np.random.RandomState(11)
+    g1, g2 = (rng.randn(16, 256).astype(np.float32) for _ in range(2))
+
+    def check(got, want, is_dw):
+        got, want = _bits_f32(got), _np(want)
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        elif is_dw:
+            assert np.abs(got - want).max() <= 2.0 ** -5 * np.abs(want).max()
+        else:
+            np.testing.assert_array_equal(got, want)
+
+    _, vjp = jax.vjp(lambda a, b: jax_norm.rms_norm(a, b, EPS),
+                     jnp.asarray(x, jdt), jnp.asarray(w, jdt))
+    want = vjp(jnp.asarray(g1, jdt))
+    tx, tw = (torch.from_numpy(a).to(tdt).requires_grad_() for a in (x, w))
+    port_norm.rms_norm(tx, tw, EPS).backward(torch.from_numpy(g1).to(tdt))
+    check(tx.grad, want[0], False)
+    check(tw.grad, want[1], True)
+
+    _, vjp = jax.vjp(lambda a, b, c: jax_norm.add_rms_norm(a, b, c, EPS),
+                     *(jnp.asarray(a, jdt) for a in (x, r, w)))
+    want = vjp((jnp.asarray(g1, jdt), jnp.asarray(g2, jdt)))
+    tx, tr, tw = (torch.from_numpy(a).to(tdt).requires_grad_()
+                  for a in (x, r, w))
+    out, h = port_norm.add_rms_norm(tx, tr, tw, EPS)
+    torch.autograd.backward((out, h), (torch.from_numpy(g1).to(tdt),
+                                       torch.from_numpy(g2).to(tdt)))
+    for t, wt, is_dw in ((tx, want[0], False), (tr, want[1], False),
+                         (tw, want[2], True)):
+        check(t.grad, wt, is_dw)
+
+
+def test_kernel_outputs_keep_the_graph(monkeypatch):
+    """On CUDA the forwards come from ctypes launches, whose outputs carry
+    no ``grad_fn``. Stand-ins that return such detached results show that
+    the autograd Functions still wire each output into the graph, with the
+    gradients of the plain versions (no silent cut)."""
+    calls = []
+
+    def detached(fn, tag):
+        def run(*a):
+            calls.append(tag)
+            with torch.no_grad():
+                return fn(*(t.detach() if torch.is_tensor(t) else t
+                            for t in a))
+        return run
+
+    monkeypatch.setattr(port_norm, "_rms_norm_forward",
+                        detached(port_norm.rms_norm_plain, "rms"))
+    monkeypatch.setattr(port_norm, "_add_rms_norm_forward",
+                        detached(port_norm.add_rms_norm_plain, "add"))
+    monkeypatch.setattr(port_norm, "_fused_rope_forward",
+                        detached(port_norm._rope_ref_full, "rope"))
+    x, r, w = (torch.from_numpy(a).requires_grad_()
+               for a in _inputs((2, 8, 2, 128), 12))
+    cos, sin = (torch.from_numpy(t) for t in _tables(8, 64, 13))
+    out, h = port_norm.add_rms_norm(port_norm.rms_norm(x, w, EPS), r, w, EPS)
+    y = port_norm.fused_rope(out, cos, sin)
+    assert calls == ["rms", "add", "rope"]
+    assert y.grad_fn is not None and h.grad_fn is not None
+    (y.sum() + h.square().sum()).backward()
+    got = [t.grad.clone() for t in (x, r, w)]
+    for t in (x, r, w):
+        t.grad = None
+    out, h = port_norm._add_rms_ref(port_norm.rms_norm_plain(x, w, EPS), r, w,
+                                    EPS)
+    (port_norm.rope_ref(out, cos, sin).sum() + h.square().sum()).backward()
+    for a, t in zip(got, (x, r, w)):
+        assert a.abs().max() > 0
+        torch.testing.assert_close(a, t.grad, rtol=1e-6, atol=1e-6)
