@@ -14,15 +14,22 @@ Phases (any failure raises, so the script exits non-zero):
    the plain version's time, the least time the card could take (bound),
    and one PyTorch library call computing the same function as a yardstick
    only (the port never calls it). The attention backward is held against
-   ``torch.autograd`` through the plain forward.
+   ``torch.autograd`` through the plain forward. The fused decode-tail
+   kernels run at 8 and 32 rows, beside two yardsticks: ``torch.matmul`` of
+   the product alone and the port's discrete sequence they replace.
 3. The serving path at full width: Llama-3-8B (bf16, all 32 layers, random
    weights from a seeded generator on the card) behind
    ``ContinuousBatchEngine(max_batch=8, max_len=2048)``, ten greedy
-   requests. Kernel launch counts are zeroed just before and read just
-   after this phase.
+   requests, served with ``FLAGS_use_fused_decode_tail`` off, on, and off
+   again; then speculative decoding (k = 4, fused tail on) of eight greedy
+   requests whose prompts repeat a seeded 16-token pattern. Kernel launch
+   counts are zeroed just before and read just after each run; the fused
+   run must launch each fused kernel 32 times per decode step and the
+   norm kernels 32 times per step fewer each.
 4. Wiring: two layers at full width in f32, the same weights on the card
    (kernels) and on the CPU (plain versions); greedy tokens must be
-   identical and the prefill logits must agree.
+   identical card vs CPU, fused vs discrete, and speculative vs one-token,
+   and the prefill logits must agree.
 5. The training path at full width: the Llama-3-8B training recipe of the
    JAX package's ``bench.py`` (``_bench_config("8b")``: tied embeddings,
    chunked fused lm-head + CE, bf16 parameters, AdamW with f32 masters and
@@ -63,6 +70,8 @@ REPLACES = {
     "paged_attention": "paddle_tpu/generation.py:289",
     "fused_rope": "paddle_tpu/ops/pallas/fused_norm.py:289",
     "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:122",
+    "fused_qkv_rope": "paddle_tpu/ops/pallas/decode_tail.py:260",
+    "fused_epilogue": "paddle_tpu/ops/pallas/decode_tail.py:347",
 }
 SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -72,12 +81,16 @@ SOURCES = {
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
     "fused_rope": "paddle_tpu_torch/csrc/fused_norm.cu",
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "fused_qkv_rope": "paddle_tpu_torch/csrc/decode_tail.cu",
+    "fused_epilogue": "paddle_tpu_torch/csrc/decode_tail.cu",
 }
 # the kernels each main path must launch
 SERVING_KERNELS = ("rms_norm", "add_rms_norm", "append_attention",
                    "flash_attention_bshd", "paged_attention")
 TRAINING_KERNELS = ("rms_norm", "add_rms_norm", "fused_rope",
                     "flash_attention_bshd", "flash_attention_bwd")
+FUSED_KERNELS = ("fused_qkv_rope", "fused_epilogue", "paged_attention")
+SPEC_K = 4
 TRAIN_SEQ, TRAIN_DEPTH, TRAIN_STEPS = 4096, 4, 5
 
 
@@ -272,8 +285,126 @@ def check_kernels(results):
            time_ms(lambda: sdpa_gqa(q4, kg, vg, mask=pmask)),
            bound(nbytes, 4 * H * D * n_tok, "bfloat16"), True)
     del kp, vp, kg, vg
+    check_decode_tail_kernels(record, randn)
     check_training_kernels(record, close_bf16, randn)
     torch.cuda.empty_cache()
+
+
+def check_decode_tail_kernels(record, randn):
+    """The fused decode tail at Llama-3-8B widths: R = 8 rows (a decode step
+    at 8 slots) and R = 32 (a verify chunk of 8 slots x k = 4). Beside each
+    kernel, two yardsticks the port never uses in the kernels: one
+    ``torch.matmul`` of the product alone, and the port's own discrete
+    sequence the kernel replaces."""
+    import torch
+
+    from paddle_tpu_torch.generation import _rope_rows
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.hopper import decode_tail, fused_norm
+
+    hidden, H, hk, d, eps = 4096, 32, 8, 128, 1e-5
+    cos, sin = _rope_tables(2048, d, 500000.0, device="cuda")
+
+    def one_ulp_of_max(out, ref):
+        # both sides sum exact f32 products in f32, in another order: an
+        # entry may round to its other bf16 neighbour, and RoPE of such a
+        # pair stays within one ulp of the largest entry
+        err = max(float((o.float() - r.float()).abs().max())
+                  for o, r in zip(out, ref))
+        top = max(float(r.float().abs().max()) for r in ref)
+        return err, err <= 2.0 ** (np.floor(np.log2(top)) - 7)
+
+    log("  decode tail: tolerance one bf16 ulp of the largest entry; "
+        "two launches on the same inputs must give the same bits")
+    wn = randn(hidden, scale=0.1) + 1
+    wq, wk, wv = (randn(hidden, n * d, scale=0.02) for n in (H, hk, hk))
+    wqkv = torch.cat([wq, wk, wv], dim=1)
+    wo = randn(H * d, hidden, scale=0.02)
+    for R in (8, 32):
+        x = randn(R, hidden)
+        pos = torch.from_numpy(np.random.RandomState(R).randint(
+            0, 2048, size=R)).to(torch.int32).cuda()
+        c, s = cos[pos.long()], sin[pos.long()]
+        args = (x, wn, wq, wk, wv, c, s, eps, H, hk, d)
+        out = decode_tail.fused_qkv_rope(*args)
+        ref = decode_tail.fused_qkv_rope_plain(*args)
+        err, ok = one_ulp_of_max(out, ref)
+        ok = ok and all(torch.equal(a, b) for a, b in
+                        zip(out, decode_tail.fused_qkv_rope(*args)))
+
+        def discrete_qkv():
+            n = fused_norm.rms_norm(x, wn, eps)
+            q, k, v = n @ wq, n @ wk, n @ wv
+            return (_rope_rows(q.reshape(R, 1, H, d), cos, sin, pos),
+                    _rope_rows(k.reshape(R, 1, hk, d), cos, sin, pos), v)
+
+        cost = decode_tail._qkv_cost({"batch": R, "hidden": hidden,
+                                      "wtot": (H + 2 * hk) * d,
+                                      "dtype": "bfloat16"})
+        log(f"  yardsticks fused_qkv_rope R={R}: torch.matmul x[{R},"
+            f"{hidden}] @ Wqkv[{hidden},{(H + 2 * hk) * d}] "
+            f"{time_ms(lambda: x @ wqkv):.4f} ms; discrete rms_norm + 3 "
+            f"matmuls + 2 ropes {time_ms(discrete_qkv):.4f} ms")
+        record("fused_qkv_rope", f"R={R} hidden={hidden} H={H} hk={hk}",
+               err, ok, time_ms(lambda: decode_tail.fused_qkv_rope(*args)),
+               time_ms(lambda: decode_tail.fused_qkv_rope_plain(*args)),
+               None, bound(cost["bytes"], cost["flops"], "bfloat16"),
+               R == 8)
+
+        attn, res = randn(R, H * d), randn(R, hidden)
+        eargs = (attn, wo, res, wn, eps)
+        out = decode_tail.fused_epilogue(*eargs)
+        ref = decode_tail.fused_epilogue_plain(*eargs)
+        err, ok = one_ulp_of_max(out, ref)
+        ok = ok and all(torch.equal(a, b) for a, b in
+                        zip(out, decode_tail.fused_epilogue(*eargs)))
+        cost = decode_tail._epilogue_cost({"batch": R, "width": H * d,
+                                           "hidden": hidden,
+                                           "dtype": "bfloat16"})
+        def discrete_epilogue():
+            return fused_norm.add_rms_norm(attn @ wo, res, wn, eps)
+
+        log(f"  yardsticks fused_epilogue R={R}: torch.matmul attn[{R},"
+            f"{H * d}] @ Wo {time_ms(lambda: attn @ wo):.4f} ms; discrete "
+            f"matmul + add_rms_norm {time_ms(discrete_epilogue):.4f} ms")
+        record("fused_epilogue", f"R={R} width={H * d} hidden={hidden}",
+               err, ok, time_ms(lambda: decode_tail.fused_epilogue(*eargs)),
+               time_ms(lambda: decode_tail.fused_epilogue_plain(*eargs)),
+               None, bound(cost["bytes"], cost["flops"], "bfloat16"),
+               R == 8)
+
+    # the kernels' other paths, off the main one: f32, several row tiles
+    # (40 rows), a contraction that ends in a short chunk (hidden 384)
+    for dtype in (torch.float32, torch.bfloat16):
+        R, hid, h = 40, 384, 3
+        g = torch.Generator("cuda").manual_seed(5)
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=g, device="cuda")
+                    * scale).to(dtype)
+
+        pos = torch.randint(0, 2048, (R,), generator=g, device="cuda")
+        args = (rnd(R, hid), rnd(hid, scale=0.1) + 1, rnd(hid, h * d,
+                scale=0.05), rnd(hid, d, scale=0.05), rnd(hid, d, scale=0.05),
+                cos[pos], sin[pos], eps, h, 1, d)
+        eargs = (rnd(R, h * d), rnd(h * d, hid, scale=0.05), rnd(R, hid),
+                 args[1], eps)
+        for name, out, ref in (
+                ("fused_qkv_rope", decode_tail.fused_qkv_rope(*args),
+                 decode_tail.fused_qkv_rope_plain(*args)),
+                ("fused_epilogue", decode_tail.fused_epilogue(*eargs),
+                 decode_tail.fused_epilogue_plain(*eargs))):
+            if dtype == torch.float32:   # f32 sums in another order
+                err = max(float((o - r).abs().max()) for o, r in
+                          zip(out, ref))
+                ok = err <= 1e-5 * max(float(r.abs().max()) for r in ref)
+            else:
+                err, ok = one_ulp_of_max(out, ref)
+            log(f"  {name} {str(dtype)[6:]} R={R} hidden={hid}: max abs err "
+                f"{err:.3e} ok={ok}")
+            if not ok:
+                raise AssertionError(f"{name} {dtype} R={R} hidden={hid}: "
+                                     "kernel disagrees with its plain version")
 
 
 def check_training_kernels(record, close_bf16, randn):
@@ -372,38 +503,108 @@ def check_training_kernels(record, close_bf16, randn):
 
 # ---------------------------------------------------------------- phase 3 --
 
+class _Timed:
+    """Mix-in for ``ContinuousBatchEngine``: synchronises around each
+    prefill and step to time them, and keeps the logits after the first
+    decode step."""
+
+    def _prefill_into(self, slot, req):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        super()._prefill_into(slot, req)
+        torch.cuda.synchronize()
+        self.prefill_ms.append((int(req.ids.size),
+                                (time.perf_counter() - t0) * 1e3))
+
+    def step(self):
+        import torch
+
+        n_pre = len(self.prefill_ms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super().step()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        pre = sum(ms for _, ms in self.prefill_ms[n_pre:])
+        self.step_ms.append(total - pre)
+        if self.first_logits is None:
+            self.first_logits = self._last.float().clone()
+        return out
+
+
+def timed_engine(model, **kw):
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    class TimedEngine(_Timed, ContinuousBatchEngine):
+        pass
+
+    eng = TimedEngine(model, **kw)
+    eng.prefill_ms, eng.step_ms, eng.first_logits = [], [], None
+    return eng
+
+
+def serve_run(model, card, label, prompts, news, fused, log_prefills=False,
+              **engine_kw):
+    """One serving run of the main path: launch counts zeroed just before
+    and read just after. Returns (counts, stats, decode step ms list, the
+    first decode step's logits, outputs); the engine and its pool go."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.utils.flags import flag_overrides
+
+    cfg = model.config
+    eng = timed_engine(model, max_batch=8, max_len=2048, page_size=16,
+                       **engine_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with flag_overrides({"use_fused_decode_tail": fused}):
+        reset_launches()
+        t0 = time.perf_counter()
+        rids = [eng.add_request(p, max_new_tokens=m)
+                for p, m in zip(prompts, news)]
+        out = eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+    stats = eng.stats()
+    for rid, m in zip(rids, news):
+        toks = out[rid]
+        if len(toks) != m or eng.finish_reason(rid) != "length":
+            raise AssertionError(f"{label} request {rid}: {len(toks)} "
+                                 f"tokens, reason {eng.finish_reason(rid)}")
+        if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{label} request {rid}: token out of range")
+    if not torch.isfinite(eng._last).all():
+        raise AssertionError(f"{label}: non-finite logits")
+    steps = stats["decode_steps"]
+    dec_tokens = stats["tokens_generated"]
+    dec_ms = sum(eng.step_ms)
+    log(f"  [{card}] {label}: {len(rids)} requests, {dec_tokens} tokens, "
+        f"{steps} decode steps, wall {wall:.2f}s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if log_prefills:
+        for n, ms in eng.prefill_ms:
+            log(f"  [{card}] prefill prompt={n} bucket={eng._bucket(n)} "
+                f"ms={ms:.2f}")
+    log(f"  [{card}] {label}: decode ms/step median="
+        f"{statistics.median(eng.step_ms):.3f} mean={dec_ms / steps:.3f}; "
+        f"decode tokens/s={dec_tokens / (dec_ms / 1e3):.1f}")
+    log(f"  launches ({label}): {json.dumps(counts)}")
+    outputs = [out[r] for r in rids]
+    return counts, stats, eng.step_ms, eng.first_logits, outputs
+
+
 def serve_full_width(profile=False):
+    """Phase 3: the discrete path, the fused decode tail and the discrete
+    path again (the two flag-off runs bracket the noise), then speculative
+    decoding with the fused tail. Returns the launch counts of the counted
+    runs, summed."""
     import torch
 
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.ops.hopper import launches, reset_launches
-    from paddle_tpu_torch.serving import ContinuousBatchEngine
-
-    class TimedEngine(ContinuousBatchEngine):
-        """Synchronises around each prefill and step to time them."""
-
-        def __init__(self, *a, **kw):
-            self.prefill_ms, self.step_ms = [], []
-            super().__init__(*a, **kw)
-
-        def _prefill_into(self, slot, req):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            super()._prefill_into(slot, req)
-            torch.cuda.synchronize()
-            self.prefill_ms.append((int(req.ids.size),
-                                    (time.perf_counter() - t0) * 1e3))
-
-        def step(self):
-            n_pre = len(self.prefill_ms)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = super().step()
-            torch.cuda.synchronize()
-            total = (time.perf_counter() - t0) * 1e3
-            pre = sum(ms for _, ms in self.prefill_ms[n_pre:])
-            self.step_ms.append(total - pre)
-            return out
 
     cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
     n_layers = cfg.num_hidden_layers
@@ -415,55 +616,111 @@ def serve_full_width(profile=False):
     log(f"phase 3: Llama-3-8B, {n_layers} layers, bf16, "
         f"{n_params / 1e9:.2f}B parameters drawn in "
         f"{time.perf_counter() - t0:.1f}s")
-    eng = TimedEngine(model, max_batch=8, max_len=2048, page_size=16)
+    card = card_line()
     lens = [100, 128, 256, 300, 512, 700, 1000, 1024, 64, 33]
     news = [16 if i % 2 == 0 else 64 for i in range(len(lens))]
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in lens]
-    # the main path's run: counts zeroed just before, read just after
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    rids = [eng.add_request(p, max_new_tokens=m)
-            for p, m in zip(prompts, news)]
-    out = eng.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(launches)
-    stats = eng.stats()
-    for rid, m in zip(rids, news):
-        toks = out[rid]
-        if len(toks) != m or eng.finish_reason(rid) != "length":
-            raise AssertionError(f"request {rid}: {len(toks)} tokens, "
-                                 f"reason {eng.finish_reason(rid)}")
-        if toks.min() < 0 or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"request {rid}: token out of range")
-    if not torch.isfinite(eng._last).all():
-        raise AssertionError("non-finite logits")
-    steps = stats["decode_steps"]
-    dec_tokens = stats["tokens_generated"]
-    dec_ms = sum(eng.step_ms)
-    card = card_line()
-    log(f"  [{card}] {len(rids)} requests, {dec_tokens} tokens, {steps} "
-        f"decode steps, wall {wall:.2f}s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for n, ms in eng.prefill_ms:
-        log(f"  [{card}] prefill prompt={n} bucket={eng._bucket(n)} "
-            f"ms={ms:.2f}")
-    log(f"  [{card}] decode ms/step median={statistics.median(eng.step_ms):.3f}"
-        f" mean={dec_ms / steps:.3f}; decode tokens/s="
-        f"{dec_tokens / (dec_ms / 1e3):.1f}")
-    log(f"  launches: {json.dumps(counts)}")
-    require_launched(counts, SERVING_KERNELS, "serving")
-    if counts["paged_attention"] != n_layers * steps:
-        raise AssertionError(f"paged_attention launched "
-                             f"{counts['paged_attention']} times for "
-                             f"{steps} steps of {n_layers} layers")
+    runs = {}
+    for label, fused in (("flag off", False), ("flag on", True),
+                         ("flag off again", False)):
+        runs[label] = serve_run(model, card, label, prompts, news, fused,
+                                log_prefills=label == "flag off")
+    off, on = runs["flag off"], runs["flag on"]
+    require_launched(off[0], SERVING_KERNELS, "serving")
+    require_launched(on[0], FUSED_KERNELS, "fused serving")
+    steps = off[1]["decode_steps"]
+    if on[1]["decode_steps"] != steps:
+        raise AssertionError("flag-on and flag-off runs took different "
+                             "numbers of decode steps")
+    for counts, label in ((off[0], "flag off"), (on[0], "flag on")):
+        if counts["paged_attention"] != n_layers * steps:
+            raise AssertionError(f"{label}: paged_attention launched "
+                                 f"{counts['paged_attention']} times for "
+                                 f"{steps} steps of {n_layers} layers")
+    fused_n = n_layers * steps
+    if not (on[0]["fused_qkv_rope"] == on[0]["fused_epilogue"] == fused_n):
+        raise AssertionError(f"fused kernels launched "
+                             f"{on[0]['fused_qkv_rope']} / "
+                             f"{on[0]['fused_epilogue']} times, expected "
+                             f"{fused_n}")
+    for name in ("rms_norm", "add_rms_norm"):
+        fewer = off[0][name] - on[0].get(name, 0)
+        if fewer != fused_n:
+            raise AssertionError(f"{name}: {fewer} fewer launches with the "
+                                 f"flag on, expected {fused_n}")
+    same = sum(int(np.sum(a == b)) for a, b in zip(off[4], on[4]))
+    n_tok = sum(len(a) for a in off[4])
+    dlog = float((on[3] - off[3]).abs().max())
+    log(f"  [{card}] fused vs discrete (bf16, reported only): "
+        f"{same}/{n_tok} tokens identical ({same / n_tok:.3f}); first "
+        f"decode step's logits max abs diff {dlog:.4f} (|logits| <= "
+        f"{float(off[3].abs().max()):.3f}); per decode step "
+        f"2 x {n_layers} fused launches for {2 * n_layers} fewer norm "
+        f"launches")
+    del runs
+
+    spec_counts = serve_speculative(model, card)
     if profile:
         profile_decode(model, card)
-    del eng, model
+    del model
     torch.cuda.empty_cache()
+    total = Counter(off[0])
+    total.update(on[0])
+    total.update(spec_counts)
+    return total
+
+
+def serve_speculative(model, card):
+    """Speculative serving, fused tail on, k = SPEC_K: eight greedy requests
+    whose prompts repeat a seeded 16-token pattern. The fused kernels'
+    row counts are recorded by wrapping the two module functions the model
+    calls (the launch counts stay the wrappers' own)."""
+    from paddle_tpu_torch.ops.hopper import decode_tail
+
+    rows = {"fused_qkv_rope": Counter(), "fused_epilogue": Counter()}
+    real = {name: getattr(decode_tail, name) for name in rows}
+
+    def spy(name):
+        def call(first, *a, **kw):
+            rows[name][first.shape[0]] += 1
+            return real[name](first, *a, **kw)
+        return call
+
+    rng = np.random.RandomState(7)
+    prompts = [np.tile(rng.randint(0, model.config.vocab_size, size=16), 16)
+               for _ in range(8)]
+    news = [64] * 8
+    try:
+        for name in rows:
+            setattr(decode_tail, name, spy(name))
+        counts, stats, step_ms, _, _ = serve_run(
+            model, card, f"speculative k={SPEC_K}, flag on", prompts, news,
+            True, speculative_k=SPEC_K)
+    finally:
+        for name, fn in real.items():
+            setattr(decode_tail, name, fn)
+    n = stats["spec_dispatches"]
+    rounds = stats["spec_emitted_tokens"] - stats["spec_accepted_tokens"]
+    rate = stats["spec_accepted_tokens"] / max(rounds * (SPEC_K - 1), 1)
+    spec_ms = sum(step_ms)
+    log(f"  [{card}] speculative: {n} dispatches, acceptance rate {rate:.3f}"
+        f", emitted tokens per slot per dispatch "
+        f"{stats['accepted_tokens_per_dispatch']:.3f}, tokens per dispatch "
+        f"{stats['spec_emitted_tokens'] / n:.2f}, ms per dispatch median "
+        f"{statistics.median(step_ms):.3f} mean {spec_ms / n:.3f}, "
+        f"tokens/s {stats['spec_emitted_tokens'] / (spec_ms / 1e3):.1f}; "
+        f"fused kernel calls by rows "
+        f"{json.dumps({k: dict(v) for k, v in rows.items()})}")
+    # the verify chunk attends in PyTorch (chunk-causal mask), as the JAX
+    # package does in XLA on every backend: no paged kernel on this path
+    require_launched(counts, FUSED_KERNELS[:2], "speculative serving")
+    for name, by_rows in rows.items():
+        if by_rows[8 * SPEC_K] <= 0:
+            raise AssertionError(f"{name} never ran with {8 * SPEC_K} rows "
+                                 "on the speculative path")
+    if stats["spec_dispatches"] != stats["decode_steps"]:
+        raise AssertionError("a greedy speculative run took one-token steps")
     return counts
 
 
@@ -475,57 +732,71 @@ def require_launched(counts, names, path):
 
 
 def profile_decode(model, card, n_steps=10):
-    """Where a decode step's time goes at full occupancy: 8 requests of 512
-    prompt tokens; ``n_steps`` steps timed on the host clock, then
-    ``n_steps`` more under ``torch.profiler`` for the device time of each
-    kernel. One stream, so kernel times do not overlap: their sum over the
-    unprofiled wall time is the device's busy share."""
+    """Where a decode step's time goes at full occupancy, with the fused
+    tail off and on: 8 requests of 512 prompt tokens; ``n_steps`` steps
+    timed on the host clock, then ``n_steps`` more under ``torch.profiler``
+    for the device time and count of each kernel. One stream, so kernel
+    times do not overlap: their sum over the unprofiled wall time is the
+    device's busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.serving import ContinuousBatchEngine
+    from paddle_tpu_torch.utils.flags import flag_overrides
 
-    eng = ContinuousBatchEngine(model, max_batch=8, max_len=2048)
-    rng = np.random.RandomState(5)
-    for _ in range(8):
-        eng.add_request(rng.randint(0, model.config.vocab_size, size=512),
-                        max_new_tokens=2 * n_steps + 4)
-    for _ in range(2):
-        eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        eng.step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            eng.step()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:     # kernels, not host ops
-            rows.append((e.device_time_total / 1e3 / n_steps,
-                         e.count // n_steps, e.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    log(f"profile: [{card}] decode at 8 active slots: {wall_ms:.3f} ms/step "
-        f"wall (unprofiled), device busy {busy_ms:.3f} ms/step "
-        f"(share {busy_ms / wall_ms:.3f})")
-    for ms, count, key in rows[:12]:
-        log(f"  {ms:8.3f} ms/step {count:5d}/step  {key[:80]}")
-    eng.run_until_done()
+    for fused in (False, True):
+        with flag_overrides({"use_fused_decode_tail": fused}):
+            eng = ContinuousBatchEngine(model, max_batch=8, max_len=2048)
+            rng = np.random.RandomState(5)
+            for _ in range(8):
+                eng.add_request(rng.randint(0, model.config.vocab_size,
+                                            size=512),
+                                max_new_tokens=2 * n_steps + 4)
+            for _ in range(2):
+                eng.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n_steps):
+                    eng.step()
+                torch.cuda.synchronize()
+            rows = []
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA:   # kernels, not host ops
+                    rows.append((e.device_time_total / 1e3 / n_steps,
+                                 e.count / n_steps, e.key))
+            rows.sort(reverse=True)
+            busy_ms = sum(r[0] for r in rows)
+            n_kern = sum(r[1] for r in rows)
+            log(f"profile: [{card}] decode at 8 active slots, fused tail "
+                f"{'on' if fused else 'off'}: {wall_ms:.3f} ms/step wall "
+                f"(unprofiled), device busy {busy_ms:.3f} ms/step (share "
+                f"{busy_ms / wall_ms:.3f}), {n_kern:.0f} CUDA kernels "
+                f"launched per step")
+            for ms, count, key in rows[:12]:
+                log(f"  {ms:8.3f} ms/step {count:7.1f}/step  {key[:80]}")
+            eng.run_until_done()
+            del eng
 
 
 # ---------------------------------------------------------------- phase 4 --
 
 def wiring_check():
+    """Two layers at full width in f32, the same weights on the card and the
+    CPU. Greedy tokens must be identical: card vs CPU (discrete path),
+    fused vs discrete on the card, fused card vs CPU, and speculative
+    (k = SPEC_K, fused) card vs the one-token CPU run."""
     import torch
 
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.serving import ContinuousBatchEngine
+    from paddle_tpu_torch.utils.flags import flag_overrides
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -536,22 +807,37 @@ def wiring_check():
                              generator=torch.Generator().manual_seed(0))
     m_cpu.load_state_dict(m_gpu.state_dict())
     prompt = np.random.RandomState(3).randint(0, cfg.vocab_size, size=37)
-    toks, first = [], []
-    for model in (m_gpu, m_cpu):
-        eng = ContinuousBatchEngine(model, max_batch=1, max_len=64)
-        rid = eng.add_request(prompt, max_new_tokens=8)
-        first.append(eng._last[0].cpu())
-        toks.append(eng.run_until_done()[rid])
-    err = float((first[0] - first[1]).abs().max())
+
+    def run(model, fused=False, k=None):
+        with flag_overrides({"use_fused_decode_tail": fused}):
+            eng = ContinuousBatchEngine(model, max_batch=1, max_len=64,
+                                        speculative_k=k)
+            rid = eng.add_request(prompt, max_new_tokens=8)
+            first = eng._last[0].cpu()
+            eng.step()
+            step1 = eng._last[0].cpu()
+            return eng.run_until_done()[rid], first, step1
+
+    card, card_first, card_step1 = run(m_gpu)
+    cpu, cpu_first, _ = run(m_cpu)
+    fused, _, fused_step1 = run(m_gpu, fused=True)
+    spec, _, _ = run(m_gpu, fused=True, k=SPEC_K)
+    err = float((card_first - cpu_first).abs().max())
+    ferr = float((fused_step1 - card_step1).abs().max())
     tol = 1e-3   # f32 on both sides, sums in another order on the card
-    log(f"phase 4: 2 layers at full width, f32: card tokens {toks[0].tolist()}"
-        f" cpu tokens {toks[1].tolist()}; prefill logits max abs err "
-        f"{err:.3e} (tolerance {tol}, |logits| <= "
-        f"{float(first[1].abs().max()):.3f})")
-    if not np.array_equal(toks[0], toks[1]):
-        raise AssertionError("card and CPU greedy tokens differ")
-    if not err <= tol:
-        raise AssertionError("card and CPU prefill logits differ")
+    log(f"phase 4: 2 layers at full width, f32: card tokens {card.tolist()}"
+        f" cpu tokens {cpu.tolist()} fused card tokens {fused.tolist()} "
+        f"speculative (k={SPEC_K}, fused) card tokens {spec.tolist()}; "
+        f"prefill logits card vs cpu max abs err {err:.3e} (tolerance "
+        f"{tol}, |logits| <= {float(cpu_first.abs().max()):.3f}); first "
+        f"decode step's logits fused vs discrete on the card max abs err "
+        f"{ferr:.3e} (tolerance {tol})")
+    for name, toks in (("card", card), ("fused card", fused),
+                       ("speculative card", spec)):
+        if not np.array_equal(toks, cpu):
+            raise AssertionError(f"{name} and CPU greedy tokens differ")
+    if not (err <= tol and ferr <= tol):
+        raise AssertionError("logits differ beyond the tolerance")
     del m_gpu, m_cpu
     torch.cuda.empty_cache()
 
@@ -737,7 +1023,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="after phase 3, trace 10 decode steps at 8 active "
-                         "slots with torch.profiler")
+                         "slots with torch.profiler, fused tail off and on")
     args = ap.parse_args(argv)
 
     import torch

@@ -3,8 +3,9 @@
 Counterpart of the parts of ``paddle_tpu/generation.py`` that
 ``serving.ContinuousBatchEngine`` uses: rope at per-row positions, attention
 against a dense prefill cache (``cached_attention``) and the paged pool
-(``paged_cached_attention`` / ``paged_decode_attention``), sampling, the
-prefill unit and the fused sample + forward decode units.
+(``paged_cached_attention`` for one token or a speculative-verify chunk,
+``paged_decode_attention``), sampling, the prefill unit, the fused sample +
+forward decode units and the greedy speculative decode unit.
 
 There is no ``jit`` here: PyTorch runs eagerly, so the JAX package's jitted
 step objects become plain callables with the same inputs and outputs. Where
@@ -13,13 +14,16 @@ place and says so.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .ops.hopper import fused_norm
 from .ops.hopper.append_attention import (append_attention,
-                                          append_attention_plain)
+                                          append_attention_plain,
+                                          grouped_attention_plain)
 from .ops.hopper.flash_attention import flash_attention_bshd
-from .ops.hopper.paged_attention import (paged_attention,
+from .ops.hopper.paged_attention import (gather_pages, paged_attention,
                                          paged_attention_plain)
 
 
@@ -43,7 +47,8 @@ def _rope_rows_full(x, cos, sin, row_pos):
 
 
 def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
-                     row_pos=None, use_flash=True, prefill=False, window=None):
+                     row_pos=None, use_flash=True, prefill=False, window=None,
+                     rope_applied=False):
     """RoPE + cache write + masked grouped-query attention against a dense
     buffer. q [B,S,H,D]; k/v [B,S,hk,D]; cos/sin [>= T, rope_dim];
     k_buf/v_buf [B,T,hk,D], written IN PLACE at ``pos`` (JAX returns new
@@ -56,15 +61,17 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
     positions do not change it). On CUDA the append kernel also takes single
     tokens and ``use_flash=False``; the plain einsum serves CPU tensors (as
     every wrapper does) and a sliding window, which no kernel takes.
+    ``rope_applied``: q and k arrive rotated (the fused decode tail).
     Returns (out [B,S,H,D], k_buf, v_buf)."""
     S = q.shape[1]
     pos = int(pos)
-    if row_pos is None:
-        q = fused_norm.rope_ref(q, cos[pos:pos + S], sin[pos:pos + S])
-        k = fused_norm.rope_ref(k, cos[pos:pos + S], sin[pos:pos + S])
-    else:
-        q = _rope_rows(q, cos, sin, row_pos)
-        k = _rope_rows(k, cos, sin, row_pos)
+    if not rope_applied:
+        if row_pos is None:
+            q = fused_norm.rope_ref(q, cos[pos:pos + S], sin[pos:pos + S])
+            k = fused_norm.rope_ref(k, cos[pos:pos + S], sin[pos:pos + S])
+        else:
+            q = _rope_rows(q, cos, sin, row_pos)
+            k = _rope_rows(k, cos, sin, row_pos)
     k_buf[:, pos:pos + S] = k.to(k_buf.dtype)
     v_buf[:, pos:pos + S] = v.to(v_buf.dtype)
 
@@ -79,40 +86,75 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
 
 
 def paged_cached_attention(q, k, v, cos, sin, k_pages, v_pages, page_indices,
-                           lengths, page_size, window=None):
-    """One decode token per row over the paged pool: row b's token is roped
-    at position lengths[b], written at its own page and slot
-    (page_indices[b, lengths[b] // ps], lengths[b] % ps), then attends
-    lengths[b] + 1 columns. The write is done IN PLACE on the pool with
-    ``index_put_`` (JAX's ``.at[].set`` returns a new pool). Returns
-    (out [B,1,H,D], k_pages, v_pages)."""
+                           lengths, page_size, window=None,
+                           rope_applied=False):
+    """S tokens per row over the paged pool: row b's token j is roped at
+    position lengths[b] + j (unless ``rope_applied``: the fused decode tail
+    rotated q and k already) and written at its own page and slot
+    (page_indices[b, pos // ps], pos % ps). The write is done IN PLACE on
+    the pool with ``index_put_`` (JAX's ``.at[].set`` returns a new pool).
+    S == 1 is the decode step: the paged kernel over lengths[b] + 1
+    columns. S > 1 is the speculative-verify chunk: chunk-causal attention
+    over the gathered pages (``_paged_chunk_attention``). KV of rejected
+    drafts lands above the row's post-accept frontier, where the next
+    chunk's write overwrites it before lengths can reach it. Returns
+    (out [B,S,H,D], k_pages, v_pages)."""
     B, S = q.shape[0], q.shape[1]
-    if S != 1:
-        raise NotImplementedError(
-            "paged_cached_attention: the multi-token (speculative verify) "
-            "chunk is not ported yet")
     lengths = lengths.to(torch.int32)
-    q = _rope_rows(q, cos, sin, lengths)
-    k = _rope_rows(k, cos, sin, lengths)
-    lens = lengths.long()
-    page = torch.div(lens, page_size, rounding_mode="floor")
-    slot = lens % page_size
-    rows = page_indices.long()[torch.arange(B, device=q.device), page]
+    if not rope_applied:
+        q = _rope_rows(q, cos, sin, lengths)
+        k = _rope_rows(k, cos, sin, lengths)
+    pos = lengths.long()[:, None] + torch.arange(S, device=q.device)[None, :]
+    page = torch.div(pos, page_size, rounding_mode="floor")
+    slot = pos % page_size
+    rows = torch.gather(page_indices.long(), 1, page)            # [B, S]
     k_pages.index_put_(_pool_index(k_pages, rows, slot),
-                       k[:, 0].transpose(0, 1).to(k_pages.dtype))
+                       k.movedim(2, 0).to(k_pages.dtype))
     v_pages.index_put_(_pool_index(v_pages, rows, slot),
-                       v[:, 0].transpose(0, 1).to(v_pages.dtype))
+                       v.movedim(2, 0).to(v_pages.dtype))
+    if S > 1:
+        out = _paged_chunk_attention(q, k_pages, v_pages, lengths,
+                                     page_indices, window=window)
+        return out, k_pages, v_pages
     out = paged_decode_attention(q[:, 0].contiguous(), k_pages, v_pages,
                                  lengths + 1, page_indices, window=window)
     return out[:, None], k_pages, v_pages
 
 
+def _paged_chunk_attention(q, k_pages, v_pages, lengths, page_indices,
+                           window=None):
+    """Chunk attention over the paged pool: q [B,S,H,D] sits at positions
+    lengths[b] + j; column t is visible from chunk position j iff
+    t <= lengths[b] + j (and, windowed, t > lengths[b] + j - window). The
+    JAX package runs this as XLA (gather + matmul) on every backend, since
+    the paged decode kernel has no chunk-causal mask; here it is PyTorch on
+    every device."""
+    S = q.shape[1]
+    k = gather_pages(k_pages, page_indices)                   # [B, hk, T, D]
+    v = gather_pages(v_pages, page_indices)
+    T = k.shape[2]
+    qpos = lengths.long()[:, None] + torch.arange(S, device=q.device)[None]
+    t_idx = torch.arange(T, device=q.device)[None, None, :]
+    valid = t_idx <= qpos[:, :, None]                          # [B, S, T]
+    if window is not None:
+        valid = valid & (t_idx > qpos[:, :, None] - window)
+    return _chunk_sdpa(q, k, v, valid)
+
+
+def _chunk_sdpa(q, k, v, valid):
+    """Decode / verify attention core: q [B,S,H,D] against gathered k / v
+    [B,hk,T,D] with a column mask valid [B,S,T]; f32 scores and softmax."""
+    return grouped_attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
+                                   valid, 1.0 / math.sqrt(q.shape[-1]))
+
+
 def _pool_index(pages, rows, slot):
-    """Index tuple addressing pages[:, rows[b], slot[b]] for every KV head
-    (``index_put_`` takes tensors only, so the head axis is spelled out)."""
+    """Index tuple addressing pages[:, rows[b, j], slot[b, j]] for every KV
+    head (``index_put_`` takes tensors only, so the head axis is spelled
+    out)."""
     hk = pages.shape[0]
-    heads = torch.arange(hk, device=pages.device)[:, None]
-    return heads, rows[None, :], slot[None, :]
+    heads = torch.arange(hk, device=pages.device)[:, None, None]
+    return heads, rows[None], slot[None]
 
 
 def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices,
@@ -291,3 +333,39 @@ class _SelectDecodeRowsStep:
             sampler=lambda lg, g: sample_logits_rows(lg, g, do_s, temp, tk,
                                                      tp))
         return nxt, lp, last_n.float(), caches
+
+
+class _SpecDecodeStep:
+    """Greedy speculative decode unit of the engine, one eager call per
+    round: argmax of the carried logits (the token a one-token step would
+    emit, g0), a k-token chunk [g0, d_1..d_{k-1}] of host-proposed drafts
+    through the paged cache at per-row positions, and the longest accepted
+    run computed on the device. Returns (chunk [B, k], emitted count
+    [B] = accepted + 1, logprobs [B, k] under the raw distributions, the
+    logits row after the last emitted token [B, V] f32, caches).
+
+    Token identity holds by construction: draft j is emitted only when it
+    equals the target's greedy choice at its position."""
+
+    def __init__(self, model, max_len):
+        self._model, self._max_len = model, max_len
+
+    @torch.inference_mode()
+    def __call__(self, last, drafts, caches):
+        B = last.shape[0]
+        rows = torch.arange(B, device=last.device)
+        g0 = torch.argmax(last, dim=-1).to(torch.int32)
+        chunk = torch.cat([g0[:, None], drafts], dim=1)          # [B, k]
+        hidden, caches = self._model.llama.forward_cached(
+            chunk, caches, rope_len=self._max_len)
+        logits = self._model.lm_head_logits(hidden).float()    # [B, k, V]
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        ok = (drafts == greedy[:, :-1]).to(torch.int32)         # [B, k-1]
+        n_acc = torch.cumprod(ok, dim=1).sum(dim=1)             # [B]
+        # the logits after the last emitted token seed the next round
+        new_last = logits[rows, n_acc]
+        lp0 = torch.log_softmax(last.float(), dim=-1)[rows, g0.long()]
+        lpd = torch.log_softmax(logits[:, :-1], dim=-1).gather(
+            2, drafts.long()[:, :, None])[:, :, 0]
+        lps = torch.cat([lp0[:, None], lpd], dim=1)
+        return chunk, n_acc + 1, lps, new_last, caches

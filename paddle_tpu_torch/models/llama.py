@@ -6,9 +6,11 @@ prefill cache and paged pool) and without a cache (the training forward:
 fused RoPE, then causal flash attention), the gated MLP, the decoder layer
 on the discrete path, ``LlamaModel.forward`` / ``forward_cached``, the
 causal-LM head, ``LlamaForCausalLM.forward`` with labels (the chunked fused
-lm-head + cross-entropy, or the logits and ``causal_lm_loss``). Not ported:
-the fused decode tail, context parallelism (the port has no process
-group), attention soft-capping, qk-norm and layer recompute.
+lm-head + cross-entropy, or the logits and ``causal_lm_loss``), and the
+fused decode tail behind ``FLAGS_use_fused_decode_tail`` (two kernels per
+layer for a decode step or a paged speculative-verify chunk). Not ported:
+context parallelism (the port has no process group), attention
+soft-capping, qk-norm and layer recompute.
 
 Parameter names equal the JAX package's (``llama.layers.0.self_attn.
 q_proj.weight``, ``lm_head.weight``, ...), and Linear weights keep Paddle's
@@ -29,7 +31,7 @@ from torch import nn as tnn
 from .. import nn
 from ..framework.random import default_device, default_generator
 from ..ops.fused_loss import fused_linear_cross_entropy
-from ..ops.hopper import fused_norm
+from ..ops.hopper import decode_tail, fused_norm
 from ..ops.hopper.flash_attention import flash_attention_bshd
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -206,6 +208,11 @@ class LlamaRMSNorm(tnn.Module):
             torch.ones(config.hidden_size, device=device,
                        dtype=torch_dtype(config.dtype)))
 
+    def effective_weight(self):
+        """The scale every kernel call takes (the port has no offset norm,
+        so it is the weight itself)."""
+        return self.weight
+
     def forward(self, x):
         return fused_norm.rms_norm(x, self.weight, self.variance_epsilon)
 
@@ -226,10 +233,12 @@ class LlamaAttention(tnn.Module):
         self.v_proj = nn.Linear(self.hidden_size, hk * d, device=device, dtype=dt)
         self.o_proj = nn.Linear(h * d, self.hidden_size, device=device, dtype=dt)
 
-    def cached_attn_core(self, q, k, v, cos, sin, kv_cache):
-        """Attention against the serving caches: the paged pool (decode) or
-        a dense [B, T, hk, D] buffer (prefill). Returns (out [b, s, H*D]
-        before o_proj, new cache dict)."""
+    def cached_attn_core(self, q, k, v, cos, sin, kv_cache,
+                         rope_applied=False):
+        """Attention against the serving caches: the paged pool (decode or
+        verify chunk) or a dense [B, T, hk, D] buffer (prefill).
+        ``rope_applied``: q and k arrive rotated (the fused decode tail).
+        Returns (out [b, s, H*D] before o_proj, new cache dict)."""
         from ..generation import cached_attention, paged_cached_attention
 
         b, s = q.shape[0], q.shape[1]
@@ -238,7 +247,8 @@ class LlamaAttention(tnn.Module):
             out, kp, vp = paged_cached_attention(
                 q, k, v, cos, sin, kv_cache["k_pages"], kv_cache["v_pages"],
                 kv_cache["page_indices"], kv_cache["lengths"],
-                kv_cache["page_size"], window=self.window)
+                kv_cache["page_size"], window=self.window,
+                rope_applied=rope_applied)
             new = dict(kv_cache)
             new.update(k_pages=kp, v_pages=vp,
                        lengths=kv_cache["lengths"] + s)
@@ -247,13 +257,30 @@ class LlamaAttention(tnn.Module):
             q, k, v, cos, sin, kv_cache["k"], kv_cache["v"], kv_cache["pos"],
             kv_cache.get("allowed"), kv_cache.get("row_pos"),
             use_flash=self.config.use_flash_attention,
-            prefill=bool(kv_cache.get("prefill", False)), window=self.window)
+            prefill=bool(kv_cache.get("prefill", False)), window=self.window,
+            rope_applied=rope_applied)
         new = {"k": k_buf, "v": v_buf, "pos": kv_cache["pos"] + s}
         if "allowed" in kv_cache:
             new["allowed"] = kv_cache["allowed"]
         if "row_pos" in kv_cache:
             new["row_pos"] = kv_cache["row_pos"] + s
         return out.reshape(b, s, hd), new
+
+    def decode_fused_qkv(self, hidden_states, norm_weight, eps, cos, sin,
+                         kv_cache):
+        """``rms_norm`` → q/k/v → RoPE through the fused kernel (the caller
+        has checked ``fused_decode_supported``). A chunk of S > 1 flattens
+        to B*S rows, each roped at its own cache position. Returns (q, k, v)
+        shaped like the discrete projections, q and k rotated."""
+        b, s = hidden_states.shape[0], hidden_states.shape[1]
+        h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
+        cos_r, sin_r = _rope_rows_for_cache(cos, sin, kv_cache, b, s)
+        q, k, v = decode_tail.fused_qkv_rope(
+            hidden_states.reshape(b * s, self.hidden_size), norm_weight,
+            self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
+            cos_r, sin_r, eps, h, hk, d)
+        return (q.reshape(b, s, h, d), k.reshape(b, s, hk, d),
+                v.reshape(b, s, hk, d))
 
     def forward(self, hidden_states, cos, sin, kv_cache=None):
         """With a cache dict: the serving path, returns (out, new cache).
@@ -303,6 +330,67 @@ class LlamaMLP(tnn.Module):
         return self.down_proj(act)
 
 
+def _rope_rows_for_cache(cos, sin, kv_cache, b, s=1):
+    """cos / sin rows [B*S, D] at each row's current cache position: the
+    fused kernel ropes in-register, so the table gather happens here.
+    Paged caches decode at per-row ``lengths`` (token j of a verify chunk
+    at lengths[b] + j), ragged dense caches at ``row_pos``, plain dense
+    batches at the shared scalar ``pos``. S > 1 is paged only (the gate
+    keeps dense chunks on the discrete path)."""
+    if "k_pages" in kv_cache:
+        idx = kv_cache["lengths"].long()
+        if s > 1:
+            idx = (idx[:, None] + torch.arange(s, device=idx.device)[None]
+                   ).reshape(-1)
+    elif "row_pos" in kv_cache:
+        idx = kv_cache["row_pos"].long()
+    else:
+        pos = int(kv_cache["pos"])
+        return (cos[pos:pos + 1].expand(b, -1), sin[pos:pos + 1].expand(b, -1))
+    return cos[idx], sin[idx]
+
+
+def fused_decode_structural(layer, dtype) -> bool:
+    """The weight-structure half of the fused decode-tail gate: Llama
+    attention whose projections are the port's bias-free ``nn.Linear``,
+    and weights and RMSNorm scales all of ``dtype``. (The port builds no
+    qk-norm or q pre-multiplier layer: ``LlamaConfig`` refuses them.)"""
+    attn = getattr(layer, "self_attn", None)
+    if not isinstance(attn, LlamaAttention):
+        return False
+    lins = (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj)
+    if any(type(lin) is not nn.Linear
+           or getattr(lin, "bias", None) is not None for lin in lins):
+        return False
+    if any(lin.weight.dtype != dtype for lin in lins):
+        return False
+    norms = (getattr(layer, "input_layernorm", None),
+             getattr(layer, "post_attention_layernorm", None))
+    return all(isinstance(n, LlamaRMSNorm) and n.weight.dtype == dtype
+               for n in norms)
+
+
+def fused_decode_supported(layer, hidden_states, kv_cache, cos) -> bool:
+    """Gate of the fused decode tail, read on every call (eager PyTorch has
+    no trace time): the flag, a dict cache, S == 1 or a paged chunk, the
+    structural half above, the kernels' types (float32, bfloat16) and
+    ``decode_tail.supported``. Anything else keeps the discrete kernels."""
+    if not decode_tail.enabled() or not isinstance(kv_cache, dict):
+        return False
+    b, s = hidden_states.shape[0], hidden_states.shape[1]
+    if s != 1 and "k_pages" not in kv_cache:
+        return False
+    dtype = hidden_states.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if not fused_decode_structural(layer, dtype):
+        return False
+    attn = layer.self_attn
+    return decode_tail.supported(b * s, attn.hidden_size, attn.num_heads,
+                                 attn.num_kv_heads, attn.head_dim,
+                                 cos.shape[-1], hidden_states.element_size())
+
+
 class LlamaDecoderLayer(tnn.Module):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
@@ -311,8 +399,33 @@ class LlamaDecoderLayer(tnn.Module):
         self.input_layernorm = LlamaRMSNorm(config, device=device)
         self.post_attention_layernorm = LlamaRMSNorm(config, device=device)
 
+    def _forward_fused_decode(self, hidden_states, cos, sin, kv_cache):
+        """The decode tail as two kernel launches around attention:
+        norm → qkv → rope fused, then o_proj → residual add → norm fused. A
+        verify chunk takes the same kernels as B*S flattened rows."""
+        attn = self.self_attn
+        b, s = hidden_states.shape[0], hidden_states.shape[1]
+        q, k, v = attn.decode_fused_qkv(
+            hidden_states, self.input_layernorm.effective_weight(),
+            self.input_layernorm.variance_epsilon, cos, sin, kv_cache)
+        out, new_cache = attn.cached_attn_core(q, k, v, cos, sin, kv_cache,
+                                               rope_applied=True)
+        norm = self.post_attention_layernorm
+        normed, residual = decode_tail.fused_epilogue(
+            out.reshape(b * s, attn.num_heads * attn.head_dim),
+            attn.o_proj.weight,
+            hidden_states.reshape(b * s, attn.hidden_size),
+            norm.effective_weight(), norm.variance_epsilon)
+        hidden_states = residual.reshape(b, s, attn.hidden_size) + self.mlp(
+            normed.reshape(b, s, attn.hidden_size))
+        return hidden_states, new_cache
+
     def forward(self, hidden_states, cos, sin, kv_cache=None):
         """Returns hidden, or (hidden, new cache) when given a cache."""
+        if kv_cache is not None and fused_decode_supported(
+                self, hidden_states, kv_cache, cos):
+            return self._forward_fused_decode(hidden_states, cos, sin,
+                                              kv_cache)
         residual = hidden_states
         hidden_states = self.input_layernorm(hidden_states)
         if kv_cache is not None:

@@ -8,12 +8,20 @@ prefill into a dense cache (flash kernel for a prompt that fills its
 power-of-two bucket, append-attention kernel for a padded one) and copies
 that cache into the slot's pages of the pool.
 
+With ``speculative_k=k`` every greedy dispatch is a multi-token step: the
+host n-gram drafter proposes up to k-1 tokens per slot, one verify call
+forwards each slot's chunk [greedy, d_1..d_{k-1}] at per-row paged
+positions, and each slot advances by its accepted run (token-identical to
+the one-token step by construction).
+
 Ported: the pool layout, ``add_request``, FIFO admission, ``_bucket``,
 ``_bucketed_prefill``, ``_prefill_into``, ``_scatter_prefill``, ``step``,
-``run_until_done``, ``cancel``, ``finish_reason``, ``logprobs`` and
-``stats``. Not ported yet: prefix cache, chunked prefill, priorities and
-deadlines, preemption, migration and handoff, speculation, OOM
-degradation, tracing and metrics.
+``run_until_done``, ``cancel``, ``finish_reason``, ``logprobs``, ``stats``
+and speculation with an integer k (``_spec_eligible``,
+``_step_speculative``). Not ported yet: ``speculative_k="auto"`` (the
+autotune search), prefix cache, chunked prefill, priorities and deadlines,
+preemption, migration and handoff, OOM degradation, the flight recorder,
+tracing, the KV atlas, the step-anatomy clock and metrics.
 """
 from __future__ import annotations
 
@@ -24,8 +32,9 @@ import torch
 
 from .framework.random import default_generator
 from .generation import (_PrefillStep, _SelectDecodeRowsStep,
-                         _SelectDecodeStep)
+                         _SelectDecodeStep, _SpecDecodeStep)
 from .models.llama import head_dim_of, torch_dtype
+from .speculative import ngram_propose
 
 
 def _page_tiles(buf, page_size):
@@ -38,7 +47,8 @@ def _page_tiles(buf, page_size):
 
 class _Request:
     __slots__ = ("rid", "ids", "max_new_tokens", "tokens", "sampling",
-                 "on_token", "stop_token_ids", "logprobs", "want_logprobs")
+                 "on_token", "stop_token_ids", "logprobs", "want_logprobs",
+                 "spec_rounds", "spec_accepted")
 
     def __init__(self, rid, ids, max_new_tokens, sampling=None, on_token=None,
                  stop_token_ids=None, want_logprobs=False):
@@ -53,6 +63,8 @@ class _Request:
                                if stop_token_ids else None)
         self.want_logprobs = bool(want_logprobs)
         self.logprobs: List[float] = []
+        # speculative rounds this request rode, and drafts it accepted
+        self.spec_rounds = self.spec_accepted = 0
 
 
 class ContinuousBatchEngine:
@@ -63,14 +75,34 @@ class ContinuousBatchEngine:
     >>> rid = eng.add_request(prompt_ids, max_new_tokens=64)
     >>> done = eng.run_until_done()   # {rid: np.ndarray of generated ids}
 
-    The engine runs where the model's weights lie."""
+    The engine runs where the model's weights lie. ``speculative_k`` (an
+    int >= 1, or None for off) is the chunk width of a speculative dispatch:
+    one verified token plus up to k-1 drafts from an n-gram lookup of
+    length up to ``speculative_ngram``. Dispatches with a sampling slot
+    active take the one-token step."""
 
     def __init__(self, model, max_batch: int, max_len: int,
                  page_size: int = 16, eos_token_id: Optional[int] = None,
                  do_sample: bool = False, temperature: float = 1.0,
-                 top_k: int = 0, top_p: float = 1.0):
+                 top_k: int = 0, top_p: float = 1.0, speculative_k=None,
+                 speculative_ngram: int = 3):
         if max_len % page_size != 0:
             raise ValueError("max_len must be a multiple of page_size")
+        if speculative_k == "auto":
+            raise NotImplementedError(
+                "speculative_k='auto' needs the autotune search, which is "
+                "not ported (paddle_tpu/serving.py _resolve_spec_k, "
+                ":816-907); pass an int")
+        if speculative_k is not None:
+            speculative_k = int(speculative_k)
+            if speculative_k < 1:
+                raise ValueError(f"speculative_k must be >= 1, got "
+                                 f"{speculative_k}")
+            if speculative_k > max_len:
+                raise ValueError(f"speculative_k {speculative_k} exceeds "
+                                 f"max_len {max_len}")
+        self.speculative_k = speculative_k or None
+        self.speculative_ngram = int(speculative_ngram)
         cfg = model.config
         if max_len > cfg.max_position_embeddings:
             raise ValueError(f"max_len {max_len} exceeds "
@@ -115,6 +147,8 @@ class ContinuousBatchEngine:
         self._next_rid = 0
         self._n_requests = self._n_finished = self._n_cancelled = 0
         self._n_tokens = self._n_steps = 0
+        self._n_spec_steps = self._n_spec_emitted = 0
+        self._n_spec_accepted = self._n_spec_slot_rounds = 0
         self._steps: dict = {}
 
     # ---- public API -----------------------------------------------------
@@ -130,10 +164,7 @@ class ContinuousBatchEngine:
         streams each token."""
         ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor)
                          else ids).reshape(-1)
-        if ids.size + int(max_new_tokens) > self.max_len:
-            raise ValueError(
-                f"prompt ({ids.size}) + max_new_tokens ({max_new_tokens}) "
-                f"exceeds engine max_len {self.max_len}")
+        self._require_fit(ids.size, int(max_new_tokens))
         if temperature is not None and temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature} "
                              "(0 decodes greedily)")
@@ -169,6 +200,14 @@ class ContinuousBatchEngine:
             "decode_steps": self._n_steps,
             "tokens_generated": self._n_tokens,
             "slot_utilization": active / self.max_batch,
+            # tokens retired per slot per speculative dispatch (1.0 = no
+            # gain); zeros while speculation is off
+            "spec_dispatches": self._n_spec_steps,
+            "spec_emitted_tokens": self._n_spec_emitted,
+            "spec_accepted_tokens": self._n_spec_accepted,
+            "accepted_tokens_per_dispatch": (
+                self._n_spec_emitted / self._n_spec_slot_rounds
+                if self._n_spec_slot_rounds else 0.0),
         }
 
     def cancel(self, rid: int) -> bool:
@@ -196,6 +235,8 @@ class ContinuousBatchEngine:
         lengths = torch.from_numpy(self._lengths).to(self.device)
         for c in self._caches:
             c["lengths"] = lengths
+        if self.speculative_k is not None and self._spec_eligible():
+            return self._step_speculative()
         if any(r is not None and r.sampling is not None for r in self._slots):
             rows = [(r.sampling or self._sample_cfg) if r is not None
                     else self._sample_cfg for r in self._slots]
@@ -218,41 +259,10 @@ class ContinuousBatchEngine:
             nxt, logps, self._last, self._caches = step(
                 self._last, self._generator, self._caches)
         # the one device -> host sync of the step
-        toks = nxt.cpu().numpy()
-        lps = logps.cpu().numpy()
+        toks = nxt.cpu().numpy()[:, None]
+        lps = logps.cpu().numpy()[:, None]
         self._n_steps += 1
-        retiring, events = [], []
-        for s, req in enumerate(self._slots):
-            if req is None:
-                continue
-            t = int(toks[s])
-            req.tokens.append(t)
-            self._n_tokens += 1
-            if req.want_logprobs:
-                req.logprobs.append(float(lps[s]))
-            stopped = ((self.eos_token_id is not None
-                        and t == self.eos_token_id)
-                       or (req.stop_token_ids is not None
-                           and t in req.stop_token_ids))
-            finished = stopped or len(req.tokens) >= req.max_new_tokens
-            if finished:
-                self._record_reason(
-                    req.rid, "stop" if stopped else "length",
-                    logprobs=list(req.logprobs) if req.want_logprobs else None)
-                retiring.append(s)
-            if req.on_token is not None:
-                events.append((req.on_token, req.rid, t, finished))
-        active = np.array([r is not None for r in self._slots])
-        self._lengths = np.where(active, self._lengths + 1, 0).astype(np.int32)
-        for s in retiring:
-            req = self._slots[s]
-            self._finished[req.rid] = np.asarray(req.tokens, np.int64)
-            self._n_finished += 1
-            self._release_slot(s)
-        for cb, rid, t, done in events:   # after the state is consistent
-            cb(rid, t, done)
-        self._admit()
-        return self._drain_finished()
+        return self._commit(toks, np.ones(self.max_batch, np.int64), lps)
 
     def run_until_done(self, max_steps: Optional[int] = None
                        ) -> Dict[int, np.ndarray]:
@@ -266,7 +276,117 @@ class ContinuousBatchEngine:
         out.update(self._drain_finished())
         return out
 
+    # ---- speculative decoding -------------------------------------------
+    def _spec_eligible(self) -> bool:
+        """Speculation verifies against the greedy choice, so it runs only
+        while every active slot decodes greedily (temperature ~ 0 counts as
+        greedy, as in ``sample_logits``)."""
+        for r in self._slots:
+            if r is None:
+                continue
+            do_sample, temperature, _, _ = r.sampling or self._sample_cfg
+            if do_sample and temperature > 1e-6:
+                return False
+        return True
+
+    def _step_speculative(self) -> Dict[int, np.ndarray]:
+        """One multi-token step: drafts from each slot's history, one verify
+        call, and each slot's accepted run committed (``_commit``)."""
+        k = self.speculative_k
+        drafts = np.zeros((self.max_batch, k - 1), np.int32)
+        for s, r in enumerate(self._slots):
+            if r is None or k == 1:
+                continue
+            hist = (np.concatenate([r.ids, np.asarray(r.tokens, np.int64)])
+                    if r.tokens else r.ids)
+            # the lookup's first token predicts the position the in-call
+            # argmax decides, so its continuation rides the chunk
+            prop = ngram_propose(hist, k, self.speculative_ngram)
+            if prop.size > 1:
+                drafts[s, :prop.size - 1] = prop[1:]
+        step = self._step_unit(("spec", k), lambda: _SpecDecodeStep(
+            self.model, self.max_len))
+        emitted, n_emit, logps, self._last, self._caches = step(
+            self._last, torch.from_numpy(drafts).to(self.device),
+            self._caches)
+        # the one device -> host sync of the step
+        toks = emitted.cpu().numpy()
+        n_row = n_emit.cpu().numpy()
+        lps = logps.cpu().numpy()
+        self._n_steps += 1
+        self._n_spec_steps += 1
+        before = [(r, len(r.tokens)) for r in self._slots if r is not None]
+        out = self._commit(toks, n_row, lps)
+        for req, n0 in before:
+            got = len(req.tokens) - n0
+            req.spec_rounds += 1
+            req.spec_accepted += got - 1
+            self._n_spec_accepted += got - 1
+            self._n_spec_emitted += got
+            self._n_spec_slot_rounds += 1
+        return out
+
+    def _commit(self, toks, n_emit, lps) -> Dict[int, np.ndarray]:
+        """Hand each active slot s its emitted run toks[s, :n_emit[s]]
+        (logprobs lps[s, j]), cut at the request's stop condition (eos,
+        stop set, token budget); retire finished requests, advance the
+        others' lengths by what they took, stream, then refill the slots.
+        Returns the requests that finished {rid: generated ids}."""
+        retiring, events = [], []
+        adv = np.zeros(self.max_batch, np.int32)
+        for s, req in enumerate(self._slots):
+            if req is None:
+                continue
+            deliver, stopped = [], False
+            for j in range(int(n_emit[s])):
+                t = int(toks[s, j])
+                deliver.append(t)
+                if ((self.eos_token_id is not None and t == self.eos_token_id)
+                        or (req.stop_token_ids is not None
+                            and t in req.stop_token_ids)):
+                    stopped = True
+                    break
+                if len(req.tokens) + len(deliver) >= req.max_new_tokens:
+                    break
+            req.tokens.extend(deliver)
+            if req.want_logprobs:
+                req.logprobs.extend(float(lp) for lp in lps[s, :len(deliver)])
+            self._n_tokens += len(deliver)
+            finished = stopped or len(req.tokens) >= req.max_new_tokens
+            if finished:
+                self._record_reason(
+                    req.rid, "stop" if stopped else "length",
+                    logprobs=list(req.logprobs) if req.want_logprobs else None)
+                retiring.append(s)
+            else:
+                adv[s] = len(deliver)
+            if req.on_token is not None:
+                for j, t in enumerate(deliver):
+                    events.append((req.on_token, req.rid, t,
+                                   finished and j == len(deliver) - 1))
+        self._lengths = (self._lengths + adv).astype(np.int32)
+        for s in retiring:
+            req = self._slots[s]
+            self._finished[req.rid] = np.asarray(req.tokens, np.int64)
+            self._n_finished += 1
+            self._release_slot(s)
+        for cb, rid, t, done in events:   # after the state is consistent
+            cb(rid, t, done)
+        self._admit()
+        return self._drain_finished()
+
     # ---- internals ------------------------------------------------------
+    def _require_fit(self, n_prompt: int, max_new: int):
+        """Slot capacity at admission. With speculation every dispatch
+        writes a k-token chunk from the row's frontier, so the last one
+        needs k-1 positions of slack for the rejected drafts' KV."""
+        slack = (self.speculative_k - 1) if self.speculative_k else 0
+        if n_prompt + max_new + slack > self.max_len:
+            extra = f" + speculation slack ({slack})" if slack else ""
+            raise ValueError(
+                f"prompt ({n_prompt}) + max_new_tokens ({max_new})"
+                f"{extra} exceeds engine max_len {self.max_len}")
+
     def _merge_sampling(self, do_sample, temperature, top_k, top_p):
         """Engine defaults overlaid with the request's overrides; None when
         the result equals the engine config."""

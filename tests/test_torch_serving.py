@@ -150,7 +150,9 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
 def test_port_imports_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.weights, paddle_tpu_torch.jit, "
-            "paddle_tpu_torch.optimizer, paddle_tpu_torch.ops.fused_loss\n"
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.ops.fused_loss, "
+            "paddle_tpu_torch.speculative, paddle_tpu_torch.utils.flags, "
+            "paddle_tpu_torch.ops.hopper.decode_tail\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'paddle_tpu' "
             "or m.startswith('paddle_tpu.'))\n"
