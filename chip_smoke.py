@@ -16,7 +16,12 @@ Phases (any failure raises, so the script exits non-zero):
    only (the port never calls it). The attention backward is held against
    ``torch.autograd`` through the plain forward. The fused decode-tail
    kernels run at 8 and 32 rows, beside two yardsticks: ``torch.matmul`` of
-   the product alone and the port's discrete sequence they replace.
+   the product alone and the port's discrete sequence they replace. The
+   sliding-window (LocalMask) flash forward and backward run at Mistral-7B's
+   training shape (sequence 8192, window 4096; the plain version one KV head
+   at a time), beside SDPA with the band as its mask and the causal kernel
+   at the same sequence, which the local one must beat; and at edge shapes
+   in f32 and bf16.
 3. The serving path at full width: Llama-3-8B (bf16, all 32 layers, random
    weights from a seeded generator on the card) behind
    ``ContinuousBatchEngine(max_batch=8, max_len=2048)``, ten greedy
@@ -41,7 +46,20 @@ Phases (any failure raises, so the script exits non-zero):
 6. Training wiring: two layers at full width in f32, sequence 128, the
    same weights on the card and on the CPU; one ``train_step`` each; the
    losses, every gradient and every parameter after the step must agree.
-7. The kernels line, then the card line, then the result line
+7. Mistral-7B serving (after the Llama models are freed): all 32 layers,
+   bf16, random weights, ``ContinuousBatchEngine(max_batch=4,
+   max_len=12288)``, greedy prompts of 8192 and 2048 tokens (exact buckets:
+   the LocalMask flash kernel) and 4700 and 300 (padded: the f32 einsum, as
+   the JAX package), 32 new tokens each, decode through the band gather;
+   fused tail off, then on. Counts zeroed before and read after each run.
+8. Mistral-7B training: its widths at depth 4, sequence 8192 (above the
+   window), phase 5's recipe with untied embeddings; the local kernels
+   must run once per layer and step.
+9. Windowed wiring, f32, card against CPU: two Mistral layers at full
+   width, window 256, a 512-token prompt and 16 greedy tokens at max_len
+   1024 (tokens identical, prefill logits within 1e-3); one training step
+   at sequence 512, window 128, held as phase 6.
+10. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -50,6 +68,7 @@ code 2 and prints no result when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -72,6 +91,8 @@ REPLACES = {
     "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:122",
     "fused_qkv_rope": "paddle_tpu/ops/pallas/decode_tail.py:260",
     "fused_epilogue": "paddle_tpu/ops/pallas/decode_tail.py:347",
+    "flash_attention_local": "paddle_tpu/ops/pallas/flash_attention.py:97",
+    "flash_attention_local_bwd": "paddle_tpu/ops/pallas/flash_attention.py:97",
 }
 SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -83,6 +104,8 @@ SOURCES = {
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
     "fused_qkv_rope": "paddle_tpu_torch/csrc/decode_tail.cu",
     "fused_epilogue": "paddle_tpu_torch/csrc/decode_tail.cu",
+    "flash_attention_local": "paddle_tpu_torch/csrc/append_attention.cu",
+    "flash_attention_local_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
 }
 # the kernels each main path must launch
 SERVING_KERNELS = ("rms_norm", "add_rms_norm", "append_attention",
@@ -90,8 +113,14 @@ SERVING_KERNELS = ("rms_norm", "add_rms_norm", "append_attention",
 TRAINING_KERNELS = ("rms_norm", "add_rms_norm", "fused_rope",
                     "flash_attention_bshd", "flash_attention_bwd")
 FUSED_KERNELS = ("fused_qkv_rope", "fused_epilogue", "paged_attention")
+MISTRAL_TRAINING_KERNELS = ("rms_norm", "add_rms_norm", "fused_rope",
+                            "flash_attention_local",
+                            "flash_attention_local_bwd")
 SPEC_K = 4
 TRAIN_SEQ, TRAIN_DEPTH, TRAIN_STEPS = 4096, 4, 5
+# Mistral-7B: sliding window 4096; training at 8192, above the window
+LOCAL_SEQ, WINDOW = 8192, 4096
+MISTRAL_LENS, MISTRAL_NEW = (8192, 2048, 4700, 300), 32
 
 
 def log(*a):
@@ -288,6 +317,11 @@ def check_kernels(results):
     check_decode_tail_kernels(record, randn)
     check_training_kernels(record, close_bf16, randn)
     torch.cuda.empty_cache()
+    # the sliding-window kernels: edge shapes, then Mistral-7B's training
+    # shape
+    check_local_edges()
+    check_flash_rows(record, close_bf16, randn, LOCAL_SEQ, WINDOW)
+    torch.cuda.empty_cache()
 
 
 def check_decode_tail_kernels(record, randn):
@@ -409,13 +443,8 @@ def check_decode_tail_kernels(record, randn):
 
 def check_training_kernels(record, close_bf16, randn):
     """The training path's kernels at Llama-3-8B widths, sequence 4096."""
-    import math
-
-    import torch
-
     from paddle_tpu_torch.models.llama import _rope_tables
-    from paddle_tpu_torch.ops.hopper import (append_attention, flash_attention,
-                                             fused_norm)
+    from paddle_tpu_torch.ops.hopper import fused_norm
 
     S, H, hk, D = TRAIN_SEQ, 32, 8, 128
     cos, sin = _rope_tables(S, D, 500000.0, device="cuda")
@@ -431,74 +460,227 @@ def check_training_kernels(record, close_bf16, randn):
                None, bound(2 * x.numel() * 2 + 2 * S * D * 4, 3 * x.numel(),
                            "bfloat16"), heads == H)
 
+    check_flash_rows(record, close_bf16, randn, S, None)
+
+
+def band_cells(s, window):
+    """Visible (query, key) cells of one head under the LocalMask of
+    ``window`` at S = T = ``s``: query i sees min(i + 1, window) keys."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def check_local_edges():
+    """The local kernels off the main path's shape, forward with lse and
+    backward against autograd through the plain version: sequences that end
+    in a short tile, a rectangular s_q < s_kv (pos > 0), windows of 1 and
+    wider than the sequence, several groupings, f32 and bf16. f32: out and
+    lse within 2e-5, each gradient within 1e-5 of its largest entry (sums
+    in another order); bf16: out as the main rows, gradients within 2^-6
+    of the largest entry."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import append_attention, flash_attention
+
+    gen = torch.Generator("cuda").manual_seed(99)
+    for s_q, s_kv, H, hk, W, dtype in (
+            (200, 200, 8, 2, 37, torch.float32),
+            (64, 300, 4, 1, 100, torch.float32),
+            (130, 130, 4, 4, 1, torch.float32),
+            (333, 333, 8, 2, 1000, torch.bfloat16),
+            (256, 512, 8, 1, 70, torch.bfloat16)):
+        q, k, v, dout = (torch.randn(1, n, h, 128, generator=gen,
+                                     device="cuda").to(dtype)
+                         for n, h in ((s_q, H), (s_kv, hk), (s_kv, hk),
+                                      (s_q, H)))
+        scale = 1.0 / math.sqrt(128)
+        pos = s_kv - s_q
+        out, lse = append_attention.launch(q, k, v, pos, None, scale,
+                                           "flash_attention_local",
+                                           with_lse=True, window=W)
+        grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                    scale, window=W)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref = flash_attention.flash_attention_plain(*leaves, causal=True,
+                                                    window=W)
+        ref_grads = torch.autograd.grad(ref, leaves, dout)
+        rows = torch.arange(s_q, device="cuda")[:, None] + pos
+        cols = torch.arange(s_kv, device="cuda")[None]
+        band = (cols <= rows) & (cols > rows - W)
+        g = H // hk
+        sc = torch.einsum("bskgd,btkd->bkgst",
+                          q.reshape(1, s_q, hk, g, 128).float(),
+                          k.float()) * scale
+        ref_lse = torch.logsumexp(sc.masked_fill(~band, float("-inf")),
+                                  dim=-1).reshape(1, H, s_q)
+        ref = ref.detach()
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip((out, lse) + tuple(grads),
+                                (ref, ref_lse) + tuple(ref_grads))]
+        tops = [float(b.float().abs().max()) for b in ref_grads]
+        if dtype == torch.float32:
+            ok = (errs[0] <= 2e-5 and errs[1] <= 2e-5
+                  and all(e <= 1e-5 * max(t, 1.0)
+                          for e, t in zip(errs[2:], tops)))
+        else:
+            diff = (out.float() - ref.float()).abs()
+            ok = (bool((diff <= 2e-3 + 2.0 ** -7 * ref.float().abs()).all())
+                  and errs[1] <= 1e-3
+                  and all(e <= 2.0 ** -6 * t for e, t in zip(errs[2:], tops)))
+        log(f"  local edges {str(dtype)[6:]} s_q={s_q} s_kv={s_kv} H={H} "
+            f"hk={hk} W={W}: max abs err out {errs[0]:.2e} lse "
+            f"{errs[1]:.2e} dq/dk/dv {errs[2]:.2e}/{errs[3]:.2e}/"
+            f"{errs[4]:.2e} ok={ok}")
+        if not ok:
+            raise AssertionError(f"local flash kernels disagree with their "
+                                 f"plain version at s_q={s_q} s_kv={s_kv} "
+                                 f"W={W} {dtype}")
+
+
+def check_flash_rows(record, close_bf16, randn, S, window):
+    """The flash forward with lse and its backward at [1, S, 32 | 8, 128],
+    bf16, causal (``window`` None) or under the LocalMask of ``window``:
+    each against its plain version, which runs one KV head (its g query
+    heads) at a time, the same function in 1/8 of the memory (its f32
+    scores take 1.1 GB per KV head at S = 8192); the backward against
+    ``torch.autograd`` through it. Yardsticks: SDPA, causal or with the
+    band as its mask. With a window also the prefill's call (no lse) and
+    the causal kernel at the same S, which the local one must beat, or the
+    kernel did not skip the tiles below the band."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import append_attention, flash_attention
+
+    H, hk, D = 32, 8, 128
+    g = H // hk
     scale = 1.0 / math.sqrt(D)
+    fwd_name, bwd_name = flash_attention._counters(window)
+    label = f"S={S} causal" if window is None else f"S={S} W={window} local"
     q, k, v = randn(1, S, H, D), randn(1, S, hk, D), randn(1, S, hk, D)
     dout = randn(1, S, H, D)
-    pairs = S * (S + 1) // 2
+    cells = band_cells(S, window or S)
+    heads = [(slice(j * g, (j + 1) * g), slice(j, j + 1)) for j in range(hk)]
 
-    def fwd():
-        return append_attention.launch(q, k, v, 0, None, scale,
-                                       "flash_attention_bshd", with_lse=True)
+    def plain_fwd():
+        return torch.cat([flash_attention.flash_attention_plain(
+            q[:, :, hq], k[:, :, hkv], v[:, :, hkv], causal=True,
+            window=window) for hq, hkv in heads], dim=2)
+
+    rows = torch.arange(S, device=q.device)
+    band = rows[None, :] <= rows[:, None]
+    if window is not None:
+        band = band & (rows[None, :] > rows[:, None] - window)
+    with torch.no_grad():
+        ref = plain_fwd()
+        lses = []
+        for hq, hkv in heads:
+            sc = torch.einsum("bshd,btd->bhst", q[:, :, hq].float(),
+                              k[:, :, hkv.start].float()) * scale
+            lses.append(torch.logsumexp(sc.masked_fill(~band, float("-inf")),
+                                        dim=-1))
+            del sc
+        ref_lse = torch.cat(lses, dim=1)
+        del lses
+
+    def fwd(name=fwd_name, win=window):
+        return append_attention.launch(q, k, v, 0, None, scale, name,
+                                       with_lse=True, window=win)
 
     out, lse = fwd()
-    with torch.no_grad():
-        ref = flash_attention.flash_attention_plain(q, k, v, causal=True)
-        qg = q.reshape(1, S, hk, H // hk, D).float()
-        sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
-        vis = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-        ref_lse = torch.logsumexp(sc.masked_fill(~vis, float("-inf")),
-                                  dim=-1).reshape(1, H, S)
-        del qg, sc
     err, ok = close_bf16(out, ref)
     lse_err = float((lse - ref_lse).abs().max())
     ok = ok and lse_err <= 1e-3        # f32, sums in another order
-    log(f"  flash lse vs plain: max abs err {lse_err:.3e} (tolerance 1e-3)")
+    log(f"  {fwd_name} lse vs plain: max abs err {lse_err:.3e} (tolerance "
+        f"1e-3)")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    record("flash_attention_bshd", f"S={S} causal, lse", err, ok,
-           time_ms(fwd, reps=5, warmup=1),
-           time_ms(lambda: flash_attention.flash_attention_plain(
-               q, k, v, causal=True), reps=5, warmup=1),
-           time_ms(lambda: sdpa_gqa(qt, kt, vt, causal=True), reps=5,
-                   warmup=1),
-           bound(2 * S * (H + hk) * D * 2 + H * S * 4, 4 * D * H * pairs,
-                 "bfloat16"), True)
+    mask = None if window is None else band[None, None]
+
+    def sdpa():
+        return sdpa_gqa(qt, kt, vt, mask=mask, causal=window is None)
+
+    plain_ms = time_ms(plain_fwd, reps=3, warmup=1)
+    sdpa_ms = time_ms(sdpa, reps=5, warmup=1)
+    kernel_ms = time_ms(fwd, reps=5, warmup=1)
+    nbytes = 2 * S * (H + hk) * D * 2
+    record(fwd_name, f"{label}, lse", err, ok, kernel_ms, plain_ms, sdpa_ms,
+           bound(nbytes + H * S * 4, 4 * D * H * cells, "bfloat16"), True)
+    if window is not None:
+        causal_ms = time_ms(lambda: fwd("flash_attention_bshd", None),
+                            reps=5, warmup=1)
+        log(f"  causal kernel at S={S} (with lse) {causal_ms:.4f} ms, local "
+            f"kernel W={window} {kernel_ms:.4f} ms: ratio "
+            f"{kernel_ms / causal_ms:.3f} (visible cells {cells} vs "
+            f"{S * (S + 1) // 2}, ratio {cells / (S * (S + 1) / 2):.3f})")
+        if not kernel_ms < causal_ms:
+            raise AssertionError("the local flash forward is not faster than "
+                                 "the causal one: the kernel did not skip "
+                                 "the tiles below the band")
+
+        def prefill():
+            return flash_attention.flash_attention_bshd(q, k, v, causal=True,
+                                                        window=window)
+
+        out2 = prefill()
+        err2, ok2 = close_bf16(out2, ref)
+        record(fwd_name, f"{label} (prefill)", err2,
+               ok2 and torch.equal(out2, out), time_ms(prefill, reps=5,
+                                                       warmup=1),
+               plain_ms, sdpa_ms, bound(nbytes, 4 * D * H * cells,
+                                        "bfloat16"), False)
+        del out2
     del ref, ref_lse
 
     def bwd():
         return flash_attention.flash_attention_bwd(q, k, v, out, lse, dout,
-                                                   scale)
+                                                   scale, window=window)
 
     grads = bwd()
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    plain_out = flash_attention.flash_attention_plain(*leaves, causal=True)
+    # autograd through the plain forward, one KV head at a time; its time
+    # is the sum of the heads' backward times
+    ref_grads = [[], [], []]
+    plain_ms = 0.0
+    for hq, hkv in heads:
+        leaves = [t.detach().requires_grad_()
+                  for t in (q[:, :, hq], k[:, :, hkv], v[:, :, hkv])]
+        o = flash_attention.flash_attention_plain(*leaves, causal=True,
+                                                  window=window)
+        d_s = dout[:, :, hq]
 
-    def plain_bwd():
-        return torch.autograd.grad(plain_out, leaves, dout, retain_graph=True)
+        def plain_bwd():
+            return torch.autograd.grad(o, leaves, d_s, retain_graph=True)
 
-    ref_grads = plain_bwd()
+        for acc, gr in zip(ref_grads, plain_bwd()):
+            acc.append(gr)
+        plain_ms += time_ms(plain_bwd, reps=3, warmup=1)
+        del o, leaves
+    ref_grads = [torch.cat(parts, dim=2) for parts in ref_grads]
     # f32 sums on both sides; the kernel's delta uses the rounded bf16 out:
     # two bf16 ulps of the largest entry of each gradient
     err, ok = 0.0, True
-    for name, g, rg in zip(("dq", "dk", "dv"), grads, ref_grads):
-        e = float((g.float() - rg.float()).abs().max())
+    for name, gr, rg in zip(("dq", "dk", "dv"), grads, ref_grads):
+        e = float((gr.float() - rg.float()).abs().max())
         lim = 2.0 ** -6 * float(rg.float().abs().max())
-        log(f"  flash_attention_bwd {name}: max abs err {e:.3e} "
-            f"(tolerance {lim:.3e})")
+        log(f"  {bwd_name} {name}: max abs err {e:.3e} (tolerance "
+            f"{lim:.3e})")
         err, ok = max(err, e), ok and e <= lim
     del ref_grads
     lib_leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
-    lib_out = sdpa_gqa(*lib_leaves, causal=True)
+    lib_out = sdpa_gqa(*lib_leaves, mask=mask, causal=window is None)
     dout_t = dout.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, dout_t,
+                                                 retain_graph=True),
+                     reps=5, warmup=1)
+    del lib_out, lib_leaves
     nbytes = (3 * S * H * D + 2 * S * hk * D) * 2 + H * S * 4 + (
         S * H * D + 2 * S * hk * D) * 2
     # S, dP, dV, dK and dQ: five products of 2 * D operations per pair
-    record("flash_attention_bwd", f"S={S} causal", err, ok,
-           time_ms(bwd, reps=5, warmup=1),
-           time_ms(plain_bwd, reps=5, warmup=1),
-           time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, dout_t,
-                                               retain_graph=True),
-                   reps=5, warmup=1),
-           bound(nbytes, 10 * D * H * pairs, "bfloat16"), True)
+    record(bwd_name, label, err, ok, time_ms(bwd, reps=5, warmup=1),
+           plain_ms, lib_ms, bound(nbytes, 10 * D * H * cells, "bfloat16"),
+           True)
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -556,8 +738,8 @@ def serve_run(model, card, label, prompts, news, fused, log_prefills=False,
     from paddle_tpu_torch.utils.flags import flag_overrides
 
     cfg = model.config
-    eng = timed_engine(model, max_batch=8, max_len=2048, page_size=16,
-                       **engine_kw)
+    eng = timed_engine(model, **{**dict(max_batch=8, max_len=2048,
+                                        page_size=16), **engine_kw})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with flag_overrides({"use_fused_decode_tail": fused}):
@@ -587,8 +769,8 @@ def serve_run(model, card, label, prompts, news, fused, log_prefills=False,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if log_prefills:
         for n, ms in eng.prefill_ms:
-            log(f"  [{card}] prefill prompt={n} bucket={eng._bucket(n)} "
-                f"ms={ms:.2f}")
+            log(f"  [{card}] {label}: prefill prompt={n} "
+                f"bucket={eng._bucket(n)} ms={ms:.2f}")
     log(f"  [{card}] {label}: decode ms/step median="
         f"{statistics.median(eng.step_ms):.3f} mean={dec_ms / steps:.3f}; "
         f"decode tokens/s={dec_tokens / (dec_ms / 1e3):.1f}")
@@ -731,13 +913,15 @@ def require_launched(counts, names, path):
                                  f"{path} path")
 
 
-def profile_decode(model, card, n_steps=10):
+def profile_decode(model, card, n_steps=10, slots=8, max_len=2048,
+                   prompt=512):
     """Where a decode step's time goes at full occupancy, with the fused
-    tail off and on: 8 requests of 512 prompt tokens; ``n_steps`` steps
-    timed on the host clock, then ``n_steps`` more under ``torch.profiler``
-    for the device time and count of each kernel. One stream, so kernel
-    times do not overlap: their sum over the unprofiled wall time is the
-    device's busy share."""
+    tail off and on: ``slots`` requests of ``prompt`` tokens; ``n_steps``
+    steps timed on the host clock, then ``n_steps`` more under
+    ``torch.profiler`` for the device time and count of each kernel, and
+    the host time of each PyTorch op. One stream, so kernel times do not
+    overlap: their sum over the unprofiled wall time is the device's busy
+    share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -747,11 +931,12 @@ def profile_decode(model, card, n_steps=10):
 
     for fused in (False, True):
         with flag_overrides({"use_fused_decode_tail": fused}):
-            eng = ContinuousBatchEngine(model, max_batch=8, max_len=2048)
+            eng = ContinuousBatchEngine(model, max_batch=slots,
+                                        max_len=max_len)
             rng = np.random.RandomState(5)
-            for _ in range(8):
+            for _ in range(slots):
                 eng.add_request(rng.randint(0, model.config.vocab_size,
-                                            size=512),
+                                            size=prompt),
                                 max_new_tokens=2 * n_steps + 4)
             for _ in range(2):
                 eng.step()
@@ -766,21 +951,29 @@ def profile_decode(model, card, n_steps=10):
                 for _ in range(n_steps):
                     eng.step()
                 torch.cuda.synchronize()
-            rows = []
+            rows, host = [], []
             for e in prof.key_averages():
                 if e.device_type == DeviceType.CUDA:   # kernels, not host ops
                     rows.append((e.device_time_total / 1e3 / n_steps,
                                  e.count / n_steps, e.key))
+                elif e.key.startswith("aten::"):
+                    host.append((e.self_cpu_time_total / 1e3 / n_steps,
+                                 e.count / n_steps, e.key))
             rows.sort(reverse=True)
+            host.sort(reverse=True)
             busy_ms = sum(r[0] for r in rows)
             n_kern = sum(r[1] for r in rows)
-            log(f"profile: [{card}] decode at 8 active slots, fused tail "
-                f"{'on' if fused else 'off'}: {wall_ms:.3f} ms/step wall "
-                f"(unprofiled), device busy {busy_ms:.3f} ms/step (share "
-                f"{busy_ms / wall_ms:.3f}), {n_kern:.0f} CUDA kernels "
-                f"launched per step")
+            log(f"profile: [{card}] {model.config.__class__.__name__} decode "
+                f"at {slots} active slots, prompts {prompt}, max_len "
+                f"{max_len}, fused tail {'on' if fused else 'off'}: "
+                f"{wall_ms:.3f} ms/step wall (unprofiled), device busy "
+                f"{busy_ms:.3f} ms/step (share {busy_ms / wall_ms:.3f}), "
+                f"{n_kern:.0f} CUDA kernels launched per step")
             for ms, count, key in rows[:12]:
                 log(f"  {ms:8.3f} ms/step {count:7.1f}/step  {key[:80]}")
+            log("  host time by op (self, profiled): " + "; ".join(
+                f"{key} {ms:.2f} ms x{count:.0f}"
+                for ms, count, key in host[:8]))
             eng.run_until_done()
             del eng
 
@@ -872,22 +1065,27 @@ def token_batch(vocab, seq, seed, device):
     return ids[:, :-1], ids[:, 1:]
 
 
-def train_full_width():
+def train_run(phase, cfg, seq, kernels, seed):
+    """The training main path of one configuration: ``train_step`` once to
+    warm up, then TRAIN_STEPS timed steps on one fixed random batch, launch
+    counts zeroed just before the first step and read just after the last;
+    then one profiled step. Returns the counts."""
     import torch
 
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM
     from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.weights import model_class
 
-    cfg = train_config(num_hidden_layers=TRAIN_DEPTH)
-    model = LlamaForCausalLM(cfg, device="cuda",
-                             generator=torch.Generator("cuda").manual_seed(2))
+    model = model_class(cfg)(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(
+                                 seed))
     n_params = sum(p.numel() for p in model.parameters())
     step = make_train_step(model)
-    x, y = token_batch(cfg.vocab_size, TRAIN_SEQ, 0, "cuda")
+    x, y = token_batch(cfg.vocab_size, seq, 0, "cuda")
     card = card_line()
-    log(f"phase 5: training, Llama-3-8B widths, {TRAIN_DEPTH} layers, "
-        f"{n_params / 1e9:.3f}B parameters, bf16, seq {TRAIN_SEQ}, batch 1, "
-        f"AdamW(3e-4, wd 0.1, bf16 moments, f32 masters)")
+    log(f"{phase}: {cfg.num_hidden_layers} layers, {n_params / 1e9:.3f}B "
+        f"parameters, bf16, seq {seq}, batch 1, window "
+        f"{cfg.sliding_window}, AdamW(3e-4, wd 0.1, bf16 moments, f32 "
+        f"masters)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path's run: counts zeroed just before, read just after
@@ -904,13 +1102,13 @@ def train_full_width():
     log(f"  [{card}] losses {[round(v, 4) for v in losses]}")
     log(f"  [{card}] step ms: warm-up {step_ms[0]:.1f}, then "
         f"{[round(v, 1) for v in step_ms[1:]]}; median {med:.1f} ms, "
-        f"{TRAIN_SEQ / (med / 1e3):.1f} tokens/s; peak memory "
+        f"{seq / (med / 1e3):.1f} tokens/s; peak memory "
         f"{peak / 2**30:.2f} GiB")
     log(f"  launches ({1 + TRAIN_STEPS} steps): {json.dumps(counts)}")
-    require_launched(counts, TRAINING_KERNELS, "training")
-    # logits at init: normed hidden (rms 1) times the tied embedding (std
-    # 0.02) have std 0.02 * sqrt(hidden); for V such logits the expected
-    # loss is ln V + std^2 / 2
+    require_launched(counts, kernels, "training")
+    # logits at init: normed hidden (rms 1) times the output embedding
+    # (std 0.02) have std 0.02 * sqrt(hidden); for V such logits the
+    # expected loss is ln V + std^2 / 2
     sigma = cfg.initializer_range * np.sqrt(cfg.hidden_size)
     expect = np.log(cfg.vocab_size) + sigma ** 2 / 2
     log(f"  first loss {losses[0]:.4f}: expected {expect:.4f} (ln V = "
@@ -929,6 +1127,13 @@ def train_full_width():
     del step, model
     torch.cuda.empty_cache()
     return counts
+
+
+def train_full_width():
+    """Phase 5: the Llama-3-8B recipe at depth 4, sequence 4096."""
+    return train_run("phase 5: training, Llama-3-8B widths",
+                     train_config(num_hidden_layers=TRAIN_DEPTH), TRAIN_SEQ,
+                     TRAINING_KERNELS, 2)
 
 
 def profile_train_step(step, x, y, card, step_ms):
@@ -975,23 +1180,31 @@ def profile_train_step(step, x, y, card, step_ms):
 
 # ---------------------------------------------------------------- phase 6 --
 
-def train_wiring_check():
+def train_wiring_check(phase="phase 6: training wiring", cfg=None, seq=128,
+                       seed=3):
+    """One ``train_step`` of the same f32 weights on the card and on the
+    CPU: the losses, every gradient and every parameter after the step must
+    agree. Returns the card step's launch counts."""
     import torch
 
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.weights import model_class
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = train_config(num_hidden_layers=2, dtype="float32")
-    m_gpu = LlamaForCausalLM(cfg, device="cuda",
-                             generator=torch.Generator("cuda").manual_seed(3))
-    m_cpu = LlamaForCausalLM(cfg, device="cpu",
-                             generator=torch.Generator().manual_seed(0))
+    if cfg is None:
+        cfg = train_config(num_hidden_layers=2, dtype="float32")
+    cls = model_class(cfg)
+    m_gpu = cls(cfg, device="cuda",
+                generator=torch.Generator("cuda").manual_seed(seed))
+    m_cpu = cls(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     m_cpu.load_state_dict(m_gpu.state_dict())
     losses = []
+    reset_launches()
     for model in (m_gpu, m_cpu):
-        x, y = token_batch(cfg.vocab_size, 128, 4, model.device)
+        x, y = token_batch(cfg.vocab_size, seq, 4, model.device)
         losses.append(float(make_train_step(model)(x, y)))
+    counts = dict(launches)
     # f32 on both sides, sums in another order on the card. An Adam step
     # moves a weight by about lr * g / (|g| + eps), so where |g| is at the
     # rounding noise the step may differ: the bulk must agree within 1e-6,
@@ -1006,24 +1219,182 @@ def train_wiring_check():
         d = (p.detach().cpu() - q.detach()).abs()
         p_err = max(p_err, float(d.max()))
         p_share = max(p_share, float((d > 1e-6).float().mean()))
-    log(f"phase 6: training wiring, 2 layers at full width, f32, seq 128: "
-        f"loss card {losses[0]:.6f} cpu {losses[1]:.6f} (rel err "
-        f"{loss_err:.2e}, tolerance 1e-5); gradients max rel err "
-        f"{g_err:.2e} (tolerance 1e-4); parameters after the step max abs "
-        f"err {p_err:.2e} (tolerance 6e-4), largest share off by > 1e-6 "
-        f"{p_share:.2e} (tolerance 1e-3)")
+    log(f"{phase}, {cfg.num_hidden_layers} layers at full width, f32, seq "
+        f"{seq}, window {cfg.sliding_window}: loss card {losses[0]:.6f} cpu "
+        f"{losses[1]:.6f} (rel err {loss_err:.2e}, tolerance 1e-5); "
+        f"gradients max rel err {g_err:.2e} (tolerance 1e-4); parameters "
+        f"after the step max abs err {p_err:.2e} (tolerance 6e-4), largest "
+        f"share off by > 1e-6 {p_share:.2e} (tolerance 1e-3); card launches "
+        f"{json.dumps(counts)}")
     if not (loss_err <= 1e-5 and g_err <= 1e-4 and p_err <= 6e-4
             and p_share <= 1e-3):
         raise AssertionError("card and CPU training steps differ")
     del m_gpu, m_cpu
     torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------- phase 7 --
+
+def mistral_config(**kw):
+    from paddle_tpu_torch.models import MistralConfig
+
+    return MistralConfig.mistral_7b(**{"dtype": "bfloat16", **kw})
+
+
+def serve_mistral(profile=False):
+    """Phase 7: Mistral-7B (all 32 layers, bf16, random weights) behind
+    ``ContinuousBatchEngine(max_batch=4, max_len=12288)``: prompts of 8192
+    and 2048 tokens (exact buckets: the LocalMask flash kernel, the band
+    biting at 8192 only), 4700 (padded to 8192) and 300 (padded to 512),
+    both padded ones through the f32 einsum as in the JAX package; decode
+    over a cache wider than the window through the band gather. Served with
+    the fused decode tail off, then on. Returns the summed launch counts."""
+    import torch
+
+    from paddle_tpu_torch.models import MistralForCausalLM
+
+    cfg = mistral_config()
+    n_layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = MistralForCausalLM(cfg, device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(
+                                   5))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 7: Mistral-7B, {n_layers} layers, bf16, window "
+        f"{cfg.sliding_window}, {n_params / 1e9:.2f}B parameters drawn in "
+        f"{time.perf_counter() - t0:.1f}s")
+    card = card_line()
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in MISTRAL_LENS]
+    news = [MISTRAL_NEW] * len(prompts)
+    # exact buckets: page size (16) times a power of two
+    n_exact = sum(1 for n in MISTRAL_LENS if n >= 16 and n & (n - 1) == 0)
+    total = Counter()
+    for label, fused in (("Mistral flag off", False),
+                         ("Mistral flag on", True)):
+        counts, stats, _, _, _ = serve_run(
+            model, card, label, prompts, news, fused, log_prefills=True,
+            max_batch=4, max_len=12288)
+        steps = stats["decode_steps"]
+        want = {"flash_attention_local": n_layers * n_exact,
+                "flash_attention_bshd": 0, "append_attention": 0,
+                "paged_attention": 0}
+        if fused:
+            want.update(fused_qkv_rope=n_layers * steps,
+                        fused_epilogue=n_layers * steps)
+        for name, n in want.items():
+            if counts.get(name, 0) != n:
+                raise AssertionError(f"{label}: {name} launched "
+                                     f"{counts.get(name, 0)} times, expected "
+                                     f"{n} ({steps} decode steps)")
+        require_launched(counts, ("rms_norm", "add_rms_norm"), label)
+        total.update(counts)
+    if profile:
+        profile_decode(model, card, slots=4, max_len=12288, prompt=8192)
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------- phase 8 --
+
+def train_mistral():
+    """Phase 8: Mistral-7B widths at depth 4, sequence 8192 (above the
+    4096 window), the training recipe of phase 5 with untied embeddings."""
+    counts = train_run("phase 8: training, Mistral-7B widths",
+                       mistral_config(num_hidden_layers=TRAIN_DEPTH,
+                                      fuse_linear_cross_entropy=True),
+                       LOCAL_SEQ, MISTRAL_TRAINING_KERNELS, 6)
+    per_run = TRAIN_DEPTH * (1 + TRAIN_STEPS)
+    for name in ("flash_attention_local", "flash_attention_local_bwd"):
+        if counts.get(name, 0) != per_run:
+            raise AssertionError(f"{name} launched {counts.get(name, 0)} "
+                                 f"times in {1 + TRAIN_STEPS} steps, "
+                                 f"expected {per_run}")
+    if counts.get("flash_attention_bshd", 0) or counts.get(
+            "flash_attention_bwd", 0):
+        raise AssertionError("windowed training launched the causal kernels")
+    return counts
+
+
+# ---------------------------------------------------------------- phase 9 --
+
+def window_wiring_check():
+    """Two Mistral layers at full width in f32 with the window cut to 256
+    (so the CPU's plain einsum stays small), the same weights on the card
+    and the CPU: a 512-token exact-bucket prompt and 16 greedy tokens at
+    max_len 1024 (the LocalMask flash kernel with the band biting, then
+    decode through the band gather), greedy tokens identical and prefill
+    logits within 1e-3; then one training step at sequence 512 with window
+    128 held as phase 6 holds it."""
+    import torch
+
+    from paddle_tpu_torch.models import MistralForCausalLM
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mistral_config(num_hidden_layers=2, sliding_window=256,
+                         dtype="float32")
+    m_gpu = MistralForCausalLM(cfg, device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(
+                                   7))
+    m_cpu = MistralForCausalLM(cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+    m_cpu.load_state_dict(m_gpu.state_dict())
+    prompt = np.random.RandomState(9).randint(0, cfg.vocab_size, size=512)
+
+    def run(model):
+        eng = ContinuousBatchEngine(model, max_batch=1, max_len=1024)
+        rid = eng.add_request(prompt, max_new_tokens=16)
+        first = eng._last[0].cpu()
+        return eng.run_until_done()[rid], first
+
+    reset_launches()
+    card, card_first = run(m_gpu)
+    counts = dict(launches)
+    cpu, cpu_first = run(m_cpu)
+    err = float((card_first - cpu_first).abs().max())
+    tol = 1e-3   # f32 on both sides, sums in another order on the card
+    log(f"phase 9: windowed wiring, 2 Mistral layers at full width, f32, "
+        f"window 256, prompt 512: card tokens {card.tolist()} cpu tokens "
+        f"{cpu.tolist()}; prefill logits card vs cpu max abs err {err:.3e} "
+        f"(tolerance {tol}, |logits| <= {float(cpu_first.abs().max()):.3f});"
+        f" card launches {json.dumps(counts)}")
+    if counts.get("flash_attention_local", 0) != cfg.num_hidden_layers:
+        raise AssertionError("the windowed prefill did not launch the local "
+                             "flash kernel once per layer")
+    if counts.get("paged_attention", 0) != 0:
+        raise AssertionError("windowed decode over a wider cache launched "
+                             "the paged kernel instead of the band gather")
+    if not np.array_equal(card, cpu):
+        raise AssertionError("card and CPU greedy tokens differ (window)")
+    if not err <= tol:
+        raise AssertionError("windowed prefill logits differ beyond the "
+                             "tolerance")
+    del m_gpu, m_cpu
+    torch.cuda.empty_cache()
+    counts = train_wiring_check(
+        "phase 9: windowed training wiring",
+        mistral_config(num_hidden_layers=2, sliding_window=128,
+                       fuse_linear_cross_entropy=True, dtype="float32"),
+        512, seed=8)
+    for name in ("flash_attention_local", "flash_attention_local_bwd"):
+        if counts.get(name, 0) != cfg.num_hidden_layers:
+            raise AssertionError(f"windowed training step: {name} launched "
+                                 f"{counts.get(name, 0)} times")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 3, trace 10 decode steps at 8 active "
-                         "slots with torch.profiler, fused tail off and on")
+                    help="after phases 3 and 7, trace 10 decode steps with "
+                         "torch.profiler, fused tail off and on (Llama-3-8B "
+                         "at 8 slots, Mistral-7B at 4 slots of 8192-token "
+                         "prompts)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1051,6 +1422,11 @@ def main(argv=None) -> int:
     wiring_check()
     counts.update(train_full_width())
     train_wiring_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.update(serve_mistral(args.profile))
+    counts.update(train_mistral())
+    window_wiring_check()
 
     kernels = []
     for name in SOURCES:

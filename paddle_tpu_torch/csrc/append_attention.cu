@@ -3,9 +3,14 @@
 //
 // Replaces: paddle_tpu/ops/pallas/append_attention.py, `_kernel` (called
 // from `_append_jit` / `append_attention`). The same kernel serves the
-// causal, no-window forward of paddle_tpu/ops/pallas/flash_attention.py
-// `flash_attention_bshd` (the splash kernel's bottom-aligned causal mask is
-// this kernel's mask at pos = s_kv - s_q).
+// forward of paddle_tpu/ops/pallas/flash_attention.py `flash_attention_bshd`
+// under two of the splash kernel's masks, at pos = s_kv - s_q:
+// - the bottom-aligned CausalMask (window = 0): query s sees column
+//   t <= pos + s;
+// - the sliding-window LocalMask(window_size=(window - 1, 0),
+//   offset=s_kv - s_q) (window > 0): query s sees column t iff
+//   pos + s - window < t <= pos + s.
+// The FullMask is not ported.
 //
 // Bound on the H100: at prefill (S = T = bucket) the work is the
 // 4 * D * (visible query/key pairs) operations of the two products, which
@@ -21,15 +26,19 @@
 // - Row r of a tile is query position s = r % S of head j = r / S, read
 //   from the JAX layout q[B, S, hk, g, D] by index arithmetic.
 // - Loop over KV tiles of BN rows with running max, sum and accumulator in
-//   f32; tiles past the last visible column of the tile's rows are never
-//   loaded (the Pallas kernel's `cond` skip). Masked columns are -inf and
-//   contribute exactly 0, as in the plain einsum.
+//   f32. Only the tiles some row of the block can see are loaded: the loop
+//   starts at the tile of the first column of the lowest row's band (with
+//   a window) and ends past the last visible column of the highest row
+//   (the Pallas kernel's `cond` skip; splash's block-sparse mask info for
+//   the LocalMask), so a windowed prefill does O(S * window) work. Masked
+//   columns are -inf and contribute exactly 0, as in the plain einsum.
 // - Products are f32 FMAs on CUDA cores from padded shared-memory tiles
 //   (conflict-free reads). The tensor cores (mma.sync / wgmma) and TMA are
 //   the next step; this kernel is the correctness baseline.
-// - Optional f32 logsumexp `lse` [B, H, S] of the scaled scores, the
-//   residual the flash backward (csrc/flash_attention.cu) needs. It is
-//   written only when a pointer is given, so serving launches skip it.
+// - Optional f32 logsumexp `lse` [B, H, S] of the scaled scores over the
+//   visible columns, the residual the flash backward
+//   (csrc/flash_attention.cu) needs. It is written only when a pointer is
+//   given, so serving launches skip it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +73,7 @@ __global__ void __launch_bounds__(NT)
 append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const uint8_t* __restrict__ allowed,
                         T* __restrict__ out, float* __restrict__ lse, int S, int T_,
-                        int hk, int g, int pos, float scale) {
+                        int hk, int g, int pos, int window, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;              // [BM][QS]
   float* Ks = Qs + BM * QS;      // [BN][KS]
@@ -74,6 +83,7 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* l_s = m_s + BM;         // running sum per row
   float* a_s = l_s + BM;         // rescale factor of the current tile
   __shared__ int lim_s[BM];      // last visible column per row, -1 = no row
+  __shared__ int lo_s[BM];       // first visible column per row
 
   const int b = blockIdx.x, kh = blockIdx.y;
   const int rows = g * S;
@@ -93,15 +103,20 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid < BM) {
     const int r = r0 + tid;
     lim_s[tid] = r < rows ? pos + r % S : -1;
+    lo_s[tid] = (r < rows && window > 0) ? pos + r % S - window + 1 : 0;
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
   __syncthreads();
 
-  // columns past the largest visible one of this tile's rows are skipped
+  // columns past the largest visible one of this tile's rows are skipped,
+  // and with a window the tiles wholly below the smallest row's band
   const int r_last = min(r0 + BM, rows) - 1;
-  const int s_max = (r0 / S == r_last / S) ? r_last % S : S - 1;
+  const bool one_head = r0 / S == r_last / S;
+  const int s_max = one_head ? r_last % S : S - 1;
+  const int s_min = one_head ? r0 % S : 0;
   const int kv_end = min(T_, pos + s_max + 1);
+  const int kv_begin = window > 0 ? max(0, pos + s_min - window + 1) / BN * BN : 0;
 
   const int tx = tid % 16, ty = tid / 16;  // rows ty + 16i, cols tx + 16j
   float acc[4][8];
@@ -110,7 +125,7 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BN) {
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BN) {
     for (int i = tid; i < BN * D; i += NT) {
       const int c = i / D, dd = i % D, col = kv0 + c;
       float kv = 0.f, vv = 0.f;
@@ -147,7 +162,7 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j, col = kv0 + c;
-        const bool ok = col < T_ && col <= lim_s[rr] &&
+        const bool ok = col < T_ && col <= lim_s[rr] && col >= lo_s[rr] &&
                         (allowed == nullptr || allowed[(size_t)b * T_ + col] != 0);
         Ps[rr * PS + c] = ok ? sc[i][j] : -INFINITY;
       }
@@ -221,8 +236,8 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, void* out,
-           float* lse, int B, int S, int T_, int H, int hk, int pos, float scale,
-           cudaStream_t stream) {
+           float* lse, int B, int S, int T_, int H, int hk, int pos, int window,
+           float scale, cudaStream_t stream) {
   auto kernel = append_attention_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
@@ -231,25 +246,27 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, 
   dim3 grid(B, hk, (g * S + BM - 1) / BM);
   kernel<<<grid, NT, SMEM_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      allowed, static_cast<T*>(out), lse, S, T_, hk, g, pos, scale);
+      allowed, static_cast<T*>(out), lse, S, T_, hk, g, pos, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, out [B, S, H, D]; k, v [B, T, hk, D]; allowed [B, T] bytes or null;
-// lse [B, H, S] f32 or null. dtype: 0 = float32, 1 = bfloat16. Returns
+// lse [B, H, S] f32 or null; window 0 = none, else query s sees only
+// columns t > pos + s - window. dtype: 0 = float32, 1 = bfloat16. Returns
 // cudaGetLastError() after launch.
 extern "C" int pt_append_attention(const void* q, const void* k, const void* v,
                                    const void* allowed, void* out, void* lse, int B,
-                                   int S, int T_, int H, int hk, int pos, float scale,
-                                   int dtype, void* stream) {
+                                   int S, int T_, int H, int hk, int pos, int window,
+                                   float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* a = static_cast<const uint8_t*>(allowed);
   float* l = static_cast<float*>(lse);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, a, out, l, B, S, T_, H, hk, pos, scale, s);
-  return launch<float>(q, k, v, a, out, l, B, S, T_, H, hk, pos, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, scale,
+                                 s);
+  return launch<float>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, scale, s);
 }
 
 extern "C" const char* pt_error_string(int code) {

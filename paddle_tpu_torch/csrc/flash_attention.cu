@@ -1,16 +1,21 @@
-// Causal flash-attention backward for Hopper (sm_90a): dq, dk, dv with
+// Flash-attention backward for Hopper (sm_90a): dq, dk, dv with
 // grouped-query heads, FlashAttention-2 style, in three launches.
 //
 // Replaces: the backward of the bundled splash attention kernel that
 // paddle_tpu/ops/pallas/flash_attention.py `flash_attention_bshd` builds
 // with `make_splash_mha` (`_splash_kernel`): splash's dq and dkv Pallas
-// kernels, which its custom VJP runs, under the bottom-aligned causal mask
-// (q row i sees kv columns j <= i + s_kv - s_q).
+// kernels, which its custom VJP runs, under two of its masks, with
+// pos = s_kv - s_q:
+// - the bottom-aligned CausalMask (window = 0): q row i sees kv columns
+//   j <= i + pos;
+// - the sliding-window LocalMask(window_size=(window - 1, 0), offset=pos)
+//   (window > 0): q row i sees j iff i + pos - window < j <= i + pos.
+// The FullMask is not ported.
 //
 // Inputs: q, dout [B, S, H, D]; k, v [B, T, hk, D]; out [B, S, H, D] and the
 // f32 logsumexp lse [B, H, S] of the forward (csrc/append_attention.cu with
-// an lse pointer); `scale` multiplies q k^T. Outputs dq, dk, dv in the input
-// type; every sum runs in f32.
+// an lse pointer and the same window); `scale` multiplies q k^T. Outputs dq,
+// dk, dv in the input type; every sum runs in f32.
 //
 // Bound on the H100: operations. The backward recomputes P = exp(scale q k^T
 // - lse) twice (once per dk/dv block, once per dq block) and runs five
@@ -22,19 +27,22 @@
 // 1. delta = rowsum(dout * out) in f32, [B, H, S]: one warp per row.
 // 2. dk/dv: grid (B, hk, ceil(T / BC)). A block keeps its K and V tile in
 //    shared memory and loops over the g = H / hk query heads of its KV head
-//    and, for each, over the q tiles from the first one that sees the tile
-//    (the diagonal) to the end. It recomputes P and dS = P * (dout v^T -
-//    delta) and accumulates dV += P^T dout and dK += dS^T (scale q) in
-//    registers. The g heads are summed inside the block: no atomics, the
-//    result is deterministic. Tiles with low kv index do the most work and
-//    are scheduled first.
-// 3. dq: grid (B, H, ceil(S / BR)), heaviest q tiles first. A block keeps
-//    its q and dout tile and loops over the KV tiles up to the diagonal,
+//    and, for each, over the q tiles that see the tile: from the first one
+//    (the diagonal) to the end, or with a window to the tile of the last
+//    row whose band still reaches the tile's last column. It recomputes P
+//    and dS = P * (dout v^T - delta) and accumulates dV += P^T dout and
+//    dK += dS^T (scale q) in registers. The g heads are summed inside the
+//    block: no atomics, the result is deterministic.
+// 3. dq: grid (B, H, ceil(S / BR)), last q tiles first. A block keeps its q
+//    and dout tile and loops over the KV tiles it sees: from the tile of
+//    its first row's band start (0 without a window) to the diagonal,
 //    accumulating dQ += dS K; dq = scale * dQ.
-// Masked entries of P are exactly 0, so they add nothing to any sum. The
-// products are f32 FMAs on CUDA cores from padded shared-memory tiles
-// (conflict-free reads), as in the forward; tensor cores (mma.sync / wgmma)
-// and TMA are later work.
+// With a window both loops skip the tiles outside the band, so the work is
+// O(S * window), as splash's block-sparse mask info makes it. Masked
+// entries of P are exactly 0, so they add nothing to any sum. The products
+// are f32 FMAs on CUDA cores from padded shared-memory tiles (conflict-free
+// reads), as in the forward; tensor cores (mma.sync / wgmma) and TMA are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,7 +143,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       T* __restrict__ dk, T* __restrict__ dv, int S, int T_, int hk, int g,
-                      int pos, float scale) {
+                      int pos, int window, float scale) {
   extern __shared__ float smem[];
   float* Ks = smem;              // [BC][LS]
   float* Vs = Ks + BC * LS;      // [BC][LS]
@@ -160,11 +168,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) adk[i][jj] = adv[i][jj] = 0.f;
 
-  // the first query row that sees column kv0 is kv0 - pos
+  // the first query row that sees column kv0 is kv0 - pos; with a window
+  // the last one that sees column kv0 + BC - 1 is kv0 + BC - 1 - pos +
+  // window - 1
   const int q_first = max(0, kv0 - pos) / BR * BR;
+  const int q_end = window > 0 ? min(S, kv0 + BC - 1 - pos + window) : S;
   for (int j = 0; j < g; ++j) {
     const int h = kh * g + j;
-    for (int q0 = q_first; q0 < S; q0 += BR) {
+    for (int q0 = q_first; q0 < q_end; q0 += BR) {
       load_tile(Qs, q, b, q0, S, H, h, scale);
       load_tile(dOs, dout, b, q0, S, H, h, 1.f);
       if (tid < BR) {
@@ -182,7 +193,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int jc = 0; jc < 4; ++jc) {
           const int c = tx + 16 * jc, col = kv0 + c;
-          const bool ok = s < S && col < T_ && col <= s + pos;
+          const bool ok = s < S && col < T_ && col <= s + pos &&
+                          (window == 0 || col > s + pos - window);
           const float p = ok ? expf(sc[i][jc] - lse_s[rr]) : 0.f;
           Ps[rr * PS + c] = p;
           dSs[rr * PS + c] = p * (dp[i][jc] - dl_s[rr]);
@@ -233,7 +245,8 @@ __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int S, int T_, int H, int g, int pos, float scale) {
+                    T* __restrict__ dq, int S, int T_, int H, int g, int pos, int window,
+                    float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;              // [BR][LS], q * scale
   float* dOs = Qs + BR * LS;     // [BR][LS]
@@ -244,7 +257,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dl_s = lse_s + BR;      // [BR]
 
   const int b = blockIdx.x, h = blockIdx.y, kh = h / g, hk = H / g;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * BR;  // heaviest tiles first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BR;  // last tiles first
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
   load_tile(Qs, q, b, q0, S, H, h, scale);
@@ -261,9 +274,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
 
-  // columns past the last row's diagonal are never visible
+  // columns past the last row's diagonal are never visible, nor with a
+  // window those before the first row's band
   const int kv_end = min(T_, min(S, q0 + BR) - 1 + pos + 1);
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BC) {
+  const int kv_begin = window > 0 ? max(0, q0 + pos - window + 1) / BC * BC : 0;
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BC) {
     load_tile(Ks, k, b, kv0, T_, hk, kh, 1.f);
     load_tile(Vs, v, b, kv0, T_, hk, kh, 1.f);
     __syncthreads();
@@ -276,7 +291,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jc = 0; jc < 4; ++jc) {
         const int c = tx + 16 * jc, col = kv0 + c;
-        const bool ok = s < S && col < T_ && col <= s + pos;
+        const bool ok = s < S && col < T_ && col <= s + pos &&
+                        (window == 0 || col > s + pos - window);
         const float p = ok ? expf(sc[i][jc] - lse_s[rr]) : 0.f;
         dSs[rr * PS + c] = p * (dp[i][jc] - dl_s[rr]);
       }
@@ -311,8 +327,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* delta, void* dq, void* dk,
-               void* dv, int B, int S, int T_, int H, int hk, int pos, float scale,
-               cudaStream_t stream) {
+               void* dv, int B, int S, int T_, int H, int hk, int pos, int window,
+               float scale, cudaStream_t stream) {
   auto dkdv = flash_bwd_dkdv_kernel<T>;
   auto dqk = flash_bwd_dq_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -335,34 +351,35 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
 
   dkdv<<<dim3(B, hk, (T_ + BC - 1) / BC), NT, DKDV_SMEM, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, T_, hk, g,
-      pos, scale);
+      pos, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   dqk<<<dim3(B, H, (S + BR - 1) / BR), NT, DQ_SMEM, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), S, T_, H, g, pos, scale);
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), S, T_, H, g, pos, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, out, dout, dq [B, S, H, D]; k, v, dk, dv [B, T, hk, D]; lse, delta
-// [B, H, S] f32 (delta is scratch, written here); causal at pos = T - S.
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// three launches (the first error stops the sequence).
+// [B, H, S] f32 (delta is scratch, written here); causal at pos = T - S,
+// window 0 = none, else the band of the last `window` columns up to the
+// diagonal. dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError()
+// after the three launches (the first error stops the sequence).
 extern "C" int pt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* out, const void* dout, const void* lse,
                                       void* delta, void* dq, void* dk, void* dv, int B,
-                                      int S, int T_, int H, int hk, int pos, float scale,
-                                      int dtype, void* stream) {
+                                      int S, int T_, int H, int hk, int pos, int window,
+                                      float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, T_, H,
-                                     hk, pos, scale, s);
+                                     hk, pos, window, scale, s);
   return launch_bwd<float>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, T_, H, hk, pos,
-                           scale, s);
+                           window, scale, s);
 }
 
 extern "C" const char* pt_error_string(int code) {

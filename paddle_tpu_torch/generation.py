@@ -23,8 +23,7 @@ from .ops.hopper.append_attention import (append_attention,
                                           append_attention_plain,
                                           grouped_attention_plain)
 from .ops.hopper.flash_attention import flash_attention_bshd
-from .ops.hopper.paged_attention import (gather_pages, paged_attention,
-                                         paged_attention_plain)
+from .ops.hopper.paged_attention import gather_pages, paged_attention
 
 
 # ---------------------------------------------------------------------------
@@ -54,13 +53,20 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
     k_buf/v_buf [B,T,hk,D], written IN PLACE at ``pos`` (JAX returns new
     buffers; the port updates the caller's); ``allowed`` optional [B,T]
     column mask (padded prompts); ``row_pos`` optional [B] per-row rope
-    positions. Routing as in the JAX package: an unpadded pos=0 prefill
-    takes the flash kernel (causal attention over the prompt is causal
-    self-attention on the S new tokens), any other multi-token chunk the
-    append-attention kernel (the mask counts buffer slots, so per-row rope
-    positions do not change it). On CUDA the append kernel also takes single
-    tokens and ``use_flash=False``; the plain einsum serves CPU tensors (as
-    every wrapper does) and a sliding window, which no kernel takes.
+    positions. Routing as in the JAX package (``generation.py:102-128``):
+
+    - an unpadded pos=0 prefill of S > 1 tokens with ``use_flash`` takes
+      ``flash_attention_bshd`` (causal attention over the prompt is causal
+      self-attention on the S new tokens), with or without a sliding
+      window: the causal or the LocalMask flash kernel;
+    - any other windowless chunk the append-attention kernel (the mask
+      counts buffer slots, so per-row rope positions do not change it). On
+      CUDA it also takes single tokens and ``use_flash=False``;
+    - any other windowed chunk (pos > 0, a padded prompt, a single token)
+      the f32 einsum, ``append_attention_plain``, as the JAX package's
+      einsum branch (no kernel there either).
+
+    The wrappers run their plain versions on CPU tensors.
     ``rope_applied``: q and k arrive rotated (the fused decode tail).
     Returns (out [B,S,H,D], k_buf, v_buf)."""
     S = q.shape[1]
@@ -75,13 +81,13 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
     k_buf[:, pos:pos + S] = k.to(k_buf.dtype)
     v_buf[:, pos:pos + S] = v.to(v_buf.dtype)
 
-    if window is not None:
-        out = append_attention_plain(q, k_buf, v_buf, pos, allowed, window)
-    elif (use_flash and S > 1 and allowed is None and row_pos is None
-          and (prefill or pos == 0)):
-        out = flash_attention_bshd(q, k, v, causal=True)
-    else:
+    if (use_flash and S > 1 and allowed is None and row_pos is None
+            and (prefill or pos == 0)):
+        out = flash_attention_bshd(q, k, v, causal=True, window=window)
+    elif window is None:
         out = append_attention(q, k_buf, v_buf, pos, allowed=allowed)
+    else:
+        out = append_attention_plain(q, k_buf, v_buf, pos, allowed, window)
     return out, k_buf, v_buf
 
 
@@ -93,12 +99,13 @@ def paged_cached_attention(q, k, v, cos, sin, k_pages, v_pages, page_indices,
     rotated q and k already) and written at its own page and slot
     (page_indices[b, pos // ps], pos % ps). The write is done IN PLACE on
     the pool with ``index_put_`` (JAX's ``.at[].set`` returns a new pool).
-    S == 1 is the decode step: the paged kernel over lengths[b] + 1
-    columns. S > 1 is the speculative-verify chunk: chunk-causal attention
-    over the gathered pages (``_paged_chunk_attention``). KV of rejected
-    drafts lands above the row's post-accept frontier, where the next
-    chunk's write overwrites it before lengths can reach it. Returns
-    (out [B,S,H,D], k_pages, v_pages)."""
+    S == 1 is the decode step over lengths[b] + 1 columns
+    (``paged_decode_attention``). S > 1 is the speculative-verify chunk:
+    chunk-causal attention over the gathered pages
+    (``_paged_chunk_attention``). KV of rejected drafts lands above the
+    row's post-accept frontier, where the next chunk's write overwrites it
+    before lengths can reach it. Returns (out [B,S,H,D], k_pages,
+    v_pages)."""
     B, S = q.shape[0], q.shape[1]
     lengths = lengths.to(torch.int32)
     if not rope_applied:
@@ -148,6 +155,12 @@ def _chunk_sdpa(q, k, v, valid):
                                    valid, 1.0 / math.sqrt(q.shape[-1]))
 
 
+def _banded_sdpa(q, k, v, valid):
+    """The S=1 view of :func:`_chunk_sdpa`: q [B,H,D] against gathered
+    k / v [B,hk,T,D] with a column mask valid [B,T]."""
+    return _chunk_sdpa(q[:, None], k, v, valid[:, None])[:, 0]
+
+
 def _pool_index(pages, rows, slot):
     """Index tuple addressing pages[:, rows[b, j], slot[b, j]] for every KV
     head (``index_put_`` takes tensors only, so the head axis is spelled
@@ -161,12 +174,41 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices,
                            window=None):
     """Decode attention over the paged pool: the paged-attention kernel on
     CUDA (its plain version on the CPU). A sliding window narrower than the
-    cache takes the plain gather path, which the kernel does not cover."""
+    cache (``generation.py:260-266``) takes ``_paged_window_attention``,
+    PyTorch on every device as it is XLA in the JAX package: the kernel has
+    no lower edge, and the band gather reads O(window), not O(max_len). A
+    window as wide as the cache never excludes a column: the kernel."""
     if window is not None and window < page_indices.shape[1] * k_pages.shape[2]:
-        return paged_attention_plain(q, k_pages, v_pages, lengths,
-                                     page_indices, window=window)
+        return _paged_window_attention(q, k_pages, v_pages, lengths,
+                                       page_indices, window)
     return paged_attention(q, k_pages, v_pages, lengths.to(torch.int32),
                            page_indices)
+
+
+def _paged_window_attention(q, k_pages, v_pages, lengths, page_indices,
+                            window):
+    """Sliding-window decode over the paged pool (``generation.py:
+    295-322``): row b gathers only the ``min(ceil(window / ps) + 1, pages
+    per row)`` pages the band [lengths[b] - window, lengths[b]) touches,
+    from page ``max(lengths[b] - window, 0) // ps``, clamped so the last
+    one stays in the row; columns outside the band are masked."""
+    B = q.shape[0]
+    ps = k_pages.shape[2]
+    n_per_row = page_indices.shape[1]
+    wp = min((window + ps - 1) // ps + 1, n_per_row)
+    lengths = lengths.to(q.device).long()
+    first = torch.div(torch.clamp(lengths - window, min=0), ps,
+                      rounding_mode="floor")
+    first = torch.clamp(first, max=max(n_per_row - wp, 0))        # [B]
+    offs = first[:, None] + torch.arange(wp, device=q.device)[None]
+    rows = torch.gather(page_indices.long(), 1, offs)             # [B, wp]
+    k = gather_pages(k_pages, rows)                     # [B, hk, wp*ps, D]
+    v = gather_pages(v_pages, rows)
+    colpos = (offs[:, :, None] * ps
+              + torch.arange(ps, device=q.device)[None, None]).reshape(B, -1)
+    valid = ((colpos < lengths[:, None])
+             & (colpos >= lengths[:, None] - window))
+    return _banded_sdpa(q, k, v, valid)
 
 
 # ---------------------------------------------------------------------------

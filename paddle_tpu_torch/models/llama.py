@@ -3,12 +3,13 @@
 Ported: the config and its presets, rope tables (default, ``llama3`` and
 ``linear`` scaling), RMSNorm, attention over the static KV caches (dense
 prefill cache and paged pool) and without a cache (the training forward:
-fused RoPE, then causal flash attention), the gated MLP, the decoder layer
-on the discrete path, ``LlamaModel.forward`` / ``forward_cached``, the
-causal-LM head, ``LlamaForCausalLM.forward`` with labels (the chunked fused
-lm-head + cross-entropy, or the logits and ``causal_lm_loss``), and the
-fused decode tail behind ``FLAGS_use_fused_decode_tail`` (two kernels per
-layer for a decode step or a paged speculative-verify chunk). Not ported:
+fused RoPE, then causal or sliding-window flash attention), the gated MLP,
+the decoder layer on the discrete path, ``LlamaModel.forward`` /
+``forward_cached``, the causal-LM head, ``LlamaForCausalLM.forward`` with
+labels (the chunked fused lm-head + cross-entropy, or the logits and
+``causal_lm_loss``), and the fused decode tail behind
+``FLAGS_use_fused_decode_tail`` (two kernels per layer for a decode step
+or a paged speculative-verify chunk). Not ported:
 context parallelism (the port has no process group), attention
 soft-capping, qk-norm and layer recompute.
 
@@ -285,9 +286,9 @@ class LlamaAttention(tnn.Module):
     def forward(self, hidden_states, cos, sin, kv_cache=None):
         """With a cache dict: the serving path, returns (out, new cache).
         Without: RoPE on q and k (fused kernel), then causal flash attention
-        over the sequence (``llama.py:644-710``), returns out. On a CPU
-        tensor the plain flash version runs, the same math as the JAX
-        ``_sdpa_ref`` fallback."""
+        over the sequence, within the layer's sliding window if it has one
+        (``llama.py:644-710``), returns out. On a CPU tensor the plain flash
+        version runs, the same math as the JAX ``_sdpa_ref`` fallback."""
         b, s = hidden_states.shape[0], hidden_states.shape[1]
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(hidden_states).reshape(b, s, h, d)

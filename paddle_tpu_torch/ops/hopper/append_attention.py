@@ -6,6 +6,8 @@ Counterpart of ``paddle_tpu/ops/pallas/append_attention.py``, with its
 signature and layouts: q [B, S, H, D] (already roped), k_buf/v_buf
 [B, T, hk, D] (chunk already written at ``pos``), ``allowed`` an optional
 [B, T] column mask. Query s sees columns t <= pos + s that are allowed.
+The kernel also runs the causal and sliding-window forward of
+``flash_attention.flash_attention_bshd`` (``launch`` with ``window``).
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
 kernel or raises. The kernel takes head width 128 and float32 / bfloat16.
@@ -40,7 +42,9 @@ def grouped_attention_plain(q, k, v, mask, scale):
 def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None):
     """The einsum branch of ``generation.cached_attention`` (no softcap):
     f32 scores over the whole buffer with the causal, column and sliding
-    window masks, f32 softmax. The kernel takes no window."""
+    window masks, f32 softmax. A window with a column mask counts true
+    positions (right-padded rows); the kernel takes a window only without
+    one, where it counts buffer slots, and only on the flash route."""
     S, T = q.shape[1], k_buf.shape[1]
     pos = int(pos)
     t_idx = torch.arange(T, device=q.device)
@@ -60,10 +64,13 @@ def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None):
                                    1.0 / math.sqrt(q.shape[-1]))
 
 
-def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False):
+def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False,
+           window=None):
     """Run the CUDA kernel; ``counter`` names the wrapper whose launch this
-    is (append attention and the causal flash forward share the kernel).
-    Returns out, or (out, lse [B, H, S] f32) with ``with_lse``."""
+    is (append attention and the flash forward's causal and local masks
+    share the kernel). ``window``: query s sees only columns
+    t > pos + s - window. Returns out, or (out, lse [B, H, S] f32) with
+    ``with_lse``."""
     tensors = [q, k_buf, v_buf] + ([allowed] if allowed is not None else [])
     _build.require_cuda(*tensors)
     code = _build.dtype_code(q)
@@ -80,6 +87,9 @@ def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False):
     _build.require(k_buf.dtype == q.dtype and v_buf.dtype == q.dtype,
                    f"{counter}: q, k and v must share one dtype")
     _build.require(0 <= int(pos), f"{counter}: pos must be >= 0")
+    _build.require(window is None or (int(window) > 0 and allowed is None),
+                   f"{counter}: a window must be > 0 and comes without a "
+                   "column mask")
     a_ptr = None
     if allowed is not None:
         _build.require(tuple(allowed.shape) == (B, T),
@@ -95,12 +105,12 @@ def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False):
         fn = _build.function(_STEM, "pt_append_attention", [
             _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP,
             _build.VOIDP, _build.VOIDP, _build.INT, _build.INT, _build.INT,
-            _build.INT, _build.INT, _build.INT, _build.FLOAT, _build.INT,
-            _build.VOIDP])
+            _build.INT, _build.INT, _build.INT, _build.INT, _build.FLOAT,
+            _build.INT, _build.VOIDP])
         err = fn(_build.ptr(q), _build.ptr(k_buf), _build.ptr(v_buf), a_ptr,
                  _build.ptr(out), None if lse is None else _build.ptr(lse),
-                 B, S, T, H, hk, int(pos), float(scale), code,
-                 _build.stream(q.device))
+                 B, S, T, H, hk, int(pos), int(window or 0), float(scale),
+                 code, _build.stream(q.device))
         _build.launches[counter] += 1
         _build.check(err, _STEM, counter)
     return (out, lse) if with_lse else out

@@ -1,18 +1,24 @@
 """Flash attention dispatch, [B, S, H, D] layout, grouped-query heads.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``
-``flash_attention_bshd`` (splash attention on the TPU). On CUDA its causal,
-no-window forward launches the append-attention kernel
-(csrc/append_attention.cu) at ``pos = s_kv - s_q``: that is exactly
-splash's bottom-aligned causal mask (q row i sees kv columns
-j <= i + s_kv - s_q). When an input needs a gradient the forward also
-writes the f32 logsumexp, and the backward runs the dq / dk / dv kernels of
-csrc/flash_attention.cu (``flash_attention_bwd``), as splash's custom VJP
-runs its dq and dkv kernels. The splash kernel's other masks (sliding
-window, full) are not ported yet: on CUDA they raise
-``NotImplementedError`` rather than run plain code.
+``flash_attention_bshd`` (splash attention on the TPU). Where each of
+splash's masks runs on CUDA:
 
-On a CPU tensor it runs the plain version, differentiated by autograd.
+- causal (``causal=True``, no window), splash's bottom-aligned CausalMask
+  (q row i sees kv columns j <= i + s_kv - s_q): the append-attention
+  kernel (csrc/append_attention.cu) at ``pos = s_kv - s_q``, counted as
+  ``flash_attention_bshd``; its backward, csrc/flash_attention.cu,
+  counted as ``flash_attention_bwd``;
+- sliding window (``causal=True, window=W``), splash's
+  ``LocalMask(window_size=(W - 1, 0), offset=s_kv - s_q)`` (also
+  j > i + s_kv - s_q - W): the same two kernels with ``window``, counted as
+  ``flash_attention_local`` and ``flash_attention_local_bwd``;
+- full (``causal=False``): not ported, raises ``NotImplementedError``.
+
+When an input needs a gradient the forward also writes the f32
+logsumexp, and the backward runs the dq / dk / dv kernels, as splash's
+custom VJP runs its dq and dkv kernels over the same mask. On a CPU tensor
+it runs the plain version, differentiated by autograd.
 
 Scale: JAX pre-scales q in q's dtype before splash (``q * scale`` rounds in
 bf16); the kernels here scale in f32 inside, as the plain version does.
@@ -43,10 +49,18 @@ def flash_attention_plain(q, k, v, causal=False, sm_scale=None, window=None):
     return _append.grouped_attention_plain(q, k, v, mask, scale)
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, scale):
-    """(dq, dk, dv) of the causal attention at pos = s_kv - s_q from the
-    forward's ``out`` and f32 ``lse`` [B, H, S]: three CUDA launches (delta =
-    rowsum(dout * out), then dk/dv, then dq), counted once."""
+def _counters(window):
+    """(forward, backward) launch counters of a mask."""
+    if window is None:
+        return "flash_attention_bshd", "flash_attention_bwd"
+    return "flash_attention_local", "flash_attention_local_bwd"
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, scale, window=None):
+    """(dq, dk, dv) of the causal attention at pos = s_kv - s_q, or with
+    ``window`` of its sliding-window band, from the forward's ``out`` and
+    f32 ``lse`` [B, H, S]: three CUDA launches (delta = rowsum(dout * out),
+    then dk/dv, then dq), counted once."""
     _build.require_cuda(q, k, v, out, lse, dout)
     code = _build.dtype_code(q)
     B, S, H, D = q.shape
@@ -64,40 +78,44 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale):
     _build.require(lse.dtype == torch.float32
                    and tuple(lse.shape) == (B, H, S),
                    f"flash_attention_bwd: lse must be f32 [{B}, {H}, {S}]")
+    _build.require(window is None or int(window) > 0,
+                   "flash_attention_bwd: window must be > 0")
     if q.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     fn = _build.function(_STEM, "pt_flash_attention_bwd", [_build.VOIDP] * 10 + [
         _build.INT, _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
-        _build.FLOAT, _build.INT, _build.VOIDP])
+        _build.INT, _build.FLOAT, _build.INT, _build.VOIDP])
+    counter = _counters(window)[1]
     err = fn(*(_build.ptr(t) for t in (q, k, v, out, dout, lse, delta, dq, dk,
                                        dv)),
-             B, S, T, H, hk, T - S, float(scale), code,
+             B, S, T, H, hk, T - S, int(window or 0), float(scale), code,
              _build.stream(q.device))
-    _build.launches["flash_attention_bwd"] += 1
-    _build.check(err, _STEM, "flash_attention_bwd")
+    _build.launches[counter] += 1
+    _build.check(err, _STEM, counter)
     return dq, dk, dv
 
 
 class _FlashCausal(torch.autograd.Function):
-    """Causal flash attention on CUDA: forward with logsumexp, kernel
-    backward."""
+    """Causal flash attention on CUDA, with or without a sliding window:
+    forward with logsumexp, kernel backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, scale, window):
         out, lse = _append.launch(q, k, v, k.shape[1] - q.shape[1], None,
-                                  scale, "flash_attention_bshd", with_lse=True)
+                                  scale, _counters(window)[0], with_lse=True,
+                                  window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.window = scale, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
-                                         ctx.scale)
-        return dq, dk, dv, None
+                                         ctx.scale, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_bshd(q, k, v, causal: bool = False,
@@ -108,11 +126,12 @@ def flash_attention_bshd(q, k, v, causal: bool = False,
         raise ValueError("window requires causal=True and window > 0")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, sm_scale, window)
-    if not causal or window is not None:
+    if not causal:
         raise NotImplementedError(
-            "flash_attention_bshd on CUDA runs the causal, no-window mask "
-            "only; the splash kernel's full and sliding-window masks "
-            "(paddle_tpu/ops/pallas/flash_attention.py) are not ported yet")
+            "flash_attention_bshd on CUDA runs the causal and sliding-window "
+            "masks only; the splash kernel's full mask "
+            "(paddle_tpu/ops/pallas/flash_attention.py:105-106) is not "
+            "ported yet")
     s_q, s_kv = q.shape[1], k.shape[1]
     if s_kv < s_q:
         raise ValueError(f"causal attention needs s_kv >= s_q, got "
@@ -120,6 +139,6 @@ def flash_attention_bshd(q, k, v, causal: bool = False,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if _build.needs_grad(q, k, v):
-        return _FlashCausal.apply(q, k, v, scale)
+        return _FlashCausal.apply(q, k, v, scale, window)
     return _append.launch(q, k, v, s_kv - s_q, None, scale,
-                          "flash_attention_bshd")
+                          _counters(window)[0], window=window)

@@ -27,25 +27,22 @@ GROUPS = (1, 2, 4, 8, 16)
 
 
 def gather_pages(pages, page_indices):
-    """[hk, n_pages, ps, D] pool -> [B, hk, pages_per_seq * ps, D] rows."""
+    """[hk, n_pages, ps, D] pool -> [B, hk, pages_per_seq * ps, D] rows of
+    the pages ``page_indices`` [B, pages_per_seq] names."""
     hk, _n, ps, D = pages.shape
     B = page_indices.shape[0]
     g = pages[:, page_indices.long()].movedim(0, 1)   # [B, hk, pps, ps, D]
     return g.reshape(B, hk, -1, D)
 
 
-def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices,
-                          window=None):
+def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices):
     """``generation._paged_attention_ref``: gather every page of each row,
-    mask columns t >= lengths[b] (and, windowed, t < lengths[b] - window)."""
+    mask columns t >= lengths[b]."""
     k = gather_pages(k_pages, page_indices).transpose(1, 2)   # [B, T, hk, D]
     v = gather_pages(v_pages, page_indices).transpose(1, 2)
     T = k.shape[1]
     t_idx = torch.arange(T, device=q.device)[None, :]
-    lengths = lengths.to(q.device).long()[:, None]
-    valid = t_idx < lengths
-    if window is not None:
-        valid = valid & (t_idx >= lengths - window)
+    valid = t_idx < lengths.to(q.device).long()[:, None]
     out = grouped_attention_plain(q[:, None], k, v, valid[:, None],
                                   1.0 / math.sqrt(q.shape[-1]))
     return out[:, 0]

@@ -2,8 +2,9 @@
 
 ``from_jax_state`` takes ``paddle_tpu``'s ``Layer.functional_state()``
 converted to numpy by the caller ({name: np.ndarray}, same names as the
-port's parameters) and returns the port's ``LlamaForCausalLM``;
-``to_numpy_state`` goes the other way. Linear weights are [in, out] in both
+port's parameters) and returns the port's causal LM of the config's
+family (``MistralForCausalLM`` for a ``MistralConfig``, else
+``LlamaForCausalLM``); ``to_numpy_state`` goes the other way. Linear weights are [in, out] in both
 packages, so nothing is transposed. numpy has no bfloat16: bf16 travels as
 its uint16 bit pattern (a ``bfloat16`` array from ml_dtypes is taken as
 well), so the round trip is bit-exact.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .models.llama import LlamaConfig, LlamaForCausalLM, torch_dtype
+from .models.mistral import MistralConfig, MistralForCausalLM
 
 
 def _to_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
@@ -28,15 +30,23 @@ def _to_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype)
 
 
+def model_class(config: LlamaConfig):
+    """The causal-LM class of a config's family."""
+    if isinstance(config, MistralConfig):
+        return MistralForCausalLM
+    return LlamaForCausalLM
+
+
 def from_jax_state(state: dict, config: LlamaConfig, device=None,
                    dtype=None) -> LlamaForCausalLM:
-    """The port's model holding ``state``; ``dtype`` defaults to the
-    config's. Every parameter of the model must be in ``state``."""
+    """The port's model of ``config``'s family holding ``state``; ``dtype``
+    defaults to the config's. Every parameter of the model must be in
+    ``state``."""
     if dtype is not None:
         config = dataclasses.replace(
             config, dtype=str(torch_dtype(dtype)).replace("torch.", ""))
     dt = torch_dtype(config.dtype)
-    model = LlamaForCausalLM(config, device=device)
+    model = model_class(config)(config, device=device)
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(state))
     extra = sorted(set(state) - set(params))

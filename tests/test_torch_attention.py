@@ -1,8 +1,9 @@
 """Port parity of the attention kernels' modules (plain versions, CPU)
 against the JAX package: append attention and splash flash attention in
-Pallas interpret mode (the flash gradients through splash's own backward
-kernels), paged decode through ``paged_decode_attention`` (its gather
-reference off the TPU). f32 unless a test says otherwise; tolerance 2e-5
+Pallas interpret mode, causal and sliding-window (the flash gradients
+through splash's own backward kernels), paged decode through
+``paged_decode_attention`` (its gather reference off the TPU) and the
+windowed band gather. f32 unless a test says otherwise; tolerance 2e-5
 for sums taken in another order."""
 import jax
 import jax.numpy as jnp
@@ -63,6 +64,21 @@ def test_flash_attention_causal_matches_splash_interpret():
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("s_q,s_kv,hk,window", [
+    (256, 256, 2, 64), (256, 256, 8, 100), (128, 256, 2, 100)])
+def test_flash_attention_local_matches_splash_interpret(s_q, s_kv, hk, window):
+    """The sliding-window LocalMask (query i sees kv columns j with
+    i + s_kv - s_q - window < j <= i + s_kv - s_q) against splash in
+    interpret mode, square and rectangular, grouped and not; f32."""
+    q, k, v = _qkv(1, s_q, s_kv, 8, hk, seed=window + s_q)
+    want = np.asarray(jax_flash.flash_attention_bshd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window, interpret=True))
+    got = port_flash.flash_attention_bshd(_t(q), _t(k), _t(v), causal=True,
+                                          window=window).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
 def test_flash_forward_is_append_attention_at_the_bottom_offset():
     """The CUDA route of the causal flash forward is the append kernel at
     pos = s_kv - s_q; their plain versions agree on a rectangular shape."""
@@ -103,6 +119,35 @@ def test_paged_decode_window_matches():
         _t(q), _t(kp), _t(vp), _t(lengths), _t(page_indices),
         window=20).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("window", [20, 37, 50])
+def test_paged_window_attention_reads_only_the_band(window, monkeypatch):
+    """``_paged_window_attention`` against JAX's at row lengths below, at
+    and above the window (1, 37 and a full row of 96); it gathers only the
+    ceil(window / ps) + 1 pages of each row's band, from page
+    max(len - window, 0) // ps, clamped to the row."""
+    q, kp, vp, lengths, page_indices = _paged_inputs(3)
+    want = np.asarray(jax_gen._paged_window_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(lengths), jnp.asarray(page_indices), window))
+    seen = []
+    real = port_gen.gather_pages
+    monkeypatch.setattr(port_gen, "gather_pages",
+                        lambda pages, idx: (seen.append(idx.clone()),
+                                            real(pages, idx))[1])
+    got = port_gen.paged_decode_attention(
+        _t(q), _t(kp), _t(vp), _t(lengths), _t(page_indices),
+        window=window).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    ps, pps = kp.shape[2], page_indices.shape[1]
+    wp = -(-window // ps) + 1
+    assert len(seen) == 2 and torch.equal(seen[0], seen[1])
+    assert tuple(seen[0].shape) == (3, wp)
+    for b, n in enumerate(lengths):
+        first = min(max(int(n) - window, 0) // ps, pps - wp)
+        np.testing.assert_array_equal(seen[0][b].numpy(),
+                                      page_indices[b, first:first + wp])
 
 
 @pytest.mark.parametrize("ragged", [False, True])
@@ -222,10 +267,9 @@ def _as_cuda(t):
     return t.as_subclass(_Fake)
 
 
-@pytest.mark.parametrize("kwargs", [dict(causal=False),
-                                    dict(causal=True, window=8)])
+@pytest.mark.parametrize("kwargs", [dict(causal=False)])
 def test_flash_refuses_unported_masks_on_cuda(kwargs, monkeypatch):
-    """On a CUDA tensor the unported splash masks raise instead of running
+    """On a CUDA tensor the unported full mask raises instead of running
     plain code; the device check runs first, so a CPU tensor posing as CUDA
     exercises the refusal without a card."""
     fq = _as_cuda(torch.zeros(1, 16, 4, 128))
@@ -236,10 +280,11 @@ def test_flash_refuses_unported_masks_on_cuda(kwargs, monkeypatch):
 @pytest.mark.parametrize("case,want", [
     ("prefill", "flash"), ("prefill_padded", "append"), ("chunk", "append"),
     ("single_token", "append"), ("no_flash", "append"),
-    ("row_pos", "append"), ("window", "plain")])
+    ("row_pos", "append"), ("window", "plain"), ("window_prefill", "flash")])
 def test_cached_attention_routes_to_the_kernels(case, want, monkeypatch):
-    """Every windowless chunk reaches a kernel wrapper (which runs the kernel
-    on CUDA); only a sliding window calls the plain einsum directly."""
+    """Every windowless chunk and the unpadded pos=0 prefill, windowed or
+    not, reach a kernel wrapper (which runs the kernel on CUDA); only
+    another windowed chunk calls the plain einsum directly."""
     calls = []
     for name, tag in (("flash_attention_bshd", "flash"),
                       ("append_attention", "append"),
@@ -262,28 +307,21 @@ def test_cached_attention_routes_to_the_kernels(case, want, monkeypatch):
         row_pos=torch.tensor([pos], dtype=torch.int32)
         if case == "row_pos" else None,
         use_flash=case != "no_flash", prefill=pos == 0,
-        window=3 if case == "window" else None)
+        window=3 if case.startswith("window") else None)
     assert calls == [want]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_grads_match_splash_interpret(dtype):
-    """Forward and (dq, dk, dv) of causal flash attention at [1, 256, 4 | 2,
-    128] against ``jax.grad`` through splash in interpret mode (its own dq
-    and dkv kernels). f32: forward within 2e-5, gradients within 1e-5
-    (sums in another order). bf16: within 2^-6 times the largest entry of
-    each (two bf16 ulps there): JAX rounds q * scale to bf16 before splash,
-    the port scales in f32."""
+def _check_flash_grads(dtype, window=None):
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     q, k, v = _qkv(1, 256, 256, 4, 2, seed=12)
     g = np.random.RandomState(13).randn(*q.shape).astype(np.float32)
     want, vjp = jax.vjp(
-        lambda a, b, c: jax_flash.flash_attention_bshd(a, b, c, causal=True,
-                                                       interpret=True),
+        lambda a, b, c: jax_flash.flash_attention_bshd(
+            a, b, c, causal=True, interpret=True, window=window),
         *(jnp.asarray(t, jdt) for t in (q, k, v)))
     want_grads = vjp(jnp.asarray(g, jdt))
     ts = [_t(t).to(tdt).requires_grad_() for t in (q, k, v)]
-    got = port_flash.flash_attention_bshd(*ts, causal=True)
+    got = port_flash.flash_attention_bshd(*ts, causal=True, window=window)
     got.backward(_t(g).to(tdt))
     pairs = [(got, want, ATOL)] + [(t.grad, w, 1e-5)
                                    for t, w in zip(ts, want_grads)]
@@ -294,6 +332,24 @@ def test_flash_attention_grads_match_splash_interpret(dtype):
         np.testing.assert_allclose(a, b, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_grads_match_splash_interpret(dtype):
+    """Forward and (dq, dk, dv) of causal flash attention at [1, 256, 4 | 2,
+    128] against ``jax.grad`` through splash in interpret mode (its own dq
+    and dkv kernels). f32: forward within 2e-5, gradients within 1e-5
+    (sums in another order). bf16: within 2^-6 times the largest entry of
+    each (two bf16 ulps there): JAX rounds q * scale to bf16 before splash,
+    the port scales in f32."""
+    _check_flash_grads(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_local_grads_match_splash_interpret(dtype):
+    """The same for the sliding-window LocalMask at window 64 (splash's
+    custom VJP over the local mask's block info), same tolerances."""
+    _check_flash_grads(dtype, window=64)
+
+
 def test_flash_function_keeps_the_graph(monkeypatch):
     """The CUDA route's autograd Function, with stand-ins for its launches
     that return detached results as a ctypes launch does: the output keeps
@@ -302,14 +358,15 @@ def test_flash_function_keeps_the_graph(monkeypatch):
     q, k, v = (_t(a).requires_grad_() for a in _qkv(1, 16, 24, 4, 2, seed=14))
     seen = {}
 
-    def fake_launch(q_, k_, v_, pos, allowed, scale, counter, with_lse=False):
+    def fake_launch(q_, k_, v_, pos, allowed, scale, counter, with_lse=False,
+                    window=None):
         seen["launch"] = (pos, allowed, counter, with_lse)
         with torch.no_grad():
             out = port_flash.flash_attention_plain(q_, k_, v_, causal=True,
                                                    sm_scale=scale)
         return out, torch.zeros(1, 4, 16)
 
-    def fake_bwd(q_, k_, v_, out, lse, dout, scale):
+    def fake_bwd(q_, k_, v_, out, lse, dout, scale, window=None):
         seen["bwd"] = (out.shape, lse.shape)
         leaves = [t.detach().requires_grad_() for t in (q_, k_, v_)]
         with torch.enable_grad():
@@ -319,7 +376,7 @@ def test_flash_function_keeps_the_graph(monkeypatch):
 
     monkeypatch.setattr(port_flash._append, "launch", fake_launch)
     monkeypatch.setattr(port_flash, "flash_attention_bwd", fake_bwd)
-    out = port_flash._FlashCausal.apply(q, k, v, 0.125)
+    out = port_flash._FlashCausal.apply(q, k, v, 0.125, None)
     assert out.grad_fn is not None
     assert seen["launch"] == (8, None, "flash_attention_bshd", True)
     out.square().sum().backward()
@@ -332,6 +389,40 @@ def test_flash_function_keeps_the_graph(monkeypatch):
     for a, t in zip(got, (q, k, v)):
         assert a.abs().max() > 0
         torch.testing.assert_close(a, t.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_flash_local_mask_cuda_route_passes_the_window(grad, monkeypatch):
+    """On a CUDA tensor ``causal=True, window=W`` launches the append
+    kernel with ``window`` under the ``flash_attention_local`` counter, and
+    with a gradient goes through the autograd Function, whose backward
+    hands the window to ``flash_attention_bwd`` (stand-ins for the
+    launches, as above)."""
+    q, k, v = (_as_cuda(_t(a).requires_grad_(grad))
+               for a in _qkv(1, 16, 24, 4, 2, seed=15))
+    seen = {}
+
+    def fake_launch(q_, k_, v_, pos, allowed, scale, counter, with_lse=False,
+                    window=None):
+        seen["launch"] = (pos, allowed, counter, with_lse, window)
+        out = torch.zeros(q_.shape)
+        return (out, torch.zeros(1, 4, 16)) if with_lse else out
+
+    def fake_bwd(q_, k_, v_, out, lse, dout, scale, window=None):
+        seen["bwd"] = window
+        return (torch.zeros(q_.shape), torch.zeros(k_.shape),
+                torch.zeros(v_.shape))
+
+    monkeypatch.setattr(port_flash._append, "launch", fake_launch)
+    monkeypatch.setattr(port_flash, "flash_attention_bwd", fake_bwd)
+    out = port_flash.flash_attention_bshd(q, k, v, causal=True, window=5)
+    assert seen["launch"] == (8, None, "flash_attention_local", grad, 5)
+    assert (out.grad_fn is not None) == grad
+    if grad:
+        out.sum().backward()
+        assert seen["bwd"] == 5
+    assert port_flash._counters(5) == ("flash_attention_local",
+                                       "flash_attention_local_bwd")
 
 
 @pytest.mark.parametrize("kernel", ["append", "paged"])
