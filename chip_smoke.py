@@ -21,7 +21,11 @@ Phases (any failure raises, so the script exits non-zero):
    training shape (sequence 8192, window 4096; the plain version one KV head
    at a time), beside SDPA with the band as its mask and the causal kernel
    at the same sequence, which the local one must beat; and at edge shapes
-   in f32 and bf16.
+   in f32 and bf16. DeepSeek-V2-Lite's kernels: the MLA decode (B 8, H 16,
+   r 512, dr 64, T 4096, ragged pos; with an allowed mask whose fully
+   masked row must come out 0) beside SDPA as MQA, the causal flash
+   forward at q/k width 192, v width 128, beside SDPA, and rms_norm at
+   width 512.
 3. The serving path at full width: Llama-3-8B (bf16, all 32 layers, random
    weights from a seeded generator on the card) behind
    ``ContinuousBatchEngine(max_batch=8, max_len=2048)``, ten greedy
@@ -59,7 +63,20 @@ Phases (any failure raises, so the script exits non-zero):
    width, window 256, a 512-token prompt and 16 greedy tokens at max_len
    1024 (tokens identical, prefill logits within 1e-3); one training step
    at sequence 512, window 128, held as phase 6.
-10. The kernels line, then the card line, then the result line
+10. DeepSeek-V2-Lite serving (after the Mistral models are freed): the
+   published configuration (27 layers, hidden 2048, MLA with
+   kv_lora_rank 512, 64 routed experts top-6 and 2 shared, yarn RoPE),
+   bf16, random weights, ``ContinuousBatchEngine(max_batch=8,
+   max_len=4096)`` in latent mode; eight greedy prompts, exact buckets
+   (1024, 2048: the expanded flash kernel at width 192) and padded ones
+   (the absorbed einsum, as the JAX package), 64 new tokens each. The MLA
+   decode kernel must run 27 times per decode step, the width-192 flash
+   kernel 27 times per exact prefill, and no paged, append or width-128
+   flash kernel. ``--profile`` traces 10 decode steps at 8 slots.
+11. DeepSeek wiring, f32, card against CPU: two V2-Lite layers at full
+   width (one dense, one MoE), an exact and a padded prompt, 8 greedy
+   tokens each: tokens identical, prefill logits within 1e-3.
+12. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -79,7 +96,9 @@ from collections import Counter
 import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-PEAK_OPS_PER_S = {"bfloat16": 989e12}
+# dense tensor-core bf16; float32 on the CUDA cores (the MLA decode's
+# arithmetic, f32 as in the reference)
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 REPLACES = {
     "rms_norm": "paddle_tpu/ops/pallas/fused_norm.py:99",
@@ -93,6 +112,8 @@ REPLACES = {
     "fused_epilogue": "paddle_tpu/ops/pallas/decode_tail.py:347",
     "flash_attention_local": "paddle_tpu/ops/pallas/flash_attention.py:97",
     "flash_attention_local_bwd": "paddle_tpu/ops/pallas/flash_attention.py:97",
+    "mla_decode": "paddle_tpu/ops/pallas/mla_decode.py:147",
+    "flash_attention_mla": "paddle_tpu/ops/pallas/flash_attention.py:122",
 }
 SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -106,6 +127,8 @@ SOURCES = {
     "fused_epilogue": "paddle_tpu_torch/csrc/decode_tail.cu",
     "flash_attention_local": "paddle_tpu_torch/csrc/append_attention.cu",
     "flash_attention_local_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "mla_decode": "paddle_tpu_torch/csrc/mla_decode.cu",
+    "flash_attention_mla": "paddle_tpu_torch/csrc/append_attention.cu",
 }
 # the kernels each main path must launch
 SERVING_KERNELS = ("rms_norm", "add_rms_norm", "append_attention",
@@ -121,6 +144,13 @@ TRAIN_SEQ, TRAIN_DEPTH, TRAIN_STEPS = 4096, 4, 5
 # Mistral-7B: sliding window 4096; training at 8192, above the window
 LOCAL_SEQ, WINDOW = 8192, 4096
 MISTRAL_LENS, MISTRAL_NEW = (8192, 2048, 4700, 300), 32
+# DeepSeek-V2-Lite serving: exact buckets 2048 and 1024 (twice each), padded
+# 1500, 700, 300 and 100; 64 new tokens each
+DEEPSEEK_LENS, DEEPSEEK_NEW = (2048, 1024, 1500, 700, 300, 2048, 1024, 100), 64
+# deepseek-ai/DeepSeek-V2-Lite config.json rope_scaling
+V2_LITE_YARN = {"type": "yarn", "factor": 40, "beta_fast": 32,
+                "beta_slow": 1, "mscale": 0.707, "mscale_all_dim": 0.707,
+                "original_max_position_embeddings": 4096}
 
 
 def log(*a):
@@ -159,12 +189,13 @@ def bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sdpa_gqa(q, k, v, mask=None, causal=False):
-    """One library call: q [B,H,S,D], k/v [B,hk,T,D] (GQA)."""
+def sdpa_gqa(q, k, v, mask=None, causal=False, scale=None):
+    """One library call: q [B,H,S,D], k [B,hk,T,D], v [B,hk,T,Dv] (GQA)."""
     import torch.nn.functional as F
 
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                          is_causal=causal, enable_gqa=True)
+                                          is_causal=causal, scale=scale,
+                                          enable_gqa=True)
 
 
 # ---------------------------------------------------------------- phase 2 --
@@ -321,6 +352,8 @@ def check_kernels(results):
     # shape
     check_local_edges()
     check_flash_rows(record, close_bf16, randn, LOCAL_SEQ, WINDOW)
+    torch.cuda.empty_cache()
+    check_deepseek_kernels(record, close_bf16, randn)
     torch.cuda.empty_cache()
 
 
@@ -683,6 +716,125 @@ def check_flash_rows(record, close_bf16, randn, S, window):
            True)
 
 
+def check_deepseek_kernels(record, close_bf16, randn):
+    """DeepSeek-V2-Lite's kernels at its serving shapes: the MLA decode (B 8,
+    H 16, r 512, dr 64, T 4096, bf16 buffers, f32 pre-scaled queries,
+    ragged per-row pos including 0 and T - 1; once more with an allowed
+    mask holding an interior hole and one fully masked row, which must come
+    out exactly 0; once more at the decode lengths of phase 10's profile),
+    the causal flash forward at q/k width 192, v width 128
+    (q [1, 2048, 16, 192], V2-Lite's yarn softmax scale), and rms_norm at
+    the latent width 512. Yardsticks: SDPA as MQA over [c_kv | k_pe] with
+    the length mask, SDPA causal at the same widths, F.rms_norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.models.deepseek import mla_softmax_scale
+    from paddle_tpu_torch.ops.hopper import (flash_attention, fused_norm,
+                                             mla_decode)
+
+    dev = torch.device("cuda")
+    B, H, r, dr, T = 8, 16, 512, 64, 4096
+    gen = torch.Generator(dev).manual_seed(4321)
+    # pre-scaled f32 queries against unit bf16 latents: scores of spread 2
+    qs = 2.0 / (r + dr) ** 0.5
+    q_lat = torch.randn(B, H, r, generator=gen, device=dev) * qs
+    q_pe = torch.randn(B, H, dr, generator=gen, device=dev) * qs
+    ckv, kpe = randn(B, T, r), randn(B, T, dr)
+    pos = torch.tensor([0, T - 1, 1000, 2047, 3071, 17, 4000, 2500],
+                       dtype=torch.int32, device=dev)
+    holed = torch.ones(B, T, dtype=torch.bool, device=dev)
+    holed[2, 100:300] = False      # an interior hole
+    holed[5] = False               # a row that sees no column
+    log("  mla_decode: f32 on both sides, sums in another order: tolerance "
+        "|k - p| <= 1e-4 + 1e-4 |p|; a fully masked row exactly 0")
+    q_sdpa = torch.cat([q_lat, q_pe], -1).to(torch.bfloat16)[:, :, None]
+    k_sdpa = torch.cat([ckv, kpe], -1)[:, None]     # MQA: one KV head
+    v_sdpa = ckv[:, None]
+    # the ragged rows (the kernels line's row), with the mask, and the
+    # lengths of phase 10's profiled decode (8 slots of 1024-token prompts
+    # some steps in), where each row sees a quarter of the buffer
+    serving = torch.arange(1040, 1040 + B, dtype=torch.int32, device=dev)
+    for rows, allowed in ((pos, None), (pos, holed), (serving, None)):
+        out = mla_decode.mla_decode(q_lat, q_pe, ckv, kpe, rows, allowed)
+        ref = mla_decode.mla_decode_plain(q_lat, q_pe, ckv, kpe, rows,
+                                          allowed)
+        diff = (out - ref).abs()
+        ok = bool((diff <= 1e-4 + 1e-4 * ref.abs()).all())
+        vis = torch.arange(T, device=dev)[None, :] <= rows[:, None].long()
+        label = f"B={B} H={H} r={r} dr={dr} T={T} ragged pos"
+        if rows is serving:
+            label = f"B={B} H={H} r={r} dr={dr} T={T} pos 1040-{1039 + B}"
+        if allowed is not None:
+            vis = vis & allowed
+            dead = bool((out[5] == 0).all())
+            log(f"  mla_decode with allowed: the fully masked row is exactly "
+                f"0: {dead}")
+            ok = ok and dead
+            label += ", allowed"
+        mask = vis[:, None, None, :]
+        n_cols = int((rows.long() + 1).sum())
+        # every visible column's latent and rope key read once, the queries,
+        # row limits (and the mask up to each limit), the output written once
+        nbytes = (n_cols * (r + dr) * 2 + B * H * (r + dr) * 4 + B * 4
+                  + B * H * r * 4 + (n_cols if allowed is not None else 0))
+        record("mla_decode", label, float(diff.max()), ok,
+               time_ms(lambda: mla_decode.mla_decode(q_lat, q_pe, ckv, kpe,
+                                                     rows, allowed)),
+               time_ms(lambda: mla_decode.mla_decode_plain(
+                   q_lat, q_pe, ckv, kpe, rows, allowed)),
+               time_ms(lambda: sdpa_gqa(q_sdpa, k_sdpa, v_sdpa, mask=mask,
+                                        scale=1.0)),
+               bound(nbytes, n_cols * H * (4 * r + 2 * dr), "float32"),
+               rows is pos and allowed is None)
+    del ckv, kpe, k_sdpa, v_sdpa
+
+    from paddle_tpu_torch.models.deepseek import DeepseekV2Config
+
+    scale = mla_softmax_scale(DeepseekV2Config(rope_scaling=V2_LITE_YARN))
+    S, dqk, dv = 2048, 192, 128
+    q, k, v = randn(1, S, H, dqk), randn(1, S, H, dqk), randn(1, S, H, dv)
+    out = flash_attention.flash_attention_bshd(q, k, v, causal=True,
+                                               sm_scale=scale)
+    ref = flash_attention.flash_attention_plain(q, k, v, causal=True,
+                                                sm_scale=scale)
+    err, ok = close_bf16(out, ref)
+    try:
+        flash_attention.flash_attention_bshd(q.detach().requires_grad_(), k,
+                                             v, causal=True, sm_scale=scale)
+        ok = False
+        log("  flash_attention_mla: an input that needs a gradient did not "
+            "raise")
+    except NotImplementedError:
+        pass
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    cells = S * (S + 1) // 2
+    record("flash_attention_mla", f"[1,{S},{H},{dqk}|{dv}] causal "
+           f"scale={scale:.4f}", err, ok,
+           time_ms(lambda: flash_attention.flash_attention_bshd(
+               q, k, v, causal=True, sm_scale=scale), reps=10),
+           time_ms(lambda: flash_attention.flash_attention_plain(
+               q, k, v, causal=True, sm_scale=scale), reps=3, warmup=1),
+           time_ms(lambda: sdpa_gqa(qt, kt, vt, causal=True, scale=scale),
+                   reps=10),
+           bound(2 * S * H * (2 * dqk + 2 * dv), 2 * (dqk + dv) * H * cells,
+                 "bfloat16"), True)
+    del q, k, v, qt, kt, vt, out, ref
+
+    d = 512
+    for rows in (8, 2048):
+        x, w = randn(rows, d), randn(d, scale=0.5) + 1
+        out = fused_norm.rms_norm(x, w, 1e-6)
+        ref = fused_norm.rms_norm_plain(x, w, 1e-6)
+        err, ok = close_bf16(out, ref, atol=1e-6, rtol=2.0 ** -6)
+        record("rms_norm", f"rows={rows} d={d}", err, ok,
+               time_ms(lambda: fused_norm.rms_norm(x, w, 1e-6)),
+               time_ms(lambda: fused_norm.rms_norm_plain(x, w, 1e-6)),
+               time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6)),
+               bound(2 * rows * d * 2 + d * 2, 4 * rows * d, "bfloat16"),
+               False)
+
+
 # ---------------------------------------------------------------- phase 3 --
 
 class _Timed:
@@ -916,8 +1068,9 @@ def require_launched(counts, names, path):
 def profile_decode(model, card, n_steps=10, slots=8, max_len=2048,
                    prompt=512):
     """Where a decode step's time goes at full occupancy, with the fused
-    tail off and on: ``slots`` requests of ``prompt`` tokens; ``n_steps``
-    steps timed on the host clock, then ``n_steps`` more under
+    tail off and on where the model's layers take it (the MLA family has
+    none, so it is traced once): ``slots`` requests of ``prompt`` tokens;
+    ``n_steps`` steps timed on the host clock, then ``n_steps`` more under
     ``torch.profiler`` for the device time and count of each kernel, and
     the host time of each PyTorch op. One stream, so kernel times do not
     overlap: their sum over the unprofiled wall time is the device's busy
@@ -926,10 +1079,13 @@ def profile_decode(model, card, n_steps=10, slots=8, max_len=2048,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_tpu_torch.models.llama import fused_decode_structural
     from paddle_tpu_torch.serving import ContinuousBatchEngine
     from paddle_tpu_torch.utils.flags import flag_overrides
 
-    for fused in (False, True):
+    layer = model.llama.layers[0]
+    tail = fused_decode_structural(layer, layer.input_layernorm.weight.dtype)
+    for fused in (False, True) if tail else (False,):
         with flag_overrides({"use_fused_decode_tail": fused}):
             eng = ContinuousBatchEngine(model, max_batch=slots,
                                         max_len=max_len)
@@ -1388,13 +1544,146 @@ def window_wiring_check():
                                  f"{counts.get(name, 0)} times")
 
 
+# --------------------------------------------------------------- phase 10 --
+
+def deepseek_config(**kw):
+    """DeepSeek-V2-Lite as published (deepseek-ai/DeepSeek-V2-Lite
+    config.json): no preset in the JAX package, so built from its fields."""
+    from paddle_tpu_torch.models import DeepseekV2Config
+
+    base = dict(vocab_size=102400, hidden_size=2048, intermediate_size=10944,
+                num_hidden_layers=27, num_attention_heads=16,
+                num_key_value_heads=16, max_position_embeddings=163840,
+                rms_norm_eps=1e-6, rope_theta=10000.0,
+                rope_scaling=V2_LITE_YARN, tie_word_embeddings=False,
+                n_routed_experts=64, n_shared_experts=2,
+                num_experts_per_tok=6, moe_intermediate_size=1408,
+                first_k_dense_replace=1, norm_topk_prob=False,
+                routed_scaling_factor=1.0, moe_scoring_func="softmax",
+                n_group=1, topk_group=1, router_aux_loss_coef=0.001,
+                q_lora_rank=None, kv_lora_rank=512, qk_nope_head_dim=128,
+                qk_rope_head_dim=64, v_head_dim=128, dtype="bfloat16")
+    base.update(kw)
+    return DeepseekV2Config(**base)
+
+
+def serve_deepseek(profile=False):
+    """Phase 10: DeepSeek-V2-Lite (all 27 layers, bf16, random weights)
+    behind ``ContinuousBatchEngine(max_batch=8, max_len=4096)`` in latent
+    mode, eight greedy prompts (exact buckets through the width-192 flash
+    kernel, padded ones through the absorbed einsum), 64 new tokens each.
+    Returns the launch counts."""
+    import torch
+
+    from paddle_tpu_torch.models import DeepseekV2ForCausalLM
+
+    cfg = deepseek_config()
+    n_layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = DeepseekV2ForCausalLM(
+        cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(11))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 10: DeepSeek-V2-Lite, {n_layers} layers, bf16, "
+        f"{n_params / 1e9:.2f}B parameters drawn in "
+        f"{time.perf_counter() - t0:.1f}s; MLA r={cfg.kv_lora_rank} "
+        f"dr={cfg.qk_rope_head_dim}, {cfg.n_routed_experts} experts top-"
+        f"{cfg.num_experts_per_tok} + {cfg.n_shared_experts} shared, "
+        f"capacity factor {cfg.moe_capacity_factor}")
+    card = card_line()
+    rng = np.random.RandomState(10)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in DEEPSEEK_LENS]
+    news = [DEEPSEEK_NEW] * len(prompts)
+    n_exact = sum(1 for n in DEEPSEEK_LENS if n >= 16 and n & (n - 1) == 0)
+    counts, stats, _, _, _ = serve_run(
+        model, card, "DeepSeek-V2-Lite", prompts, news, False,
+        log_prefills=True, max_batch=8, max_len=4096)
+    steps = stats["decode_steps"]
+    want = {"flash_attention_mla": n_layers * n_exact,
+            "mla_decode": n_layers * steps, "flash_attention_bshd": 0,
+            "flash_attention_local": 0, "append_attention": 0,
+            "paged_attention": 0, "fused_qkv_rope": 0, "fused_epilogue": 0}
+    for name, n in want.items():
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"DeepSeek-V2-Lite: {name} launched "
+                                 f"{counts.get(name, 0)} times, expected {n} "
+                                 f"({steps} decode steps, {n_exact} exact "
+                                 "prefills)")
+    require_launched(counts, ("rms_norm", "add_rms_norm"), "DeepSeek serving")
+    if profile:
+        profile_decode(model, card, slots=8, max_len=4096, prompt=1024)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------------------------------------------- phase 11 --
+
+def deepseek_wiring_check():
+    """Two DeepSeek-V2-Lite layers at full width in f32 (one dense, one
+    MoE), the same weights on the card and the CPU: a 64-token prompt (the
+    exact bucket: the expanded flash kernel) and a 40-token one (padded to
+    64: the absorbed einsum), 8 greedy tokens each through the MLA decode;
+    tokens identical, prefill logits within 1e-3."""
+    import torch
+
+    from paddle_tpu_torch.models import DeepseekV2ForCausalLM
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = deepseek_config(num_hidden_layers=2, dtype="float32")
+    m_gpu = DeepseekV2ForCausalLM(
+        cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(13))
+    m_cpu = DeepseekV2ForCausalLM(cfg, device="cpu",
+                                  generator=torch.Generator().manual_seed(0))
+    m_cpu.load_state_dict(m_gpu.state_dict())
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in (64, 40)]
+
+    def run(model):
+        eng = ContinuousBatchEngine(model, max_batch=2, max_len=256)
+        rids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
+        first = eng._last.cpu().clone()
+        out = eng.run_until_done()
+        return [out[r] for r in rids], first, eng.stats()["decode_steps"]
+
+    reset_launches()
+    card, card_first, steps = run(m_gpu)
+    counts = dict(launches)
+    cpu, cpu_first, _ = run(m_cpu)
+    err = float((card_first - cpu_first).abs().max())
+    tol = 1e-3   # f32 on both sides, sums in another order on the card
+    log(f"phase 11: DeepSeek wiring, 2 V2-Lite layers at full width, f32, "
+        f"prompts 64 (exact) and 40 (padded): card tokens "
+        f"{[t.tolist() for t in card]} cpu tokens {[t.tolist() for t in cpu]};"
+        f" prefill logits card vs cpu max abs err {err:.3e} (tolerance {tol}, "
+        f"|logits| <= {float(cpu_first.abs().max()):.3f}); card launches "
+        f"{json.dumps(counts)}")
+    if counts.get("flash_attention_mla", 0) != cfg.num_hidden_layers:
+        raise AssertionError("the exact prefill did not launch the width-192 "
+                             "flash kernel once per layer")
+    if counts.get("mla_decode", 0) != cfg.num_hidden_layers * steps:
+        raise AssertionError(f"mla_decode launched {counts.get('mla_decode')}"
+                             f" times for {steps} steps")
+    if not all(np.array_equal(a, b) for a, b in zip(card, cpu)):
+        raise AssertionError("card and CPU greedy tokens differ (DeepSeek)")
+    if not err <= tol:
+        raise AssertionError("DeepSeek prefill logits differ beyond the "
+                             "tolerance")
+    del m_gpu, m_cpu
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after phases 3 and 7, trace 10 decode steps with "
-                         "torch.profiler, fused tail off and on (Llama-3-8B "
-                         "at 8 slots, Mistral-7B at 4 slots of 8192-token "
-                         "prompts)")
+                    help="after phases 3, 7 and 10, trace 10 decode steps "
+                         "with torch.profiler, fused tail off and on "
+                         "(Llama-3-8B at 8 slots, Mistral-7B at 4 slots of "
+                         "8192-token prompts; DeepSeek-V2-Lite at 8 slots of "
+                         "1024-token prompts, no fused tail)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1427,6 +1716,10 @@ def main(argv=None) -> int:
     counts.update(serve_mistral(args.profile))
     counts.update(train_mistral())
     window_wiring_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.update(serve_deepseek(args.profile))
+    deepseek_wiring_check()
 
     kernels = []
     for name in SOURCES:

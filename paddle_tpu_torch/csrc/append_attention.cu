@@ -12,6 +12,12 @@
 //   pos + s - window < t <= pos + s.
 // The FullMask is not ported.
 //
+// Head widths: q/k width DQK and v width DV are template parameters,
+// instantiated at (128, 128), the Llama families' heads, and (192, 128),
+// DeepSeek's MLA prefill (qk_nope 128 + qk_rope 64 against v 128, which
+// the TPU path zero-pads to 256 and 128 lanes; CUDA has no lane rule, so
+// the kernel takes the true widths and computes the same function).
+//
 // Bound on the H100: at prefill (S = T = bucket) the work is the
 // 4 * D * (visible query/key pairs) operations of the two products, which
 // for a bucket of 1024 is well above the card's ratio of operations to
@@ -47,15 +53,17 @@
 
 namespace {
 
-constexpr int D = 128;    // head width, fixed
 constexpr int BM = 64;    // query rows per block
 constexpr int BN = 64;    // key rows per tile
 constexpr int NT = 256;   // threads per block
-constexpr int QS = D + 1; // padded shared-memory row strides
-constexpr int KS = D + 1;
 constexpr int PS = BN + 1;
-constexpr int SMEM_FLOATS = BM * QS + BN * KS + BN * D + BM * PS + 3 * BM;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
+
+// shared memory of the (DQK, DV) instantiation: padded q and k tiles, the
+// v tile, scores and three per-row vectors (149 KB at (192, 128))
+template <int DQK, int DV> constexpr size_t smem_bytes() {
+  return (size_t)(BM * (DQK + 1) + BN * (DQK + 1) + BN * DV + BM * PS + 3 * BM) *
+         sizeof(float);
+}
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -68,17 +76,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-template <typename T>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(NT)
 append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const uint8_t* __restrict__ allowed,
                         T* __restrict__ out, float* __restrict__ lse, int S, int T_,
                         int hk, int g, int pos, int window, float scale) {
+  constexpr int QS = DQK + 1;   // padded shared-memory row strides
+  constexpr int KS = DQK + 1;
+  constexpr int NJ = DV / 16;    // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;              // [BM][QS]
   float* Ks = Qs + BM * QS;      // [BN][KS]
-  float* Vs = Ks + BN * KS;      // [BN][D]
-  float* Ps = Vs + BN * D;       // [BM][PS] scores, then probabilities
+  float* Vs = Ks + BN * KS;      // [BN][DV]
+  float* Ps = Vs + BN * DV;      // [BM][PS] scores, then probabilities
   float* m_s = Ps + BM * PS;     // running max per row
   float* l_s = m_s + BM;         // running sum per row
   float* a_s = l_s + BM;         // rescale factor of the current tile
@@ -91,12 +102,12 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int H = hk * g;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < BM * D; i += NT) {
-    const int rr = i / D, dd = i % D, r = r0 + rr;
+  for (int i = tid; i < BM * DQK; i += NT) {
+    const int rr = i / DQK, dd = i % DQK, r = r0 + rr;
     float val = 0.f;
     if (r < rows) {
       const int j = r / S, s = r % S;
-      val = to_f(q[(((size_t)b * S + s) * H + kh * g + j) * D + dd]) * scale;
+      val = to_f(q[(((size_t)b * S + s) * H + kh * g + j) * DQK + dd]) * scale;
     }
     Qs[rr * QS + dd] = val;
   }
@@ -119,23 +130,36 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_begin = window > 0 ? max(0, pos + s_min - window + 1) / BN * BN : 0;
 
   const int tx = tid % 16, ty = tid / 16;  // rows ty + 16i, cols tx + 16j
-  float acc[4][8];
+  float acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
 
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BN) {
-    for (int i = tid; i < BN * D; i += NT) {
-      const int c = i / D, dd = i % D, col = kv0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (col < T_) {
-        const size_t off = (((size_t)b * T_ + col) * hk + kh) * D + dd;
-        kv = to_f(k[off]);
-        vv = to_f(v[off]);
+    if constexpr (DQK == DV) {  // one pass over K and V (the Llama heads)
+      for (int i = tid; i < BN * DV; i += NT) {
+        const int c = i / DV, dd = i % DV, col = kv0 + c;
+        float kv = 0.f, vv = 0.f;
+        if (col < T_) {
+          const size_t off = (((size_t)b * T_ + col) * hk + kh) * DV + dd;
+          kv = to_f(k[off]);
+          vv = to_f(v[off]);
+        }
+        Ks[c * KS + dd] = kv;
+        Vs[c * DV + dd] = vv;
       }
-      Ks[c * KS + dd] = kv;
-      Vs[c * D + dd] = vv;
+    } else {
+      for (int i = tid; i < BN * DQK; i += NT) {
+        const int c = i / DQK, dd = i % DQK, col = kv0 + c;
+        Ks[c * KS + dd] =
+            col < T_ ? to_f(k[(((size_t)b * T_ + col) * hk + kh) * DQK + dd]) : 0.f;
+      }
+      for (int i = tid; i < BN * DV; i += NT) {
+        const int c = i / DV, dd = i % DV, col = kv0 + c;
+        Vs[c * DV + dd] =
+            col < T_ ? to_f(v[(((size_t)b * T_ + col) * hk + kh) * DV + dd]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -145,7 +169,7 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
 #pragma unroll 4
-    for (int dd = 0; dd < D; ++dd) {
+    for (int dd = 0; dd < DQK; ++dd) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QS + dd];
@@ -199,19 +223,19 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const float al = a_s[ty + 16 * i];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc[i][jj] *= al;
+      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= al;
     }
 #pragma unroll 4
     for (int c = 0; c < BN; ++c) {
-      float pv[4], vv[8];
+      float pv[4], vv[NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PS + c];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) vv[jj] = Vs[c * D + tx + 16 * jj];
+      for (int jj = 0; jj < NJ; ++jj) vv[jj] = Vs[c * DV + tx + 16 * jj];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(pv[i], vv[jj], acc[i][jj]);
+        for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = fmaf(pv[i], vv[jj], acc[i][jj]);
     }
     __syncthreads();
   }
@@ -223,9 +247,9 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int j = r / S, s = r % S;
     const float l = l_s[rr];
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* orow = out + (((size_t)b * S + s) * H + kh * g + j) * D;
+    T* orow = out + (((size_t)b * S + s) * H + kh * g + j) * DV;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) orow[tx + 16 * jj] = from_f<T>(acc[i][jj] * inv);
+    for (int jj = 0; jj < NJ; ++jj) orow[tx + 16 * jj] = from_f<T>(acc[i][jj] * inv);
   }
   if (lse != nullptr && tid < BM && r0 + tid < rows) {
     const int r = r0 + tid, j = r / S, s = r % S;
@@ -234,39 +258,55 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, void* out,
            float* lse, int B, int S, int T_, int H, int hk, int pos, int window,
            float scale, cudaStream_t stream) {
-  auto kernel = append_attention_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  auto kernel = append_attention_kernel<T, DQK, DV>;
+  constexpr size_t smem = smem_bytes<DQK, DV>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int g = H / hk;
   dim3 grid(B, hk, (g * S + BM - 1) / BM);
-  kernel<<<grid, NT, SMEM_BYTES, stream>>>(
+  kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       allowed, static_cast<T*>(out), lse, S, T_, hk, g, pos, window, scale);
   return (int)cudaGetLastError();
 }
 
+template <int DQK, int DV>
+int launch_dtype(const void* q, const void* k, const void* v, const uint8_t* a, void* out,
+                 float* l, int B, int S, int T_, int H, int hk, int pos, int window,
+                 float scale, int dtype, cudaStream_t s) {
+  if (dtype == 1)
+    return launch<__nv_bfloat16, DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos,
+                                          window, scale, s);
+  return launch<float, DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, scale,
+                                s);
+}
+
 }  // namespace
 
-// q, out [B, S, H, D]; k, v [B, T, hk, D]; allowed [B, T] bytes or null;
+// q [B, S, H, dqk]; k [B, T, hk, dqk]; v [B, T, hk, dv]; out [B, S, H, dv];
+// (dqk, dv) is (128, 128) or (192, 128); allowed [B, T] bytes or null;
 // lse [B, H, S] f32 or null; window 0 = none, else query s sees only
 // columns t > pos + s - window. dtype: 0 = float32, 1 = bfloat16. Returns
 // cudaGetLastError() after launch.
 extern "C" int pt_append_attention(const void* q, const void* k, const void* v,
                                    const void* allowed, void* out, void* lse, int B,
-                                   int S, int T_, int H, int hk, int pos, int window,
-                                   float scale, int dtype, void* stream) {
+                                   int S, int T_, int H, int hk, int dqk, int dv, int pos,
+                                   int window, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* a = static_cast<const uint8_t*>(allowed);
   float* l = static_cast<float*>(lse);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, scale,
-                                 s);
-  return launch<float>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, scale, s);
+  if (dqk == 128 && dv == 128)
+    return launch_dtype<128, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, scale,
+                                  dtype, s);
+  if (dqk == 192 && dv == 128)
+    return launch_dtype<192, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, scale,
+                                  dtype, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* pt_error_string(int code) {

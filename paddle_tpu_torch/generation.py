@@ -285,19 +285,26 @@ def sample_logits_rows(logits, generator, do_sample, temperature, top_k,
 # ---------------------------------------------------------------------------
 
 def _empty_caches(model, batch, max_len, allowed=None):
-    """Fresh dense per-layer caches for a prefill. ``pos`` starts at the
-    int 0 and ``prefill`` marks the first forward, which routes the
-    unpadded prompt to the flash kernel."""
+    """Fresh per-layer caches for a prefill (``generation.py:574-592``):
+    dense K/V, or the trunk's own layout where it has an
+    ``empty_cache_layer`` hook (MLA's compressed latent). ``pos`` starts at
+    the int 0 and ``prefill`` marks the first forward, which routes the
+    unpadded prompt to the flash kernel; the attention's returned cache
+    leaves the marker out, so the first forward consumes it."""
     from .models.llama import head_dim_of, torch_dtype
 
     cfg = model.config
     shape = (batch, max_len, cfg.num_key_value_heads, head_dim_of(cfg))
     dt = torch_dtype(cfg.dtype)
+    make = getattr(model.llama, "empty_cache_layer", None)
     caches = []
     for _ in range(cfg.num_hidden_layers):
-        c = {"k": torch.zeros(shape, dtype=dt, device=model.device),
-             "v": torch.zeros(shape, dtype=dt, device=model.device),
-             "pos": 0, "prefill": True}
+        if make is not None:
+            c = dict(make(batch, max_len, dt), pos=0, prefill=True)
+        else:
+            c = {"k": torch.zeros(shape, dtype=dt, device=model.device),
+                 "v": torch.zeros(shape, dtype=dt, device=model.device),
+                 "pos": 0, "prefill": True}
         if allowed is not None:
             c["allowed"] = allowed
         caches.append(c)

@@ -1,7 +1,8 @@
 """Llama-3 decoder — counterpart of ``paddle_tpu/models/llama.py``.
 
-Ported: the config and its presets, rope tables (default, ``llama3`` and
-``linear`` scaling), RMSNorm, attention over the static KV caches (dense
+Ported: the config and its presets, rope tables (default, ``llama3``,
+``linear`` and ``yarn`` scaling), RMSNorm (also over another width,
+``_width_norm``), attention over the static KV caches (dense
 prefill cache and paged pool) and without a cache (the training forward:
 fused RoPE, then causal or sliding-window flash attention), the gated MLP,
 the decoder layer on the discrete path, ``LlamaModel.forward`` /
@@ -58,8 +59,8 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     # HF-style rope_scaling dict: {"rope_type": "llama3", "factor": 8.0,
     # "low_freq_factor": 1.0, "high_freq_factor": 4.0,
-    # "original_max_position_embeddings": 8192} or {"rope_type": "linear",
-    # "factor": N}; yarn and longrope are not ported yet
+    # "original_max_position_embeddings": 8192}, {"rope_type": "linear",
+    # "factor": N} or {"rope_type": "yarn", ...}; longrope is not ported
     rope_scaling: Optional[dict] = None
     # attention head width decoupled from hidden_size / num_heads
     head_dim: Optional[int] = None
@@ -154,7 +155,7 @@ def rope_dim_of(config) -> int:
     return r - (r % 2)
 
 
-SUPPORTED_ROPE_SCALING = ("default", "none", "llama3", "linear")
+SUPPORTED_ROPE_SCALING = ("default", "none", "llama3", "linear", "yarn")
 
 
 def _rope_type(scaling: Optional[dict]):
@@ -173,6 +174,9 @@ def _scale_inv_freq(inv_freq, scaling: Optional[dict]):
     factor = float(scaling["factor"])
     if rope_type == "linear":
         return inv_freq / factor
+    if rope_type == "yarn":
+        raise ValueError("yarn frequencies depend on head_dim and theta: "
+                         "build tables through _rope_tables(scaling=...)")
     if rope_type == "llama3":
         low = float(scaling["low_freq_factor"])
         high = float(scaling["high_freq_factor"])
@@ -189,15 +193,81 @@ def _scale_inv_freq(inv_freq, scaling: Optional[dict]):
     raise NotImplementedError(f"rope_scaling type {rope_type!r} is not ported")
 
 
-def _rope_tables(seq_len, head_dim, theta, scaling=None, device=None):
-    """(cos, sin) [seq_len, head_dim] f32, rotate-half layout."""
-    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
-                                             dtype=torch.float32,
-                                             device=device) / head_dim))
-    inv_freq = _scale_inv_freq(inv_freq, scaling)
+def _yarn_get_mscale(scale: float, m: float = 1.0) -> float:
+    """yarn magnitude term 0.1 m ln(s) + 1: the tables' factor and the
+    DeepSeek softmax scale's (``paddle_tpu/models/llama.py:299``)."""
+    if scale <= 1:
+        return 1.0
+    return 0.1 * m * math.log(scale) + 1.0
+
+
+def _yarn_params(scaling: dict, dim: int, base: float,
+                 fallback_orig: Optional[int] = None, device=None):
+    """(inv_freq [dim // 2] f32, attention factor) of yarn: NTK-by-parts
+    blend of interpolated and extrapolated frequencies, and the magnitude
+    the cos / sin tables are multiplied by, DeepSeek's mscale /
+    mscale_all_dim variant included (``paddle_tpu/models/llama.py:
+    307-353``). ``fallback_orig`` anchors the correction range when the
+    scaling omits original_max_position_embeddings."""
+    factor = float(scaling["factor"])
+    orig = scaling.get("original_max_position_embeddings") or fallback_orig
+    if not orig:
+        raise ValueError(
+            "yarn rope_scaling needs original_max_position_embeddings "
+            "(or a max_position fallback) to anchor the correction range")
+    orig = float(orig)
+    att = scaling.get("attention_factor")
+    if att is None:
+        mscale = scaling.get("mscale")
+        mscale_all_dim = scaling.get("mscale_all_dim")
+        if mscale and mscale_all_dim:
+            att = float(_yarn_get_mscale(factor, float(mscale))
+                        / _yarn_get_mscale(factor, float(mscale_all_dim)))
+        else:
+            att = _yarn_get_mscale(factor)
+    beta_fast = float(scaling.get("beta_fast") or 32)
+    beta_slow = float(scaling.get("beta_slow") or 1)
+
+    def corr_dim(rot):
+        return (dim * math.log(orig / (rot * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+    if scaling.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, dim - 1)
+    if low == high:
+        high += 0.001  # prevent singularity
+    ramp = torch.clamp(
+        (torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+        / (high - low), 0, 1)
+    extrap = 1.0 - ramp                     # 1 = keep base freq (short wl)
+    pos_freqs = base ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                      device=device) / dim)
+    inv_freq = ((1.0 / (factor * pos_freqs)) * (1.0 - extrap)
+                + (1.0 / pos_freqs) * extrap)
+    return inv_freq, float(att)
+
+
+def _rope_tables(seq_len, head_dim, theta, scaling=None, device=None,
+                 max_position=None):
+    """(cos, sin) [seq_len, head_dim] f32, rotate-half layout; under yarn
+    both are multiplied by its attention factor."""
+    att = 1.0
+    if _rope_type(scaling) == "yarn":
+        inv_freq, att = _yarn_params(scaling, head_dim, theta,
+                                     fallback_orig=max_position,
+                                     device=device)
+    else:
+        inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                                 dtype=torch.float32,
+                                                 device=device) / head_dim))
+        inv_freq = _scale_inv_freq(inv_freq, scaling)
     t = torch.arange(seq_len, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)
     emb = torch.cat([freqs, freqs], dim=-1)
+    if att != 1.0:
+        return torch.cos(emb) * att, torch.sin(emb) * att
     return torch.cos(emb), torch.sin(emb)
 
 
@@ -216,6 +286,13 @@ class LlamaRMSNorm(tnn.Module):
 
     def forward(self, x):
         return fused_norm.rms_norm(x, self.weight, self.variance_epsilon)
+
+
+def _width_norm(config, width, device=None):
+    """RMSNorm over another trailing width (the MLA latents) built from the
+    family config (``paddle_tpu/models/llama.py:195``)."""
+    return LlamaRMSNorm(dataclasses.replace(config, hidden_size=width),
+                        device=device)
 
 
 class LlamaAttention(tnn.Module):
@@ -452,23 +529,33 @@ class LlamaModel(tnn.Module):
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
                                          device=device,
                                          dtype=torch_dtype(config.dtype))
-        layers = []
-        for i in range(config.num_hidden_layers):
-            layer = LlamaDecoderLayer(config, device=device)
-            layer.self_attn.window = layer_window(config, i)
-            layers.append(layer)
-        self.layers = tnn.ModuleList(layers)
+        self.layers = tnn.ModuleList(
+            [self._make_layer(config, i, device)
+             for i in range(config.num_hidden_layers)])
         self.norm = LlamaRMSNorm(config, device=device)
         # plain tensors keyed by table length — nothing traced is cached
         self._rope_cache: dict = {}
 
+    def _make_layer(self, config, layer_idx, device):
+        """Decoder layer ``layer_idx``; families with another block (MoE,
+        MLA) override this."""
+        layer = LlamaDecoderLayer(config, device=device)
+        layer.self_attn.window = layer_window(config, layer_idx)
+        return layer
+
+    def _rope_dim(self):
+        """Rotary table width; MLA trunks override (RoPE rides only the
+        decoupled qk_rope_head_dim slice)."""
+        return rope_dim_of(self.config)
+
     def _rope(self, seq_len):
         pair = self._rope_cache.get(seq_len)
         if pair is None:
-            pair = _rope_tables(seq_len, rope_dim_of(self.config),
+            pair = _rope_tables(seq_len, self._rope_dim(),
                                 self.config.rope_theta,
                                 scaling=self.config.rope_scaling,
-                                device=self.embed_tokens.weight.device)
+                                device=self.embed_tokens.weight.device,
+                                max_position=self.config.max_position_embeddings)
             self._rope_cache[seq_len] = pair
         return pair
 
@@ -500,11 +587,13 @@ class LlamaForCausalLM(tnn.Module):
     generator on ``device``): Normal(0, initializer_range) for embeddings
     and projections, ones for norms."""
 
+    model_cls = LlamaModel  # trunk hook (the MoE and MLA families swap it)
+
     def __init__(self, config: LlamaConfig, device=None, generator=None):
         super().__init__()
         device = default_device(device)
         self.config = config
-        self.llama = LlamaModel(config, device=device)
+        self.llama = type(self).model_cls(config, device=device)
         self.lm_head = (None if config.tie_word_embeddings else
                         nn.Linear(config.hidden_size, config.vocab_size,
                                   device=device,

@@ -10,7 +10,9 @@ The kernel also runs the causal and sliding-window forward of
 ``flash_attention.flash_attention_bshd`` (``launch`` with ``window``).
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
-kernel or raises. The kernel takes head width 128 and float32 / bfloat16.
+kernel or raises. The kernel takes float32 / bfloat16 and head widths
+(q/k, v) of (128, 128), or (192, 128) for DeepSeek's MLA prefill through
+the flash forward.
 """
 from __future__ import annotations
 
@@ -22,12 +24,15 @@ from . import _build
 
 _STEM = "append_attention"
 HEAD_DIM = 128
+# (q/k width, v width) pairs the kernel is instantiated at
+WIDTHS = ((128, 128), (192, 128))
 
 
 def grouped_attention_plain(q, k, v, mask, scale):
     """f32 ``softmax(q k^T * scale) v`` with grouped-query heads: q
-    [B, S, H, D], k/v [B, T, hk, D], ``mask`` None or [B or 1, S, T] bool
-    (True = visible). The plain attention every kernel here is held to."""
+    [B, S, H, D], k [B, T, hk, D], v [B, T, hk, Dv], ``mask`` None or
+    [B or 1, S, T] bool (True = visible). Returns [B, S, H, Dv]. The plain
+    attention every kernel here is held to."""
     B, S, H, D = q.shape
     hk = k.shape[2]
     qg = q.reshape(B, S, hk, H // hk, D).float()
@@ -36,7 +41,7 @@ def grouped_attention_plain(q, k, v, mask, scale):
         scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    return out.reshape(B, S, H, D).to(q.dtype)
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None):
@@ -75,14 +80,15 @@ def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False,
     _build.require_cuda(*tensors)
     code = _build.dtype_code(q)
     B, S, H, D = q.shape
-    _build.require(k_buf.dim() == 4 and v_buf.shape == k_buf.shape,
-                   f"{counter}: k/v must be [B, T, hk, D] of one shape")
-    T, hk = k_buf.shape[1], k_buf.shape[2]
+    _build.require(k_buf.dim() == 4 and v_buf.dim() == 4
+                   and v_buf.shape[:3] == k_buf.shape[:3],
+                   f"{counter}: k must be [B, T, hk, D] and v [B, T, hk, Dv]")
+    T, hk, Dv = k_buf.shape[1], k_buf.shape[2], v_buf.shape[3]
     _build.require(k_buf.shape[0] == B and k_buf.shape[3] == D,
                    f"{counter}: q {tuple(q.shape)} and k {tuple(k_buf.shape)} "
                    "disagree")
-    _build.require(D == HEAD_DIM, f"{counter}: the kernel takes head_dim "
-                                  f"{HEAD_DIM}, got {D}")
+    _build.require((D, Dv) in WIDTHS, f"{counter}: the kernel takes (q/k, v) "
+                                      f"head widths {WIDTHS}, got ({D}, {Dv})")
     _build.require(H % hk == 0, f"{counter}: {H} heads over {hk} KV heads")
     _build.require(k_buf.dtype == q.dtype and v_buf.dtype == q.dtype,
                    f"{counter}: q, k and v must share one dtype")
@@ -98,19 +104,16 @@ def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False,
         if allowed.dtype != torch.uint8:
             allowed = allowed.to(torch.uint8)
         a_ptr = _build.ptr(allowed)
-    out = torch.empty_like(q)
+    out = q.new_empty(B, S, H, Dv)
     lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
            if with_lse else None)
     if q.numel() > 0:
-        fn = _build.function(_STEM, "pt_append_attention", [
-            _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP,
-            _build.VOIDP, _build.VOIDP, _build.INT, _build.INT, _build.INT,
-            _build.INT, _build.INT, _build.INT, _build.INT, _build.FLOAT,
-            _build.INT, _build.VOIDP])
+        fn = _build.function(_STEM, "pt_append_attention", [_build.VOIDP] * 6 + [
+            _build.INT] * 9 + [_build.FLOAT, _build.INT, _build.VOIDP])
         err = fn(_build.ptr(q), _build.ptr(k_buf), _build.ptr(v_buf), a_ptr,
                  _build.ptr(out), None if lse is None else _build.ptr(lse),
-                 B, S, T, H, hk, int(pos), int(window or 0), float(scale),
-                 code, _build.stream(q.device))
+                 B, S, T, H, hk, D, Dv, int(pos), int(window or 0),
+                 float(scale), code, _build.stream(q.device))
         _build.launches[counter] += 1
         _build.check(err, _STEM, counter)
     return (out, lse) if with_lse else out

@@ -15,6 +15,14 @@ splash's masks runs on CUDA:
   ``flash_attention_local`` and ``flash_attention_local_bwd``;
 - full (``causal=False``): not ported, raises ``NotImplementedError``.
 
+Head widths: q/k and v of 128 (the Llama families), and DeepSeek's MLA
+prefill at q/k width 192 and v width 128, causal, with its ``sm_scale``:
+the same forward kernel at its (192, 128) instantiation, counted as
+``flash_attention_mla``. JAX zero-pads those to 256 / 128 lanes for the
+TPU (``deepseek.py:125-143``); the function is the same. The width-192
+backward is not ported: an input that needs a gradient raises
+``NotImplementedError``.
+
 When an input needs a gradient the forward also writes the f32
 logsumexp, and the backward runs the dq / dk / dv kernels, as splash's
 custom VJP runs its dq and dkv kernels over the same mask. On a CPU tensor
@@ -36,6 +44,8 @@ _STEM = "flash_attention"
 
 
 def flash_attention_plain(q, k, v, causal=False, sm_scale=None, window=None):
+    """q [B, S, H, D], k [B, S_kv, hk, D], v [B, S_kv, hk, Dv] -> [B, S, H,
+    Dv] in q's type; causal bottom-aligned, optionally windowed."""
     s_q, s_kv = q.shape[1], k.shape[1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     mask = None
@@ -49,8 +59,10 @@ def flash_attention_plain(q, k, v, causal=False, sm_scale=None, window=None):
     return _append.grouped_attention_plain(q, k, v, mask, scale)
 
 
-def _counters(window):
-    """(forward, backward) launch counters of a mask."""
+def _counters(window, d_qk=_append.HEAD_DIM):
+    """(forward, backward) launch counters of a mask (and head width)."""
+    if d_qk != _append.HEAD_DIM:
+        return "flash_attention_mla", None
     if window is None:
         return "flash_attention_bshd", "flash_attention_bwd"
     return "flash_attention_local", "flash_attention_local_bwd"
@@ -138,7 +150,18 @@ def flash_attention_bshd(q, k, v, causal: bool = False,
                          f"{s_kv} < {s_q}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if _build.needs_grad(q, k, v):
+    d_qk = q.shape[-1]
+    if d_qk != _append.HEAD_DIM or v.shape[-1] != _append.HEAD_DIM:
+        if window is not None:
+            raise NotImplementedError(
+                "flash_attention_bshd on CUDA takes a window at head width "
+                f"{_append.HEAD_DIM} only, got q/k {d_qk}, v {v.shape[-1]}")
+        if _build.needs_grad(q, k, v):
+            raise NotImplementedError(
+                f"the flash backward at q/k width {d_qk} (DeepSeek MLA "
+                "training) is not ported; call it on tensors that need no "
+                "gradient")
+    elif _build.needs_grad(q, k, v):
         return _FlashCausal.apply(q, k, v, scale, window)
     return _append.launch(q, k, v, s_kv - s_q, None, scale,
-                          _counters(window)[0], window=window)
+                          _counters(window, d_qk)[0], window=window)

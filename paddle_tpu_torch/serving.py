@@ -14,6 +14,15 @@ forwards each slot's chunk [greedy, d_1..d_{k-1}] at per-row paged
 positions, and each slot advances by its accepted run (token-identical to
 the one-token step by construction).
 
+A model whose trunk has an ``empty_cache_layer`` hook (DeepSeek's MLA)
+serves in latent mode (``serving.py:1041-1047``): each layer keeps per-slot
+rows of its compressed buffers (``c_kv`` [max_batch, max_len, r], ``k_pe``
+[max_batch, max_len, dr]) in place of the K/V pages, admission copies the
+prompt's latent rows into the slot's row, and decode attends over the rows
+at each slot's length. Latent mode refuses speculation, as the JAX engine
+does (the port has none of the other paged-only features: preemption,
+handoff, migration).
+
 Ported: the pool layout, ``add_request``, FIFO admission, ``_bucket``,
 ``_bucketed_prefill``, ``_prefill_into``, ``_scatter_prefill``, ``step``,
 ``run_until_done``, ``cancel``, ``finish_reason``, ``logprobs``, ``stats``
@@ -101,6 +110,15 @@ class ContinuousBatchEngine:
             if speculative_k > max_len:
                 raise ValueError(f"speculative_k {speculative_k} exceeds "
                                  f"max_len {max_len}")
+        # models with a latent decode cache (MLA) serve through per-slot
+        # rows of the compressed buffers instead of the paged K/V pool
+        make = getattr(model.llama, "empty_cache_layer", None)
+        self._latent_mode = make is not None
+        if self._latent_mode and speculative_k is not None:
+            raise NotImplementedError(
+                "engine speculative decoding needs the paged KV layout — the "
+                "latent (MLA) compressed rows have no multi-token ragged "
+                "append path")
         self.speculative_k = speculative_k or None
         self.speculative_ngram = int(speculative_ngram)
         cfg = model.config
@@ -129,14 +147,18 @@ class ContinuousBatchEngine:
                                     device=self.device).reshape(
                                         max_batch, self._pages_per_slot)
         self._lengths = np.zeros(max_batch, np.int32)   # tokens per slot
-        self._caches = [{
-            "k_pages": torch.zeros(hk, n_pages, page_size, d, dtype=dt,
-                                   device=self.device),
-            "v_pages": torch.zeros(hk, n_pages, page_size, d, dtype=dt,
-                                   device=self.device),
-            "page_indices": page_indices,
-            "page_size": page_size,
-        } for _ in range(cfg.num_hidden_layers)]
+        if self._latent_mode:
+            self._caches = [make(max_batch, max_len, dt)
+                            for _ in range(cfg.num_hidden_layers)]
+        else:
+            self._caches = [{
+                "k_pages": torch.zeros(hk, n_pages, page_size, d, dtype=dt,
+                                       device=self.device),
+                "v_pages": torch.zeros(hk, n_pages, page_size, d, dtype=dt,
+                                       device=self.device),
+                "page_indices": page_indices,
+                "page_size": page_size,
+            } for _ in range(cfg.num_hidden_layers)]
         self._last = torch.zeros(max_batch, cfg.vocab_size,
                                  dtype=torch.float32, device=self.device)
         self._slots: List[Optional[_Request]] = [None] * max_batch
@@ -467,19 +489,30 @@ class ContinuousBatchEngine:
         return last, caches, S0, bucket
 
     def _prefill_into(self, slot: int, req: _Request):
+        """Admission of one prompt in either mode (the JAX package's
+        ``_prefill_into_latent`` differs only by the prefix cache, which is
+        not ported): bucketed prefill, then its caches copied into the
+        slot."""
         last, caches, S0, bucket = self._bucketed_prefill(req)
         self._scatter_prefill(slot, last, caches, bucket)
         self._lengths[slot] = S0
 
     @torch.inference_mode()
     def _scatter_prefill(self, slot: int, last, caches, bucket: int):
-        """Copy one prefill's dense caches into ``slot``'s first pages of
-        every layer (in place) and seed its last-logit row."""
-        ps = self.page_size
-        n = bucket // ps
-        base = slot * self._pages_per_slot
-        for c_eng, c_new in zip(self._caches, caches):
-            for key, pool in (("k", "k_pages"), ("v", "v_pages")):
-                c_eng[pool][:, base:base + n].copy_(
-                    _page_tiles(c_new[key][0], ps))
+        """Copy one prefill's caches into ``slot`` (in place): its first
+        pages of every layer, or in latent mode the first ``bucket``
+        positions of its row (``_latent_scatter_fn``, ``serving.py:2891``,
+        as a plain row copy); seed its last-logit row."""
+        if self._latent_mode:
+            for c_eng, c_new in zip(self._caches, caches):
+                for key in ("c_kv", "k_pe"):
+                    c_eng[key][slot, :bucket].copy_(c_new[key][0])
+        else:
+            ps = self.page_size
+            n = bucket // ps
+            base = slot * self._pages_per_slot
+            for c_eng, c_new in zip(self._caches, caches):
+                for key, pool in (("k", "k_pages"), ("v", "v_pages")):
+                    c_eng[pool][:, base:base + n].copy_(
+                        _page_tiles(c_new[key][0], ps))
         self._last[slot] = last[0].float()

@@ -2,10 +2,10 @@
 
 ``from_jax_state`` takes ``paddle_tpu``'s ``Layer.functional_state()``
 converted to numpy by the caller ({name: np.ndarray}, same names as the
-port's parameters) and returns the port's causal LM of the config's
-family (``MistralForCausalLM`` for a ``MistralConfig``, else
-``LlamaForCausalLM``); ``to_numpy_state`` goes the other way. Linear weights are [in, out] in both
-packages, so nothing is transposed. numpy has no bfloat16: bf16 travels as
+port's parameters, ``mlp.experts.w1`` and ``self_attn.kv_b_proj.weight``
+included) and returns the port's causal LM of the config's family
+(``model_class``); ``to_numpy_state`` goes the other way. Linear weights
+are [in, out] in both packages, so nothing is transposed. numpy has no bfloat16: bf16 travels as
 its uint16 bit pattern (a ``bfloat16`` array from ml_dtypes is taken as
 well), so the round trip is bit-exact.
 """
@@ -16,7 +16,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models.deepseek import DeepseekV2Config, DeepseekV2ForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM, torch_dtype
+from .models.llama_moe import LlamaMoEConfig, LlamaMoEForCausalLM
 from .models.mistral import MistralConfig, MistralForCausalLM
 
 
@@ -32,8 +34,11 @@ def _to_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 def model_class(config: LlamaConfig):
     """The causal-LM class of a config's family."""
-    if isinstance(config, MistralConfig):
-        return MistralForCausalLM
+    for cfg_cls, model_cls in ((DeepseekV2Config, DeepseekV2ForCausalLM),
+                               (LlamaMoEConfig, LlamaMoEForCausalLM),
+                               (MistralConfig, MistralForCausalLM)):
+        if isinstance(config, cfg_cls):
+            return model_cls
     return LlamaForCausalLM
 
 

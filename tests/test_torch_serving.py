@@ -152,7 +152,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.weights, paddle_tpu_torch.jit, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.ops.fused_loss, "
             "paddle_tpu_torch.speculative, paddle_tpu_torch.utils.flags, "
-            "paddle_tpu_torch.ops.hopper.decode_tail\n"
+            "paddle_tpu_torch.ops.hopper.decode_tail, "
+            "paddle_tpu_torch.models.deepseek, "
+            "paddle_tpu_torch.distributed.moe, "
+            "paddle_tpu_torch.ops.hopper.mla_decode\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'paddle_tpu' "
             "or m.startswith('paddle_tpu.'))\n"
