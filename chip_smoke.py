@@ -13,8 +13,9 @@ Phases (any failure raises, so the script exits non-zero):
    median of 20 after warm-up; 5 for the sequence-4096 attention rows),
    the plain version's time, the least time the card could take (bound),
    and one PyTorch library call computing the same function as a yardstick
-   only (the port never calls it). The attention backward is held against
-   ``torch.autograd`` through the plain forward. The fused decode-tail
+   only (the port never calls it). The attention backward is held per
+   element against its plain version on the same inputs (delta from the
+   forward's out, as the kernel and splash take it). The fused decode-tail
    kernels run at 8 and 32 rows, beside two yardsticks: ``torch.matmul`` of
    the product alone and the port's discrete sequence they replace. The
    sliding-window (LocalMask) flash forward and backward run at Mistral-7B's
@@ -25,7 +26,10 @@ Phases (any failure raises, so the script exits non-zero):
    r 512, dr 64, T 4096, ragged pos; with an allowed mask whose fully
    masked row must come out 0) beside SDPA as MQA, the causal flash
    forward at q/k width 192, v width 128, beside SDPA, and rms_norm at
-   width 512.
+   width 512; the width-192 flash backward at phase 12's shape (sequence
+   4096, 16 heads, V2-Lite's softmax scale) beside SDPA's backward, and at
+   edge shapes (a sequence of 1000, a rectangular s_kv > s_q, an f32
+   case) through the autograd Function.
 3. The serving path at full width: Llama-3-8B (bf16, all 32 layers, random
    weights from a seeded generator on the card) behind
    ``ContinuousBatchEngine(max_batch=8, max_len=2048)``, ten greedy
@@ -76,7 +80,22 @@ Phases (any failure raises, so the script exits non-zero):
 11. DeepSeek wiring, f32, card against CPU: two V2-Lite layers at full
    width (one dense, one MoE), an exact and a padded prompt, 8 greedy
    tokens each: tokens identical, prefill logits within 1e-3.
-12. The kernels line, then the card line, then the result line
+12. DeepSeek-V2-Lite training: its published widths at depth 4 (layer 0
+   dense, three MoE layers; untied, vocab 102400), sequence 4096 (its
+   pretraining length), batch 1, chunked fused lm-head + CE, bf16
+   parameters; phase 5's AdamW with DeepSeek-V2's beta2 0.95 and
+   global-norm clip 1.0, and a linear warm-up to 3e-4 cut to 2 steps so
+   the loss can fall within the run. The width-192 flash forward and
+   backward kernels must run once per layer and step; every parameter
+   gets a gradient, the first loss is within 5% of ln V + std^2 / 2 and
+   the loss falls. One more step is profiled.
+13. DeepSeek training wiring, f32, card against CPU: two V2-Lite layers at
+   full width, sequence 128, three steps of phase 12's recipe (clip and
+   schedule included, the warm-up starting at 1e-4 so that every step
+   updates, a fresh batch each step), the CPU side taking the card's
+   weights and optimizer state before each step; each step's loss,
+   gradients and parameters held as phase 6 holds them.
+14. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -114,6 +133,7 @@ REPLACES = {
     "flash_attention_local_bwd": "paddle_tpu/ops/pallas/flash_attention.py:97",
     "mla_decode": "paddle_tpu/ops/pallas/mla_decode.py:147",
     "flash_attention_mla": "paddle_tpu/ops/pallas/flash_attention.py:122",
+    "flash_attention_mla_bwd": "paddle_tpu/ops/pallas/flash_attention.py:122",
 }
 SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -129,6 +149,7 @@ SOURCES = {
     "flash_attention_local_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
     "mla_decode": "paddle_tpu_torch/csrc/mla_decode.cu",
     "flash_attention_mla": "paddle_tpu_torch/csrc/append_attention.cu",
+    "flash_attention_mla_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
 }
 # the kernels each main path must launch
 SERVING_KERNELS = ("rms_norm", "add_rms_norm", "append_attention",
@@ -139,6 +160,8 @@ FUSED_KERNELS = ("fused_qkv_rope", "fused_epilogue", "paged_attention")
 MISTRAL_TRAINING_KERNELS = ("rms_norm", "add_rms_norm", "fused_rope",
                             "flash_attention_local",
                             "flash_attention_local_bwd")
+DEEPSEEK_TRAINING_KERNELS = ("rms_norm", "add_rms_norm", "flash_attention_mla",
+                             "flash_attention_mla_bwd")
 SPEC_K = 4
 TRAIN_SEQ, TRAIN_DEPTH, TRAIN_STEPS = 4096, 4, 5
 # Mistral-7B: sliding window 4096; training at 8192, above the window
@@ -200,6 +223,13 @@ def sdpa_gqa(q, k, v, mask=None, causal=False, scale=None):
 
 # ---------------------------------------------------------------- phase 2 --
 
+def close_bf16(out, ref, atol=2e-3, rtol=2.0 ** -7):
+    """(max abs err, every |out - ref| <= atol + rtol |ref|)."""
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    return float(diff.max()), ok
+
+
 def check_kernels(results):
     import torch
     import torch.nn.functional as F
@@ -229,17 +259,13 @@ def check_kernels(results):
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      bound_ms=b_ms, bound_by=b_by, shape=shape)
 
-    def close_bf16(out, ref, atol=2e-3, rtol=2.0 ** -7):
-        diff = (out.float() - ref.float()).abs()
-        ok = bool((diff <= atol + rtol * ref.float().abs()).all())
-        return float(diff.max()), ok
-
     # attention: one bf16 rounding of an f32 result whose sums ran in
     # another order; norms: two bf16 roundings (normalised value, then the
     # weight product) after an f32 value that may differ in its last bit
     log("phase 2: kernels vs plain versions (bf16; tolerance "
         "|k - p| <= 2e-3 + 2^-7 |p|, norms 1e-6 + 2^-6 |p|, rope 2^-7 |p|, "
-        "lse 1e-3, attention gradients 2^-6 max |p|)")
+        "lse 1e-3; attention gradients as attention, against the plain "
+        "backward on the same out)")
     d = 4096
     for rows in (8, 512):
         x, r, w = randn(rows, d), randn(rows, d), randn(d, scale=0.5) + 1
@@ -346,14 +372,14 @@ def check_kernels(results):
            bound(nbytes, 4 * H * D * n_tok, "bfloat16"), True)
     del kp, vp, kg, vg
     check_decode_tail_kernels(record, randn)
-    check_training_kernels(record, close_bf16, randn)
+    check_training_kernels(record, randn)
     torch.cuda.empty_cache()
     # the sliding-window kernels: edge shapes, then Mistral-7B's training
     # shape
     check_local_edges()
-    check_flash_rows(record, close_bf16, randn, LOCAL_SEQ, WINDOW)
+    check_flash_rows(record, randn, LOCAL_SEQ, WINDOW)
     torch.cuda.empty_cache()
-    check_deepseek_kernels(record, close_bf16, randn)
+    check_deepseek_kernels(record, randn)
     torch.cuda.empty_cache()
 
 
@@ -474,7 +500,7 @@ def check_decode_tail_kernels(record, randn):
                                      "kernel disagrees with its plain version")
 
 
-def check_training_kernels(record, close_bf16, randn):
+def check_training_kernels(record, randn):
     """The training path's kernels at Llama-3-8B widths, sequence 4096."""
     from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.hopper import fused_norm
@@ -493,7 +519,7 @@ def check_training_kernels(record, close_bf16, randn):
                None, bound(2 * x.numel() * 2 + 2 * S * D * 4, 3 * x.numel(),
                            "bfloat16"), heads == H)
 
-    check_flash_rows(record, close_bf16, randn, S, None)
+    check_flash_rows(record, randn, S, None)
 
 
 def band_cells(s, window):
@@ -505,12 +531,13 @@ def band_cells(s, window):
 
 def check_local_edges():
     """The local kernels off the main path's shape, forward with lse and
-    backward against autograd through the plain version: sequences that end
-    in a short tile, a rectangular s_q < s_kv (pos > 0), windows of 1 and
-    wider than the sequence, several groupings, f32 and bf16. f32: out and
-    lse within 2e-5, each gradient within 1e-5 of its largest entry (sums
-    in another order); bf16: out as the main rows, gradients within 2^-6
-    of the largest entry."""
+    backward against the plain versions (the backward's on the kernel
+    forward's out): sequences that end in a short tile, a rectangular
+    s_q < s_kv (pos > 0), windows of 1 and wider than the sequence, several
+    groupings, f32 and bf16. f32: out and lse within 2e-5, each gradient
+    within 1e-5 of its largest entry (sums in another order); bf16: out as
+    the main rows, lse within 1e-3, gradients per element as
+    ``close_grads``."""
     import math
 
     import torch
@@ -535,10 +562,10 @@ def check_local_edges():
                                            with_lse=True, window=W)
         grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, dout,
                                                     scale, window=W)
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        ref = flash_attention.flash_attention_plain(*leaves, causal=True,
+        ref = flash_attention.flash_attention_plain(q, k, v, causal=True,
                                                     window=W)
-        ref_grads = torch.autograd.grad(ref, leaves, dout)
+        ref_grads = flash_attention.flash_attention_bwd_plain(
+            q, k, v, out, dout, scale, window=W)
         rows = torch.arange(s_q, device="cuda")[:, None] + pos
         cols = torch.arange(s_kv, device="cuda")[None]
         band = (cols <= rows) & (cols > rows - W)
@@ -548,37 +575,35 @@ def check_local_edges():
                           k.float()) * scale
         ref_lse = torch.logsumexp(sc.masked_fill(~band, float("-inf")),
                                   dim=-1).reshape(1, H, s_q)
-        ref = ref.detach()
         errs = [float((a.float() - b.float()).abs().max())
                 for a, b in zip((out, lse) + tuple(grads),
                                 (ref, ref_lse) + tuple(ref_grads))]
-        tops = [float(b.float().abs().max()) for b in ref_grads]
+        edge = (f"local edges {str(dtype)[6:]} s_q={s_q} s_kv={s_kv} H={H} "
+                f"hk={hk} W={W}")
+        log(f"  {edge}: max abs err out {errs[0]:.2e} lse {errs[1]:.2e} "
+            f"dq/dk/dv {errs[2]:.2e}/{errs[3]:.2e}/{errs[4]:.2e}")
         if dtype == torch.float32:
+            tops = [float(b.abs().max()) for b in ref_grads]
             ok = (errs[0] <= 2e-5 and errs[1] <= 2e-5
                   and all(e <= 1e-5 * max(t, 1.0)
                           for e, t in zip(errs[2:], tops)))
         else:
-            diff = (out.float() - ref.float()).abs()
-            ok = (bool((diff <= 2e-3 + 2.0 ** -7 * ref.float().abs()).all())
-                  and errs[1] <= 1e-3
-                  and all(e <= 2.0 ** -6 * t for e, t in zip(errs[2:], tops)))
-        log(f"  local edges {str(dtype)[6:]} s_q={s_q} s_kv={s_kv} H={H} "
-            f"hk={hk} W={W}: max abs err out {errs[0]:.2e} lse "
-            f"{errs[1]:.2e} dq/dk/dv {errs[2]:.2e}/{errs[3]:.2e}/"
-            f"{errs[4]:.2e} ok={ok}")
+            ok = (close_bf16(out, ref)[1] and errs[1] <= 1e-3
+                  and close_grads(edge, grads, ref_grads)[1])
         if not ok:
             raise AssertionError(f"local flash kernels disagree with their "
                                  f"plain version at s_q={s_q} s_kv={s_kv} "
                                  f"W={W} {dtype}")
 
 
-def check_flash_rows(record, close_bf16, randn, S, window):
+def check_flash_rows(record, randn, S, window):
     """The flash forward with lse and its backward at [1, S, 32 | 8, 128],
     bf16, causal (``window`` None) or under the LocalMask of ``window``:
     each against its plain version, which runs one KV head (its g query
     heads) at a time, the same function in 1/8 of the memory (its f32
     scores take 1.1 GB per KV head at S = 8192); the backward against
-    ``torch.autograd`` through it. Yardsticks: SDPA, causal or with the
+    ``flash_attention_bwd_plain`` on the same out, per element
+    (``close_grads``). Yardsticks: SDPA, causal or with the
     band as its mask. With a window also the prefill's call (no lse) and
     the causal kernel at the same S, which the local one must beat, or the
     kernel did not skip the tiles below the band."""
@@ -671,35 +696,23 @@ def check_flash_rows(record, close_bf16, randn, S, window):
         return flash_attention.flash_attention_bwd(q, k, v, out, lse, dout,
                                                    scale, window=window)
 
-    grads = bwd()
-    # autograd through the plain forward, one KV head at a time; its time
-    # is the sum of the heads' backward times
+    # the plain backward one KV head (its g query heads) at a time; its
+    # time is the sum of the heads' times
     ref_grads = [[], [], []]
     plain_ms = 0.0
     for hq, hkv in heads:
-        leaves = [t.detach().requires_grad_()
-                  for t in (q[:, :, hq], k[:, :, hkv], v[:, :, hkv])]
-        o = flash_attention.flash_attention_plain(*leaves, causal=True,
-                                                  window=window)
-        d_s = dout[:, :, hq]
+        args = (q[:, :, hq], k[:, :, hkv], v[:, :, hkv], out[:, :, hq],
+                dout[:, :, hq])
 
         def plain_bwd():
-            return torch.autograd.grad(o, leaves, d_s, retain_graph=True)
+            return flash_attention.flash_attention_bwd_plain(
+                *args, scale, window=window)
 
         for acc, gr in zip(ref_grads, plain_bwd()):
             acc.append(gr)
         plain_ms += time_ms(plain_bwd, reps=3, warmup=1)
-        del o, leaves
     ref_grads = [torch.cat(parts, dim=2) for parts in ref_grads]
-    # f32 sums on both sides; the kernel's delta uses the rounded bf16 out:
-    # two bf16 ulps of the largest entry of each gradient
-    err, ok = 0.0, True
-    for name, gr, rg in zip(("dq", "dk", "dv"), grads, ref_grads):
-        e = float((gr.float() - rg.float()).abs().max())
-        lim = 2.0 ** -6 * float(rg.float().abs().max())
-        log(f"  {bwd_name} {name}: max abs err {e:.3e} (tolerance "
-            f"{lim:.3e})")
-        err, ok = max(err, e), ok and e <= lim
+    err, ok = close_grads(bwd_name, bwd(), ref_grads)
     del ref_grads
     lib_leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
     lib_out = sdpa_gqa(*lib_leaves, mask=mask, causal=window is None)
@@ -716,7 +729,7 @@ def check_flash_rows(record, close_bf16, randn, S, window):
            True)
 
 
-def check_deepseek_kernels(record, close_bf16, randn):
+def check_deepseek_kernels(record, randn):
     """DeepSeek-V2-Lite's kernels at its serving shapes: the MLA decode (B 8,
     H 16, r 512, dr 64, T 4096, bf16 buffers, f32 pre-scaled queries,
     ragged per-row pos including 0 and T - 1; once more with an allowed
@@ -799,14 +812,6 @@ def check_deepseek_kernels(record, close_bf16, randn):
     ref = flash_attention.flash_attention_plain(q, k, v, causal=True,
                                                 sm_scale=scale)
     err, ok = close_bf16(out, ref)
-    try:
-        flash_attention.flash_attention_bshd(q.detach().requires_grad_(), k,
-                                             v, causal=True, sm_scale=scale)
-        ok = False
-        log("  flash_attention_mla: an input that needs a gradient did not "
-            "raise")
-    except NotImplementedError:
-        pass
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     cells = S * (S + 1) // 2
     record("flash_attention_mla", f"[1,{S},{H},{dqk}|{dv}] causal "
@@ -820,6 +825,7 @@ def check_deepseek_kernels(record, close_bf16, randn):
            bound(2 * S * H * (2 * dqk + 2 * dv), 2 * (dqk + dv) * H * cells,
                  "bfloat16"), True)
     del q, k, v, qt, kt, vt, out, ref
+    check_mla_backward(record, randn, scale)
 
     d = 512
     for rows in (8, 2048):
@@ -833,6 +839,113 @@ def check_deepseek_kernels(record, close_bf16, randn):
                time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6)),
                bound(2 * rows * d * 2 + d * 2, 4 * rows * d, "bfloat16"),
                False)
+
+
+def close_grads(name, grads, refs):
+    """bf16 (dq, dk, dv) each held per element against the plain
+    backward's: one rounding of f32 sums run in another order,
+    |k - p| <= 2e-3 + 2^-7 |p|, with the median |p| logged beside the
+    limit. Returns (max abs err, ok)."""
+    err, ok = 0.0, True
+    for g_name, gr, rg in zip(("dq", "dk", "dv"), grads, refs):
+        e, o = close_bf16(gr, rg)
+        med = float(rg.float().abs().median())
+        log(f"  {name} {g_name}: max abs err {e:.3e}, median |plain| "
+            f"{med:.3e} (tolerance 2e-3 + 2^-7 |plain|: "
+            f"{2e-3 + 2.0 ** -7 * med:.3e} at the median) ok={o}")
+        err, ok = max(err, e), ok and o
+    return err, ok
+
+
+def check_mla_backward(record, randn, scale):
+    """The width-192 flash backward (``flash_attention_mla_bwd``): first at
+    edge shapes through the autograd Function (``flash_attention_bshd`` on
+    inputs that need a gradient): a sequence of 1000 (a partial last
+    tile), a rectangular s_q 200 < s_kv 700 (pos 500), both bf16 at 16
+    heads, and f32 at [1, 130 | 300, 4]; then at phase 12's shape
+    [1, 4096, 16, 192 | 128], causal, bf16, from the forward's out and lse,
+    beside SDPA's backward. The out is held against the plain forward and
+    the gradients per element against ``flash_attention_bwd_plain`` on
+    the same q, k, v, out and dout (delta from the kernel forward's out,
+    as the kernel takes it): bf16 as ``close_grads`` (the out as the
+    forward rows), f32 out within 2e-5 and each gradient within 1e-5 of
+    max(1, its largest entry)."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import append_attention, flash_attention
+
+    H, dqk, dv = 16, 192, 128
+    gen = torch.Generator("cuda").manual_seed(192)
+    for s_q, s_kv, heads, dtype in ((1000, 1000, H, torch.bfloat16),
+                                    (200, 700, H, torch.bfloat16),
+                                    (130, 300, 4, torch.float32)):
+        q, k, v, dout = (torch.randn(1, n, heads, d, generator=gen,
+                                     device="cuda").to(dtype)
+                         for n, d in ((s_q, dqk), (s_kv, dqk), (s_kv, dv),
+                                      (s_q, dv)))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention.flash_attention_bshd(*leaves, causal=True,
+                                                   sm_scale=scale)
+        grads = torch.autograd.grad(out, leaves, dout)
+        out = out.detach()
+        ref = flash_attention.flash_attention_plain(q, k, v, causal=True,
+                                                    sm_scale=scale)
+        ref_grads = flash_attention.flash_attention_bwd_plain(q, k, v, out,
+                                                              dout, scale)
+        edge = (f"flash_attention_mla_bwd edge {str(dtype)[6:]} s_q={s_q} "
+                f"s_kv={s_kv} H={heads}")
+        if dtype == torch.float32:
+            errs = [float((a - b).abs().max())
+                    for a, b in zip((out,) + tuple(grads),
+                                    (ref,) + tuple(ref_grads))]
+            ok = errs[0] <= 2e-5 and all(
+                e <= 1e-5 * max(float(b.abs().max()), 1.0)
+                for e, b in zip(errs[1:], ref_grads))
+            log(f"  {edge}: max abs err out {errs[0]:.2e} dq/dk/dv "
+                f"{errs[1]:.2e}/{errs[2]:.2e}/{errs[3]:.2e} ok={ok}")
+        else:
+            e_out, ok = close_bf16(out, ref)
+            log(f"  {edge}: max abs err out {e_out:.2e} ok={ok}")
+            ok = close_grads(edge, grads, ref_grads)[1] and ok
+        if not ok:
+            raise AssertionError(f"the width-192 flash backward disagrees "
+                                 f"with its plain version at s_q={s_q} "
+                                 f"s_kv={s_kv} {dtype}")
+    del q, k, v, dout, leaves, out, ref, grads, ref_grads
+
+    S = TRAIN_SEQ
+    q, k = randn(1, S, H, dqk), randn(1, S, H, dqk)
+    v, dout = randn(1, S, H, dv), randn(1, S, H, dv)
+    out, lse = append_attention.launch(q, k, v, 0, None, scale,
+                                       "flash_attention_mla", with_lse=True)
+
+    def bwd():
+        return flash_attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                   scale)
+
+    def plain_bwd():
+        return flash_attention.flash_attention_bwd_plain(q, k, v, out, dout,
+                                                         scale)
+
+    err, ok = close_grads("flash_attention_mla_bwd", bwd(), plain_bwd())
+    plain_ms = time_ms(plain_bwd, reps=3, warmup=1)
+    lib_leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v)]
+    lib_out = sdpa_gqa(*lib_leaves, causal=True, scale=scale)
+    dout_t = dout.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, dout_t,
+                                                 retain_graph=True),
+                     reps=5, warmup=1)
+    del lib_out, lib_leaves
+    cells = S * (S + 1) // 2
+    # inputs q, k, v, out, dout, lse read once; dq, dk, dv written once
+    nbytes = (S * H * (2 * dqk + 3 * dv) * 2 + H * S * 4
+              + S * H * (2 * dqk + dv) * 2)
+    # S (2 dqk), dP (2 dv), dV (2 dv), dK and dQ (2 dqk each) per pair
+    record("flash_attention_mla_bwd", f"[1,{S},{H},{dqk}|{dv}] causal "
+           f"scale={scale:.4f}", err, ok, time_ms(bwd, reps=5, warmup=1),
+           plain_ms, lib_ms,
+           bound(nbytes, (6 * dqk + 4 * dv) * H * cells, "bfloat16"), True)
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -1203,13 +1316,53 @@ def train_config(**kw):
     return LlamaConfig.llama3_8b(**base)
 
 
-def make_train_step(model):
+def make_train_step(model, learning_rate=3e-4, **opt_kw):
+    """(``train_step``, its optimizer) of phase 5's AdamW (weight decay 0.1,
+    bf16 moments, f32 masters); ``learning_rate`` a rate or a schedule,
+    which the caller steps, and more AdamW keywords in ``opt_kw``."""
     from paddle_tpu_torch.jit import train_step
     from paddle_tpu_torch.optimizer import AdamW
 
-    opt = AdamW(3e-4, parameters=model.parameters(), weight_decay=0.1,
-                moment_dtype="bfloat16")
-    return train_step(model, lambda m, x, y: m(x, labels=y)[0], opt)
+    opt = AdamW(learning_rate, parameters=model.parameters(),
+                weight_decay=0.1, moment_dtype="bfloat16", **opt_kw)
+    return train_step(model, lambda m, x, y: m(x, labels=y)[0], opt), opt
+
+
+def recipe_text(opt_kw) -> str:
+    """The log's description of ``make_train_step``'s AdamW with a recipe's
+    keywords ``opt_kw``."""
+    rate = opt_kw.get("learning_rate", 3e-4)
+    parts = [f"{rate:g}" if isinstance(rate, float) else
+             f"LinearWarmup {rate.start_lr:g} -> {rate.end_lr:g} over "
+             f"{rate.warmup_steps} steps"]
+    if "beta2" in opt_kw:
+        parts.append(f"beta2 {opt_kw['beta2']:g}")
+    clip = opt_kw.get("grad_clip")
+    if clip is not None:
+        parts.append(f"{type(clip).__name__}({clip.clip_norm:g})")
+    return f"AdamW({', '.join(parts)}, wd 0.1, bf16 moments, f32 masters)"
+
+
+def step_schedule(opt_kw):
+    """Advance the recipe's learning-rate schedule, if it has one (the
+    caller's job, as in the JAX package); return the rate just used."""
+    sched = opt_kw.get("learning_rate", 3e-4)
+    if not hasattr(sched, "step"):
+        return sched
+    used = sched.get_lr()
+    sched.step()
+    return used
+
+
+def deepseek_recipe(start_lr=0.0) -> dict:
+    """DeepSeek-V2's optimizer settings (the paper: AdamW, beta2 0.95,
+    weight decay 0.1, gradient clipping at norm 1.0, a linear warm-up from
+    0) with the warm-up cut to 2 steps from ``start_lr`` to a peak of 3e-4:
+    fresh AdamW keywords, since a schedule is stateful."""
+    from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm, lr
+
+    return dict(learning_rate=lr.LinearWarmup(3e-4, 2, start_lr, 3e-4),
+                beta2=0.95, grad_clip=ClipGradByGlobalNorm(1.0))
 
 
 def token_batch(vocab, seq, seed, device):
@@ -1221,11 +1374,13 @@ def token_batch(vocab, seq, seed, device):
     return ids[:, :-1], ids[:, 1:]
 
 
-def train_run(phase, cfg, seq, kernels, seed):
+def train_run(phase, cfg, seq, kernels, seed, recipe=dict):
     """The training main path of one configuration: ``train_step`` once to
     warm up, then TRAIN_STEPS timed steps on one fixed random batch, launch
     counts zeroed just before the first step and read just after the last;
-    then one profiled step. Returns the counts."""
+    then one profiled step. ``recipe()`` gives the AdamW keywords beyond
+    phase 5's (a schedule is stepped after each step). Returns the
+    counts."""
     import torch
 
     from paddle_tpu_torch.ops.hopper import launches, reset_launches
@@ -1235,13 +1390,13 @@ def train_run(phase, cfg, seq, kernels, seed):
                              generator=torch.Generator("cuda").manual_seed(
                                  seed))
     n_params = sum(p.numel() for p in model.parameters())
-    step = make_train_step(model)
+    opt_kw = recipe()
+    step = make_train_step(model, **opt_kw)[0]
     x, y = token_batch(cfg.vocab_size, seq, 0, "cuda")
     card = card_line()
     log(f"{phase}: {cfg.num_hidden_layers} layers, {n_params / 1e9:.3f}B "
         f"parameters, bf16, seq {seq}, batch 1, window "
-        f"{cfg.sliding_window}, AdamW(3e-4, wd 0.1, bf16 moments, f32 "
-        f"masters)")
+        f"{cfg.sliding_window}, {recipe_text(opt_kw)}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path's run: counts zeroed just before, read just after
@@ -1252,6 +1407,7 @@ def train_run(phase, cfg, seq, kernels, seed):
         losses.append(float(step(x, y)))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_schedule(opt_kw)
     counts = dict(launches)
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(step_ms[1:])
@@ -1337,10 +1493,19 @@ def profile_train_step(step, x, y, card, step_ms):
 # ---------------------------------------------------------------- phase 6 --
 
 def train_wiring_check(phase="phase 6: training wiring", cfg=None, seq=128,
-                       seed=3):
-    """One ``train_step`` of the same f32 weights on the card and on the
-    CPU: the losses, every gradient and every parameter after the step must
-    agree. Returns the card step's launch counts."""
+                       seed=3, recipe=dict, steps=1):
+    """``steps`` train steps of f32 weights on the card and on the CPU,
+    AdamW keywords from ``recipe()`` (its schedule stepped after each
+    step), a fresh random batch each step, as training takes one. Before
+    each step the CPU model and optimizer take the card's weights and
+    optimizer state, so both sides start every step from the same state:
+    each step's loss, every gradient and every parameter after it must
+    agree. Returns the card steps' launch counts.
+
+    On one repeated batch two updates take a V2-Lite pair's loss from
+    11.87 to 0.0064, and at that loss softmax cross-entropy's p - 1 is
+    f32 rounding on both sides (losses 3.5e-05 apart from equal state):
+    fresh batches keep each step at a loss near ln V."""
     import torch
 
     from paddle_tpu_torch.ops.hopper import launches, reset_launches
@@ -1354,38 +1519,62 @@ def train_wiring_check(phase="phase 6: training wiring", cfg=None, seq=128,
     m_gpu = cls(cfg, device="cuda",
                 generator=torch.Generator("cuda").manual_seed(seed))
     m_cpu = cls(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    m_cpu.load_state_dict(m_gpu.state_dict())
-    losses = []
-    reset_launches()
+    sides = []
     for model in (m_gpu, m_cpu):
-        x, y = token_batch(cfg.vocab_size, seq, 4, model.device)
-        losses.append(float(make_train_step(model)(x, y)))
-    counts = dict(launches)
-    # f32 on both sides, sums in another order on the card. An Adam step
-    # moves a weight by about lr * g / (|g| + eps), so where |g| is at the
-    # rounding noise the step may differ: the bulk must agree within 1e-6,
-    # at most 0.1% of a tensor may differ, and by no more than 2 * lr
-    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
-    g_err = p_err = p_share = 0.0
-    cpu_params = dict(m_cpu.named_parameters())
-    for name, p in m_gpu.named_parameters():
-        q = cpu_params[name]
-        g_err = max(g_err, float((p.grad.cpu() - q.grad).abs().max()
-                                 / q.grad.abs().max()))
-        d = (p.detach().cpu() - q.detach()).abs()
-        p_err = max(p_err, float(d.max()))
-        p_share = max(p_share, float((d > 1e-6).float().mean()))
+        opt_kw = recipe()
+        step, opt = make_train_step(model, **opt_kw)
+        sides.append((model, opt_kw, step, opt))
     log(f"{phase}, {cfg.num_hidden_layers} layers at full width, f32, seq "
-        f"{seq}, window {cfg.sliding_window}: loss card {losses[0]:.6f} cpu "
-        f"{losses[1]:.6f} (rel err {loss_err:.2e}, tolerance 1e-5); "
-        f"gradients max rel err {g_err:.2e} (tolerance 1e-4); parameters "
-        f"after the step max abs err {p_err:.2e} (tolerance 6e-4), largest "
-        f"share off by > 1e-6 {p_share:.2e} (tolerance 1e-3); card launches "
-        f"{json.dumps(counts)}")
-    if not (loss_err <= 1e-5 and g_err <= 1e-4 and p_err <= 6e-4
-            and p_share <= 1e-3):
+        f"{seq}, window {cfg.sliding_window}, {steps} step(s) of "
+        f"{recipe_text(sides[0][1])}, a fresh batch each; the CPU side takes "
+        f"the card's weights and optimizer state before each step. "
+        f"Tolerances: loss 1e-5 "
+        f"relative, gradients 1e-4 of each tensor's largest, parameters "
+        f"2 x the step's rate, share of a tensor off by > 1e-6 1e-3")
+    ok = True
+    reset_launches()
+    for i in range(steps):
+        m_cpu.load_state_dict(m_gpu.state_dict())
+        sd = sides[0][3].state_dict()
+        sd["state"] = {name: {k: t.to("cpu", copy=True)
+                              for k, t in st.items()}
+                       for name, st in sd["state"].items()}
+        sides[1][3].set_state_dict(sd)
+        losses, rates = [], []
+        for model, opt_kw, step, opt in sides:
+            losses.append(float(step(*token_batch(cfg.vocab_size, seq, 4 + i,
+                                                  model.device))))
+            rates.append(step_schedule(opt_kw))
+        # f32 on both sides, sums in another order on the card. An Adam
+        # step moves a weight by about lr * g / (|g| + eps), so where |g|
+        # is at the rounding noise the step may differ: the bulk must
+        # agree within 1e-6, at most 0.1% of a tensor may differ, and by
+        # no more than 2 x the step's rate
+        p_tol = 2 * rates[0]
+        loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+        g_err, g_name, p_err, p_share = 0.0, "", 0.0, 0.0
+        cpu_params = dict(m_cpu.named_parameters())
+        for name, p in m_gpu.named_parameters():
+            q = cpu_params[name]
+            e = float((p.grad.cpu() - q.grad).abs().max() / q.grad.abs().max())
+            if e > g_err:
+                g_err, g_name = e, name
+            d = (p.detach().cpu() - q.detach()).abs()
+            p_err = max(p_err, float(d.max()))
+            p_share = max(p_share, float((d > 1e-6).float().mean()))
+        step_ok = (loss_err <= 1e-5 and g_err <= 1e-4 and p_err <= p_tol
+                   and p_share <= 1e-3 and rates[0] == rates[1])
+        log(f"  step {i + 1} at rate {rates[0]:g}: loss card {losses[0]} cpu "
+            f"{losses[1]} (rel err {loss_err:.2e}); gradients max rel err "
+            f"{g_err:.2e} ({g_name}); parameters after it max abs err "
+            f"{p_err:.2e} (tolerance {p_tol:.1e}), largest share off by > "
+            f"1e-6 {p_share:.2e}; ok={step_ok}")
+        ok = ok and step_ok
+    counts = dict(launches)
+    log(f"  card launches {json.dumps(counts)}")
+    if not ok:
         raise AssertionError("card and CPU training steps differ")
-    del m_gpu, m_cpu
+    del m_gpu, m_cpu, sides
     torch.cuda.empty_cache()
     return counts
 
@@ -1676,6 +1865,53 @@ def deepseek_wiring_check():
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 12 --
+
+def train_deepseek():
+    """Phase 12: DeepSeek-V2-Lite at depth 4 (layer 0 dense, three MoE
+    layers), full width, sequence 4096, DeepSeek-V2's optimizer settings
+    (``deepseek_recipe``). The width-192 flash forward and backward run
+    once per layer and step, no width-128 attention kernel."""
+    counts = train_run("phase 12: training, DeepSeek-V2-Lite widths (cut: "
+                       "the paper's warm-up of 2000 steps to 2)",
+                       deepseek_config(num_hidden_layers=TRAIN_DEPTH,
+                                       fuse_linear_cross_entropy=True),
+                       TRAIN_SEQ, DEEPSEEK_TRAINING_KERNELS, 12,
+                       recipe=deepseek_recipe)
+    per_run = TRAIN_DEPTH * (1 + TRAIN_STEPS)
+    for name in ("flash_attention_mla", "flash_attention_mla_bwd"):
+        if counts.get(name, 0) != per_run:
+            raise AssertionError(f"{name} launched {counts.get(name, 0)} "
+                                 f"times in {1 + TRAIN_STEPS} steps, "
+                                 f"expected {per_run}")
+    for name in ("flash_attention_bshd", "flash_attention_bwd",
+                 "flash_attention_local", "fused_rope"):
+        if counts.get(name, 0):
+            raise AssertionError(f"DeepSeek training launched {name}")
+    return counts
+
+
+# --------------------------------------------------------------- phase 13 --
+
+def deepseek_train_wiring_check():
+    """Phase 13: two V2-Lite layers (one dense, one MoE) at full width in
+    f32, sequence 128, three steps of phase 12's recipe with the warm-up
+    starting at 1e-4 (rates 1e-4, 2e-4, 3e-4: three real updates, clipped,
+    each on a fresh batch) on the card and on the CPU, each step from the
+    same state, held as phase 6 holds its step; the card runs the f32
+    instantiation of the width-192 kernels at the weights of each step."""
+    cfg = deepseek_config(num_hidden_layers=2, dtype="float32",
+                          fuse_linear_cross_entropy=True)
+    steps = 3
+    counts = train_wiring_check("phase 13: DeepSeek training wiring", cfg,
+                                128, seed=14, steps=steps,
+                                recipe=lambda: deepseek_recipe(1e-4))
+    for name in ("flash_attention_mla", "flash_attention_mla_bwd"):
+        if counts.get(name, 0) != steps * cfg.num_hidden_layers:
+            raise AssertionError(f"DeepSeek training steps: {name} launched "
+                                 f"{counts.get(name, 0)} times")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1720,6 +1956,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     counts.update(serve_deepseek(args.profile))
     deepseek_wiring_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.update(train_deepseek())
+    deepseek_train_wiring_check()
 
     kernels = []
     for name in SOURCES:

@@ -13,5 +13,6 @@ from __future__ import annotations
 
 from .framework.random import (default_device, default_generator,  # noqa: F401
                                seed)
+from .framework_io import load, save  # noqa: F401
 
 __version__ = "0.1.0"

@@ -13,8 +13,12 @@ import torch
 class TrainStep:
     """One training step per call: zero the gradients,
     ``loss = loss_fn(model, *batch)``, backward, one optimizer update over
-    the model's trainable parameters by their state-dict names. Returns the
-    loss as a detached 0-d tensor."""
+    the model's trainable parameters by their state-dict names. The rate is
+    the optimizer's ``get_lr()``, read by ``apply_gradients`` on each call.
+    Returns the loss as a detached 0-d tensor. As in the JAX package
+    (``jit/__init__.py:279,301-302``), a
+    learning-rate scheduler is read on every call and never stepped here:
+    stepping it is the caller's choice."""
 
     def __init__(self, model, loss_fn, optimizer):
         self._model = model

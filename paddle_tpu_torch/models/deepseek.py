@@ -1,16 +1,19 @@
 """DeepSeek-V2 / V3 causal LM (multi-head latent attention + DeepSeekMoE) —
-counterpart of ``paddle_tpu/models/deepseek.py``, serving parts.
+counterpart of ``paddle_tpu/models/deepseek.py``, serving and training.
 
 MLA projects each token to a shared latent ``c_kv`` (``kv_lora_rank``
 wide) and one shared RoPE key ``k_pe`` (``qk_rope_head_dim``, broadcast to
 every head); per-head keys and values are re-expanded from the latent by
 ``kv_b_proj``. Two regimes, as in the JAX package:
 
-- expanded (the non-cached forward, and a prefill whose prompt fills its
-  bucket): K/V re-inflated, causal attention at q/k width
-  ``qk_nope + qk_rope`` (192) and v width ``v_head_dim`` (128) through
-  ``flash_attention_bshd``: on CUDA the flash kernel at that width
-  (``flash_attention_mla``), on the CPU its plain version;
+- expanded (the non-cached forward that training differentiates, and a
+  prefill whose prompt fills its bucket): K/V re-inflated, causal
+  attention at q/k width ``qk_nope + qk_rope`` (192) and v width
+  ``v_head_dim`` (128) through ``flash_attention_bshd``: on CUDA the flash
+  kernel at that width (``flash_attention_mla``) and, for an input that
+  needs a gradient, its backward kernel (``flash_attention_mla_bwd``); on
+  the CPU its plain version under autograd. The broadcast ``k_pe`` sums
+  its gradient over the heads;
 - absorbed (decode, padded prefills): the cache holds only the latent rows
   (``c_kv`` and ``k_pe``), q_nope is absorbed through the K half of
   ``kv_b_proj``, and the context is read back through its V half. A single
@@ -24,9 +27,10 @@ Ported: ``DeepseekV2Config`` with ``tiny_mla`` / ``tiny_v3``,
 ``mla_cached_attention``, ``mla_serving_attention``, ``DeepseekV2Attention``
 (both q variants; the non-cached forward and the two cache dicts),
 ``DeepseekV2DecoderLayer``, ``DeepseekV2Model`` (latent
-``empty_cache_layer``) and ``DeepseekV2ForCausalLM`` without labels. Not
-ported: training (labels, the width-192 flash backward, the MoE
-gradients), multi-token prediction, LoRA on MLA, ring context parallelism,
+``empty_cache_layer``) and ``DeepseekV2ForCausalLM``, whose
+``forward(labels=...)`` is the MoE base's loss (LM loss plus the router
+aux term) for ``num_nextn_predict_layers == 0``. Not ported: multi-token
+prediction (the config raises), LoRA on MLA, ring context parallelism,
 pipeline parallelism and HF loading.
 """
 from __future__ import annotations
@@ -110,8 +114,9 @@ def _mla_sdpa(q, k, v, *, causal: bool, scale: float):
     exact-bucket prefill: q/k at ``qk_nope + qk_rope`` width, v at
     ``v_head_dim``, through ``flash_attention_bshd`` at the true widths (the
     CUDA kernel has no lane rule to pad for). On CUDA that is always the
-    kernel, whatever ``use_flash_attention`` says; the plain version runs
-    only for CPU tensors."""
+    kernel, with its backward kernel under autograd, whatever
+    ``use_flash_attention`` says; the plain version runs only for CPU
+    tensors."""
     return flash_attention_bshd(q, k, v, causal=causal, sm_scale=scale)
 
 
@@ -350,6 +355,8 @@ class DeepseekV2Model(LlamaMoEModel):
 
 class DeepseekV2ForCausalLM(LlamaMoEForCausalLM):
     """DeepSeek-V2 / V3 causal LM: MLA + MoE; served through
-    ``ContinuousBatchEngine`` in latent mode."""
+    ``ContinuousBatchEngine`` in latent mode, trained through
+    ``forward(input_ids, labels=...)`` (``deepseek.py:560-606`` without
+    multi-token prediction)."""
 
     model_cls = DeepseekV2Model

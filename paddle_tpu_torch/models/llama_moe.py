@@ -12,10 +12,15 @@ here they are PyTorch (index arithmetic and batched products, see
 Ported: ``LlamaMoEConfig`` with ``tiny_moe``, ``MoEMLP`` with every router
 knob (softmax or sigmoid scores, the aux-free correction bias, group-limited
 top-k, ``norm_topk_prob``, ``routed_scaling_factor``, shared experts and
-Qwen2's shared gate; the router's aux value is kept on the module),
-``LlamaMoEDecoderLayer``, ``LlamaMoEModel`` and ``LlamaMoEForCausalLM``
-without labels. Not ported: the labels / aux-loss training path, HF
-loading.
+Qwen2's shared gate; the router's Switch aux value is kept on the module,
+in the graph), ``LlamaMoEDecoderLayer``, ``LlamaMoEModel`` and
+``LlamaMoEForCausalLM`` with its training loss (labels: the LM loss plus
+``router_aux_loss_coef`` times the mean aux value over the MoE layers that
+ran). Autograd differentiates the index dispatch to the gradients of the
+JAX function's dense one-hot einsums: a kept route's token gets its
+expert's gradient, ``gate_weight`` learns through the kept routes'
+weights and the aux value, and a dropped route or one of weight 0 gets
+nothing. Not ported: HF loading.
 """
 from __future__ import annotations
 
@@ -250,9 +255,27 @@ class LlamaMoEForCausalLM(LlamaForCausalLM):
                               "e_score_correction_bias")):
                 p.zero_()
 
+    def aux_loss(self, extra_layers=()):
+        """Mean router aux value over every MoE layer that ran
+        (``llama_moe.py:431-444``), plus any ``extra_layers``; None
+        without one."""
+        losses = [layer.mlp._aux_loss
+                  for layer in list(self.llama.layers) + list(extra_layers)
+                  if getattr(layer, "is_moe", False)
+                  and layer.mlp._aux_loss is not None]
+        if not losses:
+            return None
+        return sum(losses[1:], losses[0]) / len(losses)
+
     def forward(self, input_ids, labels=None):
-        if labels is not None:
-            raise NotImplementedError(
-                "training an MoE model (labels and the router aux loss, "
-                "paddle_tpu/models/llama_moe.py:453-462) is not ported")
-        return super().forward(input_ids)
+        """Logits without labels; with labels (loss, logits or None), the
+        loss plus ``router_aux_loss_coef`` x ``aux_loss()``
+        (``llama_moe.py:446-462``)."""
+        out = super().forward(input_ids, labels=labels)
+        if labels is None:
+            return out
+        loss, logits = out
+        aux = self.aux_loss()
+        if aux is not None:
+            loss = loss + self.config.router_aux_loss_coef * aux
+        return loss, logits

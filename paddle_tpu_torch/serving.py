@@ -34,6 +34,7 @@ tracing, the KV atlas, the step-anatomy clock and metrics.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -54,10 +55,26 @@ def _page_tiles(buf, page_size):
     return buf.reshape(n_pages, page_size, hk, d).movedim(2, 0)
 
 
+def _on_token_arity(on_token) -> int:
+    """4 when the streaming callback takes the chosen-token logprob as a
+    4th argument: four REQUIRED positional parameters, or ``*args``; else
+    3 (a defaulted 4th parameter keeps the 3-argument call), as the JAX
+    engine detects it at admission (``serving.py:259-279``)."""
+    try:
+        params = inspect.signature(on_token).parameters.values()
+    except (TypeError, ValueError):
+        return 3
+    required = sum(1 for p in params
+                   if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+                   and p.default is p.empty)
+    varargs = any(p.kind == p.VAR_POSITIONAL for p in params)
+    return 4 if varargs or required >= 4 else 3
+
+
 class _Request:
     __slots__ = ("rid", "ids", "max_new_tokens", "tokens", "sampling",
-                 "on_token", "stop_token_ids", "logprobs", "want_logprobs",
-                 "spec_rounds", "spec_accepted")
+                 "on_token", "on_token_arity", "stop_token_ids", "logprobs",
+                 "want_logprobs", "spec_rounds", "spec_accepted")
 
     def __init__(self, rid, ids, max_new_tokens, sampling=None, on_token=None,
                  stop_token_ids=None, want_logprobs=False):
@@ -66,7 +83,10 @@ class _Request:
         self.max_new_tokens = int(max_new_tokens)
         self.tokens: List[int] = []
         self.sampling = sampling  # (do_sample, temperature, top_k, top_p)
-        self.on_token = on_token  # callback (rid, token, done)
+        # callback (rid, token, done) or (rid, token, done, logprob)
+        self.on_token = on_token
+        self.on_token_arity = (_on_token_arity(on_token)
+                               if on_token is not None else 3)
         # additive to the engine eos
         self.stop_token_ids = (frozenset(int(s) for s in stop_token_ids)
                                if stop_token_ids else None)
@@ -176,14 +196,16 @@ class ContinuousBatchEngine:
     # ---- public API -----------------------------------------------------
     def add_request(self, ids, max_new_tokens: int = 64, do_sample=None,
                     temperature=None, top_k=None, top_p=None,
-                    stop_token_ids=None, want_logprobs=False,
+                    stop_token_ids=None, logprobs=False,
                     on_token=None) -> int:
         """Queue one request (admitted at once when a slot is free).
         Sampling knobs default to the engine's; any override routes decoding
         through the per-row program. ``stop_token_ids`` retires the request
-        on any of them, in addition to the engine eos; ``want_logprobs``
-        keeps the chosen-token logprobs; ``on_token(rid, token, done)``
-        streams each token."""
+        on any of them, in addition to the engine eos; ``logprobs`` keeps
+        the chosen-token logprobs; ``on_token(rid, token, done)`` streams
+        each token, and a callback with four required positional
+        parameters (or ``*args``) also gets the token's logprob as the 4th
+        argument. The keywords are the JAX engine's."""
         ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor)
                          else ids).reshape(-1)
         self._require_fit(ids.size, int(max_new_tokens))
@@ -195,7 +217,7 @@ class ContinuousBatchEngine:
         self._next_rid += 1
         self._n_requests += 1
         self._queue.append(_Request(rid, ids, max_new_tokens, sampling,
-                                    on_token, stop_token_ids, want_logprobs))
+                                    on_token, stop_token_ids, logprobs))
         self._admit()
         return rid
 
@@ -384,7 +406,8 @@ class ContinuousBatchEngine:
                 adv[s] = len(deliver)
             if req.on_token is not None:
                 for j, t in enumerate(deliver):
-                    events.append((req.on_token, req.rid, t,
+                    events.append((req.on_token, req.on_token_arity, req.rid,
+                                   t, float(lps[s, j]),
                                    finished and j == len(deliver) - 1))
         self._lengths = (self._lengths + adv).astype(np.int32)
         for s in retiring:
@@ -392,8 +415,11 @@ class ContinuousBatchEngine:
             self._finished[req.rid] = np.asarray(req.tokens, np.int64)
             self._n_finished += 1
             self._release_slot(s)
-        for cb, rid, t, done in events:   # after the state is consistent
-            cb(rid, t, done)
+        for cb, arity, rid, t, lp, done in events:   # state is consistent
+            if arity == 4:
+                cb(rid, t, done, lp)
+            else:
+                cb(rid, t, done)
         self._admit()
         return self._drain_finished()
 

@@ -343,6 +343,31 @@ def test_flash_attention_grads_match_splash_interpret(dtype):
     _check_flash_grads(dtype)
 
 
+@pytest.mark.parametrize("s_q,s_kv,hk,dqk,window", [
+    (200, 200, 2, 128, None), (100, 300, 4, 128, 50),
+    (130, 300, 4, 192, None)])
+def test_flash_bwd_plain_is_the_gradient(s_q, s_kv, hk, dqk, window):
+    """``flash_attention_bwd_plain`` (the backward kernel's plain version,
+    delta taken from the given out) at 4 query heads, with the f32 out of
+    the plain forward, against ``torch.autograd`` through that forward:
+    f32, within 1e-5 (sums in another order)."""
+    rng = np.random.RandomState(21)
+    q = _t(rng.randn(1, s_q, 4, dqk).astype(np.float32)).requires_grad_()
+    k = _t(rng.randn(1, s_kv, hk, dqk).astype(np.float32)).requires_grad_()
+    v = _t(rng.randn(1, s_kv, hk, 128).astype(np.float32)).requires_grad_()
+    dout = _t(rng.randn(1, s_q, 4, 128).astype(np.float32))
+    scale = 0.1147
+    out = port_flash.flash_attention_plain(q, k, v, causal=True,
+                                           sm_scale=scale, window=window)
+    want = torch.autograd.grad(out, (q, k, v), dout)
+    got = port_flash.flash_attention_bwd_plain(q.detach(), k.detach(),
+                                               v.detach(), out.detach(), dout,
+                                               scale, window=window)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_local_grads_match_splash_interpret(dtype):
     """The same for the sliding-window LocalMask at window 64 (splash's

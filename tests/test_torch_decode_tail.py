@@ -12,6 +12,7 @@ result rounds to the other neighbour at most, and RoPE of such a pair
 of the largest entry as well."""
 import threading
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +35,16 @@ from paddle_tpu_torch.utils import flags
 HIDDEN, H, HK, D = 256, 2, 1, 128
 EPS = 1e-6
 ENGINE = dict(max_batch=3, max_len=128, page_size=16)
+
+
+def trace_jax_afresh():
+    """Make the JAX package's next call trace its programs anew, so the
+    fused tail's ``announce`` (which fills ``_announced`` when a program is
+    traced) fires whatever this process traced before: JAX's compile
+    caches and the announce set are cleared. The models come fresh from
+    ``build_pair``, so no step is memoised on them yet."""
+    jax.clear_caches()
+    jax_tail._announced.clear()
 
 
 def _as(arr, dtype):
@@ -275,7 +286,7 @@ def test_fused_forward_cached_matches_jax(fused_flag, monkeypatch, kind):
     caches = _caches(kind, rng, 2)
     ids = rng.randint(0, 512, size=(2, 1)).astype(np.int32)
     jax_set_flags({"FLAGS_use_fused_decode_tail": True})
-    jax_tail._announced.clear()
+    trace_jax_afresh()
     jh, jc = jax_model.llama.forward_cached(paddle_tpu.to_tensor(ids),
                                             _convert(caches, "jax"), 64)
     with flags.flag_overrides({"use_fused_decode_tail": True}):
@@ -292,8 +303,8 @@ def test_fused_forward_cached_matches_jax(fused_flag, monkeypatch, kind):
                                    rtol=1e-5, atol=1e-5)
 
 
-def _engine_run(engine, prompts, news, logprob_kw):
-    rids = [engine.add_request(p, max_new_tokens=n, **{logprob_kw: True})
+def _engine_run(engine, prompts, news):
+    rids = [engine.add_request(p, max_new_tokens=n, logprobs=True)
             for p, n in zip(prompts, news)]
     out = engine.run_until_done()
     return [(out[r].tolist(), engine.logprobs(r)) for r in rids]
@@ -306,15 +317,12 @@ def test_port_fused_engine_matches_discrete_and_jax(fused_flag):
     jax_model, port_model, _ = build_pair(max_len=ENGINE["max_len"])
     prompts = mix_prompts(6, (5, 16, 40, 21))
     news = (6, 9, 4, 7)
-    discrete = _engine_run(PortEngine(port_model, **ENGINE), prompts, news,
-                           "want_logprobs")
+    discrete = _engine_run(PortEngine(port_model, **ENGINE), prompts, news)
     with flags.flag_overrides({"use_fused_decode_tail": True}):
-        fused = _engine_run(PortEngine(port_model, **ENGINE), prompts, news,
-                            "want_logprobs")
+        fused = _engine_run(PortEngine(port_model, **ENGINE), prompts, news)
     jax_set_flags({"FLAGS_use_fused_decode_tail": True})
-    jax_tail._announced.clear()
-    want = _engine_run(JaxEngine(jax_model, **ENGINE), prompts, news,
-                       "logprobs")
+    trace_jax_afresh()
+    want = _engine_run(JaxEngine(jax_model, **ENGINE), prompts, news)
     assert jax_tail._announced
     for (dt, dl), (ft, fl), (wt, wl) in zip(discrete, fused, want):
         assert ft == dt == wt

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 from test_decode_tail import fused_flag  # noqa: F401  (fixture)
+from test_torch_decode_tail import trace_jax_afresh
 from test_torch_pair import SMALL, mix_prompts, numpy_state
 
 import paddle_tpu
@@ -128,8 +129,8 @@ LENGTHS = (16, 21, 32, 5)       # exact, padded, exact, padded buckets
 NEW_TOKENS = (8, 6, 10, 7)
 
 
-def _engine_run(engine, prompts, logprob_kw):
-    rids = [engine.add_request(p, max_new_tokens=n, **{logprob_kw: True})
+def _engine_run(engine, prompts):
+    rids = [engine.add_request(p, max_new_tokens=n, logprobs=True)
             for p, n in zip(prompts, NEW_TOKENS)]
     out = engine.run_until_done()
     return [(out[r].tolist(), engine.logprobs(r)) for r in rids]
@@ -159,7 +160,7 @@ def test_engine_beyond_the_window_matches_jax(fused, fused_flag,
                 _real(*a, **k))[1])
     with flags.flag_overrides({"use_fused_decode_tail": fused}):
         eng = PortEngine(port_model, **ENGINE)
-        got = _engine_run(eng, prompts, "want_logprobs")
+        got = _engine_run(eng, prompts)
     # per layer: two exact prefills through flash, two padded ones through
     # the einsum, and every decode step through the band gather alone
     layers = port_model.config.num_hidden_layers
@@ -169,8 +170,8 @@ def test_engine_beyond_the_window_matches_jax(fused, fused_flag,
     assert routes.count(("_paged_window_attention", 8)) == steps * layers
     assert len(routes) == (4 + steps) * layers
     jax_set_flags({"FLAGS_use_fused_decode_tail": fused})
-    jax_tail._announced.clear()
-    want = _engine_run(JaxEngine(jax_model, **ENGINE), prompts, "logprobs")
+    trace_jax_afresh()
+    want = _engine_run(JaxEngine(jax_model, **ENGINE), prompts)
     assert bool(jax_tail._announced) == fused
     for (gt, gl), (wt, wl), n in zip(got, want, NEW_TOKENS):
         assert len(gt) == n

@@ -26,8 +26,8 @@ def pair():
     return jax_model, port_model
 
 
-def _run(engine, prompts, logprob_kw, **req):
-    rids = [engine.add_request(p, max_new_tokens=n, **{logprob_kw: True},
+def _run(engine, prompts, **req):
+    rids = [engine.add_request(p, max_new_tokens=n, logprobs=True,
                                **req)
             for p, n in zip(prompts, NEW_TOKENS)]
     out = engine.run_until_done()
@@ -40,8 +40,8 @@ def test_engine_greedy_tokens_and_logprobs_match(pair):
     prompts = mix_prompts(0, LENGTHS)
     jax_eng = JaxEngine(jax_model, **ENGINE)
     port_eng = PortEngine(port_model, **ENGINE)
-    want = _run(jax_eng, prompts, "logprobs")
-    got = _run(port_eng, prompts, "want_logprobs")
+    want = _run(jax_eng, prompts)
+    got = _run(port_eng, prompts)
     for (wt, wr, wl), (gt, gr, gl), n in zip(want, got, NEW_TOKENS):
         assert len(gt) == n
         np.testing.assert_array_equal(gt, wt)
@@ -57,11 +57,11 @@ def test_stop_token_ids_match(pair):
     jax_model, port_model = pair
     prompts = mix_prompts(0, LENGTHS)
     # a stop token the greedy stream of request 1 emits at its third step
-    ref = _run(PortEngine(port_model, **ENGINE), prompts, "want_logprobs")
+    ref = _run(PortEngine(port_model, **ENGINE), prompts)
     stop = int(ref[1][0][2])
-    want = _run(JaxEngine(jax_model, **ENGINE), prompts, "logprobs",
+    want = _run(JaxEngine(jax_model, **ENGINE), prompts,
                 stop_token_ids=[stop])
-    got = _run(PortEngine(port_model, **ENGINE), prompts, "want_logprobs",
+    got = _run(PortEngine(port_model, **ENGINE), prompts,
                stop_token_ids=[stop])
     for (wt, wr, _), (gt, gr, _) in zip(want, got):
         np.testing.assert_array_equal(gt, wt)
@@ -73,7 +73,7 @@ def test_stop_token_ids_match(pair):
 def test_eos_and_streaming(pair):
     _, port_model = pair
     prompts = mix_prompts(0, LENGTHS)
-    ref = _run(PortEngine(port_model, **ENGINE), prompts, "want_logprobs")
+    ref = _run(PortEngine(port_model, **ENGINE), prompts)
     eos = int(ref[0][0][1])
     eng = PortEngine(port_model, eos_token_id=eos, **ENGINE)
     seen = []
@@ -83,6 +83,62 @@ def test_eos_and_streaming(pair):
     assert out[rid].tolist() == ref[0][0][:2].tolist()
     assert eng.finish_reason(rid) == "stop"
     assert seen == [(rid, int(ref[0][0][0]), False), (rid, eos, True)]
+
+
+def _stream(engine, prompts, on_token):
+    """The same ``add_request`` call on either engine: every prompt with
+    ``logprobs=True`` and one streaming callback. Returns [(rid, tokens,
+    logprobs)]."""
+    rids = [engine.add_request(p, max_new_tokens=n, logprobs=True,
+                               on_token=on_token)
+            for p, n in zip(prompts, NEW_TOKENS)]
+    out = engine.run_until_done()
+    return [(r, out[r].tolist(), engine.logprobs(r)) for r in rids]
+
+
+@pytest.mark.parametrize("arity", ["four", "varargs", "three", "defaulted"])
+def test_add_request_streams_as_the_jax_engine(pair, arity):
+    """One ``add_request(ids, max_new_tokens=..., logprobs=True,
+    on_token=cb)`` call, the JAX engine's keywords, on both engines. A
+    callback with four required positional parameters or ``*args`` gets
+    the chosen token's logprob as its 4th argument; a 3-parameter one, or
+    one whose 4th parameter has a default, gets (rid, token, done). f32,
+    greedy: tokens and done flags identical, logprobs (streamed and
+    ``engine.logprobs``) within 1e-4."""
+    jax_model, port_model = pair
+    prompts = mix_prompts(0, LENGTHS)
+    seen = {"jax": [], "port": []}
+
+    def callback(log):
+        if arity == "four":
+            return lambda rid, tok, done, lp: log.append((rid, tok, done, lp))
+        if arity == "varargs":
+            return lambda *a: log.append(a)
+        if arity == "three":
+            return lambda rid, tok, done: log.append((rid, tok, done))
+        return lambda rid, tok, done, lp=None: log.append(
+            (rid, tok, done) if lp is None else (rid, tok, done, lp))
+
+    want = _stream(JaxEngine(jax_model, **ENGINE), prompts,
+                   callback(seen["jax"]))
+    got = _stream(PortEngine(port_model, **ENGINE), prompts,
+                  callback(seen["port"]))
+    n_args = 4 if arity in ("four", "varargs") else 3
+    for (wr, wt, wl), (gr, gt, gl) in zip(want, got):
+        assert gt == wt
+        np.testing.assert_allclose(gl, wl, rtol=0, atol=1e-4)
+        w_ev = [e for e in seen["jax"] if e[0] == wr]
+        g_ev = [e for e in seen["port"] if e[0] == gr]
+        assert [len(e) for e in g_ev] == [len(e) for e in w_ev] == (
+            [n_args] * len(gt))
+        assert [e[1:3] for e in g_ev] == [e[1:3] for e in w_ev] == [
+            (t, i == len(gt) - 1) for i, t in enumerate(gt)]
+        if n_args == 4:
+            np.testing.assert_allclose([e[3] for e in g_ev], gl, rtol=0,
+                                       atol=0)
+            np.testing.assert_allclose([e[3] for e in g_ev],
+                                       [e[3] for e in w_ev], rtol=0,
+                                       atol=1e-4)
 
 
 def test_cancel_queued_and_active(pair):

@@ -88,8 +88,8 @@ def test_paged_verify_chunk_matches_jax():
 
 # ---- the engine -------------------------------------------------------------
 
-def _run(engine, prompts, news, logprob_kw):
-    rids = [engine.add_request(p, max_new_tokens=n, **{logprob_kw: True})
+def _run(engine, prompts, news):
+    rids = [engine.add_request(p, max_new_tokens=n, logprobs=True)
             for p, n in zip(prompts, news)]
     out = engine.run_until_done()
     return [(out[r].tolist(), engine.logprobs(r)) for r in rids]
@@ -102,14 +102,13 @@ def test_spec_engine_matches_jax_and_one_token(pair, fused_flag, k, fused):
     prompts = mix_prompts(8, (7, 19)) + [_repetitive(1),
                                          _repetitive(2, 2, 15)]
     news = (8, 5, 12, 10)
-    one_token = _run(PortEngine(port_model, **ENGINE), prompts, news,
-                     "want_logprobs")
+    one_token = _run(PortEngine(port_model, **ENGINE), prompts, news)
     with flag_overrides({"use_fused_decode_tail": fused}):
         port_eng = PortEngine(port_model, speculative_k=k, **ENGINE)
-        got = _run(port_eng, prompts, news, "want_logprobs")
+        got = _run(port_eng, prompts, news)
     jax_set_flags({"FLAGS_use_fused_decode_tail": fused})
     jax_eng = JaxEngine(jax_model, speculative_k=k, **ENGINE)
-    want = _run(jax_eng, prompts, news, "logprobs")
+    want = _run(jax_eng, prompts, news)
     for (gt, gl), (wt, wl), (ot, ol) in zip(got, want, one_token):
         assert gt == wt == ot
         np.testing.assert_allclose(gl, wl, rtol=0, atol=1e-4)
@@ -129,7 +128,7 @@ def test_spec_streaming_stops_and_request_counters(pair):
     each request counts its rounds and accepted drafts."""
     _, port_model = pair
     p = _repetitive(3)
-    ref = _run(PortEngine(port_model, **ENGINE), [p], [12], "want_logprobs")
+    ref = _run(PortEngine(port_model, **ENGINE), [p], [12])
     seen = []
     eng = PortEngine(port_model, speculative_k=4, **ENGINE)
     rid = eng.add_request(p, max_new_tokens=12,
@@ -167,7 +166,7 @@ def test_sampling_slot_falls_back_to_one_token_step(pair):
     _, port_model = pair
     pg = _repetitive(1)
     ps = mix_prompts(11, (9,))[0]
-    ref = _run(PortEngine(port_model, **ENGINE), [pg], [12], "want_logprobs")
+    ref = _run(PortEngine(port_model, **ENGINE), [pg], [12])
     paddle_tpu_torch.seed(123)
     eng = PortEngine(port_model, speculative_k=4, **ENGINE)
     r_greedy = eng.add_request(pg, max_new_tokens=12)
