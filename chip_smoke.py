@@ -29,7 +29,14 @@ Phases (any failure raises, so the script exits non-zero):
    width 512; the width-192 flash backward at phase 12's shape (sequence
    4096, 16 heads, V2-Lite's softmax scale) beside SDPA's backward, and at
    edge shapes (a sequence of 1000, a rectangular s_kv > s_q, an f32
-   case) through the autograd Function.
+   case) through the autograd Function. The FullMask (the functional API's
+   ``causal=False``): forward with lse and backward at [1, 4096, 32 | 8,
+   128] beside SDPA non-causal and its backward, and at edge shapes (1024 x
+   4096 and 4096 x 1024, a sequence of 1000, f32). ``splash_hop`` at
+   [1, 32 | 8, 4096, 128] for each kind of the ring's hops (full, causal at
+   offset 0, local at offset 4096 with window 4096, whose dead row must be
+   out 0 and lse -inf) beside SDPA on the hop's mask, and a local hop with
+   dead rows 95-127 in f32.
 3. The serving path at full width: Llama-3-8B (bf16, all 32 layers, random
    weights from a seeded generator on the card) behind
    ``ContinuousBatchEngine(max_batch=8, max_len=2048)``, ten greedy
@@ -95,7 +102,21 @@ Phases (any failure raises, so the script exits non-zero):
    updates, a fresh batch each step), the CPU side taking the card's
    weights and optimizer state before each step; each step's loss,
    gradients and parameters held as phase 6 holds them.
-14. The kernels line, then the card line, then the result line
+14. The Paddle flash-attention functional API at Llama-3-8B's attention
+   width, bf16: ``nn.functional.flash_attention(causal=False)`` forward and
+   backward at sequence 4096, ``flash_attn_unpadded`` over segments 2048,
+   1024, 512, 384 and 200 (the last one the plain composite, as in JAX),
+   ``memory_efficient_attention`` at 32 heads; each held against its plain
+   version. ``flash_attention_full`` must run once per supported call or
+   segment and ``flash_attention_full_bwd`` once per backward.
+15. Ring attention on one card: degree 4, local sequence 4096 (global
+   16384), 32 | 8 heads, bf16, ``ring_attention(impl="auto")`` causal,
+   non-causal and with window 4096; ``splash_hop`` must run once per live
+   hop (4, 4, 2; the ranks folded into the batch) and each result agree
+   per element with the whole-sequence flash kernel at 16384. The hops
+   alone are timed beside the ring. Then the ring's gradients at local 1024
+   (global 4096) in f32 against the plain whole-sequence gradients.
+16. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -134,6 +155,9 @@ REPLACES = {
     "mla_decode": "paddle_tpu/ops/pallas/mla_decode.py:147",
     "flash_attention_mla": "paddle_tpu/ops/pallas/flash_attention.py:122",
     "flash_attention_mla_bwd": "paddle_tpu/ops/pallas/flash_attention.py:122",
+    "flash_attention_full": "paddle_tpu/ops/pallas/flash_attention.py:106",
+    "flash_attention_full_bwd": "paddle_tpu/ops/pallas/flash_attention.py:122",
+    "splash_hop": "paddle_tpu/ops/pallas/flash_attention.py:171",
 }
 SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -150,6 +174,9 @@ SOURCES = {
     "mla_decode": "paddle_tpu_torch/csrc/mla_decode.cu",
     "flash_attention_mla": "paddle_tpu_torch/csrc/append_attention.cu",
     "flash_attention_mla_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_full": "paddle_tpu_torch/csrc/append_attention.cu",
+    "flash_attention_full_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "splash_hop": "paddle_tpu_torch/csrc/append_attention.cu",
 }
 # the kernels each main path must launch
 SERVING_KERNELS = ("rms_norm", "add_rms_norm", "append_attention",
@@ -381,6 +408,170 @@ def check_kernels(results):
     torch.cuda.empty_cache()
     check_deepseek_kernels(record, randn)
     torch.cuda.empty_cache()
+    # the full mask (the functional API) and the ring hop
+    t0 = time.perf_counter()
+    check_full_edges()
+    check_flash_rows(record, randn, TRAIN_SEQ, None, full=True)
+    torch.cuda.empty_cache()
+    check_hop_rows(record, randn)
+    torch.cuda.empty_cache()
+    log(f"  the full-mask and splash_hop rows took "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def check_full_edges():
+    """The full-mask kernels off the main path's shape, forward with lse and
+    backward against the plain versions (the backward's on the kernel
+    forward's out): rectangular each way (1024 x 4096, 4096 x 1024), a
+    sequence that ends in a short tile (1000) and MHA in f32; then a local
+    hop with dead rows (block 128, offset 128, window 96: rows 95-127 see
+    no column) in f32. Tolerances as ``check_local_edges``; a dead row must
+    come out 0 with lse -inf in the kernel and the plain version."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import append_attention, flash_attention
+
+    gen = torch.Generator("cuda").manual_seed(77)
+    scale = 1.0 / math.sqrt(128)
+    for s_q, s_kv, H, hk, dtype in (
+            (1024, 4096, 32, 8, torch.bfloat16),
+            (4096, 1024, 32, 8, torch.bfloat16),
+            (1000, 1000, 8, 2, torch.bfloat16),
+            (333, 200, 4, 4, torch.float32)):
+        q, k, v, dout = (torch.randn(1, n, h, 128, generator=gen,
+                                     device="cuda").to(dtype)
+                         for n, h in ((s_q, H), (s_kv, hk), (s_kv, hk),
+                                      (s_q, H)))
+        out, lse = append_attention.launch(q, k, v, 0, None, scale,
+                                           "flash_attention_full",
+                                           with_lse=True, kind="full")
+        grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                    scale, full=True)
+        ref = flash_attention.flash_attention_plain(q, k, v, causal=False)
+        ref_grads = flash_attention.flash_attention_bwd_plain(
+            q, k, v, out, dout, scale, full=True)
+        sc = torch.einsum("bskgd,btkd->bkgst",
+                          q.reshape(1, s_q, hk, H // hk, 128).float(),
+                          k.float()) * scale
+        ref_lse = torch.logsumexp(sc, dim=-1).reshape(1, H, s_q)
+        del sc
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip((out, lse) + tuple(grads),
+                                (ref, ref_lse) + tuple(ref_grads))]
+        edge = (f"full edges {str(dtype)[6:]} s_q={s_q} s_kv={s_kv} H={H} "
+                f"hk={hk}")
+        log(f"  {edge}: max abs err out {errs[0]:.2e} lse {errs[1]:.2e} "
+            f"dq/dk/dv {errs[2]:.2e}/{errs[3]:.2e}/{errs[4]:.2e}")
+        if dtype == torch.float32:
+            tops = [float(b.abs().max()) for b in ref_grads]
+            ok = (errs[0] <= 2e-5 and errs[1] <= 2e-5
+                  and all(e <= 1e-5 * max(t, 1.0)
+                          for e, t in zip(errs[2:], tops)))
+        else:
+            ok = (close_bf16(out, ref)[1] and errs[1] <= 1e-3
+                  and close_grads(edge, grads, ref_grads)[1])
+        if not ok:
+            raise AssertionError(f"full-mask flash kernels disagree with "
+                                 f"their plain version at s_q={s_q} "
+                                 f"s_kv={s_kv} {dtype}")
+        del q, k, v, dout, out, lse, grads, ref, ref_grads
+    q, k, v = (torch.randn(2, h, 128, 128, generator=gen, device="cuda")
+               for h in (8, 2, 2))
+    out, lse = flash_attention.splash_hop(q * scale, k, v, "local",
+                                          offset=128, window=96)
+    ref, ref_lse = flash_attention.splash_hop_plain(q * scale, k, v, "local",
+                                                    offset=128, window=96)
+    dead = torch.arange(128, device="cuda") >= 95
+    ok = (bool((out[:, :, dead] == 0).all())
+          and bool(torch.isneginf(lse[:, :, dead]).all())
+          and bool(torch.isneginf(ref_lse[:, :, dead]).all())
+          and not bool(torch.isnan(out).any() or torch.isnan(lse).any()))
+    err = float((out - ref).abs().max())
+    lse_err = float((lse[:, :, ~dead] - ref_lse[:, :, ~dead]).abs().max())
+    log(f"  hop edge f32 local offset 128 W 96, dead rows 95-127: max abs "
+        f"err out {err:.2e} lse (live rows) {lse_err:.2e}; dead rows out 0, "
+        f"lse -inf: {ok}")
+    if not (ok and err <= 2e-5 and lse_err <= 2e-5):
+        raise AssertionError("splash_hop disagrees with its plain version, "
+                             "or its dead rows are not as documented")
+
+
+def hop_cells(kind, S, T, offset, window):
+    """Visible (query, key) cells of one head of a hop."""
+    rows = np.arange(S)[:, None] + offset
+    cols = np.arange(T)[None, :]
+    if kind == "full":
+        return S * T
+    seen = cols <= rows
+    if kind == "local":
+        seen &= cols > rows - window
+    return int(seen.sum())
+
+
+def check_hop_rows(record, randn):
+    """``splash_hop`` at [1, 32 | 8, 4096, 128] (JAX's [B, H, S, D], q
+    pre-scaled), bf16, for each kind of the ring's hops: full, causal at
+    offset 0, and local at offset 4096 with window 4096 (a Mistral ring's
+    hop 1 at local 4096, whose row 4095 sees no column). Each against
+    ``splash_hop_plain`` per element on the live rows (out as the
+    attention rows, lse within 1e-3); a dead row must be out 0, lse -inf.
+    Kernel ms is the launch on the ring's [B, S, H, D] layout
+    (``hop_bshd``); the public call's transposes are timed beside it. The
+    yardstick is SDPA on the hop's mask."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import flash_attention
+
+    S, H, hk, D = TRAIN_SEQ, 32, 8, 128
+    q = randn(1, H, S, D, scale=1.0 / math.sqrt(D))
+    k, v = randn(1, hk, S, D), randn(1, hk, S, D)
+    qb, kb, vb = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    for kind, offset, window in (("full", 0, None), ("causal", 0, None),
+                                 ("local", S, WINDOW)):
+        out, lse = flash_attention.splash_hop(q, k, v, kind, offset=offset,
+                                              window=window)
+        with torch.no_grad():
+            ref, ref_lse = flash_attention.splash_hop_plain(
+                q, k, v, kind, offset=offset, window=window)
+        live = ~torch.isneginf(ref_lse[0, 0])
+        err, ok = close_bf16(out[:, :, live], ref[:, :, live])
+        lse_err = float((lse[:, :, live] - ref_lse[:, :, live]).abs().max())
+        dead_ok = (bool((out[:, :, ~live] == 0).all())
+                   and bool(torch.isneginf(lse[:, :, ~live]).all()))
+        ok = ok and lse_err <= 1e-3 and dead_ok and not bool(
+            torch.isnan(out).any() or torch.isnan(lse).any())
+        n_dead = int((~live).sum())
+        log(f"  splash_hop {kind} offset={offset}: lse max abs err "
+            f"{lse_err:.3e}, dead rows {n_dead} (out 0, lse -inf: "
+            f"{dead_ok})")
+        del ref, ref_lse
+        mask = causal = None
+        if kind == "local":
+            rows = torch.arange(S, device=q.device)[:, None] + offset
+            cols = torch.arange(S, device=q.device)[None, :]
+            mask = ((cols <= rows) & (cols > rows - window))[None, None]
+        causal = kind == "causal"
+        cells = hop_cells(kind, S, S, offset, window)
+        public_ms = time_ms(lambda: flash_attention.splash_hop(
+            q, k, v, kind, offset=offset, window=window), reps=5, warmup=1)
+        kernel_ms = time_ms(lambda: flash_attention.hop_bshd(
+            qb, kb, vb, kind, offset=offset, window=window), reps=5,
+            warmup=1)
+        log(f"  splash_hop {kind}: [B, H, S, D] call with its transposes "
+            f"{public_ms:.4f} ms, launch on [B, S, H, D] {kernel_ms:.4f} ms")
+        record("splash_hop", f"[1,{H}|{hk},{S},{D}] {kind} offset={offset}"
+               + (f" W={window}" if window else ""), err, ok, kernel_ms,
+               time_ms(lambda: flash_attention.splash_hop_plain(
+                   q, k, v, kind, offset=offset, window=window), reps=3,
+                   warmup=1),
+               time_ms(lambda: sdpa_gqa(q, k, v, mask=mask, causal=causal,
+                                        scale=1.0), reps=5, warmup=1),
+               bound(2 * S * (H + hk) * D * 2 + H * S * 4,
+                     4 * D * H * cells, "bfloat16"), kind == "full")
 
 
 def check_decode_tail_kernels(record, randn):
@@ -596,17 +787,18 @@ def check_local_edges():
                                  f"W={W} {dtype}")
 
 
-def check_flash_rows(record, randn, S, window):
+def check_flash_rows(record, randn, S, window, full=False):
     """The flash forward with lse and its backward at [1, S, 32 | 8, 128],
-    bf16, causal (``window`` None) or under the LocalMask of ``window``:
+    bf16, causal (``window`` None), under the LocalMask of ``window``, or
+    under the FullMask (``full``):
     each against its plain version, which runs one KV head (its g query
     heads) at a time, the same function in 1/8 of the memory (its f32
     scores take 1.1 GB per KV head at S = 8192); the backward against
     ``flash_attention_bwd_plain`` on the same out, per element
-    (``close_grads``). Yardsticks: SDPA, causal or with the
-    band as its mask. With a window also the prefill's call (no lse) and
-    the causal kernel at the same S, which the local one must beat, or the
-    kernel did not skip the tiles below the band."""
+    (``close_grads``). Yardsticks: SDPA, causal, with the band as its
+    mask, or without a mask. With a window also the prefill's call (no
+    lse) and the causal kernel at the same S, which the local one must
+    beat, or the kernel did not skip the tiles below the band."""
     import math
 
     import torch
@@ -616,20 +808,21 @@ def check_flash_rows(record, randn, S, window):
     H, hk, D = 32, 8, 128
     g = H // hk
     scale = 1.0 / math.sqrt(D)
-    fwd_name, bwd_name = flash_attention._counters(window)
-    label = f"S={S} causal" if window is None else f"S={S} W={window} local"
+    fwd_name, bwd_name = flash_attention._counters(window, full=full)
+    label = (f"S={S} full" if full else f"S={S} causal" if window is None
+             else f"S={S} W={window} local")
     q, k, v = randn(1, S, H, D), randn(1, S, hk, D), randn(1, S, hk, D)
     dout = randn(1, S, H, D)
-    cells = band_cells(S, window or S)
+    cells = S * S if full else band_cells(S, window or S)
     heads = [(slice(j * g, (j + 1) * g), slice(j, j + 1)) for j in range(hk)]
 
     def plain_fwd():
         return torch.cat([flash_attention.flash_attention_plain(
-            q[:, :, hq], k[:, :, hkv], v[:, :, hkv], causal=True,
+            q[:, :, hq], k[:, :, hkv], v[:, :, hkv], causal=not full,
             window=window) for hq, hkv in heads], dim=2)
 
     rows = torch.arange(S, device=q.device)
-    band = rows[None, :] <= rows[:, None]
+    band = (rows[None, :] <= rows[:, None]) | full
     if window is not None:
         band = band & (rows[None, :] > rows[:, None] - window)
     with torch.no_grad():
@@ -644,9 +837,9 @@ def check_flash_rows(record, randn, S, window):
         ref_lse = torch.cat(lses, dim=1)
         del lses
 
-    def fwd(name=fwd_name, win=window):
+    def fwd(name=fwd_name, win=window, kind="full" if full else None):
         return append_attention.launch(q, k, v, 0, None, scale, name,
-                                       with_lse=True, window=win)
+                                       with_lse=True, window=win, kind=kind)
 
     out, lse = fwd()
     err, ok = close_bf16(out, ref)
@@ -656,9 +849,10 @@ def check_flash_rows(record, randn, S, window):
         f"1e-3)")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     mask = None if window is None else band[None, None]
+    causal = window is None and not full
 
     def sdpa():
-        return sdpa_gqa(qt, kt, vt, mask=mask, causal=window is None)
+        return sdpa_gqa(qt, kt, vt, mask=mask, causal=causal)
 
     plain_ms = time_ms(plain_fwd, reps=3, warmup=1)
     sdpa_ms = time_ms(sdpa, reps=5, warmup=1)
@@ -667,7 +861,7 @@ def check_flash_rows(record, randn, S, window):
     record(fwd_name, f"{label}, lse", err, ok, kernel_ms, plain_ms, sdpa_ms,
            bound(nbytes + H * S * 4, 4 * D * H * cells, "bfloat16"), True)
     if window is not None:
-        causal_ms = time_ms(lambda: fwd("flash_attention_bshd", None),
+        causal_ms = time_ms(lambda: fwd("flash_attention_bshd", None, None),
                             reps=5, warmup=1)
         log(f"  causal kernel at S={S} (with lse) {causal_ms:.4f} ms, local "
             f"kernel W={window} {kernel_ms:.4f} ms: ratio "
@@ -694,7 +888,8 @@ def check_flash_rows(record, randn, S, window):
 
     def bwd():
         return flash_attention.flash_attention_bwd(q, k, v, out, lse, dout,
-                                                   scale, window=window)
+                                                   scale, window=window,
+                                                   full=full)
 
     # the plain backward one KV head (its g query heads) at a time; its
     # time is the sum of the heads' times
@@ -706,7 +901,7 @@ def check_flash_rows(record, randn, S, window):
 
         def plain_bwd():
             return flash_attention.flash_attention_bwd_plain(
-                *args, scale, window=window)
+                *args, scale, window=window, full=full)
 
         for acc, gr in zip(ref_grads, plain_bwd()):
             acc.append(gr)
@@ -715,7 +910,7 @@ def check_flash_rows(record, randn, S, window):
     err, ok = close_grads(bwd_name, bwd(), ref_grads)
     del ref_grads
     lib_leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
-    lib_out = sdpa_gqa(*lib_leaves, mask=mask, causal=window is None)
+    lib_out = sdpa_gqa(*lib_leaves, mask=mask, causal=causal)
     dout_t = dout.transpose(1, 2).contiguous()
     lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, dout_t,
                                                  retain_graph=True),
@@ -1912,6 +2107,234 @@ def deepseek_train_wiring_check():
                                  f"{counts.get(name, 0)} times")
 
 
+# --------------------------------------------------------------- phase 14 --
+
+def functional_api():
+    """Phase 14: the Paddle flash-attention functional API at Llama-3-8B's
+    attention width (32 | 8 heads, 128), bf16: ``flash_attention(causal=
+    False)`` forward and backward at sequence 4096; ``flash_attn_unpadded``
+    over a packed batch of segments 2048, 1024, 512, 384 and 200 (the last
+    one not a multiple of 128: the plain composite, as in JAX);
+    ``memory_efficient_attention`` at 32 heads with a custom scale. Each
+    output is held per element against the plain version on the same
+    inputs (the backward against the plain backward on the kernel's out).
+    Counts are zeroed before and read after: ``flash_attention_full`` once
+    per supported call or segment, ``flash_attention_full_bwd`` once per
+    backward, nothing else."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.hopper import _build, flash_attention
+
+    gen = torch.Generator("cuda").manual_seed(4242)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    S, H, hk, D = TRAIN_SEQ, 32, 8, 128
+    scale = 1.0 / math.sqrt(D)
+    q, k, v = (randn(1, S, h, D).requires_grad_() for h in (H, hk, hk))
+    dout = randn(1, S, H, D)
+    segs = (2048, 1024, 512, 384, 200)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(segs)]),
+                      dtype=torch.int32, device="cuda")
+    pq, pk, pv = (randn(int(cu[-1]), h, D) for h in (H, hk, hk))
+    mq, mk, mv = (randn(1, S, H, D) for _ in range(3))
+    m_scale = 0.05
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out, sm = F.flash_attention(q, k, v, causal=False)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    packed = F.flash_attn_unpadded(pq, pk, pv, cu, cu, max(segs), max(segs))
+    mea = IF.memory_efficient_attention(mq, mk, mv, scale=m_scale)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = Counter(_build.launches)
+    log(f"phase 14: functional API at Llama-3-8B attention width, bf16, "
+        f"{wall:.3f}s (first calls): launches {dict(counts)}")
+    n_kernel = 1 + sum(n % 128 == 0 for n in segs) + 1
+    if counts != Counter(flash_attention_full=n_kernel,
+                         flash_attention_full_bwd=1):
+        raise AssertionError(f"phase 14: launches {dict(counts)}, want "
+                             f"flash_attention_full {n_kernel} and "
+                             f"flash_attention_full_bwd 1")
+    if sm is not None:
+        raise AssertionError("flash_attention must return (out, None)")
+    with torch.no_grad():
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        ref = flash_attention.flash_attention_plain(qd, kd, vd, causal=False)
+        err, ok = close_bf16(out, ref)
+        del ref
+        ref_grads = flash_attention.flash_attention_bwd_plain(
+            qd, kd, vd, out.detach(), dout, scale, full=True)
+    g_err, g_ok = close_grads("phase 14 flash_attention backward", grads,
+                              ref_grads)
+    del ref_grads
+    log(f"  flash_attention(causal=False) [1, {S}, {H} | {hk}, {D}]: out "
+        f"max abs err {err:.3e} ok={ok}; grads max abs err {g_err:.3e} "
+        f"ok={g_ok}")
+    ok = ok and g_ok
+    with torch.no_grad():
+        for i, n in enumerate(segs):
+            a, b = int(cu[i]), int(cu[i + 1])
+            ref = flash_attention.flash_attention_plain(
+                pq[None, a:b], pk[None, a:b], pv[None, a:b], causal=False)
+            e, o = close_bf16(packed[None, a:b], ref)
+            log(f"  flash_attn_unpadded segment {n} "
+                f"({'kernel' if n % 128 == 0 else 'plain composite'}): max "
+                f"abs err {e:.3e} ok={o}")
+            ok = ok and o
+        qf = mq * (m_scale * math.sqrt(D))
+        ref = flash_attention.flash_attention_plain(qf, mk, mv, causal=False)
+        e, o = close_bf16(mea, ref)
+        log(f"  memory_efficient_attention [1, {S}, {H}, {D}] scale "
+            f"{m_scale}: max abs err {e:.3e} ok={o}")
+        ok = ok and o
+
+    def fwd_bwd():
+        o, _ = F.flash_attention(q, k, v, causal=False)
+        return torch.autograd.grad(o, (q, k, v), dout)
+
+    def unpadded():
+        return F.flash_attn_unpadded(pq, pk, pv, cu, cu, max(segs), max(segs))
+
+    log(f"  flash_attention forward + backward {time_ms(fwd_bwd, 3, 1):.4f} "
+        f"ms; flash_attn_unpadded ({len(segs)} segments) "
+        f"{time_ms(unpadded, 3, 1):.4f} ms")
+    if not ok:
+        raise AssertionError("phase 14: a functional-API output disagrees "
+                             "with its plain version")
+    return counts
+
+
+# --------------------------------------------------------------- phase 15 --
+
+RING_DEGREE = 4
+
+
+def ring_on_one_card():
+    """Phase 15: ring attention at degree 4 on one card, Llama-3-8B's
+    attention width (32 | 8 heads, 128), local sequence 4096 (global
+    16384), bf16, through ``ring_attention(impl="auto")``: causal,
+    non-causal, and causal with Mistral's window 4096. Counts are zeroed
+    before and read after each: ``splash_hop`` once per live hop (the live
+    ranks folded into the batch), 4, 4 and 2, and nothing else. Each result
+    is held per element against the whole-sequence flash kernel at 16384
+    (causal, full, local), which phase 2 holds against its plain version.
+    The hops alone (the same launches, no combine) are timed beside the
+    ring, so the combine's and the rolls' cost shows. Then the ring's
+    gradients at local 1024 (global 4096) in f32 against the plain
+    whole-sequence attention's, by autograd."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.distributed import context_parallel as cp
+    from paddle_tpu_torch.ops.hopper import _build, flash_attention
+
+    gen = torch.Generator("cuda").manual_seed(5151)
+    n, s_loc, H, hk, D = RING_DEGREE, TRAIN_SEQ, 32, 8, 128
+    ring = cp.LocalRing(n)
+    scale = 1.0 / math.sqrt(D)
+    q, k, v = (torch.randn(1, n * s_loc, h, D, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for h in (H, hk, hk))
+    qs, ks, vs = (cp.shard(t, n) for t in (q, k, v))
+    counts = Counter()
+    log(f"phase 15: ring attention, degree {n}, local {s_loc} (global "
+        f"{n * s_loc}), [{H} | {hk}, {D}], bf16, impl auto")
+    for causal, window, hops in ((True, None, 4), (False, None, 4),
+                                 (True, WINDOW, 2)):
+        label = ("causal" if causal and window is None else "full"
+                 if not causal else f"local W={window}")
+
+        def run(causal=causal, window=window):
+            return cp.ring_attention(qs, ks, vs, ring, causal=causal,
+                                     window=window)
+
+        _build.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        got = Counter(_build.launches)
+        counts.update(got)
+        if got != Counter(splash_hop=hops):
+            raise AssertionError(f"phase 15 {label}: launches {dict(got)}, "
+                                 f"want splash_hop {hops}")
+        whole = flash_attention.flash_attention_bshd(q, k, v, causal=causal,
+                                                     window=window)
+        err, ok = close_bf16(cp.unshard(out), whole)
+        ok = ok and not bool(torch.isnan(out).any())
+
+        def hop(t, causal=causal, window=window):
+            kind, offset = cp._hop_kind(t, s_loc, causal, window)
+            lo, hi = cp._live_entries(ring, t, causal)
+            r = hi - lo
+            return flash_attention.hop_bshd(
+                qs[lo:hi].reshape(r, s_loc, H, D),
+                ks[lo:hi].reshape(r, s_loc, hk, D),
+                vs[lo:hi].reshape(r, s_loc, hk, D), kind, offset=offset,
+                window=window, scale=scale)
+
+        live = range(cp._live_hops(n, s_loc, causal, window))
+        ring_ms = time_ms(run, reps=3, warmup=1)
+        hop_ms = time_ms(lambda: [hop(t) for t in live], reps=3, warmup=1)
+        per_hop = [time_ms(lambda t=t: hop(t), reps=3, warmup=1)
+                   for t in live]
+        log(f"  ring {label}: per hop (kind, ranks, ms) " + ", ".join(
+            f"({cp._hop_kind(t, s_loc, causal, window)[0]}, "
+            f"{n - t if causal else n}, {ms:.3f})"
+            for t, ms in zip(live, per_hop)))
+        whole_ms = time_ms(lambda: flash_attention.flash_attention_bshd(
+            q, k, v, causal=causal, window=window), reps=3, warmup=1)
+        log(f"  ring {label}: splash_hop launches {got['splash_hop']}, max "
+            f"abs err vs the whole-sequence kernel {err:.3e} ok={ok}; ring "
+            f"{ring_ms:.3f} ms, its hop launches alone {hop_ms:.3f} ms "
+            f"(combine and rolls {ring_ms - hop_ms:.3f} ms), whole-sequence "
+            f"kernel {whole_ms:.3f} ms")
+        if not ok:
+            raise AssertionError(f"phase 15 {label}: the ring disagrees with "
+                                 f"the whole-sequence kernel")
+        del out, whole
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+
+    s_loc = 1024
+    q, k, v = (torch.randn(1, n * s_loc, h, D, generator=gen, device="cuda")
+               for h in (H, hk, hk))
+    dout = torch.randn(1, n * s_loc, H, D, generator=gen, device="cuda")
+    leaves = [cp.shard(t, n).requires_grad_() for t in (q, k, v)]
+    _build.reset_launches()
+    out = cp.ring_attention(*leaves, ring, causal=True)
+    grads = torch.autograd.grad(cp.unshard(out), leaves, dout)
+    torch.cuda.synchronize()
+    if dict(_build.launches) != {"splash_hop": n}:
+        raise AssertionError(f"phase 15 gradients: launches "
+                             f"{dict(_build.launches)}")
+    counts.update(_build.launches)
+    grads = [cp.unshard(g) for g in grads]
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = flash_attention.flash_attention_plain(*ref_leaves, causal=True)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+    errs = [float((cp.unshard(out) - ref).detach().abs().max())] + [
+        float((a - b).abs().max()) for a, b in zip(grads, ref_grads)]
+    tops = [float(b.abs().max()) for b in ref_grads]
+    ok = errs[0] <= 2e-5 and all(e <= 1e-5 * max(t, 1.0)
+                                 for e, t in zip(errs[1:], tops))
+    log(f"  ring gradients, local {s_loc} (global {n * s_loc}), f32, causal: "
+        f"out max abs err {errs[0]:.2e}, dq/dk/dv {errs[1]:.2e}/"
+        f"{errs[2]:.2e}/{errs[3]:.2e} (largest {tops[0]:.2e}/{tops[1]:.2e}/"
+        f"{tops[2]:.2e}; tolerance 1e-5 of each) ok={ok}")
+    if not ok:
+        raise AssertionError("phase 15: the ring's gradients disagree with "
+                             "the plain whole-sequence gradients")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1960,6 +2383,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     counts.update(train_deepseek())
     deepseek_train_wiring_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts.update(functional_api())
+    counts.update(ring_on_one_card())
+    log(f"phases 14-15 took {time.perf_counter() - t0:.1f}s")
 
     kernels = []
     for name in SOURCES:

@@ -4,13 +4,18 @@
 // Replaces: paddle_tpu/ops/pallas/append_attention.py, `_kernel` (called
 // from `_append_jit` / `append_attention`). The same kernel serves the
 // forward of paddle_tpu/ops/pallas/flash_attention.py `flash_attention_bshd`
-// under two of the splash kernel's masks, at pos = s_kv - s_q:
-// - the bottom-aligned CausalMask (window = 0): query s sees column
-//   t <= pos + s;
-// - the sliding-window LocalMask(window_size=(window - 1, 0),
-//   offset=s_kv - s_q) (window > 0): query s sees column t iff
-//   pos + s - window < t <= pos + s.
-// The FullMask is not ported.
+// and of its `splash_hop` (one ring-attention hop, with lse) under the
+// splash kernel's three masks, named by `kind` in the C interface:
+// - kind 0, the CausalMask at `offset` = pos (pos = s_kv - s_q for
+//   `flash_attention_bshd`'s bottom-aligned triangle, the hop's offset for
+//   `splash_hop`): query s sees column t <= pos + s;
+// - kind 1, the sliding-window LocalMask(window_size=(window - 1, 0),
+//   offset=pos) (window > 0): query s sees column t iff
+//   pos + s - window < t <= pos + s; a row whose band misses [0, T) (a
+//   ring hop's dead row) writes out 0 and lse -inf;
+// - kind 2, the FullMask: every query sees every column, for any S and T
+//   (s_kv < s_q included); pos is not read. Tiles wholly inside [0, T)
+//   skip the per-element mask compare.
 //
 // Head widths: q/k width DQK and v width DV are template parameters,
 // instantiated at (128, 128), the Llama families' heads, and (192, 128),
@@ -81,7 +86,7 @@ __global__ void __launch_bounds__(NT)
 append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const uint8_t* __restrict__ allowed,
                         T* __restrict__ out, float* __restrict__ lse, int S, int T_,
-                        int hk, int g, int pos, int window, float scale) {
+                        int hk, int g, int pos, int window, bool full, float scale) {
   constexpr int QS = DQK + 1;   // padded shared-memory row strides
   constexpr int KS = DQK + 1;
   constexpr int NJ = DV / 16;    // output columns per thread
@@ -113,7 +118,7 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (tid < BM) {
     const int r = r0 + tid;
-    lim_s[tid] = r < rows ? pos + r % S : -1;
+    lim_s[tid] = r < rows ? (full ? T_ - 1 : pos + r % S) : -1;
     lo_s[tid] = (r < rows && window > 0) ? pos + r % S - window + 1 : 0;
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -126,7 +131,7 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool one_head = r0 / S == r_last / S;
   const int s_max = one_head ? r_last % S : S - 1;
   const int s_min = one_head ? r0 % S : 0;
-  const int kv_end = min(T_, pos + s_max + 1);
+  const int kv_end = full ? T_ : min(T_, pos + s_max + 1);
   const int kv_begin = window > 0 ? max(0, pos + s_min - window + 1) / BN * BN : 0;
 
   const int tx = tid % 16, ty = tid / 16;  // rows ty + 16i, cols tx + 16j
@@ -163,6 +168,9 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
+    // a full-mask tile wholly inside [0, T) with no column mask: every
+    // score is visible
+    const bool whole = full && allowed == nullptr && kv0 + BN <= T_;
     float sc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -186,8 +194,8 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j, col = kv0 + c;
-        const bool ok = col < T_ && col <= lim_s[rr] && col >= lo_s[rr] &&
-                        (allowed == nullptr || allowed[(size_t)b * T_ + col] != 0);
+        const bool ok = whole || (col < T_ && col <= lim_s[rr] && col >= lo_s[rr] &&
+                                  (allowed == nullptr || allowed[(size_t)b * T_ + col] != 0));
         Ps[rr * PS + c] = ok ? sc[i][j] : -INFINITY;
       }
     }
@@ -261,7 +269,7 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, void* out,
            float* lse, int B, int S, int T_, int H, int hk, int pos, int window,
-           float scale, cudaStream_t stream) {
+           bool full, float scale, cudaStream_t stream) {
   auto kernel = append_attention_kernel<T, DQK, DV>;
   constexpr size_t smem = smem_bytes<DQK, DV>();
   cudaError_t err =
@@ -271,41 +279,48 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, 
   dim3 grid(B, hk, (g * S + BM - 1) / BM);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      allowed, static_cast<T*>(out), lse, S, T_, hk, g, pos, window, scale);
+      allowed, static_cast<T*>(out), lse, S, T_, hk, g, pos, window, full, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DQK, int DV>
 int launch_dtype(const void* q, const void* k, const void* v, const uint8_t* a, void* out,
                  float* l, int B, int S, int T_, int H, int hk, int pos, int window,
-                 float scale, int dtype, cudaStream_t s) {
+                 bool full, float scale, int dtype, cudaStream_t s) {
   if (dtype == 1)
     return launch<__nv_bfloat16, DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos,
-                                          window, scale, s);
-  return launch<float, DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, scale,
-                                s);
+                                          window, full, scale, s);
+  return launch<float, DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
+                                scale, s);
 }
 
 }  // namespace
 
 // q [B, S, H, dqk]; k [B, T, hk, dqk]; v [B, T, hk, dv]; out [B, S, H, dv];
 // (dqk, dv) is (128, 128) or (192, 128); allowed [B, T] bytes or null;
-// lse [B, H, S] f32 or null; window 0 = none, else query s sees only
-// columns t > pos + s - window. dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after launch.
+// lse [B, H, S] f32 or null; kind 0 = causal at pos (window 0), 1 = local
+// (window > 0: query s sees only columns pos + s - window < t <= pos + s),
+// 2 = full (window 0, pos not read). dtype: 0 = float32, 1 = bfloat16.
+// Returns cudaGetLastError() after launch, or cudaErrorInvalidValue for
+// widths the kernel is not instantiated at or a kind and window that
+// disagree.
 extern "C" int pt_append_attention(const void* q, const void* k, const void* v,
                                    const void* allowed, void* out, void* lse, int B,
                                    int S, int T_, int H, int hk, int dqk, int dv, int pos,
-                                   int window, float scale, int dtype, void* stream) {
+                                   int window, float scale, int kind, int dtype,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* a = static_cast<const uint8_t*>(allowed);
   float* l = static_cast<float*>(lse);
+  if (kind < 0 || kind > 2 || (kind == 1) != (window > 0))
+    return (int)cudaErrorInvalidValue;
+  const bool full = kind == 2;
   if (dqk == 128 && dv == 128)
-    return launch_dtype<128, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, scale,
-                                  dtype, s);
+    return launch_dtype<128, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
+                                  scale, dtype, s);
   if (dqk == 192 && dv == 128)
-    return launch_dtype<192, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, scale,
-                                  dtype, s);
+    return launch_dtype<192, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
+                                  scale, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

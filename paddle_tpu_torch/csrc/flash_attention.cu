@@ -4,13 +4,15 @@
 // Replaces: the backward of the bundled splash attention kernel that
 // paddle_tpu/ops/pallas/flash_attention.py `flash_attention_bshd` builds
 // with `make_splash_mha` (`_splash_kernel`): splash's dq and dkv Pallas
-// kernels, which its custom VJP runs, under two of its masks, with
-// pos = s_kv - s_q:
-// - the bottom-aligned CausalMask (window = 0): q row i sees kv columns
-//   j <= i + pos;
-// - the sliding-window LocalMask(window_size=(window - 1, 0), offset=pos)
-//   (window > 0): q row i sees j iff i + pos - window < j <= i + pos.
-// The FullMask is not ported.
+// kernels, which its custom VJP runs, under its three masks, named by
+// `kind` in the C interface:
+// - kind 0, the bottom-aligned CausalMask at pos = s_kv - s_q: q row i sees
+//   kv columns j <= i + pos;
+// - kind 1, the sliding-window LocalMask(window_size=(window - 1, 0),
+//   offset=pos) (window > 0): q row i sees j iff i + pos - window < j <=
+//   i + pos;
+// - kind 2, the FullMask: every row sees every column, for any S and T
+//   (T < S included); pos is not read.
 //
 // Head widths: q/k width DQK and v width DV are template parameters,
 // instantiated at (128, 128), the Llama families' heads, and (192, 128),
@@ -37,15 +39,16 @@
 //    shared memory and loops over the g = H / hk query heads of its KV head
 //    (one head for DeepSeek's MLA, which has no GQA) and, for each, over the
 //    q tiles that see the tile: from the first one
-//    (the diagonal) to the end, or with a window to the tile of the last
-//    row whose band still reaches the tile's last column. It recomputes P
+//    (the diagonal; the first tile under the full mask) to the end, or with
+//    a window to the tile of the last row whose band still reaches the
+//    tile's last column. It recomputes P
 //    and dS = P * (dout v^T - delta) and accumulates dV += P^T dout and
 //    dK += dS^T (scale q) in registers. The g heads are summed inside the
 //    block: no atomics, the result is deterministic.
 // 3. dq: grid (B, H, ceil(S / BR)), last q tiles first. A block keeps its q
 //    and dout tile and loops over the KV tiles it sees: from the tile of
-//    its first row's band start (0 without a window) to the diagonal,
-//    accumulating dQ += dS K; dq = scale * dQ.
+//    its first row's band start (0 without a window) to the diagonal (every
+//    tile under the full mask), accumulating dQ += dS K; dq = scale * dQ.
 // With a window both loops skip the tiles outside the band, so the work is
 // O(S * window), as splash's block-sparse mask info makes it. Masked
 // entries of P are exactly 0, so they add nothing to any sum. The products
@@ -185,7 +188,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       T* __restrict__ dk, T* __restrict__ dv, int S, int T_, int hk, int g,
-                      int pos, int window, float scale) {
+                      int pos, int window, bool full, float scale) {
   using W = Widths<DQK, DV>;
   constexpr int QS = W::QS, VS = W::VS, NQ = W::NQ, NV = W::NV;
   extern __shared__ float smem[];
@@ -216,10 +219,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < NV; ++jj) adv[i][jj] = 0.f;
   }
 
-  // the first query row that sees column kv0 is kv0 - pos; with a window
-  // the last one that sees column kv0 + BC - 1 is kv0 + BC - 1 - pos +
-  // window - 1
-  const int q_first = max(0, kv0 - pos) / BR * BR;
+  // the first query row that sees column kv0 is kv0 - pos (row 0 under
+  // the full mask); with a window the last one that sees column
+  // kv0 + BC - 1 is kv0 + BC - 1 - pos + window - 1
+  const int q_first = full ? 0 : max(0, kv0 - pos) / BR * BR;
   const int q_end = window > 0 ? min(S, kv0 + BC - 1 - pos + window) : S;
   for (int j = 0; j < g; ++j) {
     const int h = kh * g + j;
@@ -241,8 +244,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int jc = 0; jc < 4; ++jc) {
           const int c = tx + 16 * jc, col = kv0 + c;
-          const bool ok = s < S && col < T_ && col <= s + pos &&
-                          (window == 0 || col > s + pos - window);
+          const bool ok = s < S && col < T_ &&
+                          (full || (col <= s + pos &&
+                                    (window == 0 || col > s + pos - window)));
           const float p = ok ? expf(sc[i][jc] - lse_s[rr]) : 0.f;
           Ps[rr * PS + c] = p;
           dSs[rr * PS + c] = p * (dp[i][jc] - dl_s[rr]);
@@ -292,7 +296,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int S, int T_, int H, int g, int pos, int window,
-                    float scale) {
+                    bool full, float scale) {
   using W = Widths<DQK, DV>;
   constexpr int QS = W::QS, VS = W::VS, NQ = W::NQ;
   extern __shared__ float smem[];
@@ -323,8 +327,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < NQ; ++jj) acc[i][jj] = 0.f;
 
   // columns past the last row's diagonal are never visible, nor with a
-  // window those before the first row's band
-  const int kv_end = min(T_, min(S, q0 + BR) - 1 + pos + 1);
+  // window those before the first row's band; the full mask sees them all
+  const int kv_end = full ? T_ : min(T_, min(S, q0 + BR) - 1 + pos + 1);
   const int kv_begin = window > 0 ? max(0, q0 + pos - window + 1) / BC * BC : 0;
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += BC) {
     load_tile<DQK>(Ks, k, b, kv0, T_, hk, kh, 1.f);
@@ -339,8 +343,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jc = 0; jc < 4; ++jc) {
         const int c = tx + 16 * jc, col = kv0 + c;
-        const bool ok = s < S && col < T_ && col <= s + pos &&
-                        (window == 0 || col > s + pos - window);
+        const bool ok = s < S && col < T_ &&
+                        (full || (col <= s + pos &&
+                                  (window == 0 || col > s + pos - window)));
         const float p = ok ? expf(sc[i][jc] - lse_s[rr]) : 0.f;
         dSs[rr * PS + c] = p * (dp[i][jc] - dl_s[rr]);
       }
@@ -376,7 +381,7 @@ template <typename T, int DQK, int DV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, float* delta, void* dq, void* dk,
                void* dv, int B, int S, int T_, int H, int hk, int pos, int window,
-               float scale, cudaStream_t stream) {
+               bool full, float scale, cudaStream_t stream) {
   using W = Widths<DQK, DV>;
   auto dkdv = flash_bwd_dkdv_kernel<T, DQK, DV>;
   auto dqk = flash_bwd_dq_kernel<T, DQK, DV>;
@@ -400,12 +405,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
 
   dkdv<<<dim3(B, hk, (T_ + BC - 1) / BC), NT, W::dkdv_smem, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, T_, hk, g,
-      pos, window, scale);
+      pos, window, full, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   dqk<<<dim3(B, H, (S + BR - 1) / BR), NT, W::dq_smem, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), S, T_, H, g, pos, window, scale);
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), S, T_, H, g, pos, window, full,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -413,39 +419,44 @@ template <int DQK, int DV>
 int launch_typed(const void* q, const void* k, const void* v, const void* out,
                  const void* dout, const float* lse, float* delta, void* dq, void* dk,
                  void* dv, int B, int S, int T_, int H, int hk, int pos, int window,
-                 float scale, int dtype, cudaStream_t stream) {
+                 bool full, float scale, int dtype, cudaStream_t stream) {
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16, DQK, DV>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                                              B, S, T_, H, hk, pos, window, scale, stream);
+                                              B, S, T_, H, hk, pos, window, full, scale,
+                                              stream);
   return launch_bwd<float, DQK, DV>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, T_,
-                                    H, hk, pos, window, scale, stream);
+                                    H, hk, pos, window, full, scale, stream);
 }
 
 }  // namespace
 
 // q, dq [B, S, H, dqk]; out, dout [B, S, H, dv]; k, dk [B, T, hk, dqk];
 // v, dv [B, T, hk, dv]; lse, delta [B, H, S] f32 (delta is scratch, written
-// here); causal at pos = T - S, window 0 = none, else the band of the last
-// `window` columns up to the diagonal. (dqk, dv_width): (128, 128) or
-// (192, 128), the window at (128, 128) only. dtype: 0 = float32,
-// 1 = bfloat16. Returns cudaGetLastError() after the three launches (the
-// first error stops the sequence), or cudaErrorInvalidValue for widths
-// the kernel is not instantiated at.
+// here); kind 0 = causal at pos = T - S (window 0), 1 = local (window > 0:
+// the band of the last `window` columns up to the diagonal), 2 = full
+// (window 0, pos not read). (dqk, dv_width): (128, 128) or (192, 128), the
+// window at (128, 128) only. dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError() after the three launches (the first error stops the
+// sequence), or cudaErrorInvalidValue for widths the kernel is not
+// instantiated at or a kind and window that disagree.
 extern "C" int pt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* out, const void* dout, const void* lse,
                                       void* delta, void* dq, void* dk, void* dv, int B,
                                       int S, int T_, int H, int hk, int pos, int window,
-                                      int dqk, int dv_width, float scale, int dtype,
-                                      void* stream) {
+                                      int dqk, int dv_width, float scale, int kind,
+                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  if (kind < 0 || kind > 2 || (kind == 1) != (window > 0))
+    return (int)cudaErrorInvalidValue;
+  const bool full = kind == 2;
   if (dqk == 128 && dv_width == 128)
     return launch_typed<128, 128>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, T_, H, hk,
-                                  pos, window, scale, dtype, s);
+                                  pos, window, full, scale, dtype, s);
   if (dqk == 192 && dv_width == 128 && window == 0)
     return launch_typed<192, 128>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, T_, H, hk,
-                                  pos, window, scale, dtype, s);
+                                  pos, window, full, scale, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,5 @@
-"""Layers the ported trunks need, in Paddle's parameter layout.
+"""Layers the ported trunks need, in Paddle's parameter layout; the
+attention functionals live in ``nn.functional``.
 
 ``Linear`` keeps Paddle's weight layout ``[in_features, out_features]``
 applied as ``x @ W`` (``paddle_tpu/nn/layers_common.py``), so state dicts

@@ -6,8 +6,9 @@ Counterpart of ``paddle_tpu/ops/pallas/append_attention.py``, with its
 signature and layouts: q [B, S, H, D] (already roped), k_buf/v_buf
 [B, T, hk, D] (chunk already written at ``pos``), ``allowed`` an optional
 [B, T] column mask. Query s sees columns t <= pos + s that are allowed.
-The kernel also runs the causal and sliding-window forward of
-``flash_attention.flash_attention_bshd`` (``launch`` with ``window``).
+The kernel also runs the causal, sliding-window and full-mask forward of
+``flash_attention.flash_attention_bshd`` and its ring hop ``splash_hop``
+(``launch`` with ``window`` or ``kind``).
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
 kernel or raises. The kernel takes float32 / bfloat16 and head widths
@@ -26,6 +27,8 @@ _STEM = "append_attention"
 HEAD_DIM = 128
 # (q/k width, v width) pairs the kernel is instantiated at
 WIDTHS = ((128, 128), (192, 128))
+# the splash masks the kernel takes, by their code in the C interface
+KINDS = {"causal": 0, "local": 1, "full": 2}
 
 
 def grouped_attention_plain(q, k, v, mask, scale):
@@ -70,12 +73,14 @@ def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None):
 
 
 def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False,
-           window=None):
+           window=None, kind=None):
     """Run the CUDA kernel; ``counter`` names the wrapper whose launch this
-    is (append attention and the flash forward's causal and local masks
-    share the kernel). ``window``: query s sees only columns
-    t > pos + s - window. Returns out, or (out, lse [B, H, S] f32) with
-    ``with_lse``."""
+    is (append attention, the flash forward's masks and the ring hop share
+    the kernel). ``kind``: "causal" (query s sees columns t <= pos + s),
+    "local" (also t > pos + s - window) or "full" (every column; ``pos``
+    is not read); by default "local" with a window, else "causal".
+    Returns out, or (out, lse [B, H, S] f32) with ``with_lse``."""
+    kind = kind or ("causal" if window is None else "local")
     tensors = [q, k_buf, v_buf] + ([allowed] if allowed is not None else [])
     _build.require_cuda(*tensors)
     code = _build.dtype_code(q)
@@ -92,6 +97,9 @@ def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False,
     _build.require(H % hk == 0, f"{counter}: {H} heads over {hk} KV heads")
     _build.require(k_buf.dtype == q.dtype and v_buf.dtype == q.dtype,
                    f"{counter}: q, k and v must share one dtype")
+    _build.require(kind in KINDS and (kind == "local") == (window is not None),
+                   f"{counter}: kind {kind!r} with window {window}: a window "
+                   "comes with the local mask and only there")
     _build.require(0 <= int(pos), f"{counter}: pos must be >= 0")
     _build.require(window is None or (int(window) > 0 and allowed is None),
                    f"{counter}: a window must be > 0 and comes without a "
@@ -109,11 +117,12 @@ def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False,
            if with_lse else None)
     if q.numel() > 0:
         fn = _build.function(_STEM, "pt_append_attention", [_build.VOIDP] * 6 + [
-            _build.INT] * 9 + [_build.FLOAT, _build.INT, _build.VOIDP])
+            _build.INT] * 9 + [_build.FLOAT, _build.INT, _build.INT,
+                               _build.VOIDP])
         err = fn(_build.ptr(q), _build.ptr(k_buf), _build.ptr(v_buf), a_ptr,
                  _build.ptr(out), None if lse is None else _build.ptr(lse),
                  B, S, T, H, hk, D, Dv, int(pos), int(window or 0),
-                 float(scale), code, _build.stream(q.device))
+                 float(scale), KINDS[kind], code, _build.stream(q.device))
         _build.launches[counter] += 1
         _build.check(err, _STEM, counter)
     return (out, lse) if with_lse else out

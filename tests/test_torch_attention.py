@@ -1,9 +1,10 @@
 """Port parity of the attention kernels' modules (plain versions, CPU)
 against the JAX package: append attention and splash flash attention in
 Pallas interpret mode, causal and sliding-window (the flash gradients
-through splash's own backward kernels), paged decode through
-``paged_decode_attention`` (its gather reference off the TPU) and the
-windowed band gather. f32 unless a test says otherwise; tolerance 2e-5
+through splash's own backward kernels; the full mask's CUDA route and
+refusals, its parity being in ``test_torch_functional_attention``), paged
+decode through ``paged_decode_attention`` (its gather reference off the
+TPU) and the windowed band gather. f32 unless a test says otherwise; tolerance 2e-5
 for sums taken in another order."""
 import jax
 import jax.numpy as jnp
@@ -15,9 +16,11 @@ from paddle_tpu import generation as jax_gen
 from paddle_tpu.ops.pallas import append_attention as jax_append
 from paddle_tpu.ops.pallas import flash_attention as jax_flash
 from paddle_tpu_torch import generation as port_gen
+from paddle_tpu_torch.ops.hopper import _build
 from paddle_tpu_torch.ops.hopper import append_attention as port_append
 from paddle_tpu_torch.ops.hopper import flash_attention as port_flash
 from paddle_tpu_torch.ops.hopper import paged_attention as port_paged
+from test_torch_pair import fake_kernels, posing_as_cuda  # noqa: F401
 
 ATOL = 2e-5
 
@@ -269,12 +272,45 @@ def _as_cuda(t):
 
 @pytest.mark.parametrize("kwargs", [dict(causal=False)])
 def test_flash_refuses_unported_masks_on_cuda(kwargs, monkeypatch):
-    """On a CUDA tensor the unported full mask raises instead of running
-    plain code; the device check runs first, so a CPU tensor posing as CUDA
-    exercises the refusal without a card."""
-    fq = _as_cuda(torch.zeros(1, 16, 4, 128))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_flash.flash_attention_bshd(fq, fq, fq, **kwargs)
+    """On a CUDA tensor the full mask at a head width its kernel lacks (256,
+    which the JAX ``supported`` takes; q/k 192 with v 128) raises instead of
+    running plain code; the checks run before any launch, so a CPU tensor
+    posing as CUDA exercises the refusal without a card."""
+    for d_qk, d_v in ((256, 256), (192, 128)):
+        fq = _as_cuda(torch.zeros(1, 16, 4, d_qk))
+        fv = _as_cuda(torch.zeros(1, 16, 4, d_v))
+        with pytest.raises(NotImplementedError, match="head widths"):
+            port_flash.flash_attention_bshd(fq, fq, fv, **kwargs)
+
+
+@pytest.mark.parametrize("s_q,s_kv", [(64, 64), (96, 32)])
+def test_flash_full_mask_cuda_route_launches_both_kernels(s_q, s_kv,
+                                                          fake_kernels):
+    """On a CUDA tensor that needs a gradient, ``causal=False`` launches
+    the forward kernel with lse under kind 2 (full), s_kv < s_q included,
+    and its backward the three-kernel sequence under kind 2, counted as
+    ``flash_attention_full`` and ``flash_attention_full_bwd``."""
+    q = posing_as_cuda(torch.zeros(1, s_q, 4, 128), True)
+    k, v = (posing_as_cuda(torch.zeros(1, s_kv, 2, 128), True)
+            for _ in range(2))
+    out = port_flash.flash_attention_bshd(q, k, v, causal=False)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert [name for name, _ in fake_kernels] == ["pt_append_attention",
+                                                  "pt_flash_attention_bwd"]
+    fwd, bwd = fake_kernels[0][1], fake_kernels[1][1]
+    assert fwd[5] is not None                      # lse written
+    # B, S, T, H, hk, q/k width, v width, pos, window, scale, kind
+    assert fwd[6:15] == (1, s_q, s_kv, 4, 2, 128, 128, 0, 0)
+    assert fwd[16] == 2
+    assert bwd[10:19] == (1, s_q, s_kv, 4, 2, 0, 0, 128, 128)
+    assert bwd[20] == 2
+    assert dict(_build.launches) == {"flash_attention_full": 1,
+                                     "flash_attention_full_bwd": 1}
+    assert [tuple(t.grad.shape) for t in (q, k, v)] == [
+        (1, s_q, 4, 128), (1, s_kv, 2, 128), (1, s_kv, 2, 128)]
+
+
 
 
 @pytest.mark.parametrize("case,want", [
