@@ -7,11 +7,16 @@ NVIDIA H100.
 Phases (any failure raises, so the script exits non-zero):
 
 1. Device and build: the card's name and power limit, then every kernel
-   of ``paddle_tpu_torch/csrc`` compiled by nvcc from the checkout.
+   of ``paddle_tpu_torch/csrc`` compiled by nvcc from the checkout, with
+   each kernel's registers and spills (ptxas), and the tensor-core
+   instructions of the attention kernels' SASS (``cuobjdump``; none fails
+   the run).
 2. Each kernel against its plain PyTorch version on the card, in bf16 at
    the serving and training paths' shapes, with its time (CUDA events,
    median of 20 after warm-up; 5 for the sequence-4096 attention rows),
-   the plain version's time, the least time the card could take (bound),
+   its device time (CUDA events around 10 back-to-back calls, divided by
+   10: no host time), the plain version's time, the least time the card
+   could take (bound),
    and one PyTorch library call computing the same function as a yardstick
    only (the port never calls it). The attention backward is held per
    element against its plain version on the same inputs (delta from the
@@ -127,6 +132,8 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -233,6 +240,25 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def kernel_times(fn, reps=20, warmup=3):
+    """(median ms of one call, as ``time_ms``; device ms of one call: CUDA
+    events around 10 back-to-back calls, divided by 10). Back to back, each
+    launch queues behind the last one's device work, so the device time
+    leaves out the host time a single call pays, which a row under 1 ms
+    would otherwise carry."""
+    import torch
+
+    median = time_ms(fn, reps, warmup)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(10):
+        fn()
+    b.record()
+    b.synchronize()
+    return median, a.elapsed_time(b) / 10
+
+
 def bound(nbytes, ops, dtype):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -271,20 +297,23 @@ def check_kernels(results):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
 
-    def record(name, shape, err, tol_ok, ms, plain_ms, lib_ms, bnd, main):
+    def record(name, shape, err, tol_ok, times, plain_ms, lib_ms, bnd, main):
+        ms, dev_ms = times       # from kernel_times
         b_ms, b_by = bnd
         log(f"  {name:22s} {shape:38s} max_abs_err={err:.3e} ok={tol_ok} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"bound_ms={b_ms:.5f} ({b_by}) share={b_ms / ms:.3f}")
+            f"bound_ms={b_ms:.5f} ({b_by}) share={b_ms / ms:.3f} "
+            f"device_share={b_ms / dev_ms:.3f}")
         if not tol_ok:
             raise AssertionError(f"{name} {shape}: kernel disagrees with its "
                                  f"plain version (max abs err {err})")
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
-            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=b_ms, bound_by=b_by, shape=shape)
+            r.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                     shape=shape)
 
     # attention: one bf16 rounding of an f32 result whose sums ran in
     # another order; norms: two bf16 roundings (normalised value, then the
@@ -301,7 +330,7 @@ def check_kernels(results):
         err, ok = close_bf16(out, ref, atol=1e-6, rtol=2.0 ** -6)
         nbytes = 2 * rows * d * 2 + d * 2
         record("rms_norm", f"rows={rows} d={d}", err, ok,
-               time_ms(lambda: fused_norm.rms_norm(x, w, 1e-5)),
+               kernel_times(lambda: fused_norm.rms_norm(x, w, 1e-5)),
                time_ms(lambda: fused_norm.rms_norm_plain(x, w, 1e-5)),
                time_ms(lambda: F.rms_norm(x, (d,), w, 1e-5)),
                bound(nbytes, 4 * rows * d, "bfloat16"), rows == 8)
@@ -311,7 +340,7 @@ def check_kernels(results):
         ok = ok and torch.equal(h, rh)
         nbytes = 4 * rows * d * 2 + d * 2
         record("add_rms_norm", f"rows={rows} d={d}", err, ok,
-               time_ms(lambda: fused_norm.add_rms_norm(x, r, w, 1e-5)),
+               kernel_times(lambda: fused_norm.add_rms_norm(x, r, w, 1e-5)),
                time_ms(lambda: fused_norm.add_rms_norm_plain(x, r, w, 1e-5)),
                None, bound(nbytes, 5 * rows * d, "bfloat16"), rows == 8)
 
@@ -344,7 +373,7 @@ def check_kernels(results):
         mask = vis[None, None]
         record("append_attention",
                f"S={S} T={T} pos={pos} allowed={n_valid}", err, ok,
-               time_ms(lambda: append_attention.append_attention(
+               kernel_times(lambda: append_attention.append_attention(
                    q, k, v, pos, allowed)),
                time_ms(lambda: append_attention.append_attention_plain(
                    q, k, v, pos, allowed)),
@@ -359,7 +388,7 @@ def check_kernels(results):
     err, ok = close_bf16(out, ref)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     record("flash_attention_bshd", f"S={S} causal", err, ok,
-           time_ms(lambda: flash_attention.flash_attention_bshd(
+           kernel_times(lambda: flash_attention.flash_attention_bshd(
                q, k, v, causal=True)),
            time_ms(lambda: flash_attention.flash_attention_plain(
                q, k, v, causal=True)),
@@ -391,7 +420,7 @@ def check_kernels(results):
     q4 = q[:, :, None, :]
     record("paged_attention", f"B={B} max_len={max_len} sum_len={n_tok}",
            err, ok,
-           time_ms(lambda: paged_attention.paged_attention(
+           kernel_times(lambda: paged_attention.paged_attention(
                q, kp, vp, lengths, page_indices)),
            time_ms(lambda: paged_attention.paged_attention_plain(
                q, kp, vp, lengths, page_indices)),
@@ -558,11 +587,12 @@ def check_hop_rows(record, randn):
         cells = hop_cells(kind, S, S, offset, window)
         public_ms = time_ms(lambda: flash_attention.splash_hop(
             q, k, v, kind, offset=offset, window=window), reps=5, warmup=1)
-        kernel_ms = time_ms(lambda: flash_attention.hop_bshd(
+        kernel_ms = kernel_times(lambda: flash_attention.hop_bshd(
             qb, kb, vb, kind, offset=offset, window=window), reps=5,
             warmup=1)
         log(f"  splash_hop {kind}: [B, H, S, D] call with its transposes "
-            f"{public_ms:.4f} ms, launch on [B, S, H, D] {kernel_ms:.4f} ms")
+            f"{public_ms:.4f} ms, launch on [B, S, H, D] {kernel_ms[0]:.4f} "
+            "ms")
         record("splash_hop", f"[1,{H}|{hk},{S},{D}] {kind} offset={offset}"
                + (f" W={window}" if window else ""), err, ok, kernel_ms,
                time_ms(lambda: flash_attention.splash_hop_plain(
@@ -630,7 +660,8 @@ def check_decode_tail_kernels(record, randn):
             f"{time_ms(lambda: x @ wqkv):.4f} ms; discrete rms_norm + 3 "
             f"matmuls + 2 ropes {time_ms(discrete_qkv):.4f} ms")
         record("fused_qkv_rope", f"R={R} hidden={hidden} H={H} hk={hk}",
-               err, ok, time_ms(lambda: decode_tail.fused_qkv_rope(*args)),
+               err, ok,
+               kernel_times(lambda: decode_tail.fused_qkv_rope(*args)),
                time_ms(lambda: decode_tail.fused_qkv_rope_plain(*args)),
                None, bound(cost["bytes"], cost["flops"], "bfloat16"),
                R == 8)
@@ -652,7 +683,8 @@ def check_decode_tail_kernels(record, randn):
             f"{H * d}] @ Wo {time_ms(lambda: attn @ wo):.4f} ms; discrete "
             f"matmul + add_rms_norm {time_ms(discrete_epilogue):.4f} ms")
         record("fused_epilogue", f"R={R} width={H * d} hidden={hidden}",
-               err, ok, time_ms(lambda: decode_tail.fused_epilogue(*eargs)),
+               err, ok,
+               kernel_times(lambda: decode_tail.fused_epilogue(*eargs)),
                time_ms(lambda: decode_tail.fused_epilogue_plain(*eargs)),
                None, bound(cost["bytes"], cost["flops"], "bfloat16"),
                R == 8)
@@ -705,7 +737,7 @@ def check_training_kernels(record, randn):
         # the kernel rounds as the plain version does: bit-identical expected
         err, ok = close_bf16(out, ref, atol=0.0, rtol=2.0 ** -7)
         record("fused_rope", f"x=[1,{S},{heads},{D}]", err, ok,
-               time_ms(lambda: fused_norm.fused_rope(x, cos, sin)),
+               kernel_times(lambda: fused_norm.fused_rope(x, cos, sin)),
                time_ms(lambda: fused_norm._rope_ref_full(x, cos, sin)),
                None, bound(2 * x.numel() * 2 + 2 * S * D * 4, 3 * x.numel(),
                            "bfloat16"), heads == H)
@@ -856,7 +888,7 @@ def check_flash_rows(record, randn, S, window, full=False):
 
     plain_ms = time_ms(plain_fwd, reps=3, warmup=1)
     sdpa_ms = time_ms(sdpa, reps=5, warmup=1)
-    kernel_ms = time_ms(fwd, reps=5, warmup=1)
+    kernel_ms = kernel_times(fwd, reps=5, warmup=1)
     nbytes = 2 * S * (H + hk) * D * 2
     record(fwd_name, f"{label}, lse", err, ok, kernel_ms, plain_ms, sdpa_ms,
            bound(nbytes + H * S * 4, 4 * D * H * cells, "bfloat16"), True)
@@ -864,10 +896,10 @@ def check_flash_rows(record, randn, S, window, full=False):
         causal_ms = time_ms(lambda: fwd("flash_attention_bshd", None, None),
                             reps=5, warmup=1)
         log(f"  causal kernel at S={S} (with lse) {causal_ms:.4f} ms, local "
-            f"kernel W={window} {kernel_ms:.4f} ms: ratio "
-            f"{kernel_ms / causal_ms:.3f} (visible cells {cells} vs "
+            f"kernel W={window} {kernel_ms[0]:.4f} ms: ratio "
+            f"{kernel_ms[0] / causal_ms:.3f} (visible cells {cells} vs "
             f"{S * (S + 1) // 2}, ratio {cells / (S * (S + 1) / 2):.3f})")
-        if not kernel_ms < causal_ms:
+        if not kernel_ms[0] < causal_ms:
             raise AssertionError("the local flash forward is not faster than "
                                  "the causal one: the kernel did not skip "
                                  "the tiles below the band")
@@ -879,7 +911,7 @@ def check_flash_rows(record, randn, S, window, full=False):
         out2 = prefill()
         err2, ok2 = close_bf16(out2, ref)
         record(fwd_name, f"{label} (prefill)", err2,
-               ok2 and torch.equal(out2, out), time_ms(prefill, reps=5,
+               ok2 and torch.equal(out2, out), kernel_times(prefill, reps=5,
                                                        warmup=1),
                plain_ms, sdpa_ms, bound(nbytes, 4 * D * H * cells,
                                         "bfloat16"), False)
@@ -919,7 +951,7 @@ def check_flash_rows(record, randn, S, window, full=False):
     nbytes = (3 * S * H * D + 2 * S * hk * D) * 2 + H * S * 4 + (
         S * H * D + 2 * S * hk * D) * 2
     # S, dP, dV, dK and dQ: five products of 2 * D operations per pair
-    record(bwd_name, label, err, ok, time_ms(bwd, reps=5, warmup=1),
+    record(bwd_name, label, err, ok, kernel_times(bwd, reps=5, warmup=1),
            plain_ms, lib_ms, bound(nbytes, 10 * D * H * cells, "bfloat16"),
            True)
 
@@ -987,8 +1019,8 @@ def check_deepseek_kernels(record, randn):
         nbytes = (n_cols * (r + dr) * 2 + B * H * (r + dr) * 4 + B * 4
                   + B * H * r * 4 + (n_cols if allowed is not None else 0))
         record("mla_decode", label, float(diff.max()), ok,
-               time_ms(lambda: mla_decode.mla_decode(q_lat, q_pe, ckv, kpe,
-                                                     rows, allowed)),
+               kernel_times(lambda: mla_decode.mla_decode(
+                   q_lat, q_pe, ckv, kpe, rows, allowed)),
                time_ms(lambda: mla_decode.mla_decode_plain(
                    q_lat, q_pe, ckv, kpe, rows, allowed)),
                time_ms(lambda: sdpa_gqa(q_sdpa, k_sdpa, v_sdpa, mask=mask,
@@ -1011,7 +1043,7 @@ def check_deepseek_kernels(record, randn):
     cells = S * (S + 1) // 2
     record("flash_attention_mla", f"[1,{S},{H},{dqk}|{dv}] causal "
            f"scale={scale:.4f}", err, ok,
-           time_ms(lambda: flash_attention.flash_attention_bshd(
+           kernel_times(lambda: flash_attention.flash_attention_bshd(
                q, k, v, causal=True, sm_scale=scale), reps=10),
            time_ms(lambda: flash_attention.flash_attention_plain(
                q, k, v, causal=True, sm_scale=scale), reps=3, warmup=1),
@@ -1029,7 +1061,7 @@ def check_deepseek_kernels(record, randn):
         ref = fused_norm.rms_norm_plain(x, w, 1e-6)
         err, ok = close_bf16(out, ref, atol=1e-6, rtol=2.0 ** -6)
         record("rms_norm", f"rows={rows} d={d}", err, ok,
-               time_ms(lambda: fused_norm.rms_norm(x, w, 1e-6)),
+               kernel_times(lambda: fused_norm.rms_norm(x, w, 1e-6)),
                time_ms(lambda: fused_norm.rms_norm_plain(x, w, 1e-6)),
                time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6)),
                bound(2 * rows * d * 2 + d * 2, 4 * rows * d, "bfloat16"),
@@ -1138,7 +1170,7 @@ def check_mla_backward(record, randn, scale):
               + S * H * (2 * dqk + dv) * 2)
     # S (2 dqk), dP (2 dv), dV (2 dv), dK and dQ (2 dqk each) per pair
     record("flash_attention_mla_bwd", f"[1,{S},{H},{dqk}|{dv}] causal "
-           f"scale={scale:.4f}", err, ok, time_ms(bwd, reps=5, warmup=1),
+           f"scale={scale:.4f}", err, ok, kernel_times(bwd, reps=5, warmup=1),
            plain_ms, lib_ms,
            bound(nbytes, (6 * dqk + 4 * dv) * H * cells, "bfloat16"), True)
 
@@ -1664,7 +1696,10 @@ def profile_train_step(step, x, y, card, step_ms):
     ours, groups = {}, {"port kernels": 0.0, "GEMMs": 0.0, "other": 0.0}
     for ms, _, key in rows:
         tag = next((t for t in ("append_attention_kernel",
+                                "append_attention_tc_kernel",
                                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                                "flash_bwd_dkdv_tc_kernel",
+                                "flash_bwd_dq_tc_kernel",
                                 "flash_bwd_delta_kernel", "rope_kernel",
                                 "add_rms_norm_kernel", "rms_norm_kernel")
                     if t in key), None)
@@ -2335,6 +2370,32 @@ def ring_on_one_card():
     return counts
 
 
+def tensor_core_sass(lib) -> tuple:
+    """(HMMA, HGMMA) instructions in a built library's SASS, from
+    ``cuobjdump -sass``: mma.sync and wgmma products on the tensor cores."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return sass.count("HMMA"), sass.count("HGMMA")
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel name, for the ptxas lines:
+    ``append_attention_tc_kernel<192,128>``, ``..._kernel<f,128,128>`` for
+    an instance on float, ``<bf16,128>`` on bfloat16."""
+    m = re.search(r"\d([a-z_]+_kernel)(I(.*?)EEv)?", mangled)
+    if m is None:
+        return mangled
+    if m.group(3) is None:
+        return m.group(1)
+    args = re.findall(r"Li(\d+)E", m.group(3))
+    if m.group(3).startswith("f"):
+        args = ["f"] + args
+    elif m.group(3).startswith("13__nv_bfloat16"):
+        args = ["bf16"] + args
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2360,9 +2421,19 @@ def main(argv=None) -> int:
         f"{_build.build_info.get('seconds', 0.0):.1f}s into "
         f"{_build.build_dir()}")
     for stem, text in sorted(_build.build_info.get("ptxas", {}).items()):
+        kernel = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {stem}: {line.strip()}")
+            if "Function properties for" in line:
+                kernel = kernel_name(line.rsplit(" ", 1)[-1])
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {stem} {kernel}: {line.strip()}")
+    # the attention kernels' bf16 bodies multiply on the tensor cores
+    for stem in ("append_attention", "flash_attention"):
+        hmma, hgmma = tensor_core_sass(_build.build()[stem])
+        log(f"  sass {stem}: {hmma} HMMA (mma.sync), {hgmma} HGMMA (wgmma)")
+        if hmma + hgmma == 0:
+            raise AssertionError(f"{stem}: no tensor-core instruction in its "
+                                 "SASS")
 
     results: dict = {}
     check_kernels(results)
@@ -2399,7 +2470,7 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "device_ms": r["device_ms"], "shape": r["shape"]})
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

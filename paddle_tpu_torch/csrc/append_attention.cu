@@ -29,34 +29,78 @@
 // bytes: bound by operations. For short chunks against a long buffer it
 // becomes bound by the bytes of K and V.
 //
-// Design (simple and right first):
-// - Grid (B, hk, ceil(g*S / BM)). The TPU grid of one cell per (b, kv head)
-//   would give 8 blocks at prefill for 132 SMs; here each block takes a
-//   tile of BM query rows of the g heads that share one KV head, so every
-//   K/V tile staged in shared memory serves all of them.
-// - Row r of a tile is query position s = r % S of head j = r / S, read
-//   from the JAX layout q[B, S, hk, g, D] by index arithmetic.
-// - Loop over KV tiles of BN rows with running max, sum and accumulator in
-//   f32. Only the tiles some row of the block can see are loaded: the loop
-//   starts at the tile of the first column of the lowest row's band (with
-//   a window) and ends past the last visible column of the highest row
-//   (the Pallas kernel's `cond` skip; splash's block-sparse mask info for
-//   the LocalMask), so a windowed prefill does O(S * window) work. Masked
-//   columns are -inf and contribute exactly 0, as in the plain einsum.
-// - Products are f32 FMAs on CUDA cores from padded shared-memory tiles
-//   (conflict-free reads). The tensor cores (mma.sync / wgmma) and TMA are
-//   the next step; this kernel is the correctness baseline.
-// - Optional f32 logsumexp `lse` [B, H, S] of the scaled scores over the
-//   visible columns, the residual the flash backward
-//   (csrc/flash_attention.cu) needs. It is written only when a pointer is
-//   given, so serving launches skip it.
+// Two bodies, chosen by the dtype in `launch_dtype`:
+//
+// bf16 (the serving and training paths): `append_attention_tc_kernel`.
+// - Products on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
+//   accumulators (csrc/tensor_core.cuh). S = q k^T is scaled in f32 (by
+//   scale * log2 e, inside the exp2's FMA). P comes out of the S
+//   accumulators in registers and is the A operand of P v as it stands, so
+//   neither scores nor probabilities touch shared memory. mma.sync, not
+//   wgmma: its accumulator layout feeds the next product with no shuffle,
+//   and its fragments come from plain padded tiles through ldmatrix, with
+//   no descriptor or swizzle mode to get silently wrong. wgmma is the next
+//   step for speed.
+// - Grid (ceil(g*S / BM), hk, B), batch slowest. When S is a whole number
+//   of tiles, a block's linear index picks its head and tile so that the
+//   longest causal tiles (the last positions) of every head start first,
+//   and the blocks in flight read the K and V of every KV head of one batch
+//   row (16 MB at Llama-3-8B's sequence 4096; the L2 holds 50 MB). Heaviest
+//   first within each head only left a tail of long tiles of the last
+//   heads (the MLA prefill, 512 blocks, is under two waves of the card).
+//   Row r of a tile is query position s = r % S of head j = r / S, read
+//   from the JAX layout q[B, S, hk, g, D] by index arithmetic, so every K/V
+//   tile staged in shared memory serves all g heads of the KV head.
+// - A block is 4 warps of 16 query rows (BM = 64), two blocks an SM. Q is
+//   copied once into shared memory (bf16, rows padded by 8 elements:
+//   conflict-free ldmatrix) and held as A fragments in registers (48 of
+//   them at width 192; 245 registers a thread, no spill). K and V stream
+//   through a ring of two bf16 stages filled by 16-byte cp.async copies:
+//   tile j + 1 loads while tile j computes, one __syncthreads() a tile.
+// - Softmax in registers: each thread holds two rows' running max and
+//   partial sum; the four lanes of a row combine with __shfl_xor_sync.
+//   m_safe = 0 where the max is still -inf, so a row that has seen no
+//   column (a ring hop's dead row) gives exp2(-inf) = 0, never NaN: out 0,
+//   lse -inf.
+// - Masks: only the tiles some row of the block can see are loaded: the
+//   loop starts at the tile of the first column of the lowest row's band
+//   (with a window) and ends past the last visible column of the highest
+//   row (the Pallas kernel's `cond` skip; splash's block-sparse mask info
+//   for the LocalMask), so a windowed prefill does O(S * window) work. A
+//   warp skips a tile none of its rows sees, and evaluates the per-element
+//   compare only on tiles that cross an edge: the diagonal, the band's
+//   lower edge, the ragged tail past T, and every tile under `allowed`.
+// - Rounding against splash: splash multiplies bf16 q and k with f32
+//   accumulation, as here, and takes P v in f32. Here P enters P v as two
+//   bf16 terms, hi = bf16(p) and lo = bf16(p - hi) (16 bits of p), in two
+//   products: P rounded once to bf16 moved the first rows of a causal
+//   prefill past the port's tolerance (2e-3 + 2^-7 |p|), where p is near
+//   1 and |v| near 2 (tests/test_torch_flash_rounding.py models both). The
+//   second product adds 50% to the tensor-core work at (128, 128), 40% at
+//   (192, 128).
+//
+// f32 (the wiring checks, card against CPU): `append_attention_kernel`,
+// the first port's body, kept as it was: f32 FMAs on the CUDA cores from
+// padded shared-memory tiles, grid (B, hk, tiles), a BN-column score tile
+// and the per-row softmax state in shared memory. TF32 tensor cores would
+// not hold those checks' 1e-3 on logits.
+//
+// Optional f32 logsumexp `lse` [B, H, S] of the scaled scores over the
+// visible columns, the residual the flash backward
+// (csrc/flash_attention.cu) needs. It is written only when a pointer is
+// given, so serving launches skip it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
+
+// ------------------------------------------------------------------- f32 --
 
 constexpr int BM = 64;    // query rows per block
 constexpr int BN = 64;    // key rows per tile
@@ -72,14 +116,8 @@ template <int DQK, int DV> constexpr size_t smem_bytes() {
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(NT)
@@ -266,6 +304,272 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------ bf16 --
+
+// A block is 4 warps of 16 query rows (BM = 64, 128 threads): two blocks
+// share an SM (up to 255 registers a thread; 85 KB or 109 KB of shared
+// memory each) and fall out of step, so one block's softmax overlaps the
+// other's products. Measured on the H100 against 8 warps (one block an SM)
+// and against two 16-row m-tiles a warp (each K / V fragment feeding two
+// products, but at 255 registers with spills): the fastest at every
+// attention row of chip_smoke.py's phase 2.
+constexpr int TC_WARPS = 4;             // warps per block
+constexpr int TC_BM = TC_WARPS * 16;    // query rows per block
+constexpr int TC_BN = 64;               // key rows per tile
+constexpr int TC_NT = TC_WARPS * 32;    // threads per block
+
+// shared memory of the bf16 body: the Q tile and two stages of K and V,
+// rows padded by tc::PAD (85 KB at (128, 128), 109 KB at (192, 128))
+template <int DQK, int DV> constexpr size_t tc_smem_bytes() {
+  return (size_t)(TC_BM * (DQK + tc::PAD) + 2 * TC_BN * (DQK + tc::PAD) +
+                  2 * TC_BN * (DV + tc::PAD)) *
+         sizeof(__nv_bfloat16);
+}
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(TC_NT, 2)
+append_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const uint8_t* __restrict__ allowed,
+                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                           int S, int T_, int hk, int g, int pos, int window, bool full,
+                           float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int QS = DQK + tc::PAD, VS = DV + tc::PAD;
+  constexpr int KQ = DQK / 16;  // k-steps of q k^T
+  constexpr int NO = DV / 8;    // C blocks of a warp's output rows
+  constexpr int NS = TC_BN / 8; // C blocks of a warp's scores
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BM][QS]
+  bf16* Ks = Qs + TC_BM * QS;                     // [2][BN][QS]
+  bf16* Vs = Ks + 2 * TC_BN * QS;                 // [2][BN][VS]
+
+  const int b = blockIdx.z;
+  const int rows = g * S, H = hk * g;
+  // the longest causal tiles first, over all heads of the batch row: the
+  // blocks launch in the order of L, and the L-th takes the (L / H)-th
+  // last tile of head L % H (its KV head kh = L % hk), so the last
+  // positions of every head start before any head's first ones
+  int tile, kh = blockIdx.y;
+  if (S % TC_BM == 0) {
+    const int per_head = S / TC_BM;
+    const int L = blockIdx.y * gridDim.x + blockIdx.x;
+    kh = L % H % hk;
+    tile = (L % H / hk) * per_head + per_head - 1 - L / H;
+  } else {
+    tile = gridDim.x - 1 - blockIdx.x;
+  }
+  const int r0 = tile * TC_BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  for (int i = tid; i < TC_BM * (DQK / 8); i += TC_NT) {
+    const int rr = i / (DQK / 8), ch = i % (DQK / 8), r = r0 + rr;
+    const bool ok = r < rows;
+    const bf16* src = q;
+    if (ok) src = q + (((size_t)b * S + r % S) * H + kh * g + r / S) * DQK + ch * 8;
+    tc::cp_async16(Qs + rr * QS + ch * 8, src, ok);
+  }
+  auto load_kv = [&](int stage, int kv0) {
+    bf16* ks = Ks + stage * TC_BN * QS;
+    bf16* vs = Vs + stage * TC_BN * VS;
+    for (int i = tid; i < TC_BN * (DQK / 8); i += TC_NT) {
+      const int c = i / (DQK / 8), ch = i % (DQK / 8), col = kv0 + c;
+      const bool ok = col < T_;
+      const bf16* src = ok ? k + (((size_t)b * T_ + col) * hk + kh) * DQK + ch * 8 : k;
+      tc::cp_async16(ks + c * QS + ch * 8, src, ok);
+    }
+    for (int i = tid; i < TC_BN * (DV / 8); i += TC_NT) {
+      const int c = i / (DV / 8), ch = i % (DV / 8), col = kv0 + c;
+      const bool ok = col < T_;
+      const bf16* src = ok ? v + (((size_t)b * T_ + col) * hk + kh) * DV + ch * 8 : v;
+      tc::cp_async16(vs + c * VS + ch * 8, src, ok);
+    }
+  };
+
+  // the tiles some row of the block sees: past the largest visible column
+  // of its rows nothing is loaded, nor with a window below the smallest
+  // row's band
+  const int r_last = min(r0 + TC_BM, rows) - 1;
+  const bool one_head = r0 / S == r_last / S;
+  const int s_max = one_head ? r_last % S : S - 1;
+  const int s_min = one_head ? r0 % S : 0;
+  const int kv_end = full ? T_ : min(T_, pos + s_max + 1);
+  const int kv_begin = window > 0 ? max(0, pos + s_min - window + 1) / TC_BN * TC_BN : 0;
+
+  if (kv_begin < kv_end) load_kv(0, kv_begin);
+  tc::cp_async_commit();
+
+  // this thread's two rows (gid and gid + 8 of the warp's 16): the
+  // visible columns are lo <= t <= lim; a row past the last one sees none
+  int lim[2], lo[2];
+  int lim_min = INT_MAX, lim_max = -1, lo_min = INT_MAX, lo_max = INT_MIN;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = r0 + warp * 16 + gid + 8 * h2;
+    lim[h2] = -1;
+    lo[h2] = 0;
+    if (r < rows) {
+      const int s = r % S;
+      lim[h2] = full ? T_ - 1 : pos + s;
+      lo[h2] = window > 0 ? pos + s - window + 1 : 0;
+      lim_min = min(lim_min, lim[h2]);
+      lim_max = max(lim_max, lim[h2]);
+      lo_min = min(lo_min, lo[h2]);
+      lo_max = max(lo_max, lo[h2]);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {  // the warp's 16 rows
+    lim_min = min(lim_min, __shfl_xor_sync(0xffffffffu, lim_min, o));
+    lim_max = max(lim_max, __shfl_xor_sync(0xffffffffu, lim_max, o));
+    lo_min = min(lo_min, __shfl_xor_sync(0xffffffffu, lo_min, o));
+    lo_max = max(lo_max, __shfl_xor_sync(0xffffffffu, lo_max, o));
+  }
+
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KQ][4];  // q's A fragments, held for the whole loop
+#pragma unroll
+  for (int kk = 0; kk < KQ; ++kk)
+    tc::ldsm_x4(qf[kk], Qs + tc::a_off(warp * 16, kk * 16, QS, lane));
+
+  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m in log2 units
+
+  int stage = 0;
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += TC_BN, stage ^= 1) {
+    // this tile has landed and every warp is done with the other stage,
+    // which then takes the next tile while this one computes
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (kv0 + TC_BN < kv_end) {
+      load_kv(stage ^ 1, kv0 + TC_BN);
+      tc::cp_async_commit();
+    }
+    // a tile none of the warp's rows sees adds nothing
+    if (kv0 > lim_max || kv0 + TC_BN - 1 < lo_min) continue;
+
+    const bf16* ks = Ks + stage * TC_BN * QS;
+    const bf16* vs = Vs + stage * TC_BN * VS;
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk)
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t kb[4];
+        tc::ldsm_x4(kb, ks + tc::b_off(np * 16, kk * 16, QS, lane));
+        tc::mma(sc[2 * np], qf[kk], kb[0], kb[1]);
+        tc::mma(sc[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+
+    // only tiles that cross an edge compare per element
+    const bool whole = allowed == nullptr && kv0 + TC_BN <= T_ &&
+                       kv0 + TC_BN - 1 <= lim_min && kv0 >= lo_max;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h2 = e >> 1, col = kv0 + n * 8 + 2 * tig + (e & 1);
+        if (!whole && !(col < T_ && col <= lim[h2] && col >= lo[h2] &&
+                        (allowed == nullptr || allowed[(size_t)b * T_ + col] != 0)))
+          sc[n][e] = -INFINITY;
+        mx[h2] = fmaxf(mx[h2], sc[n][e]);
+      }
+    float alpha[2], m_safe[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 1));
+      mx[h2] = fmaxf(mx[h2], __shfl_xor_sync(0xffffffffu, mx[h2], 2));
+      const float m_new = fmaxf(m[h2], mx[h2] * sl2);  // scale > 0
+      m_safe[h2] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h2] = exp2f(m[h2] - m_safe[h2]);
+      m[h2] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(sc[n][e], sl2, -m_safe[e >> 1]));
+        sc[n][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) l[h2] = l[h2] * alpha[h2] + rs[h2];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    // P v, P as two bf16 terms: the score blocks 2 kk and 2 kk + 1 are the
+    // A fragments
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      tc::a_from_c(ph, pl, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t vb[4];
+        tc::ldsm_x4_t(vb, vs + tc::bt_off(kk * 16, np * 16, VS, lane));
+        tc::mma(acc[2 * np], ph, vb[0], vb[1]);
+        tc::mma(acc[2 * np + 1], ph, vb[2], vb[3]);
+        tc::mma(acc[2 * np], pl, vb[0], vb[1]);
+        tc::mma(acc[2 * np + 1], pl, vb[2], vb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 1);
+    l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], 2);
+  }
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = r0 + warp * 16 + gid + 8 * h2;
+    if (r >= rows) continue;
+    const int j = r / S, s = r % S;
+    const float inv = l[h2] > 0.f ? 1.f / l[h2] : 0.f;
+    bf16* orow = out + (((size_t)b * S + s) * H + kh * g + j) * DV + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          tc::pack(acc[n][2 * h2] * inv, acc[n][2 * h2 + 1] * inv);
+    if (lse != nullptr && tig == 0)
+      lse[((size_t)b * H + kh * g + j) * S + s] =
+          l[h2] > 0.f ? m[h2] * 0.6931471805599453f + logf(l[h2]) : -INFINITY;
+  }
+}
+
+template <int DQK, int DV>
+int launch_tc(const void* q, const void* k, const void* v, const uint8_t* allowed,
+              void* out, float* lse, int B, int S, int T_, int H, int hk, int pos,
+              int window, bool full, float scale, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  auto kernel = append_attention_tc_kernel<DQK, DV>;
+  constexpr size_t smem = tc_smem_bytes<DQK, DV>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int g = H / hk;
+  dim3 grid((g * S + TC_BM - 1) / TC_BM, hk, B);
+  kernel<<<grid, TC_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), allowed, static_cast<bf16*>(out), lse, S, T_, hk, g,
+      pos, window, full, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, void* out,
            float* lse, int B, int S, int T_, int H, int hk, int pos, int window,
@@ -288,8 +592,8 @@ int launch_dtype(const void* q, const void* k, const void* v, const uint8_t* a, 
                  float* l, int B, int S, int T_, int H, int hk, int pos, int window,
                  bool full, float scale, int dtype, cudaStream_t s) {
   if (dtype == 1)
-    return launch<__nv_bfloat16, DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos,
-                                          window, full, scale, s);
+    return launch_tc<DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
+                              scale, s);
   return launch<float, DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
                                 scale, s);
 }

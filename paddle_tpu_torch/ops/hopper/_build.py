@@ -2,10 +2,11 @@
 
 Every ``paddle_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into its
 own shared library at first use on CUDA, all sources in parallel, into
-``build/hopper/<hash of sources and flags>/`` at the root of the checkout
-(listed in ``.gitignore``). The sources include no PyTorch header, so a
-build takes seconds. Nothing is built when this module is imported, so
-``import paddle_tpu_torch`` works on a machine with no ``nvcc``.
+``build/hopper/<hash of sources, csrc/*.cuh headers and flags>/`` at the
+root of the checkout (listed in ``.gitignore``). The sources include no
+PyTorch header, so a build takes seconds. Nothing is built when this
+module is imported, so ``import paddle_tpu_torch`` works on a machine with
+no ``nvcc``.
 
 Each C entry point returns ``cudaGetLastError()`` right after its launch;
 :func:`check` raises when that is not 0 (a refused launch never runs, and
@@ -51,7 +52,7 @@ def sources() -> list:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
