@@ -3,6 +3,8 @@
 NVIDIA H100.
 
     python3 chip_smoke.py            # the full run; needs one CUDA card
+    python3 chip_smoke.py --profile  # and traces decode (phases 3, 7, 10)
+    python3 chip_smoke.py --decode-profile-only   # phase 3's trace alone
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -14,11 +16,22 @@ Phases (any failure raises, so the script exits non-zero):
 2. Each kernel against its plain PyTorch version on the card, in bf16 at
    the serving and training paths' shapes, with its time (CUDA events,
    median of 20 after warm-up; 5 for the sequence-4096 attention rows),
-   its device time (CUDA events around 10 back-to-back calls, divided by
-   10: no host time), the plain version's time, the least time the card
-   could take (bound),
-   and one PyTorch library call computing the same function as a yardstick
-   only (the port never calls it). The attention backward is held per
+   its back-to-back time (CUDA events around 10 calls in a row, divided
+   by 10: the host's pace where the wrapper's host time exceeds the
+   kernel's), its profiled time (the device kernels' own durations over
+   10 calls from ``torch.profiler``, divided by 10), the plain version's
+   time, the least time the card could take (bound), and one PyTorch
+   library call computing the same function, timed the same three ways,
+   as a yardstick only (the port never calls it). Paged decode attention
+   runs at 13 shapes (the main one B 8, max_len 2048, page size 16, sum
+   of lengths 5594; the decode profile's 8 x 512; B 1 and 32; 1, 2, 8
+   and 16 query heads per KV head; page sizes 8 and 32; f32; ragged
+   lengths with a dead row, which must be exactly 0), timed cold: kernel
+   and yardstick rotate over copies of the pool and of the gathered pages
+   that touch more than 100 MB, as each layer's own pool is cold in a
+   decode step; the warm figure is printed beside it. ``rms_norm`` runs at
+   8 and 4096 rows of 4096 (and at widths 512, 2048, 4096 by 1, 8 and 4096
+   rows in bf16 and f32 untimed). The attention backward is held per
    element against its plain version on the same inputs (delta from the
    forward's out, as the kernel and splash take it). The fused decode-tail
    kernels run at 8 and 32 rows, beside two yardsticks: ``torch.matmul`` of
@@ -240,12 +253,64 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+HOST_CALLS = 2000
+
+
+def host_us(fn, calls=HOST_CALLS):
+    """Host µs of one call: ``calls`` calls in a row on the host clock,
+    the device kept ahead of them (a host-paced row's own cost)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def profiled_ms(fn, calls=10):
+    """Device ms of one call: the durations of every device kernel (and
+    memset or copy) that ``torch.profiler`` records over ``calls`` calls,
+    summed and divided by ``calls``. The kernels' own time: neither the
+    host's time nor the gaps between launches count. The profiler can drop
+    a session's records (a session has come back empty), which only
+    lowers the sum: two sessions that each record at least one kernel a
+    call are taken, up to five tried, and the larger figure stands."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    totals = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        if sum(e.count for e in kernels) >= calls:
+            totals.append(sum(e.device_time_total for e in kernels))
+            if len(totals) == 2:
+                break
+    if not totals:
+        raise AssertionError("torch.profiler recorded no device time")
+    return max(totals) / 1e3 / calls
+
+
 def kernel_times(fn, reps=20, warmup=3):
-    """(median ms of one call, as ``time_ms``; device ms of one call: CUDA
-    events around 10 back-to-back calls, divided by 10). Back to back, each
-    launch queues behind the last one's device work, so the device time
-    leaves out the host time a single call pays, which a row under 1 ms
-    would otherwise carry."""
+    """(median ms of one call, as ``time_ms``; back-to-back ms of one call:
+    CUDA events around 10 calls in a row, divided by 10; profiled ms of
+    one call, as ``profiled_ms``). Back to back, a launch queues behind the
+    last one's device work only while that work outlasts the host's time
+    for the next call: where the wrapper's host time exceeds the kernel's
+    (rows of a few µs), the back-to-back figure is the host's pace, not
+    the kernel's. The profiled figure is the kernel's own."""
     import torch
 
     median = time_ms(fn, reps, warmup)
@@ -256,7 +321,7 @@ def kernel_times(fn, reps=20, warmup=3):
         fn()
     b.record()
     b.synchronize()
-    return median, a.elapsed_time(b) / 10
+    return median, a.elapsed_time(b) / 10, profiled_ms(fn)
 
 
 def bound(nbytes, ops, dtype):
@@ -288,7 +353,7 @@ def check_kernels(results):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.hopper import (append_attention, flash_attention,
-                                             fused_norm, paged_attention)
+                                             fused_norm)
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
@@ -297,23 +362,43 @@ def check_kernels(results):
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
 
-    def record(name, shape, err, tol_ok, times, plain_ms, lib_ms, bnd, main):
-        ms, dev_ms = times       # from kernel_times
+    def record(name, shape, err, tol_ok, times, plain_ms, lib, bnd, main,
+               warm=None):
+        """``times`` and ``lib`` (None where no single PyTorch call
+        computes the function) from ``kernel_times``; ``warm``: the
+        profiled ms of the kernel and of the library call with their
+        inputs in L2, for a row whose ``times`` and ``lib`` rotate over
+        copies of them (cold)."""
+        ms, dev_ms, prof_ms = times
+        lib_ms, lib_dev, lib_prof = lib if lib is not None else (None,) * 3
         b_ms, b_by = bnd
+
+        def f4(v):
+            return "null" if v is None else f"{v:.4f}"
+
         log(f"  {name:22s} {shape:38s} max_abs_err={err:.3e} ok={tol_ok} "
-            f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"bound_ms={b_ms:.5f} ({b_by}) share={b_ms / ms:.3f} "
-            f"device_share={b_ms / dev_ms:.3f}")
+            f"ms={ms:.4f} device_ms={dev_ms:.4f} profiled_ms={prof_ms:.4f} "
+            f"host_ms={ms - prof_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={f4(lib_ms)} library_device_ms={f4(lib_dev)} "
+            f"library_profiled_ms={f4(lib_prof)} "
+            + ("" if warm is None else
+               f"warm_profiled_ms={warm[0]:.4f} warm_library_profiled_ms="
+               f"{f4(warm[1])} ")
+            + f"bound_ms={b_ms:.5f} ({b_by}) share={b_ms / ms:.3f} "
+            f"device_share={b_ms / dev_ms:.3f} "
+            f"profiled_share={b_ms / prof_ms:.3f}")
         if not tol_ok:
             raise AssertionError(f"{name} {shape}: kernel disagrees with its "
                                  f"plain version (max abs err {err})")
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
-            r.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                     shape=shape)
+            r.update(ms=ms, device_ms=dev_ms, profiled_ms=prof_ms,
+                     plain_ms=plain_ms, library_ms=lib_ms,
+                     library_device_ms=lib_dev, library_profiled_ms=lib_prof,
+                     l2="warm" if warm is None else "cold",
+                     warm_profiled_ms=prof_ms if warm is None else warm[0],
+                     bound_ms=b_ms, bound_by=b_by, shape=shape)
 
     # attention: one bf16 rounding of an f32 result whose sums ran in
     # another order; norms: two bf16 roundings (normalised value, then the
@@ -323,24 +408,34 @@ def check_kernels(results):
         "lse 1e-3; attention gradients as attention, against the plain "
         "backward on the same out)")
     d = 4096
-    for rows in (8, 512):
+    # rows 8: a decode step at 8 slots (the kernels line's row); 4096: a
+    # training step's sequence
+    for rows in (8, 4096):
         x, r, w = randn(rows, d), randn(rows, d), randn(d, scale=0.5) + 1
         out = fused_norm.rms_norm(x, w, 1e-5)
         ref = fused_norm.rms_norm_plain(x, w, 1e-5)
         err, ok = close_bf16(out, ref, atol=1e-6, rtol=2.0 ** -6)
         nbytes = 2 * rows * d * 2 + d * 2
+        # a call here is host-paced: 100 single calls after 20 to warm up
         record("rms_norm", f"rows={rows} d={d}", err, ok,
-               kernel_times(lambda: fused_norm.rms_norm(x, w, 1e-5)),
+               kernel_times(lambda: fused_norm.rms_norm(x, w, 1e-5), 100, 20),
                time_ms(lambda: fused_norm.rms_norm_plain(x, w, 1e-5)),
-               time_ms(lambda: F.rms_norm(x, (d,), w, 1e-5)),
+               kernel_times(lambda: F.rms_norm(x, (d,), w, 1e-5), 100, 20),
                bound(nbytes, 4 * rows * d, "bfloat16"), rows == 8)
+        if rows == 8:
+            log(f"  rms_norm rows={rows} d={d}: host us a call, {HOST_CALLS} "
+                f"calls in a row on the host clock: the wrapper "
+                f"{host_us(lambda: fused_norm.rms_norm(x, w, 1e-5)):.2f}, "
+                f"F.rms_norm "
+                f"{host_us(lambda: F.rms_norm(x, (d,), w, 1e-5)):.2f}")
         o, h = fused_norm.add_rms_norm(x, r, w, 1e-5)
         ro, rh = fused_norm.add_rms_norm_plain(x, r, w, 1e-5)
         err, ok = close_bf16(o, ro, atol=1e-6, rtol=2.0 ** -6)
         ok = ok and torch.equal(h, rh)
         nbytes = 4 * rows * d * 2 + d * 2
         record("add_rms_norm", f"rows={rows} d={d}", err, ok,
-               kernel_times(lambda: fused_norm.add_rms_norm(x, r, w, 1e-5)),
+               kernel_times(lambda: fused_norm.add_rms_norm(x, r, w, 1e-5),
+                            100, 20),
                time_ms(lambda: fused_norm.add_rms_norm_plain(x, r, w, 1e-5)),
                None, bound(nbytes, 5 * rows * d, "bfloat16"), rows == 8)
 
@@ -377,7 +472,7 @@ def check_kernels(results):
                    q, k, v, pos, allowed)),
                time_ms(lambda: append_attention.append_attention_plain(
                    q, k, v, pos, allowed)),
-               time_ms(lambda: sdpa_gqa(qt, kt, vt, mask=mask)),
+               kernel_times(lambda: sdpa_gqa(qt, kt, vt, mask=mask)),
                bound(nbytes, 4 * D * pairs, "bfloat16"),
                (S, T, n_valid) == (1024, 1024, 700))
 
@@ -392,41 +487,13 @@ def check_kernels(results):
                q, k, v, causal=True)),
            time_ms(lambda: flash_attention.flash_attention_plain(
                q, k, v, causal=True)),
-           time_ms(lambda: sdpa_gqa(qt, kt, vt, causal=True)),
+           kernel_times(lambda: sdpa_gqa(qt, kt, vt, causal=True)),
            bound(2 * S * (H + hk) * D * 2, 4 * D * H * S * (S + 1) // 2,
                  "bfloat16"), True)
 
-    B, max_len, ps = 8, 2048, 16
-    pps = max_len // ps
-    n_pages = B * pps
-    rng = np.random.RandomState(7)
-    perm = torch.from_numpy(rng.permutation(n_pages).astype(np.int32))
-    page_indices = perm.reshape(B, pps).to(dev)
-    lengths = torch.tensor(rng.randint(1, max_len + 1, size=B),
-                           dtype=torch.int32, device=dev)
-    q = randn(B, H, D)
-    kp, vp = randn(hk, n_pages, ps, D), randn(hk, n_pages, ps, D)
-    out = paged_attention.paged_attention(q, kp, vp, lengths, page_indices)
-    ref = paged_attention.paged_attention_plain(q, kp, vp, lengths,
-                                                page_indices)
-    err, ok = close_bf16(out, ref)
-    n_tok = int(lengths.sum())
-    n_idx = int(((lengths + ps - 1) // ps).sum())
-    nbytes = n_tok * hk * D * 2 * 2 + 2 * B * H * D * 2 + B * 4 + n_idx * 4
-    kg = paged_attention.gather_pages(kp, page_indices)
-    vg = paged_attention.gather_pages(vp, page_indices)
-    pmask = (torch.arange(pps * ps, device=dev)[None, :]
-             < lengths[:, None].long())[:, None, None, :]
-    q4 = q[:, :, None, :]
-    record("paged_attention", f"B={B} max_len={max_len} sum_len={n_tok}",
-           err, ok,
-           kernel_times(lambda: paged_attention.paged_attention(
-               q, kp, vp, lengths, page_indices)),
-           time_ms(lambda: paged_attention.paged_attention_plain(
-               q, kp, vp, lengths, page_indices)),
-           time_ms(lambda: sdpa_gqa(q4, kg, vg, mask=pmask)),
-           bound(nbytes, 4 * H * D * n_tok, "bfloat16"), True)
-    del kp, vp, kg, vg
+    check_norm_edges()
+    check_paged_rows(record)
+    torch.cuda.empty_cache()
     check_decode_tail_kernels(record, randn)
     check_training_kernels(record, randn)
     torch.cuda.empty_cache()
@@ -446,6 +513,157 @@ def check_kernels(results):
     torch.cuda.empty_cache()
     log(f"  the full-mask and splash_hop rows took "
         f"{time.perf_counter() - t0:.1f}s")
+
+
+def check_norm_edges():
+    """``rms_norm`` off its timed rows: widths 512, 2048 and 4096 at 1, 8
+    and 4096 rows, in bf16 and f32, each against its plain version at the
+    norms' tolerance."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import fused_norm
+
+    gen = torch.Generator("cuda").manual_seed(99)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (512, 2048, 4096):
+            for rows in (1, 8, 4096):
+                x = torch.randn(rows, d, generator=gen, device="cuda").to(
+                    dtype)
+                w = (torch.randn(d, generator=gen, device="cuda") * 0.5
+                     + 1).to(dtype)
+                out = fused_norm.rms_norm(x, w, 1e-5)
+                ref = fused_norm.rms_norm_plain(x, w, 1e-5)
+                err, ok = close_bf16(out, ref, atol=1e-6, rtol=2.0 ** -6)
+                worst = max(worst, err)
+                if not ok:
+                    raise AssertionError(
+                        f"rms_norm {dtype} rows={rows} d={d}: kernel "
+                        f"disagrees with its plain version (max abs err "
+                        f"{err})")
+    log(f"  rms_norm edges (d 512 / 2048 / 4096, rows 1 / 8 / 4096, bf16 "
+        f"and f32): max abs err {worst:.3e}, all within tolerance")
+
+
+# (label, B, max_len, page size, KV heads, dtype, lengths): H 32, D 128;
+# lengths None are drawn as the main row's (seed 7, sum 5594)
+PAGED_CASES = (
+    ("main", 8, 2048, 16, 8, "bfloat16", None),
+    ("decode profile", 8, 2048, 16, 8, "bfloat16", [512] * 8),
+    ("B=1 full", 1, 2048, 16, 8, "bfloat16", [2048]),
+    ("B=1 one short", 1, 2048, 16, 8, "bfloat16", [2047]),
+    ("B=32", 32, 2048, 16, 8, "bfloat16", "random"),
+    ("G=1", 8, 2048, 16, 32, "bfloat16", None),
+    ("G=2", 8, 2048, 16, 16, "bfloat16", None),
+    ("G=8", 8, 2048, 16, 4, "bfloat16", None),
+    ("G=16", 8, 2048, 16, 2, "bfloat16", None),
+    ("ps=8", 8, 2048, 8, 8, "bfloat16", None),
+    ("ps=32", 8, 2048, 32, 8, "bfloat16", None),
+    ("f32", 8, 2048, 16, 8, "float32", None),
+    # 1, ps - 1, ps, ps + 1, a dead row, a full row and one past the pages
+    ("edges", 7, 2048, 16, 8, "bfloat16", [1, 15, 16, 17, 0, 2048, 2100]),
+)
+# bytes each timed call of a paged row's rotation must touch in all, so
+# that no call finds its pages in the 50 MB L2
+PAGED_COLD_BYTES = 120e6
+
+
+def check_paged_rows(record):
+    """Paged decode attention at ``PAGED_CASES`` (H 32, D 128), each held
+    against its plain version at the attention tolerance (a dead row must
+    be exactly 0 and finite; the plain version, whose dead row is NaN, is
+    compared on the live rows). Timed cold, as on the main path, where
+    each of 32 layers has its own pool and a decode step finds it out of
+    L2: the kernel and the SDPA yardstick (over pages gathered beforehand,
+    with the length mask) rotate over at least 4 copies of the pool and of
+    the gathered pages, together touching more than ``PAGED_COLD_BYTES``.
+    The warm figure (one copy, back in L2 from the last call) is printed
+    beside it. The pool holds B * max_len / ps pages in a seeded random
+    order."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import paged_attention
+
+    dev = torch.device("cuda")
+    H, D = 32, 128
+    gen = torch.Generator(dev).manual_seed(77)
+    rng = np.random.RandomState(7)
+    rng.permutation(8 * 2048 // 16)
+    main_lens = rng.randint(1, 2048 + 1, size=8)     # sum 5594
+    for label, B, max_len, ps, hk, dt, lens in PAGED_CASES:
+        dtype = getattr(torch, dt)
+        es = 2 if dtype == torch.bfloat16 else 4
+        pps = max_len // ps
+        n_pages = B * pps
+        perm = np.random.RandomState(7).permutation(n_pages).astype(
+            np.int32)
+        if lens is None:
+            lens = main_lens
+        elif lens == "random":
+            lens = np.random.RandomState(8).randint(1, max_len + 1, size=B)
+        page_indices = torch.from_numpy(perm.reshape(B, pps)).to(dev)
+        lengths = torch.tensor(np.asarray(lens), dtype=torch.int32,
+                               device=dev)
+        vis = lengths.clamp(max=pps * ps)
+        n_tok = int(vis.sum())
+        n_idx = int(((vis + ps - 1) // ps).sum())
+        # each visible K and V row read once, q read and out written once,
+        # the lengths and the visible pages' indices
+        nbytes = (n_tok * hk * D * 2 * es + 2 * B * H * D * es + B * 4
+                  + n_idx * 4)
+        copies = max(4, math.ceil(PAGED_COLD_BYTES / max(
+            n_tok * hk * D * 2 * es, 1)))
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+        q = rnd(B, H, D)
+        kps = [rnd(hk, n_pages, ps, D) for _ in range(copies)]
+        vps = [rnd(hk, n_pages, ps, D) for _ in range(copies)]
+        out = paged_attention.paged_attention(q, kps[0], vps[0], lengths,
+                                              page_indices)
+        ref = paged_attention.paged_attention_plain(q, kps[0], vps[0],
+                                                    lengths, page_indices)
+        live = lengths > 0
+        err, ok = close_bf16(out[live], ref[live])
+        dead = ~live
+        if bool(dead.any()):
+            dead_ok = (bool((out[dead] == 0).all())
+                       and bool(torch.isfinite(out).all()))
+            log(f"  paged_attention {label}: {int(dead.sum())} dead row(s) "
+                f"exactly 0 and finite: {dead_ok}")
+            ok = ok and dead_ok
+        kgs = [paged_attention.gather_pages(kp, page_indices) for kp in kps]
+        vgs = [paged_attention.gather_pages(vp, page_indices) for vp in vps]
+        pmask = (torch.arange(pps * ps, device=dev)[None, :]
+                 < lengths[:, None].long())[:, None, None, :]
+        q4 = q[:, :, None, :]
+        turn = iter(range(1 << 62))
+
+        def kernel(i=None):
+            c = next(turn) % copies if i is None else i
+            return paged_attention.paged_attention(q, kps[c], vps[c],
+                                                   lengths, page_indices)
+
+        def library(i=None):
+            c = next(turn) % copies if i is None else i
+            return sdpa_gqa(q4, kgs[c], vgs[c], mask=pmask)
+
+        warm = (profiled_ms(lambda: kernel(0)), profiled_ms(
+            lambda: library(0)))
+        shape = (f"B={B} max_len={max_len} ps={ps} G={H // hk} {dt} "
+                 f"sum_len={n_tok}")
+        record("paged_attention", f"{label}: {shape} cold", err, ok,
+               kernel_times(kernel),
+               time_ms(lambda: paged_attention.paged_attention_plain(
+                   q, kps[0], vps[0], lengths, page_indices)),
+               kernel_times(library),
+               bound(nbytes, 4 * H * D * n_tok, dt), label == "main",
+               warm=warm)
+        del q, kps, vps, kgs, vgs, out, ref
+    torch.cuda.empty_cache()
 
 
 def check_full_edges():
@@ -598,8 +816,9 @@ def check_hop_rows(record, randn):
                time_ms(lambda: flash_attention.splash_hop_plain(
                    q, k, v, kind, offset=offset, window=window), reps=3,
                    warmup=1),
-               time_ms(lambda: sdpa_gqa(q, k, v, mask=mask, causal=causal,
-                                        scale=1.0), reps=5, warmup=1),
+               kernel_times(lambda: sdpa_gqa(q, k, v, mask=mask,
+                                             causal=causal, scale=1.0),
+                            reps=5, warmup=1),
                bound(2 * S * (H + hk) * D * 2 + H * S * 4,
                      4 * D * H * cells, "bfloat16"), kind == "full")
 
@@ -887,10 +1106,10 @@ def check_flash_rows(record, randn, S, window, full=False):
         return sdpa_gqa(qt, kt, vt, mask=mask, causal=causal)
 
     plain_ms = time_ms(plain_fwd, reps=3, warmup=1)
-    sdpa_ms = time_ms(sdpa, reps=5, warmup=1)
+    sdpa_t = kernel_times(sdpa, reps=5, warmup=1)
     kernel_ms = kernel_times(fwd, reps=5, warmup=1)
     nbytes = 2 * S * (H + hk) * D * 2
-    record(fwd_name, f"{label}, lse", err, ok, kernel_ms, plain_ms, sdpa_ms,
+    record(fwd_name, f"{label}, lse", err, ok, kernel_ms, plain_ms, sdpa_t,
            bound(nbytes + H * S * 4, 4 * D * H * cells, "bfloat16"), True)
     if window is not None:
         causal_ms = time_ms(lambda: fwd("flash_attention_bshd", None, None),
@@ -913,7 +1132,7 @@ def check_flash_rows(record, randn, S, window, full=False):
         record(fwd_name, f"{label} (prefill)", err2,
                ok2 and torch.equal(out2, out), kernel_times(prefill, reps=5,
                                                        warmup=1),
-               plain_ms, sdpa_ms, bound(nbytes, 4 * D * H * cells,
+               plain_ms, sdpa_t, bound(nbytes, 4 * D * H * cells,
                                         "bfloat16"), False)
         del out2
     del ref, ref_lse
@@ -944,9 +1163,8 @@ def check_flash_rows(record, randn, S, window, full=False):
     lib_leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
     lib_out = sdpa_gqa(*lib_leaves, mask=mask, causal=causal)
     dout_t = dout.transpose(1, 2).contiguous()
-    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, dout_t,
-                                                 retain_graph=True),
-                     reps=5, warmup=1)
+    lib_ms = kernel_times(lambda: torch.autograd.grad(
+        lib_out, lib_leaves, dout_t, retain_graph=True), reps=5, warmup=1)
     del lib_out, lib_leaves
     nbytes = (3 * S * H * D + 2 * S * hk * D) * 2 + H * S * 4 + (
         S * H * D + 2 * S * hk * D) * 2
@@ -1023,8 +1241,8 @@ def check_deepseek_kernels(record, randn):
                    q_lat, q_pe, ckv, kpe, rows, allowed)),
                time_ms(lambda: mla_decode.mla_decode_plain(
                    q_lat, q_pe, ckv, kpe, rows, allowed)),
-               time_ms(lambda: sdpa_gqa(q_sdpa, k_sdpa, v_sdpa, mask=mask,
-                                        scale=1.0)),
+               kernel_times(lambda: sdpa_gqa(q_sdpa, k_sdpa, v_sdpa,
+                                             mask=mask, scale=1.0)),
                bound(nbytes, n_cols * H * (4 * r + 2 * dr), "float32"),
                rows is pos and allowed is None)
     del ckv, kpe, k_sdpa, v_sdpa
@@ -1047,8 +1265,8 @@ def check_deepseek_kernels(record, randn):
                q, k, v, causal=True, sm_scale=scale), reps=10),
            time_ms(lambda: flash_attention.flash_attention_plain(
                q, k, v, causal=True, sm_scale=scale), reps=3, warmup=1),
-           time_ms(lambda: sdpa_gqa(qt, kt, vt, causal=True, scale=scale),
-                   reps=10),
+           kernel_times(lambda: sdpa_gqa(qt, kt, vt, causal=True,
+                                         scale=scale), reps=10),
            bound(2 * S * H * (2 * dqk + 2 * dv), 2 * (dqk + dv) * H * cells,
                  "bfloat16"), True)
     del q, k, v, qt, kt, vt, out, ref
@@ -1063,7 +1281,7 @@ def check_deepseek_kernels(record, randn):
         record("rms_norm", f"rows={rows} d={d}", err, ok,
                kernel_times(lambda: fused_norm.rms_norm(x, w, 1e-6)),
                time_ms(lambda: fused_norm.rms_norm_plain(x, w, 1e-6)),
-               time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6)),
+               kernel_times(lambda: F.rms_norm(x, (d,), w, 1e-6)),
                bound(2 * rows * d * 2 + d * 2, 4 * rows * d, "bfloat16"),
                False)
 
@@ -1160,9 +1378,8 @@ def check_mla_backward(record, randn, scale):
                   for t in (q, k, v)]
     lib_out = sdpa_gqa(*lib_leaves, causal=True, scale=scale)
     dout_t = dout.transpose(1, 2).contiguous()
-    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, dout_t,
-                                                 retain_graph=True),
-                     reps=5, warmup=1)
+    lib_ms = kernel_times(lambda: torch.autograd.grad(
+        lib_out, lib_leaves, dout_t, retain_graph=True), reps=5, warmup=1)
     del lib_out, lib_leaves
     cells = S * (S + 1) // 2
     # inputs q, k, v, out, dout, lse read once; dq, dk, dv written once
@@ -1459,12 +1676,15 @@ def profile_decode(model, card, n_steps=10, slots=8, max_len=2048,
             host.sort(reverse=True)
             busy_ms = sum(r[0] for r in rows)
             n_kern = sum(r[1] for r in rows)
+            paged_ms = sum(r[0] for r in rows if "paged_" in r[2])
             log(f"profile: [{card}] {model.config.__class__.__name__} decode "
                 f"at {slots} active slots, prompts {prompt}, max_len "
                 f"{max_len}, fused tail {'on' if fused else 'off'}: "
                 f"{wall_ms:.3f} ms/step wall (unprofiled), device busy "
                 f"{busy_ms:.3f} ms/step (share {busy_ms / wall_ms:.3f}), "
-                f"{n_kern:.0f} CUDA kernels launched per step")
+                f"{n_kern:.0f} CUDA kernels launched per step; paged "
+                f"attention kernels {paged_ms:.3f} ms/step (share of busy "
+                f"{paged_ms / busy_ms:.3f})")
             for ms, count, key in rows[:12]:
                 log(f"  {ms:8.3f} ms/step {count:7.1f}/step  {key[:80]}")
             log("  host time by op (self, profiled): " + "; ".join(
@@ -2382,18 +2602,30 @@ def tensor_core_sass(lib) -> tuple:
 def kernel_name(mangled: str) -> str:
     """``name<args>`` of a mangled kernel name, for the ptxas lines:
     ``append_attention_tc_kernel<192,128>``, ``..._kernel<f,128,128>`` for
-    an instance on float, ``<bf16,128>`` on bfloat16."""
-    m = re.search(r"\d([a-z_]+_kernel)(I(.*?)EEv)?", mangled)
+    an instance on float, ``<bf16,128>`` on bfloat16. The name is the last
+    ``<length><identifier>`` of the nested name (after the anonymous
+    namespace's)."""
+    m = re.match(r"_ZN?", mangled)
     if m is None:
         return mangled
-    if m.group(3) is None:
-        return m.group(1)
-    args = re.findall(r"Li(\d+)E", m.group(3))
-    if m.group(3).startswith("f"):
+    i, name = m.end(), None
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if name is None or not name.endswith("_kernel"):
+        return mangled
+    targs = re.match(r"I(.*?)EEv", mangled[i:])
+    if targs is None:
+        return name
+    args = re.findall(r"Li(\d+)E", targs.group(1))
+    if targs.group(1).startswith("f"):
         args = ["f"] + args
-    elif m.group(3).startswith("13__nv_bfloat16"):
+    elif targs.group(1).startswith("13__nv_bfloat16"):
         args = ["bf16"] + args
-    return f"{m.group(1)}<{','.join(args)}>"
+    return f"{name}<{','.join(args)}>"
 
 
 def main(argv=None) -> int:
@@ -2404,6 +2636,12 @@ def main(argv=None) -> int:
                          "(Llama-3-8B at 8 slots, Mistral-7B at 4 slots of "
                          "8192-token prompts; DeepSeek-V2-Lite at 8 slots of "
                          "1024-token prompts, no fused tail)")
+    ap.add_argument("--decode-profile-only", action="store_true",
+                    help="phase 1, then phase 3's Llama-3-8B decode "
+                         "profile alone (8 slots of 512-token prompts, "
+                         "fused tail off and on); prints no result line. "
+                         "Run from another checkout's root, it profiles "
+                         "that checkout's package")
     args = ap.parse_args(argv)
 
     import torch
@@ -2435,6 +2673,15 @@ def main(argv=None) -> int:
             raise AssertionError(f"{stem}: no tensor-core instruction in its "
                                  "SASS")
 
+    if args.decode_profile_only:
+        from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                                   LlamaForCausalLM)
+
+        model = LlamaForCausalLM(
+            LlamaConfig.llama3_8b(dtype="bfloat16"), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(0))
+        profile_decode(model, card_line())
+        return 0
     results: dict = {}
     check_kernels(results)
     counts = Counter(serve_full_width(args.profile))
@@ -2470,7 +2717,10 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"], "shape": r["shape"]})
+            "device_ms": r["device_ms"], "profiled_ms": r["profiled_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "library_profiled_ms": r["library_profiled_ms"], "l2": r["l2"],
+            "warm_profiled_ms": r["warm_profiled_ms"], "shape": r["shape"]})
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

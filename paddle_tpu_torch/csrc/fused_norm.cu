@@ -1,25 +1,34 @@
 // Fused RMSNorm and residual-add + RMSNorm for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/ops/pallas/fused_norm.py, `_rmsnorm_fwd_kernel`
-// (called from `rms_norm`) and `_add_rmsnorm_kernel` (called from
-// `add_rms_norm`).
+// (called from `rms_norm`, pallas_call at :99) and `_add_rmsnorm_kernel`
+// (called from `add_rms_norm`, :193).
 //
 // Bound on the H100: device-memory bytes. Per launch `rms_norm` moves
 // 2*rows*d*es + d*es bytes (x in, out, weight) and `add_rms_norm`
 // 4*rows*d*es + d*es (x and residual in, normed and new residual out,
 // weight); the arithmetic is a few operations per element, far below the
-// card's ratio of operations to bytes.
+// card's ratio of operations to bytes. At decode's 8 rows the 64 KB take
+// the card 0.02 µs: there a call is bounded by one trip to device memory,
+// the launch and the wrapper's host time.
 //
-// Design: one block per row, 16-byte vector loads (8 bf16 or 4 f32 per
-// thread per access), an f32 sum of squares reduced with warp shuffles and
-// one shared-memory hop, then a second pass over the same row (served from
-// L1/L2, so device memory still sees each byte once) that writes the
-// outputs. The cast points are the Pallas kernels': the normalised value is
+// `rms_norm` (one pass): a row group of tpr threads (one warp or a few:
+// 32 * ceil(d / (8 * 32 * 4)) in bf16) holds its row in registers, 4
+// 16-byte vectors a thread, and the weight's vectors beside them, loaded
+// before the reduction so their latency hides behind it; x is read once.
+// The f32 sum of squares reduces by warp shuffles, and across the group's
+// warps through one shared-memory hop. Blocks hold 128 / tpr rows at
+// small d (4 rows a block at d 512 in bf16, 2 at 2048, 1 at 4096), so 8
+// rows spread over 2-8 SMs and 4096 rows fill the card. Rows up to 4096
+// vectors (d 32768 in bf16, 16384 in f32); the wrapper refuses wider ones.
+// `add_rms_norm` (not redesigned yet): one block per row of d / 8 threads,
+// the sum of squares, then a second pass over the same row (served from
+// L1/L2) that writes the outputs; several rows per block and the row in
+// registers are later work, as in `rms_norm`.
+// The cast points are the Pallas kernels': the normalised value is
 // computed in f32, rounded to the storage type, then multiplied by the
 // weight in the storage type; `add_rms_norm` normalises the f32 sum
 // x + residual and stores that sum, rounded, as the new residual.
-// Not done here: several rows per block for small d, and keeping the row
-// in registers between the passes.
 //
 // Fused rotate-half RoPE, forward. Replaces: paddle_tpu/ops/pallas/
 // fused_norm.py `_rope_kernel` (called from `fused_rope`). x [B, S, H, D]
@@ -67,38 +76,89 @@ __device__ float block_sum(float v) {
   return partial[0];
 }
 
-template <typename T>
-__global__ void rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                                T* __restrict__ out, int d, float eps) {
+constexpr int RMS_VPT = 4;        // 16-byte vectors of x a thread holds
+constexpr int RMS_ROW_THREADS = 128;  // a block's threads at small d
+
+// Block of blockDim.x <= MAXT threads, blockDim.x / tpr rows; row group
+// g = threadIdx.x / tpr. MAXT 256 leaves the compiler the registers to
+// hold the row without spilling; 1024 takes the widest rows.
+template <typename T, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+                int rows, int d, int tpr, float eps) {
   constexpr int N = 16 / sizeof(T);
-  const size_t row = blockIdx.x;
+  __shared__ float partial[32];
+  const int n_vec = d / N;
+  const int g = threadIdx.x / tpr, rl = threadIdx.x - g * tpr;
+  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / tpr) + g;
+  const bool live = row < rows;   // a group past the last row still meets the barrier
   const uint4* xr = reinterpret_cast<const uint4*>(x + row * d);
   const uint4* wr = reinterpret_cast<const uint4*>(w);
-  uint4* orow = reinterpret_cast<uint4*>(out + row * d);
-  const int n_vec = d / N;
-
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
-    uint4 raw = xr[i];
-    const T* e = reinterpret_cast<const T*>(&raw);
+  uint4 xv[RMS_VPT], wv[RMS_VPT];
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float v = to_f(e[k]);
-      ss += v * v;
+  for (int k = 0; k < RMS_VPT; ++k) {
+    const int i = rl + k * tpr;
+    if (live && i < n_vec) {
+      xv[k] = xr[i];
+      wv[k] = __ldg(wr + i);
     }
   }
-  const float inv = rsqrtf(block_sum(ss) / d + eps);
-
-  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
-    uint4 raw = xr[i], wraw = wr[i], o;
-    const T* e = reinterpret_cast<const T*>(&raw);
-    const T* we = reinterpret_cast<const T*>(&wraw);
-    T* oe = reinterpret_cast<T*>(&o);
+  float ss = 0.f;
 #pragma unroll
-    for (int k = 0; k < N; ++k)
-      oe[k] = from_f<T>(to_f(from_f<T>(to_f(e[k]) * inv)) * to_f(we[k]));
-    orow[i] = o;
+  for (int k = 0; k < RMS_VPT; ++k) {
+    if (live && rl + k * tpr < n_vec) {
+      const T* e = reinterpret_cast<const T*>(&xv[k]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float v = to_f(e[j]);
+        ss += v * v;
+      }
+    }
   }
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (tpr > 32) {  // uniform over the block
+    const int wpr = tpr >> 5;
+    if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = ss;
+    __syncthreads();
+    ss = 0.f;
+    for (int k = 0; k < wpr; ++k) ss += partial[g * wpr + k];
+  }
+  if (!live) return;
+  const float inv = rsqrtf(ss / d + eps);
+  uint4* orow = reinterpret_cast<uint4*>(out + row * d);
+#pragma unroll
+  for (int k = 0; k < RMS_VPT; ++k) {
+    const int i = rl + k * tpr;
+    if (i < n_vec) {
+      uint4 o;
+      const T* e = reinterpret_cast<const T*>(&xv[k]);
+      const T* we = reinterpret_cast<const T*>(&wv[k]);
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        oe[j] = from_f<T>(to_f(from_f<T>(to_f(e[j]) * inv)) * to_f(we[j]));
+      orow[i] = o;
+    }
+  }
+}
+
+template <typename T>
+int launch_rms_norm(const void* x, const void* w, void* out, int rows, int d, float eps,
+                    cudaStream_t s) {
+  constexpr int N = 16 / sizeof(T);
+  const int n_vec = d / N;
+  const int tpr = 32 * ((n_vec + 32 * RMS_VPT - 1) / (32 * RMS_VPT));
+  if (d % N != 0 || tpr > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int rpb = tpr >= RMS_ROW_THREADS ? 1 : RMS_ROW_THREADS / tpr;
+  const int blocks = (rows + rpb - 1) / rpb, threads = tpr * rpb;
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* ot = static_cast<T*>(out);
+  if (threads <= 256)
+    rms_norm_kernel<T, 256><<<blocks, threads, 0, s>>>(xt, wt, ot, rows, d, tpr, eps);
+  else
+    rms_norm_kernel<T, 1024><<<blocks, threads, 0, s>>>(xt, wt, ot, rows, d, tpr, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -215,20 +275,14 @@ extern "C" int pt_fused_rope(const void* x, const void* cos, const void* sin, vo
   return launch_rope<float>(x, c, sn, out, rows, S, H, D, s);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+// x, out [rows, d]; w [d]; d a multiple of the 16-byte vector, at most
+// 4096 vectors. dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError() after launch.
 extern "C" int pt_rms_norm(const void* x, const void* w, void* out, int rows, int d,
                            float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    rms_norm_kernel<__nv_bfloat16><<<rows, threads_for(d / 8), 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), d, eps);
-  } else {
-    rms_norm_kernel<float><<<rows, threads_for(d / 4), 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), d, eps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) return launch_rms_norm<__nv_bfloat16>(x, w, out, rows, d, eps, s);
+  return launch_rms_norm<float>(x, w, out, rows, d, eps, s);
 }
 
 extern "C" int pt_add_rms_norm(const void* x, const void* r, const void* w, void* out,

@@ -133,10 +133,29 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream(device) -> ctypes.c_void_p:
+_sm_counts: dict = {}
+
+
+def stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, as an int (a
+    ``c_void_p`` argument takes it), without building a ``Stream``."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device``, read once."""
+    n = _sm_counts.get(device)
+    if n is None:
+        import torch
+
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_counts[device] = n
+    return n
 
 
 VOIDP, INT, INT64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -178,7 +197,7 @@ def require_no_grad(what: str, *tensors) -> None:
 def require_cuda(*tensors) -> None:
     dev = tensors[0].device
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if (t is not tensors[0] and t.device != dev) or dev.type != "cuda":
             raise ValueError(
                 f"kernel inputs must all lie on one CUDA device, got "
                 f"{[str(x.device) for x in tensors]}")

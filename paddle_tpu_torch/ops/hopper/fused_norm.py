@@ -60,20 +60,42 @@ def _recompute_grad(fn, inputs, needs, grads):
     return [next(got) if n else None for n in needs]
 
 
-def _check(x, weight, *others):
-    _build.require_cuda(x, weight, *others)
-    code = _build.dtype_code(x)
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# 16-byte vectors of a row the rms_norm kernel holds in registers (1024
+# threads of 4): d up to 32768 in bf16, 16384 in f32
+MAX_ROW_VECTORS = 4096
+_RMS_ARGTYPES = [_build.VOIDP] * 3 + [_build.INT] * 2 + [
+    _build.FLOAT, _build.INT, _build.VOIDP]
+_ADD_RMS_ARGTYPES = [_build.VOIDP] * 5 + [_build.INT] * 2 + [
+    _build.FLOAT, _build.INT, _build.VOIDP]
+
+
+def _check(x, weight, residual=None):
+    """(dtype code, rows, d) of inputs a norm kernel takes; raises on any
+    other. Each tensor's dtype, shape and address is read once."""
+    if residual is None:
+        _build.require_cuda(x, weight)
+    else:
+        _build.require_cuda(x, weight, residual)
+    dtype = x.dtype
+    code = _CODES.get(dtype)
+    if code is None:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if weight.dtype != dtype or (residual is not None
+                                 and residual.dtype != dtype):
+        raise ValueError("fused_norm: all inputs must share one dtype")
     d = x.shape[-1]
-    _build.require(all(t.dtype == x.dtype for t in (weight, *others)),
-                   "fused_norm: all inputs must share one dtype")
-    _build.require(tuple(weight.shape) == (d,),
-                   f"fused_norm: weight shape {tuple(weight.shape)} != ({d},)")
-    _build.require(all(t.shape == x.shape for t in others),
-                   "fused_norm: x and residual shapes differ")
-    _build.require(d % 8 == 0, f"fused_norm: last dim {d} must be a multiple "
-                               "of 8 (16-byte vector loads)")
-    _build.require(all(t.data_ptr() % 16 == 0 for t in (x, weight, *others)),
-                   "fused_norm: inputs must be 16-byte aligned")
+    if weight.shape != (d,):
+        raise ValueError(f"fused_norm: weight shape {tuple(weight.shape)} != "
+                         f"({d},)")
+    if residual is not None and residual.shape != x.shape:
+        raise ValueError("fused_norm: x and residual shapes differ")
+    if d % 8:
+        raise ValueError(f"fused_norm: last dim {d} must be a multiple of 8 "
+                         "(16-byte vector loads)")
+    if (x.data_ptr() | weight.data_ptr()
+            | (0 if residual is None else residual.data_ptr())) & 15:
+        raise ValueError("fused_norm: inputs must be 16-byte aligned")
     return code, x.numel() // d, d
 
 
@@ -81,16 +103,19 @@ def _rms_norm_forward(x, weight, eps):
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, eps)
     code, rows, d = _check(x, weight)
+    if d * x.element_size() > 16 * MAX_ROW_VECTORS:
+        raise ValueError(f"rms_norm: the kernel takes rows of at most "
+                         f"{MAX_ROW_VECTORS} 16-byte vectors, got d={d} in "
+                         f"{x.dtype}")
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    fn = _build.function(_STEM, "pt_rms_norm", [
-        _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.INT, _build.INT,
-        _build.FLOAT, _build.INT, _build.VOIDP])
-    err = fn(_build.ptr(x), _build.ptr(weight), _build.ptr(out), rows, d,
-             float(eps), code, _build.stream(x.device))
+    err = _build.function(_STEM, "pt_rms_norm", _RMS_ARGTYPES)(
+        x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d, float(eps),
+        code, _build.stream(x.device))
     _build.launches["rms_norm"] += 1
-    _build.check(err, _STEM, "rms_norm")
+    if err:
+        _build.check(err, _STEM, "rms_norm")
     return out
 
 
@@ -102,14 +127,12 @@ def _add_rms_norm_forward(x, residual, weight, eps):
     h = torch.empty_like(x)
     if rows == 0:
         return out, h
-    fn = _build.function(_STEM, "pt_add_rms_norm", [
-        _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP,
-        _build.INT, _build.INT, _build.FLOAT, _build.INT, _build.VOIDP])
-    err = fn(_build.ptr(x), _build.ptr(residual), _build.ptr(weight),
-             _build.ptr(out), _build.ptr(h), rows, d, float(eps), code,
-             _build.stream(x.device))
+    err = _build.function(_STEM, "pt_add_rms_norm", _ADD_RMS_ARGTYPES)(
+        x.data_ptr(), residual.data_ptr(), weight.data_ptr(), out.data_ptr(),
+        h.data_ptr(), rows, d, float(eps), code, _build.stream(x.device))
     _build.launches["add_rms_norm"] += 1
-    _build.check(err, _STEM, "add_rms_norm")
+    if err:
+        _build.check(err, _STEM, "add_rms_norm")
     return out, h
 
 
@@ -150,7 +173,7 @@ class _AddRmsNorm(torch.autograd.Function):
 
 def rms_norm(x, weight, eps=1e-6):
     """RMSNorm over the last axis; weight [hidden]."""
-    if _build.needs_grad(x, weight):
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return _RmsNorm.apply(x, weight, eps)
     return _rms_norm_forward(x, weight, eps)
 

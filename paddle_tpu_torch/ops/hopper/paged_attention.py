@@ -10,7 +10,11 @@ D], lengths [B] (columns t < lengths[b] are visible), page_indices
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
 kernel or raises. The kernel takes head width 128, float32 / bfloat16, and
-1, 2, 4, 8 or 16 query heads per KV head.
+1, 2, 4, 8 or 16 query heads per KV head, any page size, at most
+``MAX_PAGES`` pages a row. It splits each
+row's visible prefix over ``split_count`` blocks and merges their partial
+softmax states in a second launch (counted as one ``paged_attention``
+launch), with f32 scratch from ``torch.empty``.
 """
 from __future__ import annotations
 
@@ -24,6 +28,22 @@ from .append_attention import grouped_attention_plain
 _STEM = "paged_attention"
 HEAD_DIM = 128
 GROUPS = (1, 2, 4, 8, 16)
+# blocks a split count aims at per SM: the bf16 body's one-warp blocks
+# (8 fit an SM's shared memory), the f32 body's 8-warp blocks
+WARPS_PER_SM, F32_BLOCKS_PER_SM = 8, 2
+MAX_PAGES = 16384       # page indices of a row the f32 body holds on chip
+MAX_SPLIT = 4096        # splits a combine block weighs in shared memory
+_ARGTYPES = [_build.VOIDP] * 9 + [_build.INT] * 7 + [
+    _build.FLOAT, _build.INT, _build.VOIDP]
+
+
+def split_count(B, hk, pps, n_sm, per_sm=WARPS_PER_SM):
+    """Splits per (row, KV head): enough blocks for ``per_sm`` per SM over
+    the B * hk pairs, no more than a row has pages. Shapes only:
+    the host never reads ``lengths`` (that would synchronise); the kernel
+    cuts each row's visible prefix, not its page table, into that many
+    runs of whole pages, so a short row spreads over all of its blocks."""
+    return max(1, min(pps, MAX_SPLIT, -(-per_sm * n_sm // max(1, B * hk))))
 
 
 def gather_pages(pages, page_indices):
@@ -74,17 +94,27 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices):
     _build.require(page_indices.dtype == torch.int32
                    and page_indices.dim() == 2 and page_indices.shape[0] == B,
                    "paged_attention: page_indices must be int32 [B, pages]")
+    _build.require(page_indices.shape[1] <= MAX_PAGES,
+                   f"paged_attention: the kernel takes at most {MAX_PAGES} "
+                   f"pages a row, got {page_indices.shape[1]}")
     out = torch.empty_like(q)
+    pps = page_indices.shape[1]
     if q.numel() == 0:
         return out
-    fn = _build.function(_STEM, "pt_paged_attention", [
-        _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP, _build.VOIDP,
-        _build.VOIDP, _build.INT, _build.INT, _build.INT, _build.INT,
-        _build.INT, _build.INT, _build.FLOAT, _build.INT, _build.VOIDP])
-    err = fn(_build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
-             _build.ptr(lengths), _build.ptr(page_indices), _build.ptr(out),
-             B, H, hk, n_pages, ps, page_indices.shape[1],
-             1.0 / math.sqrt(D), code, _build.stream(q.device))
+    n_split = split_count(B, hk, pps, _build.sm_count(q.device),
+                          WARPS_PER_SM if code else F32_BLOCKS_PER_SM)
+    # one f32 scratch buffer: acc [B, H, n_split, D], then m and l
+    # [B, H, n_split]
+    part = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                       device=q.device)
+    acc = part.data_ptr()
+    m = acc + B * H * n_split * D * 4
+    fn = _build.function(_STEM, "pt_paged_attention", _ARGTYPES)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             lengths.data_ptr(), page_indices.data_ptr(), m,
+             m + B * H * n_split * 4, acc, out.data_ptr(), B, H, hk, n_pages,
+             ps, pps, n_split, 1.0 / math.sqrt(D), code,
+             _build.stream(q.device))
     _build.launches["paged_attention"] += 1
     _build.check(err, _STEM, "paged_attention")
     return out
