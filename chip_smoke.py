@@ -5,14 +5,15 @@ NVIDIA H100.
     python3 chip_smoke.py            # the full run; needs one CUDA card
     python3 chip_smoke.py --profile  # and traces decode (phases 3, 7, 10)
     python3 chip_smoke.py --decode-profile-only   # phase 3's trace alone
+    python3 chip_smoke.py --decode-tail-only      # phase 2's tail rows alone
 
 Phases (any failure raises, so the script exits non-zero):
 
 1. Device and build: the card's name and power limit, then every kernel
    of ``paddle_tpu_torch/csrc`` compiled by nvcc from the checkout, with
    each kernel's registers and spills (ptxas), and the tensor-core
-   instructions of the attention kernels' SASS (``cuobjdump``; none fails
-   the run).
+   instructions of the attention and decode-tail kernels' SASS
+   (``cuobjdump``; none fails the run).
 2. Each kernel against its plain PyTorch version on the card, in bf16 at
    the serving and training paths' shapes, with its time (CUDA events,
    median of 20 after warm-up; 5 for the sequence-4096 attention rows),
@@ -34,8 +35,13 @@ Phases (any failure raises, so the script exits non-zero):
    rows in bf16 and f32 untimed). The attention backward is held per
    element against its plain version on the same inputs (delta from the
    forward's out, as the kernel and splash take it). The fused decode-tail
-   kernels run at 8 and 32 rows, beside two yardsticks: ``torch.matmul`` of
-   the product alone and the port's discrete sequence they replace. The
+   kernels run at 8 and 32 rows of Llama-3-8B's widths, timed cold (kernel
+   and yardsticks rotate over copies of Wq | Wk | Wv and of Wo touching
+   more than 100 MB; the warm figure beside it), beside two yardsticks timed
+   by the same three measures: ``torch.matmul`` of the product alone and
+   the port's discrete sequence they replace; then each wrapper's host µs a
+   call, and edge shapes (1 and 33 rows, uneven slices of the contraction,
+   hidden 384 and 1408) in bf16 and f32. The
    sliding-window (LocalMask) flash forward and backward run at Mistral-7B's
    training shape (sequence 8192, window 4096; the plain version one KV head
    at a time), beside SDPA with the band as its mask and the causal kernel
@@ -348,19 +354,9 @@ def close_bf16(out, ref, atol=2e-3, rtol=2.0 ** -7):
     return float(diff.max()), ok
 
 
-def check_kernels(results):
-    import torch
-    import torch.nn.functional as F
-
-    from paddle_tpu_torch.ops.hopper import (append_attention, flash_attention,
-                                             fused_norm)
-
-    dev = torch.device("cuda")
-    bf = torch.bfloat16
-    gen = torch.Generator(dev).manual_seed(1234)
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
+def make_record(results):
+    """``record(...)``: logs one phase-2 row and keeps the main shape's
+    figures in ``results`` by kernel name."""
 
     def record(name, shape, err, tol_ok, times, plain_ms, lib, bnd, main,
                warm=None):
@@ -399,6 +395,25 @@ def check_kernels(results):
                      l2="warm" if warm is None else "cold",
                      warm_profiled_ms=prof_ms if warm is None else warm[0],
                      bound_ms=b_ms, bound_by=b_by, shape=shape)
+
+    return record
+
+
+def check_kernels(results):
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.hopper import (append_attention, flash_attention,
+                                             fused_norm)
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(1234)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(bf)
+
+    record = make_record(results)
 
     # attention: one bf16 rounding of an f32 result whose sums ran in
     # another order; norms: two bf16 roundings (normalised value, then the
@@ -494,7 +509,7 @@ def check_kernels(results):
     check_norm_edges()
     check_paged_rows(record)
     torch.cuda.empty_cache()
-    check_decode_tail_kernels(record, randn)
+    check_decode_tail_kernels(record)
     check_training_kernels(record, randn)
     torch.cuda.empty_cache()
     # the sliding-window kernels: edge shapes, then Mistral-7B's training
@@ -823,70 +838,146 @@ def check_hop_rows(record, randn):
                      4 * D * H * cells, "bfloat16"), kind == "full")
 
 
-def check_decode_tail_kernels(record, randn):
-    """The fused decode tail at Llama-3-8B widths: R = 8 rows (a decode step
-    at 8 slots) and R = 32 (a verify chunk of 8 slots x k = 4). Beside each
-    kernel, two yardsticks the port never uses in the kernels: one
-    ``torch.matmul`` of the product alone, and the port's own discrete
-    sequence the kernel replaces."""
+# weights the decode-tail rows rotate over, as on the main path, where each
+# of 32 layers streams its own weights cold from device memory
+TAIL_COLD_BYTES = 100e6
+
+
+def one_ulp_of_max(out, ref):
+    """(max abs err, within one bf16 ulp of the largest entry): both sides
+    sum exact f32 products in f32, in another order; an entry may round to
+    its other bf16 neighbour, and RoPE of such a pair stays within one ulp
+    of the largest entry."""
+    err = max(float((o.float() - r.float()).abs().max())
+              for o, r in zip(out, ref))
+    top = max(float(r.float().abs().max()) for r in ref)
+    return err, err <= 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def within_f32(out, ref):
+    """(max abs err, within 1e-5 of the largest entry): f32 sums in another
+    order."""
+    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    return err, err <= 1e-5 * max(float(r.abs().max()) for r in ref)
+
+
+def tail_inputs(R, hidden, H, hk, d, dtype, seed, copies=1):
+    """Seeded inputs of both tail kernels: x, w_norm, ``copies`` sets of
+    (wq, wk, wv) and of wo, per-row cos / sin at random positions, attn and
+    the residual."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import _rope_tables
+
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(dtype)
+
+    cos, sin = _rope_tables(2048, d, 500000.0, device="cuda")
+    pos = torch.randint(0, 2048, (R,), generator=g, device="cuda")
+    wqkv = [tuple(rnd(hidden, n * d, scale=0.02) for n in (H, hk, hk))
+            for _ in range(copies)]
+    wo = [rnd(H * d, hidden, scale=0.02) for _ in range(copies)]
+    return dict(x=rnd(R, hidden), wn=rnd(hidden, scale=0.1) + 1, wqkv=wqkv,
+                wo=wo, cos=cos[pos], sin=sin[pos], pos=pos, tables=(cos, sin),
+                attn=rnd(R, H * d), res=rnd(R, hidden))
+
+
+def check_decode_tail_kernels(record):
+    """The fused decode tail at Llama-3-8B widths, bf16: R = 8 rows (a decode
+    step at 8 slots) and R = 32 (a verify chunk of 8 slots x k = 4), timed
+    cold: the kernel and both yardsticks rotate over copies of the weights
+    (Wq | Wk | Wv, and Wo) that touch more than ``TAIL_COLD_BYTES``, as each
+    layer's weights are cold in a decode step; the warm figure (one copy)
+    beside it. The yardsticks, never used by the port's kernels, timed by
+    the same three measures: one ``torch.matmul`` of the product alone
+    (x @ Wq|Wk|Wv, attn @ Wo) and the port's discrete sequence the kernel
+    replaces. Then each wrapper's host µs a call, and the edge shapes:
+    R 1 and 33 (two row tiles) at those widths, uneven slices of the
+    contraction, hidden 384 and 1152, in bf16 and f32."""
+    import math
+
     import torch
 
     from paddle_tpu_torch.generation import _rope_rows
-    from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.hopper import decode_tail, fused_norm
 
     hidden, H, hk, d, eps = 4096, 32, 8, 128, 1e-5
-    cos, sin = _rope_tables(2048, d, 500000.0, device="cuda")
+    bf = torch.bfloat16
+    log("  decode tail: tolerance one bf16 ulp of the largest entry (f32: "
+        "1e-5 of it); two launches on the same inputs must give the same "
+        "bits; timed cold over weight copies touching more than "
+        f"{TAIL_COLD_BYTES / 1e6:.0f} MB, warm beside")
+    wbytes_qkv = hidden * (H + 2 * hk) * d * 2
+    wbytes_o = H * d * hidden * 2
+    n_qkv = max(3, math.floor(TAIL_COLD_BYTES / wbytes_qkv) + 1)
+    n_o = max(3, math.floor(TAIL_COLD_BYTES / wbytes_o) + 1)
+    base = tail_inputs(32, hidden, H, hk, d, bf, 11, copies=max(n_qkv, n_o))
+    wqkv, wo = base["wqkv"][:n_qkv], base["wo"][:n_o]
+    cat = [torch.cat(w, dim=1) for w in wqkv]   # the product's yardstick
+    cos, sin = base["tables"]
+    turn = iter(range(1 << 62))
 
-    def one_ulp_of_max(out, ref):
-        # both sides sum exact f32 products in f32, in another order: an
-        # entry may round to its other bf16 neighbour, and RoPE of such a
-        # pair stays within one ulp of the largest entry
-        err = max(float((o.float() - r.float()).abs().max())
-                  for o, r in zip(out, ref))
-        top = max(float(r.float().abs().max()) for r in ref)
-        return err, err <= 2.0 ** (np.floor(np.log2(top)) - 7)
+    def cold(n):
+        return next(turn) % n
 
-    log("  decode tail: tolerance one bf16 ulp of the largest entry; "
-        "two launches on the same inputs must give the same bits")
-    wn = randn(hidden, scale=0.1) + 1
-    wq, wk, wv = (randn(hidden, n * d, scale=0.02) for n in (H, hk, hk))
-    wqkv = torch.cat([wq, wk, wv], dim=1)
-    wo = randn(H * d, hidden, scale=0.02)
     for R in (8, 32):
-        x = randn(R, hidden)
-        pos = torch.from_numpy(np.random.RandomState(R).randint(
-            0, 2048, size=R)).to(torch.int32).cuda()
-        c, s = cos[pos.long()], sin[pos.long()]
+        x, attn, res = base["x"][:R], base["attn"][:R], base["res"][:R]
+        c, s, pos = base["cos"][:R], base["sin"][:R], base["pos"][:R]
+        wn = base["wn"]
+
+        def qkv(i=None):
+            wq, wk, wv = wqkv[cold(n_qkv) if i is None else i]
+            return decode_tail.fused_qkv_rope(x, wn, wq, wk, wv, c, s, eps,
+                                              H, hk, d)
+
+        def qkv_matmul(i=None):
+            return x @ cat[cold(n_qkv) if i is None else i]
+
+        def qkv_discrete(i=None):
+            wq, wk, wv = wqkv[cold(n_qkv) if i is None else i]
+            n = fused_norm.rms_norm(x, wn, eps)
+            q, k, v = n @ wq, n @ wk, n @ wv
+            return (_rope_rows(q.reshape(R, 1, H, d), cos, sin, pos),
+                    _rope_rows(k.reshape(R, 1, hk, d), cos, sin, pos), v)
+
+        wq, wk, wv = wqkv[0]
         args = (x, wn, wq, wk, wv, c, s, eps, H, hk, d)
         out = decode_tail.fused_qkv_rope(*args)
         ref = decode_tail.fused_qkv_rope_plain(*args)
         err, ok = one_ulp_of_max(out, ref)
         ok = ok and all(torch.equal(a, b) for a, b in
                         zip(out, decode_tail.fused_qkv_rope(*args)))
-
-        def discrete_qkv():
-            n = fused_norm.rms_norm(x, wn, eps)
-            q, k, v = n @ wq, n @ wk, n @ wv
-            return (_rope_rows(q.reshape(R, 1, H, d), cos, sin, pos),
-                    _rope_rows(k.reshape(R, 1, hk, d), cos, sin, pos), v)
-
         cost = decode_tail._qkv_cost({"batch": R, "hidden": hidden,
                                       "wtot": (H + 2 * hk) * d,
                                       "dtype": "bfloat16"})
-        log(f"  yardsticks fused_qkv_rope R={R}: torch.matmul x[{R},"
-            f"{hidden}] @ Wqkv[{hidden},{(H + 2 * hk) * d}] "
-            f"{time_ms(lambda: x @ wqkv):.4f} ms; discrete rms_norm + 3 "
-            f"matmuls + 2 ropes {time_ms(discrete_qkv):.4f} ms")
-        record("fused_qkv_rope", f"R={R} hidden={hidden} H={H} hk={hk}",
-               err, ok,
-               kernel_times(lambda: decode_tail.fused_qkv_rope(*args)),
+        split = tail_split(getattr(decode_tail, "qkv_scratch", None), R,
+                           hidden, H, hk, d)
+        tail_yardsticks(f"fused_qkv_rope R={R}", (
+            (f"torch.matmul x[{R},{hidden}] @ Wq|Wk|Wv[{hidden},"
+             f"{(H + 2 * hk) * d}]", qkv_matmul),
+            ("discrete rms_norm + 3 matmuls + 2 ropes", qkv_discrete)))
+        record("fused_qkv_rope",
+               f"R={R} hidden={hidden} H={H} hk={hk} split={split} cold",
+               err, ok, kernel_times(qkv),
                time_ms(lambda: decode_tail.fused_qkv_rope_plain(*args)),
                None, bound(cost["bytes"], cost["flops"], "bfloat16"),
-               R == 8)
+               R == 8, warm=(profiled_ms(lambda: qkv(0)), None))
 
-        attn, res = randn(R, H * d), randn(R, hidden)
-        eargs = (attn, wo, res, wn, eps)
+        def epilogue(i=None):
+            return decode_tail.fused_epilogue(
+                attn, wo[cold(n_o) if i is None else i], res, wn, eps)
+
+        def epi_matmul(i=None):
+            return attn @ wo[cold(n_o) if i is None else i]
+
+        def epi_discrete(i=None):
+            return fused_norm.add_rms_norm(
+                attn @ wo[cold(n_o) if i is None else i], res, wn, eps)
+
+        eargs = (attn, wo[0], res, wn, eps)
         out = decode_tail.fused_epilogue(*eargs)
         ref = decode_tail.fused_epilogue_plain(*eargs)
         err, ok = one_ulp_of_max(out, ref)
@@ -895,51 +986,99 @@ def check_decode_tail_kernels(record, randn):
         cost = decode_tail._epilogue_cost({"batch": R, "width": H * d,
                                            "hidden": hidden,
                                            "dtype": "bfloat16"})
-        def discrete_epilogue():
-            return fused_norm.add_rms_norm(attn @ wo, res, wn, eps)
-
-        log(f"  yardsticks fused_epilogue R={R}: torch.matmul attn[{R},"
-            f"{H * d}] @ Wo {time_ms(lambda: attn @ wo):.4f} ms; discrete "
-            f"matmul + add_rms_norm {time_ms(discrete_epilogue):.4f} ms")
-        record("fused_epilogue", f"R={R} width={H * d} hidden={hidden}",
-               err, ok,
-               kernel_times(lambda: decode_tail.fused_epilogue(*eargs)),
+        split = tail_split(getattr(decode_tail, "epilogue_scratch", None), R,
+                           H * d, hidden)
+        tail_yardsticks(f"fused_epilogue R={R}", (
+            (f"torch.matmul attn[{R},{H * d}] @ Wo", epi_matmul),
+            ("discrete matmul + add_rms_norm", epi_discrete)))
+        record("fused_epilogue",
+               f"R={R} width={H * d} hidden={hidden} split={split} cold",
+               err, ok, kernel_times(epilogue),
                time_ms(lambda: decode_tail.fused_epilogue_plain(*eargs)),
                None, bound(cost["bytes"], cost["flops"], "bfloat16"),
-               R == 8)
+               R == 8, warm=(profiled_ms(lambda: epilogue(0)), None))
+        if R == 8:
+            log(f"  decode tail R={R}: host us a call, {HOST_CALLS} calls in "
+                f"a row on the host clock: fused_qkv_rope "
+                f"{host_us(lambda: qkv(0)):.2f}, fused_epilogue "
+                f"{host_us(lambda: epilogue(0)):.2f}")
+    del base, wqkv, wo, cat
+    torch.cuda.empty_cache()
+    check_tail_edges()
 
-    # the kernels' other paths, off the main one: f32, several row tiles
-    # (40 rows), a contraction that ends in a short chunk (hidden 384)
-    for dtype in (torch.float32, torch.bfloat16):
-        R, hid, h = 40, 384, 3
-        g = torch.Generator("cuda").manual_seed(5)
 
-        def rnd(*shape, scale=1.0):
-            return (torch.randn(*shape, generator=g, device="cuda")
-                    * scale).to(dtype)
+def tail_split(scratch, *shape):
+    """The bf16 body's slice count of a tail kernel at ``shape``, as its
+    wrapper picks it (``scratch``: ``qkv_scratch`` or ``epilogue_scratch``;
+    None, and "-" returned, for a checkout whose kernels take no split)."""
+    import torch
 
-        pos = torch.randint(0, 2048, (R,), generator=g, device="cuda")
-        args = (rnd(R, hid), rnd(hid, scale=0.1) + 1, rnd(hid, h * d,
-                scale=0.05), rnd(hid, d, scale=0.05), rnd(hid, d, scale=0.05),
-                cos[pos], sin[pos], eps, h, 1, d)
-        eargs = (rnd(R, h * d), rnd(h * d, hid, scale=0.05), rnd(R, hid),
-                 args[1], eps)
-        for name, out, ref in (
-                ("fused_qkv_rope", decode_tail.fused_qkv_rope(*args),
-                 decode_tail.fused_qkv_rope_plain(*args)),
-                ("fused_epilogue", decode_tail.fused_epilogue(*eargs),
-                 decode_tail.fused_epilogue_plain(*eargs))):
-            if dtype == torch.float32:   # f32 sums in another order
-                err = max(float((o - r).abs().max()) for o, r in
-                          zip(out, ref))
-                ok = err <= 1e-5 * max(float(r.abs().max()) for r in ref)
-            else:
-                err, ok = one_ulp_of_max(out, ref)
-            log(f"  {name} {str(dtype)[6:]} R={R} hidden={hid}: max abs err "
-                f"{err:.3e} ok={ok}")
-            if not ok:
-                raise AssertionError(f"{name} {dtype} R={R} hidden={hid}: "
-                                     "kernel disagrees with its plain version")
+    if scratch is None:
+        return "-"
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return scratch(*shape, n_sm, 1)[0]
+
+
+def tail_yardsticks(what, sticks):
+    """Logs each yardstick's three measures cold (rotating over the weight
+    copies, as the row's kernel) and its warm profiled ms (copy 0)."""
+    for name, fn in sticks:
+        ms, dev_ms, prof_ms = kernel_times(fn)
+        log(f"  yardstick {what}: {name}: ms={ms:.4f} device_ms={dev_ms:.4f} "
+            f"profiled_ms={prof_ms:.4f} (cold) warm_profiled_ms="
+            f"{profiled_ms(lambda: fn(0)):.4f}")
+
+
+# (R, hidden, H, hk): one row and two row tiles at Llama-3-8B widths; a
+# contraction in uneven slices; the hidden-384 case of three heads
+TAIL_EDGES = ((1, 4096, 32, 8), (33, 4096, 32, 8), (17, 1408, 4, 2),
+              (40, 384, 3, 1))
+
+
+def check_tail_edges():
+    """Both tail kernels off the timed rows, against their plain versions
+    (bf16: one ulp of the largest entry and the same bits over two launches;
+    f32: 1e-5 of the largest entry), with the bf16 bodies' slice count and
+    whether the last slice is shorter."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import decode_tail
+
+    d, eps = 128, 1e-5
+    for dtype in (torch.bfloat16, torch.float32):
+        for R, hid, h, hk in TAIL_EDGES:
+            t = tail_inputs(R, hid, h, hk, d, dtype, R + hid)
+            wq, wk, wv = t["wqkv"][0]
+            args = (t["x"], t["wn"], wq, wk, wv, t["cos"], t["sin"], eps, h,
+                    hk, d)
+            eargs = (t["attn"], t["wo"][0], t["res"], t["wn"], eps)
+            code = int(dtype == torch.bfloat16)
+            qkv_split = getattr(decode_tail, "qkv_scratch", None)
+            epi_split = getattr(decode_tail, "epilogue_scratch", None)
+            for name, fn, plain, a, split, k in (
+                    ("fused_qkv_rope", decode_tail.fused_qkv_rope,
+                     decode_tail.fused_qkv_rope_plain, args,
+                     tail_split(qkv_split, R, hid, h, hk, d), hid),
+                    ("fused_epilogue", decode_tail.fused_epilogue,
+                     decode_tail.fused_epilogue_plain, eargs,
+                     tail_split(epi_split, R, h * d, hid), h * d)):
+                out = fn(*a)
+                same = all(torch.equal(o, p) for o, p in zip(out, fn(*a)))
+                ref = plain(*a)
+                err, ok = (one_ulp_of_max if code else within_f32)(out, ref)
+                slices = ""
+                if code and split != "-":
+                    chunks = k // decode_tail.CHUNK
+                    per = -(-chunks // split)
+                    slices = (f" (slices of {per} chunks, the last "
+                              f"{chunks - per * (split - 1)})")
+                log(f"  {name} {str(dtype)[6:]} R={R} hidden={hid} H={h} "
+                    f"hk={hk}: split {split if code else '-'}{slices} max "
+                    f"abs err {err:.3e} ok={ok} same bits={same}")
+                if not (ok and same):
+                    raise AssertionError(
+                        f"{name} {dtype} R={R} hidden={hid}: kernel disagrees "
+                        "with its plain version or with itself")
 
 
 def check_training_kernels(record, randn):
@@ -1622,6 +1761,12 @@ def require_launched(counts, names, path):
                                  f"{path} path")
 
 
+# the fused-tail kernels' names in a trace: the bf16 bodies and the f32
+# ones (and an earlier checkout's, which --decode-profile-only may run)
+TAIL_KERNEL_NAMES = ("qkv_tc_kernel", "epilogue_tc_kernel",
+                     "fused_qkv_rope_kernel", "fused_epilogue_kernel")
+
+
 def profile_decode(model, card, n_steps=10, slots=8, max_len=2048,
                    prompt=512):
     """Where a decode step's time goes at full occupancy, with the fused
@@ -1677,6 +1822,8 @@ def profile_decode(model, card, n_steps=10, slots=8, max_len=2048,
             busy_ms = sum(r[0] for r in rows)
             n_kern = sum(r[1] for r in rows)
             paged_ms = sum(r[0] for r in rows if "paged_" in r[2])
+            tail_ms = sum(r[0] for r in rows
+                          if any(k in r[2] for k in TAIL_KERNEL_NAMES))
             log(f"profile: [{card}] {model.config.__class__.__name__} decode "
                 f"at {slots} active slots, prompts {prompt}, max_len "
                 f"{max_len}, fused tail {'on' if fused else 'off'}: "
@@ -1684,7 +1831,9 @@ def profile_decode(model, card, n_steps=10, slots=8, max_len=2048,
                 f"{busy_ms:.3f} ms/step (share {busy_ms / wall_ms:.3f}), "
                 f"{n_kern:.0f} CUDA kernels launched per step; paged "
                 f"attention kernels {paged_ms:.3f} ms/step (share of busy "
-                f"{paged_ms / busy_ms:.3f})")
+                f"{paged_ms / busy_ms:.3f}); fused-tail kernels "
+                f"{tail_ms:.3f} ms/step (share of busy "
+                f"{tail_ms / busy_ms:.3f})")
             for ms, count, key in rows[:12]:
                 log(f"  {ms:8.3f} ms/step {count:7.1f}/step  {key[:80]}")
             log("  host time by op (self, profiled): " + "; ".join(
@@ -2636,6 +2785,11 @@ def main(argv=None) -> int:
                          "(Llama-3-8B at 8 slots, Mistral-7B at 4 slots of "
                          "8192-token prompts; DeepSeek-V2-Lite at 8 slots of "
                          "1024-token prompts, no fused tail)")
+    ap.add_argument("--decode-tail-only", action="store_true",
+                    help="phase 1, then phase 2's decode-tail rows alone "
+                         "(cold and warm, yardsticks, host us, edges); prints "
+                         "no result line. Run from another checkout's root, "
+                         "it measures that checkout's kernels")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -2665,14 +2819,19 @@ def main(argv=None) -> int:
                 kernel = kernel_name(line.rsplit(" ", 1)[-1])
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {stem} {kernel}: {line.strip()}")
-    # the attention kernels' bf16 bodies multiply on the tensor cores
-    for stem in ("append_attention", "flash_attention"):
+    # the attention and decode-tail kernels' bf16 bodies multiply on the
+    # tensor cores (the two partial runs may measure an earlier checkout)
+    partial = args.decode_tail_only or args.decode_profile_only
+    for stem in ("append_attention", "flash_attention", "decode_tail"):
         hmma, hgmma = tensor_core_sass(_build.build()[stem])
         log(f"  sass {stem}: {hmma} HMMA (mma.sync), {hgmma} HGMMA (wgmma)")
-        if hmma + hgmma == 0:
+        if hmma + hgmma == 0 and not partial:
             raise AssertionError(f"{stem}: no tensor-core instruction in its "
                                  "SASS")
 
+    if args.decode_tail_only:
+        check_decode_tail_kernels(make_record({}))
+        return 0
     if args.decode_profile_only:
         from paddle_tpu_torch.models.llama import (LlamaConfig,
                                                    LlamaForCausalLM)

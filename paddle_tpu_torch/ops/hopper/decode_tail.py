@@ -20,11 +20,15 @@ launches its kernel or raises. Neither kernel has a backward (the Pallas
 kernels have none): on CUDA they refuse inputs that need a gradient.
 
 The JAX package searches the contraction block with its autotuner
-(``_block_k``); the card kernels use one fixed geometry (32 output columns
-by up to 32 rows per block, the contraction in chunks of 256, see the
-source), so nothing is searched here.
+(``_block_k``); the card kernels take a fixed geometry instead (bf16: 128
+output columns by up to 32 rows a block, the contraction in chunks of 64
+rows split over blocks, see the source; f32: 32 columns a block over the
+whole contraction), and the wrapper picks the split from shapes alone
+(:func:`split_count`), so nothing is searched here.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,12 +36,23 @@ from . import _build
 
 _STEM = "decode_tail"
 _MIN_BLOCK = 128
-# the card kernels' own limit (replacing the JAX VMEM budget): the epilogue
-# keeps one arrival counter per 32-row tile in a fixed buffer of
-# _TILES counters per device
+# the card kernels' own limit (replacing the JAX VMEM budget): 256 tiles of
+# 32 rows
 _ROW_TILE = 32
 _TILES = 256
 MAX_ROWS = _ROW_TILE * _TILES
+# the bf16 bodies' geometry (csrc/decode_tail.cu): output columns of a
+# work item, contraction rows of a ring stage, the ring's stages, slices
+# at most; shared memory an SM holds and what a block reserves of it
+TILE, CHUNK, STAGES, MAX_SPLIT = 128, 32, 6, 16
+SEG = 128                       # x columns of one partial sum of squares
+SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
+BLOCKS_PER_SM = 3               # more would gain nothing and cost registers
+# the f32 epilogue's per-row partial sums: one per 32 columns
+_F32_COLS = 32
+_P, _I, _F = _build.VOIDP, _build.INT, _build.FLOAT
+_QKV_ARGTYPES = [_P] * 12 + [_I] * 6 + [_F, _I, _P]
+_EPILOGUE_ARGTYPES = [_P] * 8 + [_I] * 4 + [_F, _I, _P]
 
 _ITEMSIZE = {"float32": 4, "bfloat16": 2}
 
@@ -114,8 +129,111 @@ def fused_epilogue_plain(attn, wo, residual, w_norm, eps):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _aligned(*tensors) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in tensors)
+def row_tile(rows: int) -> int:
+    """Rows a block of the bf16 bodies takes: one, two or four n tiles of 8."""
+    return 8 if rows <= 8 else (16 if rows <= 16 else 32)
+
+
+def block_smem(rows: int, slice_chunks: int) -> int:
+    """Shared memory of a bf16 block: the ring of ``STAGES`` stages of 32
+    rows by 128 (+ 8) columns, and the item's slice of activation rows,
+    row tile by slice (+ 8), in bf16; plus a little static memory."""
+    ring = STAGES * CHUNK * (TILE + 8) * 2
+    return (ring + row_tile(rows) * (slice_chunks * CHUNK + 8) * 2
+            + slice_chunks * CHUNK * 2 + 256)
+
+
+@functools.lru_cache(maxsize=256)
+def split_count(n_tiles: int, rows: int, k: int, n_sm: int) -> int:
+    """Slices of the ``k``-row contraction for ``n_tiles`` column tiles of
+    128 at ``rows`` rows: the most (up to ``MAX_SPLIT``) whose work items,
+    one a block, all fit on the card at once, as the blocks' shared memory
+    allows; each slice whole chunks of 32 rows, none empty. Where no split
+    fits in one wave (many row tiles) the most that fits in shared memory
+    at all: the blocks then walk several items. Shapes only."""
+    n_rt = -(-rows // row_tile(rows))
+    chunks = k // CHUNK
+    fallback = 0
+    for want in range(min(MAX_SPLIT, chunks), 0, -1):
+        per = -(-chunks // want)
+        split = -(-chunks // per)
+        per_sm = min(BLOCKS_PER_SM,
+                     SMEM_PER_SM // (block_smem(rows, per) + SMEM_RESERVED))
+        if per_sm and not fallback:
+            fallback = split
+        if n_tiles * split * n_rt <= per_sm * n_sm:
+            return split
+    return fallback or 1
+
+
+def _partial_floats(rows: int, n_tiles: int, split: int) -> int:
+    rt = row_tile(rows)
+    return -(-rows // rt) * rt * n_tiles * split * TILE
+
+
+def qkv_scratch(rows, hidden, n_heads, n_kv, d, n_sm, code):
+    """(split, f32 scratch floats) of a ``fused_qkv_rope`` call: the bf16
+    body's per-slice partials [row tiles * RT, tiles, split, 128], then the
+    rows' sums of squares by 128-column segment [R, hidden / 128]; the f32
+    body takes none."""
+    if not code:
+        return 1, 0
+    n_tiles = (n_heads + 2 * n_kv) * d // TILE
+    split = split_count(n_tiles, rows, hidden, n_sm)
+    return split, _partial_floats(rows, n_tiles, split) + rows * (hidden // SEG)
+
+
+def epilogue_scratch(rows, width, hidden, n_sm, code):
+    """(split, f32 scratch floats, arrival counters) of a ``fused_epilogue``
+    call. bf16: the partials, then h [R, hidden] and the tiles' sums of
+    squares [R, hidden / 128], no counter; f32: h and the blocks' sums of
+    squares [R, hidden / 32], one counter a 32-row tile."""
+    if not code:
+        return (1, rows * hidden + rows * (hidden // _F32_COLS),
+                -(-rows // _ROW_TILE))
+    n_tiles = hidden // TILE
+    split = split_count(n_tiles, rows, width, n_sm)
+    return (split, _partial_floats(rows, n_tiles, split) + rows * hidden
+            + rows * n_tiles, 0)
+
+
+_states: dict = {}
+# the qkv kernel's grid barrier (count, generation) comes first
+_BARRIER = 2
+
+
+def _state(device, n_counters: int) -> torch.Tensor:
+    """The kernels' persistent int32 state on ``device``: the qkv kernel's
+    grid barrier, then at least ``n_counters`` arrival counters of the f32
+    epilogue. Zeroed when made; every launch leaves its part as the next
+    launch needs it (one stream per device)."""
+    c = _states.get(device)
+    if c is None or c.numel() < _BARRIER + n_counters:
+        c = _states[device] = torch.zeros(_BARRIER + max(n_counters, _TILES),
+                                          dtype=torch.int32, device=device)
+    return c
+
+
+def _check(what, code_of, specs):
+    """The dtype code of ``code_of`` (float32 / bfloat16), after each
+    (tensor, shape, dtype) of ``specs`` is checked once: one CUDA device,
+    contiguous, its shape and dtype, 16-byte aligned."""
+    code = _build.dtype_code(code_of)
+    dev = code_of.device
+    if dev.type != "cuda":
+        _build.require_cuda(code_of)
+    for t, shape, dtype in specs:
+        if t.device != dev or not t.is_contiguous():
+            _build.require_cuda(*(s[0] for s in specs))
+        if t.dtype != dtype:
+            raise ValueError(f"{what}: an input of {t.dtype} where {dtype} "
+                             "is expected (one dtype; cos/sin float32)")
+        if t.shape != shape:
+            raise ValueError(f"{what}: shapes disagree: {tuple(t.shape)} "
+                             f"where {tuple(shape)} is expected")
+        if t.data_ptr() & 15:
+            raise ValueError(f"{what}: inputs must be 16-byte aligned")
+    return code
 
 
 def fused_qkv_rope(x, w_norm, wq, wk, wv, cos_row, sin_row, eps,
@@ -126,56 +244,39 @@ def fused_qkv_rope(x, w_norm, wq, wk, wv, cos_row, sin_row, eps,
     if x.device.type == "cpu":
         return fused_qkv_rope_plain(x, w_norm, wq, wk, wv, cos_row, sin_row,
                                     eps, n_heads, n_kv, d)
-    cos_row, sin_row = cos_row.contiguous(), sin_row.contiguous()
     _build.require_no_grad("fused_qkv_rope", x, w_norm, wq, wk, wv)
-    _build.require_cuda(x, w_norm, wq, wk, wv, cos_row, sin_row)
-    code = _build.dtype_code(x)
+    cos_row, sin_row = cos_row.contiguous(), sin_row.contiguous()
     R, hidden = x.shape
-    _build.require(all(t.dtype == x.dtype for t in (w_norm, wq, wk, wv)),
-                   "fused_qkv_rope: x and the weights must share one dtype")
-    _build.require(tuple(w_norm.shape) == (hidden,)
-                   and tuple(wq.shape) == (hidden, n_heads * d)
-                   and tuple(wk.shape) == (hidden, n_kv * d)
-                   and tuple(wv.shape) == (hidden, n_kv * d),
-                   "fused_qkv_rope: weight shapes disagree with x and heads")
-    _build.require(cos_row.dtype == torch.float32
-                   and sin_row.dtype == torch.float32
-                   and tuple(cos_row.shape) == (R, d)
-                   and tuple(sin_row.shape) == (R, d),
-                   f"fused_qkv_rope: cos/sin must be f32 [{R}, {d}]")
+    wq_n, kv_n = n_heads * d, n_kv * d
+    dt, f32 = x.dtype, torch.float32
+    code = _check("fused_qkv_rope", x, (
+        (x, (R, hidden), dt), (w_norm, (hidden,), dt),
+        (wq, (hidden, wq_n), dt), (wk, (hidden, kv_n), dt),
+        (wv, (hidden, kv_n), dt), (cos_row, (R, d), f32),
+        (sin_row, (R, d), f32)))
     _build.require(supported(R, hidden, n_heads, n_kv, d, d,
                              x.element_size()),
                    "fused_qkv_rope: shape outside the kernel's limits")
-    _build.require(_aligned(x, w_norm, wq, wk, wv),
-                   "fused_qkv_rope: inputs must be 16-byte aligned")
-    q = x.new_empty(R, n_heads * d)
-    k = x.new_empty(R, n_kv * d)
-    v = x.new_empty(R, n_kv * d)
+    q = x.new_empty(R, wq_n)
+    k = x.new_empty(R, kv_n)
+    v = x.new_empty(R, kv_n)
     if R == 0:
         return q, k, v
-    P, I, F = _build.VOIDP, _build.INT, _build.FLOAT
-    fn = _build.function(_STEM, "pt_fused_qkv_rope",
-                         [P] * 10 + [I] * 5 + [F, I, P])
-    err = fn(*(_build.ptr(t) for t in (x, w_norm, wq, wk, wv, cos_row,
-                                       sin_row, q, k, v)),
-             R, hidden, n_heads, n_kv, d, float(eps), code,
-             _build.stream(x.device))
+    split, n_scratch = qkv_scratch(R, hidden, n_heads, n_kv, d,
+                                   _build.sm_count(x.device), code)
+    scratch = (torch.empty(n_scratch, dtype=f32, device=x.device)
+               if n_scratch else None)
+    err = _build.function(_STEM, "pt_fused_qkv_rope", _QKV_ARGTYPES)(
+        x.data_ptr(), w_norm.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+        wv.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        _state(x.device, 0).data_ptr(), R, hidden, n_heads, n_kv, d, split,
+        float(eps), code, _build.stream(x.device))
     _build.launches["fused_qkv_rope"] += 1
-    _build.check(err, _STEM, "fused_qkv_rope")
+    if err:
+        _build.check(err, _STEM, "fused_qkv_rope")
     return q, k, v
-
-
-_counters: dict = {}
-
-
-def _arrival_counters(device) -> torch.Tensor:
-    """The epilogue's per-row-tile arrival counters on ``device``: zeroed
-    once, and left at zero by every launch (one stream per device)."""
-    c = _counters.get(device)
-    if c is None:
-        c = _counters[device] = torch.zeros(_TILES, dtype=torch.int32,
-                                            device=device)
-    return c
 
 
 def fused_epilogue(attn, wo, residual, w_norm, eps):
@@ -185,38 +286,31 @@ def fused_epilogue(attn, wo, residual, w_norm, eps):
     if attn.device.type == "cpu":
         return fused_epilogue_plain(attn, wo, residual, w_norm, eps)
     _build.require_no_grad("fused_epilogue", attn, wo, residual, w_norm)
-    _build.require_cuda(attn, wo, residual, w_norm)
-    code = _build.dtype_code(attn)
     R, width = attn.shape
     hidden = wo.shape[1]
-    _build.require(all(t.dtype == attn.dtype for t in (wo, residual, w_norm)),
-                   "fused_epilogue: attn, wo, residual and the norm weight "
-                   "must share one dtype")
-    _build.require(tuple(wo.shape) == (width, hidden)
-                   and tuple(residual.shape) == (R, hidden)
-                   and tuple(w_norm.shape) == (hidden,),
-                   "fused_epilogue: shapes disagree")
+    dt = attn.dtype
+    code = _check("fused_epilogue", attn, (
+        (attn, (R, width), dt), (wo, (width, hidden), dt),
+        (residual, (R, hidden), dt), (w_norm, (hidden,), dt)))
     _build.require(width % _MIN_BLOCK == 0 and hidden % _MIN_BLOCK == 0
                    and R <= MAX_ROWS,
                    "fused_epilogue: shape outside the kernel's limits")
-    _build.require(_aligned(attn, wo, residual, w_norm),
-                   "fused_epilogue: inputs must be 16-byte aligned")
     normed = torch.empty_like(residual)
     new_res = torch.empty_like(residual)
     if R == 0:
         return normed, new_res
-    hbuf = torch.empty(R, hidden, dtype=torch.float32, device=attn.device)
-    partial = torch.empty(R, hidden // 32, dtype=torch.float32,
-                          device=attn.device)
-    counter = _arrival_counters(attn.device)
-    P, I, F = _build.VOIDP, _build.INT, _build.FLOAT
-    fn = _build.function(_STEM, "pt_fused_epilogue",
-                         [P] * 9 + [I] * 3 + [F, I, P])
-    err = fn(*(_build.ptr(t) for t in (attn, wo, residual, w_norm, normed,
-                                       new_res, hbuf, partial, counter)),
-             R, width, hidden, float(eps), code, _build.stream(attn.device))
+    split, n_scratch, n_count = epilogue_scratch(
+        R, width, hidden, _build.sm_count(attn.device), code)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=attn.device)
+    counter = _state(attn.device, n_count)[_BARRIER:] if n_count else None
+    err = _build.function(_STEM, "pt_fused_epilogue", _EPILOGUE_ARGTYPES)(
+        attn.data_ptr(), wo.data_ptr(), residual.data_ptr(), w_norm.data_ptr(),
+        normed.data_ptr(), new_res.data_ptr(), scratch.data_ptr(),
+        None if counter is None else counter.data_ptr(), R, width, hidden,
+        split, float(eps), code, _build.stream(attn.device))
     _build.launches["fused_epilogue"] += 1
-    _build.check(err, _STEM, "fused_epilogue")
+    if err:
+        _build.check(err, _STEM, "fused_epilogue")
     return normed, new_res
 
 
