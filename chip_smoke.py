@@ -31,7 +31,11 @@ Phases (any failure raises, so the script exits non-zero):
    lengths with a dead row, which must be exactly 0), timed cold: kernel
    and yardstick rotate over copies of the pool and of the gathered pages
    that touch more than 100 MB, as each layer's own pool is cold in a
-   decode step; the warm figure is printed beside it. ``rms_norm`` runs at
+   decode step; the warm figure is printed beside it. Append attention
+   also runs at ``generate``'s dense decode shape (S 1, B 4, 32 | 8 heads,
+   pos 1040 of T 1056, with and without run c's column mask), timed cold
+   over copies of K / V touching more than 100 MB (warm beside), SDPA with
+   the mask as its yardstick. ``rms_norm`` runs at
    8 and 4096 rows of 4096 (and at widths 512, 2048, 4096 by 1, 8 and 4096
    rows in bf16 and f32 untimed). The attention backward is held per
    element against its plain version on the same inputs (delta from the
@@ -147,7 +151,24 @@ Phases (any failure raises, so the script exits non-zero):
    per element with the whole-sequence flash kernel at 16384. The hops
    alone are timed beside the ring. Then the ring's gradients at local 1024
    (global 4096) in f32 against the plain whole-sequence gradients.
-16. The kernels line, then the card line, then the result line
+16. ``generate`` at full width, bf16, greedy, no eos, on the models phases
+   3 and 10 built (run before each is freed), each run's launch counts
+   required exactly: Llama-3-8B (a) B 4 x 512, 32 new tokens, (b) paged,
+   page 16, (c) right-padded to 1024 (lengths 1024, 700, 257, 33), (d) B 4
+   x 1024 in chunks of 256 (chunk 0 on the flash kernel, then append
+   attention), (e) B 2 x 512, 4 beams, 16 new tokens, (f) run a with the
+   fused decode tail; DeepSeek-V2-Lite (g) B 4 x 512, 16 new tokens
+   (``mla_decode`` over the dense latent buffer), ``paged=True`` refused
+   before any launch. Each logs prefill ms, decode ms per forward,
+   tokens/s and peak memory; the token agreement of runs a-d and f with
+   ``ContinuousBatchEngine`` on the same prompts is reported. Then (after
+   phase 15) the f32 wiring check, ``allow_tf32`` off: two layers at full
+   width of Llama-3-8B, Mistral-7B (window cut to 32, narrower than the
+   run) and DeepSeek-V2-Lite, greedy tokens card = CPU for dense, ragged,
+   paged, chunked, no-cache and 4-beam runs, and the engine's tokens =
+   solo ``generate`` on the card; and ``entry.py``'s forward on the card
+   (the flash kernel at width 64 once per layer, logits against the CPU's).
+17. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -498,6 +519,8 @@ def check_kernels(results):
                bound(nbytes, 4 * D * pairs, "bfloat16"),
                (S, T, n_valid) == (1024, 1024, 700))
 
+    check_append_decode_rows(record)
+
     S = 512
     q, k, v = randn(1, S, H, D), randn(1, S, hk, D), randn(1, S, hk, D)
     out = flash_attention.flash_attention_bshd(q, k, v, causal=True)
@@ -535,6 +558,88 @@ def check_kernels(results):
     torch.cuda.empty_cache()
     log(f"  the full-mask and splash_hop rows took "
         f"{time.perf_counter() - t0:.1f}s")
+
+
+# generate's dense decode: B 4 rows at pos 1040 of a T 1056 buffer (the
+# right-padded run's prompts of 1024, 700, 257 and 33 tokens, 16 tokens in)
+DECODE_B, DECODE_POS, DECODE_T = 4, 1040, 1056
+DECODE_PROMPTS = (1024, 700, 257, 33)
+# bytes each timed call of a decode row's rotation must touch in all, so
+# that no call finds its buffer in the 50 MB L2
+DECODE_COLD_BYTES = 120e6
+
+
+def check_append_decode_rows(record):
+    """``append_attention`` at the dense decode shape of ``generate`` (S 1,
+    B 4, 32 | 8 heads of 128, pos 1040 of T 1056), with no column mask and
+    with run c's ``allowed`` (each row's prompt, then the decode columns
+    from 1024), held against its plain version at the attention tolerance.
+    Timed cold, as on the main path, where each of 32 layers has its own
+    buffer and a decode step finds it out of L2: the kernel and its
+    yardstick (SDPA with the visibility as a boolean mask, over K / V laid
+    out [B, hk, T, D] beforehand) rotate over copies of the buffers
+    touching more than ``DECODE_COLD_BYTES``; the warm figure (one copy)
+    beside it."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import append_attention
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    B, H, hk, D, T, pos = DECODE_B, 32, 8, 128, DECODE_T, DECODE_POS
+    gen = torch.Generator(dev).manual_seed(4242)
+    cols = torch.arange(T, device=dev)
+    padded = torch.stack([(cols < n) | (cols >= 1024)
+                          for n in DECODE_PROMPTS])
+    for allowed in (None, padded):
+        vis = (cols <= pos)[None, :].expand(B, T)
+        if allowed is not None:
+            vis = vis & allowed
+        n_vis = int(vis.sum())
+        copies = max(4, math.ceil(DECODE_COLD_BYTES / (B * T * hk * D * 4)))
+        q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(bf)
+        bufs = [tuple(torch.randn(B, T, hk, D, generator=gen,
+                                  device=dev).to(bf) for _ in range(2))
+                for _ in range(copies)]
+        k, v = bufs[0]
+        out = append_attention.append_attention(q, k, v, pos, allowed)
+        ref = append_attention.append_attention_plain(q, k, v, pos, allowed)
+        err, ok = close_bf16(out, ref)
+        qt = q.transpose(1, 2).contiguous()
+        lib_bufs = [tuple(t.transpose(1, 2).contiguous() for t in kv)
+                    for kv in bufs]
+        mask = vis[:, None, None, :]
+        turn = iter(range(1 << 62))
+
+        def kernel(i=None):
+            kk, vv = bufs[next(turn) % copies if i is None else i]
+            return append_attention.append_attention(q, kk, vv, pos, allowed)
+
+        def library(i=None):
+            kk, vv = lib_bufs[next(turn) % copies if i is None else i]
+            return sdpa_gqa(qt, kk, vv, mask=mask)
+
+        # every visible K and V column of each row read once, q read and
+        # out written once, the mask up to pos
+        nbytes = (n_vis * hk * D * 2 * 2 + 2 * B * H * D * 2
+                  + (B * (pos + 1) if allowed is not None else 0))
+        warm = (profiled_ms(lambda: kernel(0)), profiled_ms(
+            lambda: library(0)))
+        label = f"decode S=1 B={B} T={T} pos={pos} allowed=" + (
+            "None" if allowed is None
+            else "prompts " + "/".join(map(str, DECODE_PROMPTS)))
+        log(f"  append_attention {label}: {copies} copies, {n_vis} visible "
+            "columns")
+        record("append_attention", label + " cold", err, ok,
+               kernel_times(kernel),
+               time_ms(lambda: append_attention.append_attention_plain(
+                   q, k, v, pos, allowed)),
+               kernel_times(library), bound(nbytes, 4 * D * H * n_vis,
+                                            "bfloat16"), False, warm=warm)
+        del q, bufs, lib_bufs, k, v, out, ref
+    torch.cuda.empty_cache()
 
 
 def check_norm_edges():
@@ -1811,6 +1916,7 @@ def serve_full_width(profile=False):
     del runs
 
     spec_counts = serve_speculative(model, card)
+    gen_counts = generate_full_width(model, card)
     if profile:
         profile_decode(model, card)
     del model
@@ -1818,6 +1924,7 @@ def serve_full_width(profile=False):
     total = Counter(off[0])
     total.update(on[0])
     total.update(spec_counts)
+    total.update(gen_counts)
     return total
 
 
@@ -2521,6 +2628,8 @@ def serve_deepseek(profile=False):
                                  f"({steps} decode steps, {n_exact} exact "
                                  "prefills)")
     require_launched(counts, ("rms_norm", "add_rms_norm"), "DeepSeek serving")
+    counts = Counter(counts)
+    counts.update(generate_deepseek(model, card))
     if profile:
         profile_decode(model, card, slots=8, max_len=4096, prompt=1024)
     del model
@@ -2862,6 +2971,350 @@ def ring_on_one_card():
     return counts
 
 
+# --------------------------------------------------------------- phase 16 --
+
+# generate at full width: B 4 x 512 unpadded (runs a, b, f), right-padded to
+# 1024 (run c), 4 x 1024 in chunks of 256 (run d), 32 new tokens; beams (run
+# e) B 2 x 512, 4 beams, 16 new; DeepSeek-V2-Lite (run g) B 4 x 512, 16 new
+GEN_B, GEN_PROMPT, GEN_NEW = 4, 512, 32
+GEN_CHUNK, GEN_BEAMS, GEN_BEAM_NEW, GEN_MLA_NEW = 256, 4, 16, 16
+
+
+class _PrefillClock:
+    """Times every call of ``generate``'s prefill units on the host clock,
+    the card synchronised before and after (``.ms``, one entry a call)."""
+
+    def __enter__(self):
+        import torch
+
+        from paddle_tpu_torch import generation
+
+        self.ms, self._real = [], {}
+        for cls in (generation._PrefillStep, generation._ChunkedPrefillStep):
+            real = self._real[cls] = cls.__call__
+
+            def timed(unit, *a, _real=real, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(unit, *a, **k)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            cls.__call__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        for cls, real in self._real.items():
+            cls.__call__ = real
+
+
+def generate_run(model, card, label, ids, want, fused=False, **kw):
+    """One ``model.generate`` run of the main path: launch counts zeroed
+    just before and read just after, ``want`` ({kernel: launches}) required
+    exactly and the norm kernels launched; tokens in range and of the
+    asked length. Logs the prefill ms, decode ms per forward (host clock
+    around synchronised calls), tokens/s and peak memory. Returns (tokens
+    [B, N] numpy, counts)."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.utils.flags import flag_overrides
+
+    B, n_new = ids.shape[0], kw["max_new_tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with flag_overrides({"use_fused_decode_tail": fused}), \
+            _PrefillClock() as clock:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = model.generate(ids, **kw)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        counts = dict(launches)
+    toks = out.cpu().numpy()
+    if toks.shape != (B, n_new):
+        raise AssertionError(f"phase 16 {label}: tokens {toks.shape}, want "
+                             f"{(B, n_new)}")
+    if toks.min() < 0 or toks.max() >= model.config.vocab_size:
+        raise AssertionError(f"phase 16 {label}: token out of range")
+    for name, n in want.items():
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"phase 16 {label}: {name} launched "
+                                 f"{counts.get(name, 0)} times, expected {n}")
+    require_launched(counts, ("rms_norm", "add_rms_norm"), f"generate {label}")
+    pre = sum(clock.ms)
+    dec = total - pre
+    log(f"  [{card}] phase 16 {label}: B {B}, {n_new} new tokens: prefill "
+        f"{pre:.2f} ms; decode {dec / (n_new - 1):.3f} ms per forward "
+        f"({n_new - 1} forwards), {B * (n_new - 1) / (dec / 1e3):.1f} "
+        f"tokens/s; whole call {total:.1f} ms, "
+        f"{B * n_new / (total / 1e3):.1f} tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  launches (phase 16 {label}): {json.dumps(counts)}")
+    return toks, counts
+
+
+def engine_tokens(model, prompts, n_new, max_len=2048):
+    """Each prompt's greedy tokens from ``ContinuousBatchEngine`` (one slot
+    a prompt)."""
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    eng = ContinuousBatchEngine(model, max_batch=len(prompts),
+                                max_len=max_len)
+    rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+    out = eng.run_until_done()
+    return np.stack([out[r] for r in rids])
+
+
+def generate_full_width(model, card):
+    """Phase 16, runs a-f, on phase 3's Llama-3-8B (32 layers, bf16),
+    greedy, ``eos_token_id=None`` so every run has its length; then the
+    token agreement of each run with ``ContinuousBatchEngine`` on the same
+    prompts (bf16: reported, not required). Returns the summed counts."""
+    import torch
+
+    L = model.config.num_hidden_layers
+    V = model.config.vocab_size
+    n, nb = GEN_NEW - 1, GEN_BEAM_NEW - 1
+    rng = np.random.RandomState(16)
+    dev = model.device
+    ids_a = torch.from_numpy(rng.randint(0, V, (GEN_B, GEN_PROMPT))).to(dev)
+    ids_c = torch.from_numpy(rng.randint(0, V, (GEN_B, 1024))).to(dev)
+    mask_c = (torch.arange(1024, device=dev)[None, :]
+              < torch.tensor(DECODE_PROMPTS, device=dev)[:, None]).int()
+    ids_d = torch.from_numpy(rng.randint(0, V, (GEN_B, 1024))).to(dev)
+    log(f"phase 16: generate at full width, Llama-3-8B ({L} layers, bf16, "
+        f"phase 3's model), greedy, no eos")
+    runs = {
+        "a dense": (ids_a, {"flash_attention_bshd": L,
+                            "append_attention": L * n,
+                            "paged_attention": 0}, {}),
+        "b paged": (ids_a, {"flash_attention_bshd": L,
+                            "paged_attention": L * n,
+                            "append_attention": 0},
+                    {"paged": True, "page_size": 16}),
+        "c right-padded": (ids_c, {"append_attention": L + L * n,
+                                   "flash_attention_bshd": 0,
+                                   "paged_attention": 0},
+                           {"attention_mask": mask_c}),
+        # chunk 0 (pos 0, no column mask) takes the flash kernel, chunks
+        # 1-3 append attention
+        "d chunked": (ids_d, {"flash_attention_bshd": L,
+                              "append_attention": 3 * L + L * n,
+                              "paged_attention": 0},
+                      {"prefill_chunk_size": GEN_CHUNK}),
+        "e beams": (ids_a[:2], {"flash_attention_bshd": L,
+                                "append_attention": L * nb,
+                                "paged_attention": 0},
+                    {"num_beams": GEN_BEAMS,
+                     "max_new_tokens": GEN_BEAM_NEW}),
+        "f fused tail": (ids_a, {"flash_attention_bshd": L,
+                                 "append_attention": L * n,
+                                 "fused_qkv_rope": L * n,
+                                 "fused_epilogue": L * n,
+                                 "paged_attention": 0}, {"fused": True}),
+    }
+    total, toks = Counter(), {}
+    for label, (ids, want, kw) in runs.items():
+        kw = dict({"max_new_tokens": GEN_NEW}, **kw)
+        toks[label], counts = generate_run(model, card, label, ids, want,
+                                           **kw)
+        total.update(counts)
+    engine = {
+        "a": engine_tokens(model, list(ids_a.cpu().numpy()), GEN_NEW),
+        "c": engine_tokens(model, [r[:m] for r, m in zip(
+            ids_c.cpu().numpy(), DECODE_PROMPTS)], GEN_NEW),
+        "d": engine_tokens(model, list(ids_d.cpu().numpy()), GEN_NEW)}
+    parts = []
+    for label in ("a dense", "b paged", "c right-padded", "d chunked",
+                  "f fused tail"):
+        ref = engine[{"c": "c", "d": "d"}.get(label[0], "a")]
+        same = int((toks[label] == ref).sum())
+        parts.append(f"{label} {same}/{ref.size}")
+    log(f"  [{card}] phase 16 token agreement with the engine on the same "
+        f"prompts (bf16, reported only): {', '.join(parts)}")
+    return total
+
+
+def generate_deepseek(model, card):
+    """Phase 16, run g, on phase 10's DeepSeek-V2-Lite (27 layers, bf16):
+    the expanded flash prefill at width 192, then ``mla_decode`` over the
+    dense latent buffer every step; ``paged=True`` raises before any
+    launch."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+
+    L = model.config.num_hidden_layers
+    ids = torch.from_numpy(np.random.RandomState(17).randint(
+        0, model.config.vocab_size, (GEN_B, GEN_PROMPT))).to(model.device)
+    reset_launches()
+    try:
+        model.generate(ids, max_new_tokens=GEN_MLA_NEW, paged=True)
+    except NotImplementedError as e:
+        log(f"  phase 16 g: paged=True refused before any launch "
+            f"({dict(launches)}): {e}")
+    else:
+        raise AssertionError("phase 16 g: paged generate on MLA ran")
+    if launches:
+        raise AssertionError(f"phase 16 g: the refused call launched "
+                             f"{dict(launches)}")
+    _, counts = generate_run(
+        model, card, "g DeepSeek-V2-Lite", ids,
+        {"flash_attention_mla": L, "mla_decode": L * (GEN_MLA_NEW - 1),
+         "flash_attention_bshd": 0, "append_attention": 0,
+         "paged_attention": 0}, max_new_tokens=GEN_MLA_NEW)
+    return counts
+
+
+def cpu_copy(model):
+    """The model with the same weights on the CPU (its rope tables, kept
+    by length, are made again there)."""
+    import copy
+
+    m = copy.deepcopy(model).cpu()
+    m.llama._rope_cache.clear()
+    return m
+
+
+# (label, generate keywords) of the f32 wiring check; prompts of 40 tokens,
+# the ragged ones 40 and 23, 6 new tokens
+WIRING_PROMPT, WIRING_SHORT, WIRING_NEW = 40, 23, 6
+WIRING_ROUTES = (
+    ("dense", {}),
+    ("ragged", {"attention_mask": "ragged"}),
+    ("paged", {"paged": True, "page_size": 16}),
+    ("chunked", {"prefill_chunk_size": 16}),
+    ("no cache", {"use_cache": False}),
+    ("beam 4", {"num_beams": 4}),
+)
+
+
+def generate_wiring_check():
+    """Phase 16 wiring, f32, ``allow_tf32`` off: two layers at full width of
+    Llama-3-8B, Mistral-7B (window cut to 32, narrower than the 40 + 6
+    tokens) and DeepSeek-V2-Lite, the same weights on the card and the CPU.
+    Greedy tokens must be equal card vs CPU for each route (DeepSeek's
+    paged one raises on both); and on the card ``ContinuousBatchEngine``
+    (latent mode for DeepSeek) must give each request the tokens of solo
+    ``generate``."""
+    import torch
+
+    from paddle_tpu_torch.models import (DeepseekV2ForCausalLM,
+                                         LlamaForCausalLM,
+                                         MistralForCausalLM)
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    families = (
+        ("Llama-3-8B", LlamaForCausalLM,
+         LlamaConfig.llama3_8b(num_hidden_layers=2, dtype="float32")),
+        ("Mistral-7B, window 32", MistralForCausalLM,
+         mistral_config(num_hidden_layers=2, sliding_window=32,
+                        dtype="float32")),
+        ("DeepSeek-V2-Lite", DeepseekV2ForCausalLM,
+         deepseek_config(num_hidden_layers=2, dtype="float32")),
+    )
+    for i, (name, cls, cfg) in enumerate(families):
+        m_gpu = cls(cfg, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(20 + i))
+        m_cpu = cpu_copy(m_gpu)
+        rng = np.random.RandomState(20 + i)
+        ids = rng.randint(0, cfg.vocab_size, (2, WIRING_PROMPT))
+        ragged = np.ones((2, WIRING_PROMPT), np.int32)
+        ragged[1, WIRING_SHORT:] = 0
+        mla = cls is DeepseekV2ForCausalLM
+        got = {}
+        for label, kw in WIRING_ROUTES:
+            kw = dict(kw, max_new_tokens=WIRING_NEW)
+            if "attention_mask" in kw:
+                kw["attention_mask"] = ragged
+            pair = []
+            for m in (m_gpu, m_cpu):
+                t = torch.from_numpy(ids).to(m.device)
+                if mla and kw.get("paged"):
+                    try:
+                        m.generate(t, **kw)
+                    except NotImplementedError:
+                        pair.append("refused")
+                        continue
+                    raise AssertionError(f"phase 16 wiring {name}: paged "
+                                         "generate on MLA ran")
+                pair.append(m.generate(t, **kw).cpu().numpy())
+            if isinstance(pair[0], str):
+                got[label] = "refused on both"
+                continue
+            if not np.array_equal(pair[0], pair[1]):
+                raise AssertionError(f"phase 16 wiring {name} {label}: card "
+                                     f"tokens {pair[0].tolist()} != CPU "
+                                     f"{pair[1].tolist()}")
+            got[label] = pair[0].tolist()
+        prompts = [ids[0], ids[1, :WIRING_SHORT]]
+        eng = engine_tokens(m_gpu, prompts, WIRING_NEW, max_len=128)
+        for b, p in enumerate(prompts):
+            solo = m_gpu.generate(torch.from_numpy(p[None]).cuda(),
+                                  max_new_tokens=WIRING_NEW).cpu().numpy()
+            if not np.array_equal(eng[b], solo[0]):
+                raise AssertionError(f"phase 16 wiring {name}: engine tokens "
+                                     f"{eng[b].tolist()} != solo generate "
+                                     f"{solo[0].tolist()} (request {b})")
+        log(f"phase 16 wiring, {name}, 2 layers at full width, f32: card = "
+            f"CPU tokens for every route {json.dumps(got)}; engine = solo "
+            f"generate for both requests {eng.tolist()}")
+        del m_gpu, m_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 16 wiring took {time.perf_counter() - t0:.1f}s")
+
+
+def entry_on_card():
+    """``paddle_tpu_torch.entry.entry()`` on the card: one forward of the
+    entry model (4 layers, heads of 64), the flash kernel once per layer at
+    its (64, 64) instantiation; its logits against the same state's on the
+    CPU (plain versions) within 0.03 + 2^-7 |logit|; then the flash kernel
+    alone at the entry's attention shape against its plain version at the
+    attention tolerance. Returns the launch counts of the forward."""
+    import torch
+
+    from paddle_tpu_torch.entry import entry
+    from paddle_tpu_torch.ops.hopper import (flash_attention, launches,
+                                             reset_launches)
+
+    fwd, (state, ids) = entry()
+    reset_launches()
+    logits = fwd(state, ids)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    gen = torch.Generator("cuda").manual_seed(64)
+    q, k, v = (torch.randn(2, 128, h, 64, generator=gen, device="cuda").to(
+        torch.bfloat16) for h in (8, 4, 4))
+    err, kernel_ok = close_bf16(
+        flash_attention.flash_attention_bshd(q, k, v, causal=True),
+        flash_attention.flash_attention_plain(q, k, v, causal=True))
+    log(f"  flash_attention_bshd [2, 128, 8 | 4, 64] causal bf16: max abs "
+        f"err {err:.3e}, within |k - p| <= 2e-3 + 2^-7 |p|: {kernel_ok}")
+    if not kernel_ok:
+        raise AssertionError("flash_attention_bshd at width 64 disagrees "
+                             "with its plain version")
+    cpu_fwd, _ = entry("cpu")
+    ref = cpu_fwd({k: v.cpu() for k, v in state.items()}, ids.cpu())
+    diff = (logits.float().cpu() - ref.float()).abs()
+    ok = bool((diff <= 0.03 + 2.0 ** -7 * ref.float().abs()).all())
+    log(f"phase 16 entry: logits {tuple(logits.shape)} {logits.dtype}, card "
+        f"vs CPU max abs err {float(diff.max()):.4f} (tolerance 0.03 + 2^-7 "
+        f"|p|, |logits| <= {float(ref.float().abs().max()):.3f}); launches "
+        f"{json.dumps(counts)}")
+    if counts.get("flash_attention_bshd", 0) != 4:
+        raise AssertionError("entry: the flash kernel did not run once per "
+                             "layer")
+    if not (ok and bool(torch.isfinite(logits).all())):
+        raise AssertionError("entry: card logits disagree with the CPU's")
+    return counts
+
+
 def tensor_core_sass(lib) -> tuple:
     """(HMMA, HGMMA) instructions in a built library's SASS, from
     ``cuobjdump -sass``: mma.sync and wgmma products on the tensor cores."""
@@ -3001,6 +3454,10 @@ def main(argv=None) -> int:
     counts.update(functional_api())
     counts.update(ring_on_one_card())
     log(f"phases 14-15 took {time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    generate_wiring_check()
+    counts.update(entry_on_card())
 
     kernels = []
     for name in SOURCES:

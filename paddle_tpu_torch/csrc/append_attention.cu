@@ -18,10 +18,11 @@
 //   skip the per-element mask compare.
 //
 // Head widths: q/k width DQK and v width DV are template parameters,
-// instantiated at (128, 128), the Llama families' heads, and (192, 128),
+// instantiated at (128, 128), the Llama families' heads, (192, 128),
 // DeepSeek's MLA prefill (qk_nope 128 + qk_rope 64 against v 128, which
 // the TPU path zero-pads to 256 and 128 lanes; CUDA has no lane rule, so
-// the kernel takes the true widths and computes the same function).
+// the kernel takes the true widths and computes the same function), and
+// (64, 64), the entry model's heads (hidden 512 over 8 heads).
 //
 // Bound on the H100: at prefill (S = T = bucket) the work is the
 // 4 * D * (visible query/key pairs) operations of the two products, which
@@ -601,8 +602,8 @@ int launch_dtype(const void* q, const void* k, const void* v, const uint8_t* a, 
 }  // namespace
 
 // q [B, S, H, dqk]; k [B, T, hk, dqk]; v [B, T, hk, dv]; out [B, S, H, dv];
-// (dqk, dv) is (128, 128) or (192, 128); allowed [B, T] bytes or null;
-// lse [B, H, S] f32 or null; kind 0 = causal at pos (window 0), 1 = local
+// (dqk, dv) is (128, 128), (192, 128) or (64, 64); allowed [B, T] bytes
+// or null; lse [B, H, S] f32 or null; kind 0 = causal at pos (window 0), 1 = local
 // (window > 0: query s sees only columns pos + s - window < t <= pos + s),
 // 2 = full (window 0, pos not read). dtype: 0 = float32, 1 = bfloat16.
 // Returns cudaGetLastError() after launch, or cudaErrorInvalidValue for
@@ -625,6 +626,9 @@ extern "C" int pt_append_attention(const void* q, const void* k, const void* v,
   if (dqk == 192 && dv == 128)
     return launch_dtype<192, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
                                   scale, dtype, s);
+  if (dqk == 64 && dv == 64)
+    return launch_dtype<64, 64>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
+                                scale, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,21 +1,27 @@
-"""Cached attention, sampling and the serving step units.
+"""Cached attention, sampling, the step units and ``generate``.
 
-Counterpart of the parts of ``paddle_tpu/generation.py`` that
-``serving.ContinuousBatchEngine`` uses: rope at per-row positions, attention
-against a dense prefill cache (``cached_attention``) and the paged pool
-(``paged_cached_attention`` for one token or a speculative-verify chunk,
-``paged_decode_attention``), sampling, the prefill unit, the fused sample +
-forward decode units and the greedy speculative decode unit.
+Counterpart of the decoder-only parts of ``paddle_tpu/generation.py``: rope
+at per-row positions, attention against a dense cache (``cached_attention``)
+and the paged pool (``paged_cached_attention`` for one token or a
+speculative-verify chunk, ``paged_decode_attention``), sampling (with the
+repetition penalty, the eos block and the n-gram ban), the prefill units
+(one-shot and chunked), the decode units (one token, the fused sample +
+forward loop, the engine's per-row and speculative units, the beam step),
+and ``generate`` / ``generate_paged`` with greedy, sampled and beam
+decoding over dense, ragged, paged and chunked-prefill caches.
 
 There is no ``jit`` here: PyTorch runs eagerly, so the JAX package's jitted
-step objects become plain callables with the same inputs and outputs. Where
-JAX returns updated buffers functionally, the port writes the cache in
-place and says so.
+step objects become plain callables with the same inputs and outputs, and
+its ``lax.scan`` loops Python loops. Where JAX returns updated buffers
+functionally, the port writes the cache in place and says so. Where JAX
+folds a step index into a ``jax.random`` key, the port draws from one
+explicit ``torch.Generator`` (``framework.random.default_generator``).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .ops.hopper import fused_norm
@@ -280,17 +286,133 @@ def sample_logits_rows(logits, generator, do_sample, temperature, top_k,
     return torch.where(do_sample & (temperature > 1e-6), sampled, greedy)
 
 
+def top_p_sampling(x, ps, threshold=None, seed=None):
+    """``paddle.tensor.top_p_sampling`` (``generation.py:445``): nucleus
+    sample one token per row of probabilities ``x`` [B, V] with per-row
+    cutoffs ``ps`` [B]. ``seed`` >= 0 draws from a generator seeded with
+    it, else from the port's default generator on ``x``'s device;
+    ``threshold`` is accepted and unused, as in the JAX package. Returns
+    (scores [B], ids [B])."""
+    from .framework.random import default_generator
+
+    if seed is not None and seed >= 0:
+        generator = torch.Generator(device=x.device).manual_seed(int(seed))
+    else:
+        generator = default_generator(x.device)
+    probs = x.float()
+    logits = torch.log(torch.clamp(probs, min=1e-38))
+    srt = torch.sort(probs, dim=-1, descending=True).values
+    cum = torch.cumsum(srt, dim=-1)
+    keep = torch.cat([torch.ones_like(cum[..., :1], dtype=torch.bool),
+                      cum[..., :-1] < ps.float()[..., None]], dim=-1)
+    min_prob = torch.where(keep, srt, torch.full_like(srt, float("inf"))
+                           ).min(dim=-1, keepdim=True).values
+    filtered = logits.masked_fill(probs < min_prob, float("-inf"))
+    ids = _categorical(filtered, generator)
+    return torch.gather(probs, -1, ids[:, None])[:, 0], ids
+
+
+def _select(logits_last, generator, do_sample, temperature, top_k, top_p):
+    return sample_logits(logits_last, generator, do_sample=do_sample,
+                         temperature=temperature, top_k=top_k, top_p=top_p)
+
+
+def _select_penalized(logits_last, seen, generator, do_sample, temperature,
+                      top_k, top_p, rp, block_eos, eos_id):
+    """``_select`` with the HF repetition penalty (positive logits of seen
+    tokens divided by ``rp``, negative ones multiplied) and an optional
+    eos block (the ``min_new_tokens`` phase)."""
+    lg = logits_last.float()
+    if rp != 1.0:
+        pen = torch.where(lg > 0, lg / rp, lg * rp)
+        lg = torch.where(seen, pen, lg)
+    if block_eos:
+        lg = lg.clone()
+        lg[:, eos_id] = float("-inf")
+    return sample_logits(lg, generator, do_sample=do_sample,
+                         temperature=temperature, top_k=top_k, top_p=top_p)
+
+
+class _NgramBan:
+    """Incremental HF ``NoRepeatNGramLogitsProcessor`` (host code, exact):
+    per row, (n-1)-gram prefix -> set of banned completions, updated in
+    O(1) per appended token."""
+
+    def __init__(self, histories, n: int):
+        self.n = n
+        self.hist = [list(h) for h in histories]
+        self.maps = [{} for _ in self.hist]
+        for b, h in enumerate(self.hist):
+            for j in range(len(h) - n + 1):
+                self.maps[b].setdefault(tuple(h[j:j + n - 1]),
+                                        set()).add(h[j + n - 1])
+
+    def append(self, b: int, tok: int):
+        h = self.hist[b]
+        h.append(tok)
+        if len(h) >= self.n:
+            self.maps[b].setdefault(tuple(h[-self.n:-1]), set()).add(h[-1])
+
+    def banned(self, vocab: int):
+        """[B, V] numpy mask of the tokens that would complete an n-gram
+        each row has already seen after its current suffix."""
+        out = np.zeros((len(self.hist), vocab), bool)
+        for b, h in enumerate(self.hist):
+            if len(h) < self.n - 1 and self.n > 1:
+                continue
+            prefix = tuple(h[-(self.n - 1):]) if self.n > 1 else ()
+            for t in self.maps[b].get(prefix, ()):
+                out[b, t] = True
+        return out
+
+
+def _ngram_banned(histories, n, vocab):
+    """[B, V] mask (one-shot form; the decode loops keep a ``_NgramBan``)."""
+    return _NgramBan(histories, n).banned(vocab)
+
+
+def _select_next(last, seen, generator, do_sample, temperature, top_k,
+                 top_p, rp, i, min_new, eos_token_id):
+    """Next-token selection at step ``i``: the plain ``_select`` whenever
+    no penalty applies (rp == 1 and the eos-block phase is over), else
+    ``_select_penalized``."""
+    if rp == 1.0 and i >= min_new:
+        return _select(last, generator, do_sample, float(temperature),
+                       int(top_k), float(top_p))
+    if seen is None:
+        seen = torch.zeros(last.shape[0], 1, dtype=torch.bool,
+                           device=last.device)
+    return _select_penalized(
+        last, seen, generator, do_sample, float(temperature), int(top_k),
+        float(top_p), rp, i < min_new,
+        int(eos_token_id) if eos_token_id is not None else -1)
+
+
+def _seen_from_prompt(ids, vocab, pad_mask=None):
+    """[B, V] flag of the tokens present in each row's prompt (pad columns
+    excluded): the repetition penalty's working set."""
+    B, S0 = ids.shape
+    upd = (pad_mask[:, :S0].bool() if pad_mask is not None
+           else torch.ones(B, S0, dtype=torch.bool, device=ids.device))
+    # pad columns scatter into a spare column past the vocabulary
+    idx = torch.where(upd, ids.long(), vocab)
+    seen = torch.zeros(B, vocab + 1, dtype=torch.bool, device=ids.device)
+    seen.scatter_(1, idx, True)
+    return seen[:, :vocab]
+
+
 # ---------------------------------------------------------------------------
 # step units
 # ---------------------------------------------------------------------------
 
-def _empty_caches(model, batch, max_len, allowed=None):
-    """Fresh per-layer caches for a prefill (``generation.py:574-592``):
+def _empty_caches(model, batch, max_len, allowed=None, row_pos=None):
+    """Fresh per-layer caches for a prefill (``generation.py:565-592``):
     dense K/V, or the trunk's own layout where it has an
     ``empty_cache_layer`` hook (MLA's compressed latent). ``pos`` starts at
     the int 0 and ``prefill`` marks the first forward, which routes the
     unpadded prompt to the flash kernel; the attention's returned cache
-    leaves the marker out, so the first forward consumes it."""
+    leaves the marker out, so the first forward consumes it. ``allowed``
+    [B, max_len] and ``row_pos`` [B] are shared by every layer."""
     from .models.llama import head_dim_of, torch_dtype
 
     cfg = model.config
@@ -307,6 +429,8 @@ def _empty_caches(model, batch, max_len, allowed=None):
                  "pos": 0, "prefill": True}
         if allowed is not None:
             c["allowed"] = allowed
+        if row_pos is not None:
+            c["row_pos"] = row_pos
         caches.append(c)
     return caches
 
@@ -418,3 +542,638 @@ class _SpecDecodeStep:
             2, drafts.long()[:, :, None])[:, :, 0]
         lps = torch.cat([lp0[:, None], lpd], dim=1)
         return chunk, n_acc + 1, lps, new_last, caches
+
+
+class _DecodeStep:
+    """One cached forward for a generated token (``generation.py:631``):
+    embed, all layers (the caches written in place), lm-head logits.
+    Returns (logits [B, S, V], caches)."""
+
+    def __init__(self, model, max_len):
+        self._model, self._max_len = model, max_len
+
+    @torch.inference_mode()
+    def __call__(self, token, caches):
+        hidden, caches = self._model.llama.forward_cached(
+            token, caches, rope_len=self._max_len)
+        return self._model.lm_head_logits(hidden), caches
+
+
+class _ScanDecodeStep:
+    """The fixed-length decode loop (``generation.py:1166``): each of
+    ``steps`` steps samples from the carried logits and runs one cached
+    forward (``_sample_and_forward``). JAX scans it as one program; here it
+    is an eager loop with the same inputs and outputs, drawing from
+    ``generator`` in step order where JAX folds the step index into one
+    key. Returns (tokens [steps, B], the last logits [B, V], caches)."""
+
+    def __init__(self, model, max_len, steps, do_sample, temperature, top_k,
+                 top_p):
+        self._model, self._max_len, self._steps = model, max_len, steps
+        self._cfg = (do_sample, temperature, top_k, top_p)
+
+    @torch.inference_mode()
+    def __call__(self, last, generator, caches):
+        toks = []
+        for _ in range(self._steps):
+            nxt, _lp, last, caches = _sample_and_forward(
+                self._model, self._max_len, last, generator, caches,
+                *self._cfg)
+            toks.append(nxt)
+        return torch.stack(toks), last, caches
+
+
+class _ChunkedPrefillStep:
+    """Prefill over fixed-size prompt chunks (``generation.py:1062``): chunk
+    c writes cache slots [cC, cC + C) and attends to every earlier slot
+    through the cache's position and column masks, so the result is the
+    one-shot prefill's. The running last-real hidden [B, hidden] is carried
+    from chunk to chunk, as the JAX scan carries it, and only it reaches
+    the lm head.
+
+    Route: the caches carry no ``prefill`` marker and ``pos`` is an int,
+    so chunk 0 of an unpadded prompt (pos 0, no column mask) takes the
+    flash kernel, as ``cached_attention`` routes any unpadded pos-0 chunk,
+    and every later chunk (or every chunk of a padded prompt) the
+    append-attention kernel; windowed chunks past 0 take the f32 einsum.
+    The JAX scan carries a traced pos, so there every chunk takes
+    append attention; both routes are exact. Returns (last [B, V],
+    caches)."""
+
+    def __init__(self, model, max_len, chunk, n_chunks):
+        self._model, self._max_len = model, max_len
+        self._chunk, self._n = int(chunk), int(n_chunks)
+
+    @torch.inference_mode()
+    def __call__(self, ids_pad, lengths, allowed):
+        from .models.llama import torch_dtype
+
+        model, C = self._model, self._chunk
+        B = ids_pad.shape[0]
+        caches = _empty_caches(model, B, self._max_len, allowed=allowed)
+        for c in caches:
+            c.pop("prefill", None)
+        h_last = torch.zeros(B, model.config.hidden_size,
+                             dtype=torch_dtype(model.config.dtype),
+                             device=ids_pad.device)
+        for n in range(self._n):
+            hidden, caches = model.llama.forward_cached(
+                ids_pad[:, n * C:(n + 1) * C], caches,
+                rope_len=self._max_len)
+            idx = lengths.long() - 1 - n * C
+            in_chunk = (idx >= 0) & (idx < C)
+            picked = torch.gather(
+                hidden, 1, torch.clamp(idx, 0, C - 1)[:, None, None].expand(
+                    -1, 1, hidden.shape[-1]))[:, 0]
+            h_last = torch.where(in_chunk[:, None], picked, h_last)
+        return model.lm_head_logits(h_last[:, None, :])[:, 0, :], caches
+
+
+def _rows_match(a, n):
+    """True for tensors whose leading axis is the batch / beam rows: the
+    one predicate of beam tiling and of the beam-reorder take."""
+    return hasattr(a, "ndim") and a.ndim >= 1 and a.shape[0] == n
+
+
+class _BeamStep:
+    """Beam-search decode unit (``generation.py:736``): take the cache rows
+    each surviving beam came from (the buffers, and the ``allowed`` and
+    ``row_pos`` rows; ``index_select`` makes new buffers), run the cached
+    forward on the chosen tokens, return the next position's f32
+    log-probs [B*K, V] and the caches."""
+
+    def __init__(self, model, max_len):
+        self._model, self._max_len = model, max_len
+
+    @torch.inference_mode()
+    def __call__(self, token, row_idx, caches):
+        n = row_idx.shape[0]
+        caches = [{k: (torch.index_select(v, 0, row_idx)
+                       if _rows_match(v, n) else v) for k, v in c.items()}
+                  for c in caches]
+        hidden, caches = self._model.llama.forward_cached(
+            token, caches, rope_len=self._max_len)
+        logits = self._model.lm_head_logits(hidden)
+        return torch.log_softmax(logits[:, -1, :].float(), dim=-1), caches
+
+
+class _BeamHyps:
+    """Per-batch pool of finished hypotheses (HF ``BeamHypotheses``: scores
+    are sum-logprob / len**length_penalty over the generated tokens)."""
+
+    def __init__(self, k, length_penalty, early_stopping):
+        self.k, self.lp, self.early = k, length_penalty, early_stopping
+        self.items = []  # (score, tokens list)
+
+    def add(self, sum_logprob, tokens):
+        score = sum_logprob / (max(len(tokens), 1) ** self.lp)
+        self.items.append((score, tokens))
+        self.items.sort(key=lambda t: -t[0])
+        del self.items[self.k:]
+
+    def is_done(self, best_running_sum, cur_len):
+        if len(self.items) < self.k:
+            return False
+        if self.early:
+            return True
+        return (best_running_sum / (max(cur_len, 1) ** self.lp)
+                <= self.items[-1][0])
+
+
+def _beam_search(model, last, caches, max_len, max_new_tokens, num_beams,
+                 eos_token_id, length_penalty, early_stopping, rp=1.0,
+                 histories0=None, min_new=0, ngram=0):
+    """Host-scored beam search over the cached decode path
+    (``generation.py:792``): ``last`` / ``caches`` come from the B-row
+    prefill; the beams live as B*K cache rows, reordered by ``_BeamStep``.
+    One device-to-host copy of the log-probs per step. Returns [B, width]
+    int64 on the model's device."""
+    B = last.shape[0]
+    K = num_beams
+    caches = [{k: (torch.repeat_interleave(v, K, dim=0)
+                   if _rows_match(v, B) else v) for k, v in c.items()}
+              for c in caches]
+    step_fn = _BeamStep(model, max_len)
+    holder = {"caches": caches}
+    dev = last.device
+
+    def step(token, row_idx):
+        logp, holder["caches"] = step_fn(
+            token.to(dev), torch.from_numpy(row_idx).to(dev),
+            holder["caches"])
+        return logp.cpu().numpy()
+
+    logp0 = torch.log_softmax(last.float(), dim=-1).cpu().numpy()
+    arr = beam_search_loop(logp0, step, max_new_tokens, K, eos_token_id,
+                           length_penalty, early_stopping, rp=rp,
+                           histories0=histories0, min_new=min_new,
+                           ngram=ngram)
+    return torch.from_numpy(arr).to(dev)
+
+
+def beam_search_loop(logp0, step, max_new_tokens, num_beams, eos_token_id,
+                     length_penalty, early_stopping, rp=1.0, histories0=None,
+                     min_new=0, ngram=0):
+    """The host scoring loop of beam search (``generation.py:822``), apart
+    from the model: ``logp0`` np [B, V] log-probs of the first position,
+    ``step(token [B*K, 1] int64 CPU tensor, row_idx np [B*K]) -> np
+    [B*K, V]`` the next position's, the beam-origin reorder being the
+    step's own. numpy throughout, the JAX function's arithmetic and order,
+    so the two agree bit for bit on the same log-probs. Returns np
+    [B, width]."""
+    B, V = logp0.shape
+    K = num_beams
+    logp0 = np.repeat(logp0, K, axis=0).reshape(B, K, V)
+    # beam 0 seeds the search; the copies start at -inf so step 1's top-k
+    # cannot pick the same token K times
+    cum = np.full((B, K), -np.inf, np.float64)
+    cum[:, 0] = 0.0
+    hyps = [_BeamHyps(K, length_penalty, early_stopping) for _ in range(B)]
+    done = [False] * B
+    beams_tokens = [[[] for _ in range(K)] for _ in range(B)]
+    logp = logp0
+
+    # the prompts' n-gram maps are built once per row: each step hashes only
+    # the generated tail (and the boundary n-grams through the prompt's
+    # last n-1 tokens)
+    base_maps = ([_NgramBan([h], ngram) for h in histories0]
+                 if (ngram and histories0 is not None) else None)
+    prompt_sets = ([set(h) for h in histories0]
+                   if (rp != 1.0 and histories0 is not None) else None)
+
+    def _process(scores, step_i):
+        """HF beam-search processor order on the [B, K, V] scores."""
+        eos_active = bool(min_new and eos_token_id is not None
+                          and step_i < min_new)
+        if (histories0 is None and not eos_active) or all(done):
+            return scores
+        out = np.array(scores, np.float64)
+        for b in range(B):
+            if done[b] or histories0 is None:
+                continue
+            prompt = histories0[b]
+            tail = prompt[-(ngram - 1):] if ngram > 1 else []
+            for j in range(K):
+                gen = beams_tokens[b][j]
+                row = out[b, j]
+                if rp != 1.0 and (prompt or gen):
+                    idx = np.fromiter(prompt_sets[b] | set(gen), np.int64)
+                    vals = row[idx]
+                    row[idx] = np.where(vals < 0, vals * rp, vals / rp)
+                if ngram:
+                    hist = prompt + gen
+                    prefix = (tuple(hist[-(ngram - 1):]) if ngram > 1
+                              else ())
+                    banned = set(base_maps[b].maps[0].get(prefix, ()))
+                    banned |= _NgramBan([tail + gen], ngram).maps[0].get(
+                        prefix, set())
+                    if banned:
+                        row[list(banned)] = -np.inf
+        if eos_active:
+            out[:, :, eos_token_id] = -np.inf
+        return out
+
+    for i in range(max_new_tokens):
+        logp_p = _process(logp, i)
+        total = cum[:, :, None] + logp_p        # [B, K, V] float64 scores
+        flat = total.reshape(B, K * V)
+        # 2K candidates per batch row (eos hits may retire, HF convention)
+        part = np.argpartition(-flat, 2 * K - 1, axis=1)[:, : 2 * K]
+        order = np.argsort(-np.take_along_axis(flat, part, axis=1), axis=1)
+        top = np.take_along_axis(part, order, axis=1)
+        next_tokens = []
+        next_origin = []
+        next_cum = []
+        for b in range(B):
+            if done[b]:
+                next_tokens.append([0] * K)
+                next_origin.append([b * K] * K)
+                next_cum.append([-np.inf] * K)
+                continue
+            toks, orig, cums = [], [], []
+            for rank, cand in enumerate(top[b]):
+                beam, tok = divmod(int(cand), V)
+                score = flat[b, cand]
+                if eos_token_id is not None and tok == eos_token_id:
+                    if rank < K:  # only top-K eos candidates retire
+                        hyps[b].add(score, beams_tokens[b][beam] + [tok])
+                    continue
+                toks.append(tok)
+                orig.append(b * K + beam)
+                cums.append(score)
+                if len(toks) == K:
+                    break
+            next_tokens.append(toks)
+            next_origin.append(orig)
+            next_cum.append(cums)
+            beams_tokens[b] = [beams_tokens[b][orig[j] - b * K] +
+                               [toks[j]] for j in range(K)]
+            # HF passes the max over all 2K candidates (eos hits included)
+            # as the best running sum
+            if hyps[b].is_done(float(flat[b, top[b][0]]), i + 1):
+                done[b] = True
+        if all(done) or i == max_new_tokens - 1:
+            for b in range(B):
+                if not done[b] or not hyps[b].items:
+                    # flush the running beams at the length limit
+                    for j in range(K):
+                        if np.isfinite(next_cum[b][j]):
+                            hyps[b].add(next_cum[b][j], beams_tokens[b][j])
+            break
+        cum = np.asarray(next_cum, np.float64)
+        row_idx = np.asarray(next_origin, np.int32).reshape(-1)
+        token = torch.from_numpy(
+            np.asarray(next_tokens, np.int64).reshape(-1, 1))
+        logp = step(token, row_idx).reshape(B, K, V)
+
+    outs = []
+    for b in range(B):
+        if hyps[b].items:
+            outs.append(hyps[b].items[0][1])
+        else:  # no finished hypothesis: the best running beam
+            outs.append(beams_tokens[b][int(np.argmax(cum[b]))])
+    width = max(1, max(len(o) for o in outs))
+    fill = eos_token_id if eos_token_id is not None else 0
+    arr = np.full((B, width), fill, np.int64)
+    for b, o in enumerate(outs):
+        arr[b, : len(o)] = o
+    return arr
+
+
+# ---------------------------------------------------------------------------
+# generate
+# ---------------------------------------------------------------------------
+
+#: defaults of the decoder-only ``generate`` below: encoder-decoder
+#: families accept these keywords when passed at their default and raise
+#: only on another value
+GENERATE_DEFAULTS = {
+    "use_cache": True, "paged": False, "page_size": 16,
+    "prefill_chunk_size": None, "repetition_penalty": 1.0,
+    "min_new_tokens": 0, "num_beams": 1, "length_penalty": 1.0,
+    "early_stopping": False, "no_repeat_ngram_size": 0,
+}
+
+
+def reject_non_default_kwargs(family: str, kwargs: dict):
+    """Raise for unsupported ``generate`` keywords unless the caller passed
+    the shared default value."""
+    for k, v in kwargs.items():
+        if k in GENERATE_DEFAULTS and v == GENERATE_DEFAULTS[k]:
+            continue
+        raise NotImplementedError(
+            f"{family}.generate does not support {k}={v!r} (decoder-only "
+            "families carry the full strategy surface)")
+
+
+def _as_tensor(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.as_tensor(np.asarray(x), device=device)
+
+
+@torch.inference_mode()
+def generate(model, input_ids, max_new_tokens=20, do_sample=False,
+             temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+             use_cache=True, attention_mask=None, paged=False,
+             page_size=16, prefill_chunk_size=None,
+             repetition_penalty=1.0, min_new_tokens=0,
+             num_beams=1, length_penalty=1.0, early_stopping=False,
+             no_repeat_ngram_size=0):
+    """Batched autoregressive decode (``generation.py:1397``), on the
+    model's device; the arguments, strategies and refusals are the JAX
+    function's, raised in the same order.
+
+    ``repetition_penalty`` (HF semantics): logits of the tokens already in
+    the row (prompt and generated) are divided by it when positive,
+    multiplied when negative. ``min_new_tokens`` blocks ``eos_token_id``
+    for the first N generated tokens (needs eos). ``no_repeat_ngram_size=n``
+    bans the tokens that would repeat an n-gram of the row.
+
+    ``num_beams > 1`` runs beam search (greedy scoring over K beams a row,
+    HF semantics: 2K candidates a step, eos hits retire into a pool scored
+    by sum-logprob / len**length_penalty) and returns each row's best
+    hypothesis.
+
+    ``attention_mask`` [B, S0] (1 = real token; right- or left-padded rows,
+    left pads rolled to the internal right-padded layout) makes ragged
+    batches exact: pad columns are never attended, RoPE continues from each
+    row's true length, the first token reads each row's last real logit.
+
+    ``prefill_chunk_size``: the prompt runs as a loop over fixed-size
+    chunks (``_ChunkedPrefillStep``); the output equals the one-shot
+    prefill's.
+
+    ``paged``: the prefilled caches are re-laid into pages of
+    ``page_size`` and decode runs over the paged pool (not for MLA's
+    latent caches, nor for beams).
+
+    Sampling draws from the port's default generator on the model's device
+    (``framework.random``). The whole call runs under one
+    ``torch.inference_mode()``: the caches the prefill makes are written in
+    place by every decode step. Returns the generated ids [B, <=
+    max_new_tokens] (prompt excluded) on the model's device; stops early
+    only when every row has emitted eos."""
+    from .framework.random import default_generator
+
+    dev = model.device
+    ids = _as_tensor(input_ids, dev)
+    B, S0 = ids.shape
+    cfg = model.config
+    if max_new_tokens <= 0:
+        return torch.zeros(B, 0, dtype=ids.dtype, device=dev)
+    rp = float(repetition_penalty)
+    if rp <= 0:
+        raise ValueError("repetition_penalty must be positive")
+    min_new = int(min_new_tokens)
+    if min_new > 0 and eos_token_id is None:
+        raise ValueError("min_new_tokens requires eos_token_id (it only "
+                         "delays the eos stop)")
+    ngram = int(no_repeat_ngram_size)
+    penalized = rp != 1.0 or min_new > 0 or ngram > 0
+    if paged and getattr(model.llama, "empty_cache_layer", None) is not None:
+        # before the prefill: the paged layout needs per-head k/v caches
+        raise NotImplementedError(
+            "the paged KV layout needs per-head k/v caches; MLA latent "
+            "caches (c_kv/k_pe) decode through the dense buffer path "
+            "(paged=False)")
+    num_beams = int(num_beams)
+    if num_beams > 1:
+        if do_sample:
+            raise NotImplementedError(
+                "beam search with do_sample=True (beam sampling) is not "
+                "supported; use num_beams>1 with do_sample=False")
+        if paged:
+            raise NotImplementedError(
+                "beam search over the paged KV layout is not supported; "
+                "use paged=False (beams reorder dense cache rows)")
+        if not use_cache:
+            raise NotImplementedError("beam search needs use_cache=True")
+    chunk = int(prefill_chunk_size) if prefill_chunk_size else 0
+    if chunk:
+        if not use_cache:
+            raise NotImplementedError(
+                "prefill_chunk_size needs the cached path (use_cache=True)")
+        n_chunks = -(-S0 // chunk)
+        prompt_pad = n_chunks * chunk   # cache slots the padded prompt uses
+    else:
+        prompt_pad = S0
+    max_len = prompt_pad + max_new_tokens
+    if paged:
+        max_len = -(-max_len // page_size) * page_size
+    if max_len > cfg.max_position_embeddings:
+        raise ValueError(
+            f"generate: prompt+new tokens {max_len} exceeds "
+            f"max_position_embeddings {cfg.max_position_embeddings}")
+
+    pad_mask = None
+    lengths = torch.full((B,), S0, dtype=torch.int32, device=dev)
+    if attention_mask is not None:
+        if not use_cache:
+            raise NotImplementedError(
+                "generate(use_cache=False) ignores attention_mask; use the "
+                "cached path for padded prompts")
+        am = _as_tensor(attention_mask, dev)
+        lengths = am.to(torch.int32).sum(1).to(torch.int32)
+        # the internal layout is right-padded (each row's real tokens a
+        # prefix); left-padded rows roll their suffix to the front, which
+        # leaves the generated tokens unchanged; interior holes fail
+        cols = torch.arange(S0, device=dev)[None, :]
+        prefix = cols < lengths[:, None]
+        amb = am.bool()
+        if bool((amb != prefix).any()):
+            suffix = cols >= (S0 - lengths)[:, None]
+            is_prefix = (amb == prefix).all(dim=1)
+            is_suffix = (amb == suffix).all(dim=1)
+            if not bool((is_prefix | is_suffix).all()):
+                raise ValueError(
+                    "generate(attention_mask=...) expects right- or "
+                    "left-padded prompts (contiguous real tokens); got a "
+                    "mask with interior holes.")
+            shifts = torch.where(is_prefix, 0, S0 - lengths)[:, None]
+            idx = (cols + shifts) % S0
+            ids = torch.gather(ids, 1, idx.long())
+            am = torch.gather(am, 1, idx.long())
+        if bool((lengths < 1).any()):
+            raise ValueError(
+                "generate(attention_mask=...): every row needs at least one "
+                "real token — an all-zero mask row would decode from a pad "
+                "position's logits")
+        pad_mask = torch.cat(
+            [am.bool(), torch.ones(B, max_len - S0, dtype=torch.bool,
+                                   device=dev)], dim=1)
+
+    generator = default_generator(dev)
+    if not use_cache:
+        return _generate_no_cache(model, ids, max_new_tokens, do_sample,
+                                  temperature, top_k, top_p, eos_token_id,
+                                  rp=rp, min_new=min_new, ngram=ngram,
+                                  generator=generator)
+
+    # prefill: the cache fill and each row's last real logit
+    if chunk:
+        if pad_mask is not None or prompt_pad != S0:
+            # chunked prompts are internally ragged: the pad columns between
+            # each row's length and the padded prompt are never attended,
+            # and decode RoPE continues per row
+            am_eff = (pad_mask[:, :S0] if pad_mask is not None
+                      else torch.ones(B, S0, dtype=torch.bool, device=dev))
+            pad_mask = torch.cat(
+                [am_eff,
+                 torch.zeros(B, prompt_pad - S0, dtype=torch.bool,
+                             device=dev),
+                 torch.ones(B, max_len - prompt_pad, dtype=torch.bool,
+                            device=dev)], dim=1)
+        ids_pad = torch.cat(
+            [ids, torch.zeros(B, prompt_pad - S0, dtype=ids.dtype,
+                              device=dev)], dim=1)
+        last, caches = _ChunkedPrefillStep(model, max_len, chunk,
+                                           n_chunks)(ids_pad, lengths,
+                                                     pad_mask)
+    else:
+        last, caches = _PrefillStep(model, max_len, pad_mask is not None)(
+            ids, lengths, pad_mask)
+
+    if paged:
+        caches = _caches_to_paged(caches, page_size, lengths, pad_mask)
+
+    # per-row RoPE positions of the generated tokens (ragged rows continue
+    # at their true lengths)
+    if pad_mask is not None and not paged:
+        for c in caches:
+            c["row_pos"] = lengths
+
+    if num_beams > 1:
+        histories0 = None
+        if rp != 1.0 or ngram > 0:
+            ids_np, lens_np = ids.cpu().numpy(), lengths.cpu().numpy()
+            histories0 = [list(map(int, ids_np[b, : lens_np[b]]))
+                          for b in range(B)]
+        return _beam_search(model, last, caches, max_len, max_new_tokens,
+                            num_beams, eos_token_id, float(length_penalty),
+                            bool(early_stopping), rp=rp,
+                            histories0=histories0, min_new=min_new,
+                            ngram=ngram)
+
+    if eos_token_id is None and max_new_tokens > 1 and not penalized:
+        # fixed length: the sample -> forward loop, then a final sample
+        scan = _ScanDecodeStep(model, max_len, max_new_tokens - 1, do_sample,
+                               float(temperature), int(top_k), float(top_p))
+        toks, last, caches = scan(last, generator, caches)
+        final = _select(last, generator, do_sample, float(temperature),
+                        int(top_k), float(top_p))
+        return torch.cat([toks.t().to(ids.dtype),
+                          final.reshape(B, 1).to(ids.dtype)], dim=1)
+
+    step = _DecodeStep(model, max_len)
+    finished = torch.zeros(B, dtype=torch.bool, device=dev)
+    seen = (_seen_from_prompt(ids, cfg.vocab_size, pad_mask)
+            if rp != 1.0 else None)
+    tracker = None
+    if ngram > 0:
+        ids_np, lens_np = ids.cpu().numpy(), lengths.cpu().numpy()
+        tracker = _NgramBan(
+            [list(ids_np[b, : lens_np[b]]) for b in range(B)], ngram)
+    out_tokens = []
+    for i in range(max_new_tokens):
+        last, nxt, finished = _next_token(
+            last, seen, tracker, finished, generator, cfg.vocab_size,
+            do_sample, temperature, top_k, top_p, rp, i, min_new,
+            eos_token_id)
+        out_tokens.append(nxt.reshape(B, 1).to(ids.dtype))
+        if i == max_new_tokens - 1 or (
+                eos_token_id is not None and bool(finished.all())):
+            break
+        logits, caches = step(out_tokens[-1], caches)
+        last = logits[:, -1, :]
+    return torch.cat(out_tokens, dim=1)
+
+
+def _next_token(last, seen, tracker, finished, generator, vocab, do_sample,
+                temperature, top_k, top_p, rp, i, min_new, eos_token_id):
+    """One step of the host decode loops (cached and no-cache): the n-gram
+    ban, the selection, the eos fill of finished rows, and the seen set and
+    n-gram tracker updated in place. Returns (last, token [B],
+    finished)."""
+    B = last.shape[0]
+    if tracker is not None:
+        banned = tracker.banned(vocab)
+        if banned.any():  # no transfer on a no-op step
+            last = torch.where(torch.from_numpy(banned).to(last.device),
+                               float("-inf"), last.float())
+    nxt = _select_next(last, seen, generator, do_sample, temperature, top_k,
+                       top_p, rp, i, min_new, eos_token_id)
+    if eos_token_id is not None:
+        nxt = torch.where(finished, eos_token_id, nxt)
+        finished = finished | (nxt == eos_token_id)
+    if seen is not None:
+        seen[torch.arange(B, device=seen.device), nxt] = True
+    if tracker is not None:
+        for b, t in enumerate(nxt.cpu().numpy()):
+            tracker.append(b, int(t))
+    return last, nxt, finished
+
+
+def _generate_no_cache(model, ids, max_new_tokens, do_sample, temperature,
+                       top_k, top_p, eos_token_id, rp=1.0, min_new=0,
+                       ngram=0, generator=None):
+    """``use_cache=False`` (``generation.py:1633``): the non-cached forward
+    over the whole sequence for every token. ``generator`` defaults to the
+    port's default generator on ``ids``' device."""
+    from .framework.random import default_generator
+
+    generator = generator or default_generator(ids.device)
+    B = ids.shape[0]
+    vocab = model.config.vocab_size
+    finished = torch.zeros(B, dtype=torch.bool, device=ids.device)
+    seen = _seen_from_prompt(ids, vocab) if rp != 1.0 else None
+    tracker = (_NgramBan([list(r) for r in ids.cpu().numpy()], ngram)
+               if ngram > 0 else None)
+    out_tokens = []
+    full = ids
+    for i in range(max_new_tokens):
+        hidden = model.llama(full)
+        last = model.lm_head_logits(hidden)[:, -1, :]
+        last, nxt, finished = _next_token(
+            last, seen, tracker, finished, generator, vocab, do_sample,
+            temperature, top_k, top_p, rp, i, min_new, eos_token_id)
+        out_tokens.append(nxt.reshape(B, 1).to(ids.dtype))
+        full = torch.cat([full, out_tokens[-1]], dim=1)
+        if eos_token_id is not None and bool(finished.all()):
+            break
+    return torch.cat(out_tokens, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# paged cache construction
+# ---------------------------------------------------------------------------
+
+def _caches_to_paged(caches, page_size, lengths, pad_mask):
+    """Re-lay dense prefilled buffers [B, max_len, hk, D] into paged dicts
+    (``generation.py:1674``): pools [hk, B * pages per row, page_size, D],
+    row b owning pages [b * pps, (b + 1) * pps) through a contiguous page
+    table. ``lengths`` [B] are each row's valid tokens; the right-pad
+    garbage above them is never attended and is overwritten by decode."""
+    k0 = caches[0]["k"]
+    B, max_len, hk, D = k0.shape
+    pps = max_len // page_size
+
+    def to_pages(buf):
+        p = buf.reshape(B, pps, page_size, hk, D)
+        return p.movedim(3, 0).reshape(hk, B * pps, page_size,
+                                       D).contiguous()
+
+    page_indices = torch.arange(B * pps, dtype=torch.int32,
+                                device=k0.device).reshape(B, pps)
+    lengths = lengths.to(torch.int32)
+    return [{"k_pages": to_pages(c["k"]), "v_pages": to_pages(c["v"]),
+             "page_indices": page_indices, "lengths": lengths,
+             "page_size": page_size} for c in caches]
+
+
+def generate_paged(model, input_ids, max_new_tokens=20, page_size=16,
+                   **kwargs):
+    """Paged-KV decode (``generation.py:1705``): ``generate`` with the
+    paged cache layout."""
+    return generate(model, input_ids, max_new_tokens=max_new_tokens,
+                    paged=True, page_size=page_size, **kwargs)

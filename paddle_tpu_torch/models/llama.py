@@ -8,7 +8,8 @@ fused RoPE, then causal or sliding-window flash attention), the gated MLP,
 the decoder layer on the discrete path, ``LlamaModel.forward`` /
 ``forward_cached``, the causal-LM head, ``LlamaForCausalLM.forward`` with
 labels (the chunked fused lm-head + cross-entropy, or the logits and
-``causal_lm_loss``), and the fused decode tail behind
+``causal_lm_loss``), ``LlamaForCausalLM.generate``, and the fused decode
+tail behind
 ``FLAGS_use_fused_decode_tail`` (two kernels per layer for a decode step
 or a paged speculative-verify chunk). Not ported:
 context parallelism (the port has no process group), attention
@@ -618,6 +619,30 @@ class LlamaForCausalLM(tnn.Module):
         if self.lm_head is None:
             return torch.matmul(hidden, self.llama.embed_tokens.weight.t())
         return self.lm_head(hidden)
+
+    def generate(self, input_ids, max_new_tokens=20, do_sample=False,
+                 temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+                 use_cache=True, attention_mask=None, paged=False,
+                 page_size=16, prefill_chunk_size=None,
+                 repetition_penalty=1.0, min_new_tokens=0,
+                 num_beams=1, length_penalty=1.0, early_stopping=False,
+                 no_repeat_ngram_size=0):
+        """Batched autoregressive decode (see ``generation.generate``;
+        ``llama.py:1012-1032``). The MoE, Mistral and DeepSeek families
+        inherit it."""
+        from ..generation import generate as _generate
+
+        return _generate(self, input_ids, max_new_tokens=max_new_tokens,
+                         do_sample=do_sample, temperature=temperature,
+                         top_k=top_k, top_p=top_p, eos_token_id=eos_token_id,
+                         use_cache=use_cache, attention_mask=attention_mask,
+                         paged=paged, page_size=page_size,
+                         prefill_chunk_size=prefill_chunk_size,
+                         repetition_penalty=repetition_penalty,
+                         min_new_tokens=min_new_tokens, num_beams=num_beams,
+                         length_penalty=length_penalty,
+                         early_stopping=early_stopping,
+                         no_repeat_ngram_size=no_repeat_ngram_size)
 
     def forward(self, input_ids, labels=None):
         """Logits without labels; with labels (loss, None) through the fused

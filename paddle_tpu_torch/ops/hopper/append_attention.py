@@ -12,8 +12,8 @@ The kernel also runs the causal, sliding-window and full-mask forward of
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
 kernel or raises. The kernel takes float32 / bfloat16 and head widths
-(q/k, v) of (128, 128), or (192, 128) for DeepSeek's MLA prefill through
-the flash forward.
+(q/k, v) of (128, 128), or (192, 128) for DeepSeek's MLA prefill and
+(64, 64) for the entry model (``entry.py``) through the flash forward.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from . import _build
 _STEM = "append_attention"
 HEAD_DIM = 128
 # (q/k width, v width) pairs the kernel is instantiated at
-WIDTHS = ((128, 128), (192, 128))
+WIDTHS = ((128, 128), (192, 128), (64, 64))
+MLA_WIDTH = 192
 # the splash masks the kernel takes, by their code in the C interface
 KINDS = {"causal": 0, "local": 1, "full": 2}
 

@@ -28,9 +28,13 @@ at q/k width 192 and v width 128, causal without a window, with its
 counted as ``flash_attention_mla``, and the backward kernels at theirs,
 counted as ``flash_attention_mla_bwd`` (DeepSeek training). JAX zero-pads
 those to 256 / 128 lanes for the TPU (``deepseek.py:125-143``); the
-function is the same. A window or the full mask at width 192 raises, and
-so does any other width (256, 384, ... pass ``supported`` but have no
-kernel): no model needs them.
+function is the same. The entry model's heads of 64 (``entry.py``, a
+forward only) take the causal forward kernel at its (64, 64)
+instantiation, counted as ``flash_attention_bshd``; an input that needs a
+gradient at that width raises, as there is no backward kernel for it. A
+window or the full mask at a width other than 128 raises, and so does any
+other width (256, 384, ... pass ``supported`` but have no kernel): no
+model needs them.
 
 When an input needs a gradient the forward also writes the f32
 logsumexp, and the backward runs the dq / dk / dv kernels, as splash's
@@ -53,6 +57,8 @@ from . import append_attention as _append
 _STEM = "flash_attention"
 # the masks of one ring hop (``splash_hop``)
 HOP_KINDS = ("full", "causal", "local")
+# (q/k width, v width) pairs the backward kernels are instantiated at
+BWD_WIDTHS = ((128, 128), (192, 128))
 
 
 def supported(q, k, v, dropout: float = 0.0, interpret: bool = False) -> bool:
@@ -127,7 +133,7 @@ def _counters(window, d_qk=_append.HEAD_DIM, full=False):
     """(forward, backward) launch counters of a mask (and head width)."""
     if full:
         return "flash_attention_full", "flash_attention_full_bwd"
-    if d_qk != _append.HEAD_DIM:
+    if d_qk == _append.MLA_WIDTH:
         return "flash_attention_mla", "flash_attention_mla_bwd"
     if window is None:
         return "flash_attention_bshd", "flash_attention_bwd"
@@ -146,9 +152,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale, window=None,
     code = _build.dtype_code(q)
     B, S, H, D = q.shape
     T, hk, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    _build.require((D, Dv) in _append.WIDTHS,
+    _build.require((D, Dv) in BWD_WIDTHS,
                    f"flash_attention_bwd: the kernel takes (q/k, v) head "
-                   f"widths {_append.WIDTHS}, got ({D}, {Dv})")
+                   f"widths {BWD_WIDTHS}, got ({D}, {Dv})")
     _build.require((window is None and not full) or D == _append.HEAD_DIM,
                    f"flash_attention_bwd: a window or the full mask at head "
                    f"width {_append.HEAD_DIM} only")
@@ -265,6 +271,8 @@ def flash_attention_bshd(q, k, v, causal: bool = False,
             "flash_attention_bshd on CUDA takes a window at head width "
             f"{_append.HEAD_DIM} only, got q/k {d_qk}, v {v.shape[-1]}")
     if _build.needs_grad(q, k, v):
+        _require_width("flash_attention_bshd under autograd", q, v,
+                       BWD_WIDTHS)
         return _FlashCausal.apply(q, k, v, scale, window)
     return _append.launch(q, k, v, s_kv - s_q, None, scale,
                           _counters(window, d_qk)[0], window=window)

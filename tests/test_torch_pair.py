@@ -52,6 +52,29 @@ def build_pair(max_len=128, seed=0, **overrides):
     return jax_model, port_model, state
 
 
+def generate_max_len(prompt_len, max_new_tokens, prefill_chunk_size=None,
+                     paged=False, page_size=16, **_):
+    """The cache length ``generate`` computes: the prompt (padded up to
+    whole chunks) plus the new tokens, rounded up to whole pages when
+    paged."""
+    chunk = int(prefill_chunk_size or 0)
+    prompt = -(-prompt_len // chunk) * chunk if chunk else prompt_len
+    max_len = prompt + max_new_tokens
+    return -(-max_len // page_size) * page_size if paged else max_len
+
+
+def jax_generate(jax_model, ids, **kw):
+    """The JAX ``model.generate`` as numpy, its rope table first built
+    eagerly at the ``max_len`` that call computes (see ``build_pair``: a
+    table first built inside a jitted prefill would be memoised as a
+    tracer)."""
+    jax_model.llama._rope(generate_max_len(np.asarray(ids).shape[1], **kw))
+    am = kw.pop("attention_mask", None)
+    if am is not None:
+        kw["attention_mask"] = jnp.asarray(am)
+    return np.asarray(jax_model.generate(jnp.asarray(ids), **kw).numpy())
+
+
 def mix_prompts(seed=0, lengths=(5, 16, 32, 40, 64), vocab=512):
     rng = np.random.RandomState(seed)
     return [rng.randint(0, vocab, size=n).astype(np.int32) for n in lengths]
