@@ -168,7 +168,34 @@ Phases (any failure raises, so the script exits non-zero):
    paged, chunked, no-cache and 4-beam runs, and the engine's tokens =
    solo ``generate`` on the card; and ``entry.py``'s forward on the card
    (the flash kernel at width 64 once per layer, logits against the CPU's).
-17. The kernels line, then the card line, then the result line
+17. Graphs (run inside phases 3 and 10, before each model is freed).
+   Every step unit the main paths call is a CUDA graph: captured at its
+   first call per input signature, replayed at every call
+   (``paddle_tpu_torch/jit/cuda_graph.py``), so phases 3, 4, 7, 9, 10,
+   11 and 16 run graphed, and the f32 wiring checks hold the card's
+   graphs against the CPU's eager bodies. Phase 17 holds the graphs
+   against the same runs through the eager bodies (``unit.eager``):
+   phase 3's engine runs (tail off and on, tokens and launch counts;
+   speculative k = 4), phase 10's latent engine, phase 16's runs a, b, d,
+   e, f and g, a penalised ``generate`` (the forward-only unit) and a
+   seeded sampled engine (engine-wide settings, then per-row overrides)
+   must give identical tokens. It logs each unit's captures, replays and
+   capture seconds and the model's graph pool, the decode ms a forward of
+   runs a, f and g graph against eager in turns, and the wall ms of a
+   decode step graph against eager in turns (3 pairs of 10 steps) beside
+   each one's busy ms from ``torch.profiler`` (a trace of 5 steps) and
+   the busy share: Llama-3-8B
+   at 8 x 512, tail off and on, and DeepSeek-V2-Lite at 8 x 1024. Each
+   traced run holds the launches the wrappers counted against the kernels
+   the trace shows, by kernel name (``traced_run``), exactly for the
+   graphs: inside replays the counts are the capture's, added at each
+   replay (an eager difference is logged). Run a's
+   batch at a second prompt length with the same max_len must capture no
+   second decode graph, and the graph pool must grow by less than one
+   set of its dense caches (the prefill writes kept buffers in place).
+   Phase 7 logs Mistral-7B's units and its graph pool after both engine
+   runs, beside the memory reserved and the engine's KV pool.
+18. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -177,6 +204,7 @@ code 2 and prints no result when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import re
@@ -496,6 +524,8 @@ def check_kernels(results):
         out = append_attention.append_attention(q, k, v, pos, allowed)
         ref = append_attention.append_attention_plain(q, k, v, pos, allowed)
         err, ok = close_bf16(out, ref)
+        check_device_pos(q, k, v, pos, allowed, out,
+                         f"S={S} T={T} pos={pos} allowed={n_valid}")
         cols = torch.arange(T, device=dev)
         vis = cols[None, :] <= (pos + torch.arange(S, device=dev))[:, None]
         if allowed is not None:
@@ -569,6 +599,27 @@ DECODE_PROMPTS = (1024, 700, 257, 33)
 DECODE_COLD_BYTES = 120e6
 
 
+def check_device_pos(q, k, v, pos, allowed, out, label):
+    """``append_attention`` with ``pos`` as a device int32 (the dense
+    caches' ``pos``, read by the kernel at entry through ``pos_dev``):
+    against its plain version at the attention tolerance, and the same
+    bits as the launch with the host int ``pos`` (``out``)."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import append_attention
+
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=q.device)
+    got = append_attention.append_attention(q, k, v, pos_t, allowed)
+    err, ok = close_bf16(got, append_attention.append_attention_plain(
+        q, k, v, pos_t, allowed))
+    same = bool(torch.equal(got, out))
+    log(f"  append_attention {label}, device pos: max_abs_err={err:.3e} "
+        f"ok={ok}; the host int's bits: {same}")
+    if not (ok and same):
+        raise AssertionError(f"append_attention {label}: the device pos "
+                             "disagrees")
+
+
 def check_append_decode_rows(record):
     """``append_attention`` at the dense decode shape of ``generate`` (S 1,
     B 4, 32 | 8 heads of 128, pos 1040 of T 1056), with no column mask and
@@ -607,6 +658,8 @@ def check_append_decode_rows(record):
         out = append_attention.append_attention(q, k, v, pos, allowed)
         ref = append_attention.append_attention_plain(q, k, v, pos, allowed)
         err, ok = close_bf16(out, ref)
+        check_device_pos(q, k, v, pos, allowed, out, f"decode B={B} pos={pos}"
+                         + (" allowed" if allowed is not None else ""))
         qt = q.transpose(1, 2).contiguous()
         lib_bufs = [tuple(t.transpose(1, 2).contiguous() for t in kv)
                     for kv in bufs]
@@ -1915,11 +1968,14 @@ def serve_full_width(profile=False):
         f"launches")
     del runs
 
-    spec_counts = serve_speculative(model, card)
-    gen_counts = generate_full_width(model, card)
+    spec_counts, spec_out = serve_speculative(model, card)
+    gen_counts, gen_runs, gen_toks = generate_full_width(model, card)
+    graphs_llama(model, card, prompts, news, off, on, spec_out, gen_runs,
+                 gen_toks)
     if profile:
         profile_decode(model, card)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     total = Counter(off[0])
     total.update(on[0])
@@ -1932,7 +1988,8 @@ def serve_speculative(model, card):
     """Speculative serving, fused tail on, k = SPEC_K: eight greedy requests
     whose prompts repeat a seeded 16-token pattern. The fused kernels'
     row counts are recorded by wrapping the two module functions the model
-    calls (the launch counts stay the wrappers' own)."""
+    calls (the launch counts stay the wrappers' own). Returns (counts,
+    outputs)."""
     from paddle_tpu_torch.ops.hopper import decode_tail
 
     rows = {"fused_qkv_rope": Counter(), "fused_epilogue": Counter()}
@@ -1944,14 +2001,11 @@ def serve_speculative(model, card):
             return real[name](first, *a, **kw)
         return call
 
-    rng = np.random.RandomState(7)
-    prompts = [np.tile(rng.randint(0, model.config.vocab_size, size=16), 16)
-               for _ in range(8)]
-    news = [64] * 8
+    prompts, news = spec_prompts(model.config.vocab_size)
     try:
         for name in rows:
             setattr(decode_tail, name, spy(name))
-        counts, stats, step_ms, _, _ = serve_run(
+        counts, stats, step_ms, _, outputs = serve_run(
             model, card, f"speculative k={SPEC_K}, flag on", prompts, news,
             True, speculative_k=SPEC_K)
     finally:
@@ -1978,7 +2032,15 @@ def serve_speculative(model, card):
                                  "on the speculative path")
     if stats["spec_dispatches"] != stats["decode_steps"]:
         raise AssertionError("a greedy speculative run took one-token steps")
-    return counts
+    return counts, outputs
+
+
+def spec_prompts(vocab):
+    """Eight prompts that repeat a seeded 16-token pattern, 64 new tokens
+    each: speculation's main path."""
+    rng = np.random.RandomState(7)
+    return ([np.tile(rng.randint(0, vocab, size=16), 16) for _ in range(8)],
+            [64] * 8)
 
 
 def require_launched(counts, names, path):
@@ -2427,6 +2489,7 @@ def serve_mistral(profile=False):
     import torch
 
     from paddle_tpu_torch.models import MistralForCausalLM
+    from paddle_tpu_torch.models.llama import head_dim_of
 
     cfg = mistral_config()
     n_layers = cfg.num_hidden_layers
@@ -2465,9 +2528,20 @@ def serve_mistral(profile=False):
                                      f"{n} ({steps} decode steps)")
         require_launched(counts, ("rms_norm", "add_rms_norm"), label)
         total.update(counts)
+    log_units(model, card, "Mistral-7B", ("_prefill_steps",
+                                          "_select_decode_steps"))
+    kv = (2 * n_layers * 4 * 12288 * cfg.num_key_value_heads
+          * head_dim_of(cfg) * 2)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  [{card}] phase 7 Mistral-7B after both engine runs: memory "
+        f"reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB, "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"(weights {weights / 2**30:.2f} GiB); an engine's paged KV pool at "
+        f"4 x 12288 takes {kv / 2**30:.2f} GiB")
     if profile:
         profile_decode(model, card, slots=4, max_len=12288, prompt=8192)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     return total
 
@@ -2613,7 +2687,7 @@ def serve_deepseek(profile=False):
     prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in DEEPSEEK_LENS]
     news = [DEEPSEEK_NEW] * len(prompts)
     n_exact = sum(1 for n in DEEPSEEK_LENS if n >= 16 and n & (n - 1) == 0)
-    counts, stats, _, _, _ = serve_run(
+    counts, stats, _, _, outputs = serve_run(
         model, card, "DeepSeek-V2-Lite", prompts, news, False,
         log_prefills=True, max_batch=8, max_len=4096)
     steps = stats["decode_steps"]
@@ -2629,10 +2703,13 @@ def serve_deepseek(profile=False):
                                  "prefills)")
     require_launched(counts, ("rms_norm", "add_rms_norm"), "DeepSeek serving")
     counts = Counter(counts)
-    counts.update(generate_deepseek(model, card))
+    gen_counts, gen_runs, gen_toks = generate_deepseek(model, card)
+    counts.update(gen_counts)
+    graphs_deepseek(model, card, prompts, news, outputs, gen_runs, gen_toks)
     if profile:
         profile_decode(model, card, slots=8, max_len=4096, prompt=1024)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
@@ -2991,7 +3068,8 @@ class _PrefillClock:
 
         self.ms, self._real = [], {}
         for cls in (generation._PrefillStep, generation._ChunkedPrefillStep):
-            real = self._real[cls] = cls.__call__
+            real = cls.__call__
+            self._real[cls] = real if "__call__" in cls.__dict__ else None
 
             def timed(unit, *a, _real=real, **k):
                 torch.cuda.synchronize()
@@ -3006,7 +3084,10 @@ class _PrefillClock:
 
     def __exit__(self, *exc):
         for cls, real in self._real.items():
-            cls.__call__ = real
+            if real is None:    # inherited (a graphed unit's __call__)
+                del cls.__call__
+            else:
+                cls.__call__ = real
 
 
 def generate_run(model, card, label, ids, want, fused=False, **kw):
@@ -3015,7 +3096,7 @@ def generate_run(model, card, label, ids, want, fused=False, **kw):
     exactly and the norm kernels launched; tokens in range and of the
     asked length. Logs the prefill ms, decode ms per forward (host clock
     around synchronised calls), tokens/s and peak memory. Returns (tokens
-    [B, N] numpy, counts)."""
+    [B, N] numpy, counts, decode ms per forward)."""
     import torch
 
     from paddle_tpu_torch.ops.hopper import launches, reset_launches
@@ -3052,7 +3133,7 @@ def generate_run(model, card, label, ids, want, fused=False, **kw):
         f"{B * n_new / (total / 1e3):.1f} tokens/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"  launches (phase 16 {label}): {json.dumps(counts)}")
-    return toks, counts
+    return toks, counts, dec / (n_new - 1)
 
 
 def engine_tokens(model, prompts, n_new, max_len=2048):
@@ -3071,7 +3152,8 @@ def generate_full_width(model, card):
     """Phase 16, runs a-f, on phase 3's Llama-3-8B (32 layers, bf16),
     greedy, ``eos_token_id=None`` so every run has its length; then the
     token agreement of each run with ``ContinuousBatchEngine`` on the same
-    prompts (bf16: reported, not required). Returns the summed counts."""
+    prompts (bf16: reported, not required). Returns (the summed counts,
+    the runs {label: (ids, counts wanted, keywords)}, their tokens)."""
     import torch
 
     L = model.config.num_hidden_layers
@@ -3118,8 +3200,8 @@ def generate_full_width(model, card):
     total, toks = Counter(), {}
     for label, (ids, want, kw) in runs.items():
         kw = dict({"max_new_tokens": GEN_NEW}, **kw)
-        toks[label], counts = generate_run(model, card, label, ids, want,
-                                           **kw)
+        toks[label], counts, _ = generate_run(model, card, label, ids, want,
+                                              **kw)
         total.update(counts)
     engine = {
         "a": engine_tokens(model, list(ids_a.cpu().numpy()), GEN_NEW),
@@ -3134,14 +3216,15 @@ def generate_full_width(model, card):
         parts.append(f"{label} {same}/{ref.size}")
     log(f"  [{card}] phase 16 token agreement with the engine on the same "
         f"prompts (bf16, reported only): {', '.join(parts)}")
-    return total
+    return total, runs, toks
 
 
 def generate_deepseek(model, card):
     """Phase 16, run g, on phase 10's DeepSeek-V2-Lite (27 layers, bf16):
     the expanded flash prefill at width 192, then ``mla_decode`` over the
     dense latent buffer every step; ``paged=True`` raises before any
-    launch."""
+    launch. Returns (counts, the run, its tokens) as
+    ``generate_full_width``."""
     import torch
 
     from paddle_tpu_torch.ops.hopper import launches, reset_launches
@@ -3160,12 +3243,14 @@ def generate_deepseek(model, card):
     if launches:
         raise AssertionError(f"phase 16 g: the refused call launched "
                              f"{dict(launches)}")
-    _, counts = generate_run(
-        model, card, "g DeepSeek-V2-Lite", ids,
-        {"flash_attention_mla": L, "mla_decode": L * (GEN_MLA_NEW - 1),
-         "flash_attention_bshd": 0, "append_attention": 0,
-         "paged_attention": 0}, max_new_tokens=GEN_MLA_NEW)
-    return counts
+    want = {"flash_attention_mla": L, "mla_decode": L * (GEN_MLA_NEW - 1),
+            "flash_attention_bshd": 0, "append_attention": 0,
+            "paged_attention": 0}
+    toks, counts, _ = generate_run(model, card, "g DeepSeek-V2-Lite", ids,
+                                   want, max_new_tokens=GEN_MLA_NEW)
+    return counts, {"g DeepSeek-V2-Lite": (
+        ids, want, {"max_new_tokens": GEN_MLA_NEW})}, {
+        "g DeepSeek-V2-Lite": toks}
 
 
 def cpu_copy(model):
@@ -3313,6 +3398,395 @@ def entry_on_card():
     if not (ok and bool(torch.isfinite(logits).all())):
         raise AssertionError("entry: card logits disagree with the CPU's")
     return counts
+
+
+# --------------------------------------------------------------- phase 17 --
+
+@contextlib.contextmanager
+def eager_units():
+    """Every graphed step unit runs its eager body (``unit.eager``) inside
+    the block: phase 17's comparison runs, on the same entry points."""
+    from paddle_tpu_torch.jit.cuda_graph import GraphedStep
+
+    real = GraphedStep.__call__
+    GraphedStep.__call__ = lambda unit, *a: unit.eager(*a)
+    try:
+        yield
+    finally:
+        GraphedStep.__call__ = real
+
+
+def log_units(model, card, label, want):
+    """Phase 17.3: each graphed unit of ``model`` with its captures,
+    replays and capture seconds, and the model's graph pool; every getter
+    attribute of ``want`` must have a unit that replayed."""
+    from paddle_tpu_torch.jit.cuda_graph import GraphedStep, pool_bytes
+
+    replayed = Counter()
+    for attr, units in sorted(model.__dict__.items()):
+        if not attr.endswith("_steps"):
+            continue
+        for key, u in units.items():
+            if not isinstance(u, GraphedStep):
+                continue
+            replayed[attr] += u.replays
+            log(f"  [{card}] phase 17 {label}: {attr}{key}: captures "
+                f"{u.captures}, replays {u.replays}, capture "
+                f"{u.capture_s:.3f}s")
+    log(f"  [{card}] phase 17 {label}: graph pool "
+        f"{pool_bytes(model) / 2**20:.1f} MiB")
+    for attr in want:
+        if replayed[attr] <= 0:
+            raise AssertionError(f"phase 17 {label}: no {attr} unit was "
+                                 "replayed")
+
+
+def require_same(label, got, want, got_counts=None, want_counts=None):
+    """Phase 17.1: greedy (or seeded) tokens from the graphs and from the
+    eager bodies identical; launch counts too where given."""
+    same = len(got) == len(want) and all(
+        np.array_equal(np.asarray(a), np.asarray(b))
+        for a, b in zip(got, want))
+    counts_same = got_counts is None or dict(got_counts) == dict(want_counts)
+    log(f"  phase 17 {label}: graph tokens = eager tokens {same}"
+        + ("" if got_counts is None else
+           f"; launch counts equal {counts_same}"))
+    if not same:
+        raise AssertionError(f"phase 17 {label}: the graphs' tokens differ "
+                             "from the eager bodies'")
+    if not counts_same:
+        raise AssertionError(f"phase 17 {label}: launches {dict(got_counts)}"
+                             f" graphed, {dict(want_counts)} eager")
+
+
+def sampled_engine(model, prompts, n_new, rows):
+    """A seeded sampled engine run (the engine-wide settings, or with
+    ``rows`` every other request overriding them: the per-row unit).
+    Returns each request's tokens."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    seed(17)
+    eng = ContinuousBatchEngine(model, max_batch=len(prompts), max_len=2048,
+                                do_sample=True, temperature=0.8, top_k=50,
+                                top_p=0.9)
+    over = {"temperature": 0.6, "top_k": 20}
+    rids = [eng.add_request(p, max_new_tokens=n_new,
+                            **(over if rows and i % 2 else {}))
+            for i, p in enumerate(prompts)]
+    out = eng.run_until_done()
+    return [out[r] for r in rids]
+
+
+# each wrapper's launch counters by the kernels it launches once a call (a
+# split kernel's combine pass runs besides, uncounted; the flash and append
+# wrappers launch one family)
+TRACED_KERNELS = (
+    (("rms_norm",), ("rms_norm_kernel",)),
+    (("add_rms_norm",), ("add_rms_norm_kernel",)),
+    (("append_attention", "flash_attention_bshd", "flash_attention_local",
+      "flash_attention_mla", "flash_attention_full"),
+     ("append_attention_kernel", "append_attention_tc_kernel")),
+    (("paged_attention",), ("paged_split_tc_kernel",
+                            "paged_split_f32_kernel")),
+    (("mla_decode",), ("mla_decode_tc_kernel", "mla_decode_split_kernel")),
+    (("fused_qkv_rope",), ("qkv_tc_kernel", "fused_qkv_rope_kernel")),
+    (("fused_epilogue",), ("epilogue_tc_kernel", "fused_epilogue_kernel")),
+)
+
+
+def traced_run(label, fn, tries=3, exact=True):
+    """Run ``fn`` under ``torch.profiler`` (the device alone) and hold the
+    launches the wrappers counted during it against the kernels the trace
+    shows, by kernel name (``TRACED_KERNELS``): inside a replay the counts
+    are the capture's, so this is what shows that the graph ran the
+    kernels it counts. A counter with no known kernel fails. With
+    ``exact`` the two must agree: the profiler can drop a session's
+    records, so up to ``tries`` sessions are taken, and none that agrees
+    fails. Without it (eager runs, whose counts are taken at the launch
+    sites) one session is taken and a difference is logged: the profiler
+    missed 2 ``rms_norm`` records in every eager DeepSeek-V2-Lite window
+    of 5 or 10 steps. Returns (device busy ms: the kernels' summed
+    durations, kernels launched) of the last session."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.hopper import _build
+
+    pats = [[re.compile(rf"(?<![A-Za-z_]){n}") for n in names]
+            for _, names in TRACED_KERNELS]
+    for attempt in range(tries if exact else 1):
+        before = Counter(_build.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counted = Counter(_build.launches)
+        counted.subtract(before)
+        counted = +counted
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        want, seen = {}, {}
+        for (counters, names), pat in zip(TRACED_KERNELS, pats):
+            want[names[0]] = sum(counted.pop(c, 0) for c in counters)
+            seen[names[0]] = sum(e.count for e in kern
+                                 if any(p.search(e.key) for p in pat))
+        if counted:
+            raise AssertionError(f"{label}: no kernel name known for the "
+                                 f"counters {dict(counted)}")
+        busy = (sum(e.device_time_total for e in kern) / 1e3,
+                sum(e.count for e in kern))
+        if want == seen:
+            log(f"  phase 17 {label}: traced kernels = counted launches "
+                f"{json.dumps({k: v for k, v in want.items() if v})}")
+            return busy
+        log(f"  phase 17 {label}: session {attempt + 1}: counted {want}, "
+            f"traced {seen}")
+    if not exact:
+        return busy
+    raise AssertionError(f"{label}: the trace's kernels never matched the "
+                         f"counted launches in {tries} sessions")
+
+
+def decode_walls(model, card, label, slots, max_len, prompt, fused=False,
+                 n_steps=10, pairs=3, traced_steps=5):
+    """Phase 17.4: wall ms of a decode step, graphs against eager bodies,
+    in turns (graph, eager, eager, graph, ...; ``pairs`` pairs of
+    ``n_steps`` steps each, host clock around synchronised steps) at
+    ``slots`` active slots of ``prompt``-token prompts; then the device's
+    busy ms a step of each from ``torch.profiler`` (the kernels' summed
+    durations over ``traced_steps`` steps, ``traced_run``: the traced kernels
+    must equal the counted launches) and the busy share (busy over
+    wall); then the host µs of the weight check, of one graphed call of
+    the decode unit and of its graph's launch alone. Returns {mode:
+    (median wall ms, busy ms)}."""
+    import torch
+
+    from paddle_tpu_torch.generation import _get_select_decode
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+    from paddle_tpu_torch.utils.flags import flag_overrides
+
+    modes = {"graph": contextlib.nullcontext, "eager": eager_units}
+    with flag_overrides({"use_fused_decode_tail": fused}):
+        eng = ContinuousBatchEngine(model, max_batch=slots, max_len=max_len)
+        rng = np.random.RandomState(5)
+        for _ in range(slots):
+            eng.add_request(rng.randint(0, model.config.vocab_size,
+                                        size=prompt),
+                            max_new_tokens=(2 * pairs + 6) * n_steps + 8)
+        for mode in modes:
+            with modes[mode]():
+                eng.step()
+        walls = {m: [] for m in modes}
+        for p in range(pairs):
+            for mode in ("graph", "eager") if p % 2 == 0 else ("eager",
+                                                               "graph"):
+                with modes[mode]():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(n_steps):
+                        eng.step()
+                    torch.cuda.synchronize()
+                walls[mode].append((time.perf_counter() - t0) * 1e3
+                                   / n_steps)
+        busy = {}
+        for mode in modes:
+            with modes[mode]():
+                ms, n = traced_run(f"{label} tail {'on' if fused else 'off'}"
+                                   f", {mode}", lambda: [
+                                       eng.step()
+                                       for _ in range(traced_steps)],
+                                   exact=mode == "graph")
+            busy[mode] = (ms / traced_steps, n / traced_steps)
+        # the graph layer's host cost: the weight check of a memoized hit,
+        # and a whole unit call (signature, input copies, replay enqueued,
+        # outputs rebuilt), the host clock alone (the replays queue)
+        unit = _get_select_decode(model, max_len, False, 1.0, 0, 1.0)
+        check_us = host_us(unit.refresh_weights, 1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            unit(eng._last, eng._generator, eng._caches)
+        call_us = (time.perf_counter() - t0) / n_steps * 1e6
+        torch.cuda.synchronize()
+        graph = next(iter(unit._graphs.values())).graph
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            graph.replay()
+        replay_us = (time.perf_counter() - t0) / n_steps * 1e6
+        torch.cuda.synchronize()
+        del eng, graph
+    log(f"  [{card}] phase 17 {label}: host us a call: weight check "
+        f"{check_us:.1f}, graphed decode unit call {call_us:.1f}, of which "
+        f"the graph's launch (CUDAGraph.replay) {replay_us:.1f}")
+    out = {}
+    for mode in modes:
+        wall = statistics.median(walls[mode])
+        out[mode] = (wall, busy[mode][0])
+        log(f"  [{card}] phase 17 {label} decode at {slots} slots x "
+            f"{prompt}, fused tail {'on' if fused else 'off'}, {mode}: wall "
+            f"ms/step {' '.join(f'{w:.3f}' for w in walls[mode])} (median "
+            f"{wall:.3f}); busy {busy[mode][0]:.3f} ms/step, "
+            f"{busy[mode][1]:.0f} kernels/step, busy share "
+            f"{busy[mode][0] / wall:.3f}")
+    return out
+
+
+def two_prompt_lengths(model, card, ids):
+    """Phase 17.6: ``generate`` of run a's batch at a second prompt length
+    with the same max_len (12 tokens shorter, 12 more new ones). The
+    prefill writes the dense buffers kept for (batch, max_len) in place,
+    so the decode unit captures no second graph, and the graph pool grows
+    by less than one set of those buffers (the second prompt shape's
+    prefill graph holds its intermediates, no cache). A repeat of the
+    call runs replays alone and is traced (``traced_run``)."""
+    from paddle_tpu_torch.jit.cuda_graph import pool_bytes
+
+    B, S0 = ids.shape
+    max_len = S0 + GEN_NEW
+    model.generate(ids, max_new_tokens=GEN_NEW)     # run a's shape, kept
+    decode = model.__dict__["_select_decode_steps"].values()
+    captures = sum(u.captures for u in decode)
+    pool = pool_bytes(model)
+    short, n_new = ids[:, :S0 - 12], GEN_NEW + 12
+    toks = model.generate(short, max_new_tokens=n_new).cpu().numpy()
+    traced_run("generate a at a second prompt length (replays)",
+               lambda: model.generate(short, max_new_tokens=n_new))
+    layers, _ = model.__dict__["_cache_sets"][(B, max_len)]
+    set_bytes = sum(t.numel() * t.element_size() for c in layers
+                    for t in c.values())
+    grown = pool_bytes(model) - pool
+    again = sum(u.captures for u in decode)
+    log(f"  [{card}] phase 17 generate a at prompts {S0} and {S0 - 12}, "
+        f"max_len {max_len}: decode captures {captures} -> {again}; graph "
+        f"pool grew {grown / 2**20:.1f} MiB (one set of dense caches "
+        f"{set_bytes / 2**20:.1f} MiB); tokens {toks.shape}")
+    if again != captures:
+        raise AssertionError("phase 17: a second prompt length captured "
+                             "another decode graph")
+    if grown >= set_bytes:
+        raise AssertionError("phase 17: the graph pool grew by a set of "
+                             "dense caches at a second prompt length")
+
+
+def generate_turns(model, card, label, run, graph_toks, pairs=2):
+    """Phase 17.1 and 17.5 for one ``generate`` run of phase 16: its
+    tokens and launch counts from the eager bodies against the graphs',
+    then decode ms a forward in turns (eager, graph, graph, eager, ...).
+    Returns {mode: [decode ms per forward]}."""
+    ids, want, kw = run
+    kw = dict({"max_new_tokens": GEN_NEW}, **kw)
+    modes = {"graph": contextlib.nullcontext, "eager": eager_units}
+    ms = {m: [] for m in modes}
+    for p in range(pairs):
+        for mode in ("eager", "graph") if p % 2 == 0 else ("graph",
+                                                           "eager"):
+            with modes[mode]():
+                toks, counts, dec = generate_run(
+                    model, card, f"{label} ({mode})", ids, want, **kw)
+            ms[mode].append(dec)
+            require_same(f"generate {label} ({mode})", toks, graph_toks)
+    log(f"  [{card}] phase 17 generate {label}: decode ms a forward, graph "
+        f"{' '.join(f'{x:.3f}' for x in ms['graph'])}, eager "
+        f"{' '.join(f'{x:.3f}' for x in ms['eager'])}")
+    return ms
+
+
+def graphs_llama(model, card, prompts, news, off, on, spec_out, gen_runs,
+                 gen_toks):
+    """Phase 17 on phase 3's Llama-3-8B: the engine runs of phase 3 (tail
+    off, on, speculative k = 4) and phase 16's ``generate`` runs a, b, d,
+    e, f against the same runs through the eager bodies, tokens and
+    launch counts identical; a seeded sampled engine (engine-wide
+    settings, then per-row overrides) and a penalised ``generate`` graph
+    against eager; decode ms a forward of runs a and f in turns; wall ms a
+    decode step in turns with busy ms, tail off and on; every unit's
+    captures, replays and capture seconds, and the pool."""
+    import torch
+
+    t0 = time.perf_counter()
+    log("phase 17: graphs, Llama-3-8B (32 layers, bf16, phase 3's model)")
+    with eager_units():
+        for label, fused, graph in (("flag off", False, off),
+                                    ("flag on", True, on)):
+            counts, _, _, _, outputs = serve_run(
+                model, card, f"{label}, eager", prompts, news, fused)
+            require_same(f"engine {label}", graph[4], outputs, graph[0],
+                         counts)
+        sp, sn = spec_prompts(model.config.vocab_size)
+        counts, _, _, _, outputs = serve_run(
+            model, card, f"speculative k={SPEC_K}, flag on, eager", sp, sn,
+            True, speculative_k=SPEC_K)
+    require_same(f"engine speculative k={SPEC_K}", spec_out, outputs)
+    for rows in (False, True):
+        label = "per-row" if rows else "engine-wide"
+        graph = sampled_engine(model, prompts[:8], 16, rows)
+        with eager_units():
+            eager = sampled_engine(model, prompts[:8], 16, rows)
+        require_same(f"sampled engine ({label} settings, seed 17)", graph,
+                     eager)
+    for label in ("a dense", "b paged", "d chunked", "e beams",
+                  "f fused tail"):
+        if label[0] in "af":
+            generate_turns(model, card, label, gen_runs[label],
+                           gen_toks[label])
+            continue
+        ids, want, kw = gen_runs[label]
+        with eager_units():
+            toks, _, _ = generate_run(model, card, f"{label} (eager)", ids,
+                                      want, **dict({"max_new_tokens": GEN_NEW},
+                                                   **kw))
+        require_same(f"generate {label}", toks, gen_toks[label])
+    ids = gen_runs["a dense"][0]
+    pen = dict(max_new_tokens=8, repetition_penalty=1.2, eos_token_id=0)
+    graph = model.generate(ids, **pen).cpu().numpy()
+    with eager_units():
+        eager = model.generate(ids, **pen).cpu().numpy()
+    require_same("generate with a repetition penalty and eos (the "
+                 "penalised decode unit)", graph, eager)
+    two_prompt_lengths(model, card, gen_runs["a dense"][0])
+    for fused in (False, True):
+        decode_walls(model, card, "Llama-3-8B", 8, 2048, 512, fused)
+    log_units(model, card, "Llama-3-8B", (
+        "_prefill_steps", "_select_decode_steps", "_select_decode_rows_steps",
+        "_spec_decode_steps", "_decode_steps", "_beam_steps"))
+    torch.cuda.synchronize()
+    log(f"phase 17 on Llama-3-8B took {time.perf_counter() - t0:.1f}s")
+
+
+def graphs_deepseek(model, card, prompts, news, outputs, gen_runs, gen_toks):
+    """Phase 17 on phase 10's DeepSeek-V2-Lite: the latent engine's run of
+    phase 10 and ``generate`` run g against the eager bodies (tokens and
+    launch counts), run g's decode ms in turns, wall ms a decode step at
+    8 slots of 1024-token prompts in turns with busy ms, and the units."""
+    t0 = time.perf_counter()
+    log("phase 17: graphs, DeepSeek-V2-Lite (27 layers, bf16, phase 10's "
+        "model)")
+    with eager_units():
+        counts, _, _, _, eager = serve_run(
+            model, card, "DeepSeek-V2-Lite, eager", prompts, news, False,
+            max_batch=8, max_len=4096)
+    require_same("DeepSeek latent engine", outputs, eager)
+    label = "g DeepSeek-V2-Lite"
+    ids, want, kw = gen_runs[label]
+    ms = {m: [] for m in ("graph", "eager")}
+    for p in range(2):
+        for mode in ("eager", "graph") if p % 2 == 0 else ("graph",
+                                                           "eager"):
+            with (eager_units() if mode == "eager"
+                  else contextlib.nullcontext()):
+                toks, _, dec = generate_run(model, card, f"{label} ({mode})",
+                                            ids, want, **kw)
+            ms[mode].append(dec)
+            require_same(f"generate {label} ({mode})", toks,
+                         gen_toks[label])
+    log(f"  [{card}] phase 17 generate {label}: decode ms a forward, graph "
+        f"{' '.join(f'{x:.3f}' for x in ms['graph'])}, eager "
+        f"{' '.join(f'{x:.3f}' for x in ms['eager'])}")
+    decode_walls(model, card, "DeepSeek-V2-Lite", 8, 4096, 1024)
+    log_units(model, card, "DeepSeek-V2-Lite", (
+        "_prefill_steps", "_select_decode_steps"))
+    log(f"phase 17 on DeepSeek-V2-Lite took {time.perf_counter() - t0:.1f}s")
 
 
 def tensor_core_sass(lib) -> tuple:

@@ -125,7 +125,8 @@ __global__ void __launch_bounds__(NT)
 append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const uint8_t* __restrict__ allowed,
                         T* __restrict__ out, float* __restrict__ lse, int S, int T_,
-                        int hk, int g, int pos, int window, bool full, float scale) {
+                        int hk, int g, int pos, const int* __restrict__ pos_dev,
+                        int window, bool full, float scale) {
   constexpr int QS = DQK + 1;   // padded shared-memory row strides
   constexpr int KS = DQK + 1;
   constexpr int NJ = DV / 16;    // output columns per thread
@@ -140,6 +141,7 @@ append_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ int lim_s[BM];      // last visible column per row, -1 = no row
   __shared__ int lo_s[BM];       // first visible column per row
 
+  if (pos_dev != nullptr) pos = *pos_dev;
   const int b = blockIdx.x, kh = blockIdx.y;
   const int rows = g * S;
   const int r0 = blockIdx.z * BM;
@@ -334,7 +336,8 @@ append_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ v,
                            const uint8_t* __restrict__ allowed,
                            __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                           int S, int T_, int hk, int g, int pos, int window, bool full,
+                           int S, int T_, int hk, int g, int pos,
+                           const int* __restrict__ pos_dev, int window, bool full,
                            float scale) {
   using bf16 = __nv_bfloat16;
   constexpr int QS = DQK + tc::PAD, VS = DV + tc::PAD;
@@ -346,6 +349,7 @@ append_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
   bf16* Ks = Qs + TC_BM * QS;                     // [2][BN][QS]
   bf16* Vs = Ks + 2 * TC_BN * QS;                 // [2][BN][VS]
 
+  if (pos_dev != nullptr) pos = *pos_dev;
   const int b = blockIdx.z;
   const int rows = g * S, H = hk * g;
   // the longest causal tiles first, over all heads of the batch row: the
@@ -555,7 +559,8 @@ append_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 template <int DQK, int DV>
 int launch_tc(const void* q, const void* k, const void* v, const uint8_t* allowed,
               void* out, float* lse, int B, int S, int T_, int H, int hk, int pos,
-              int window, bool full, float scale, cudaStream_t stream) {
+              const int* pos_dev, int window, bool full, float scale,
+              cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   auto kernel = append_attention_tc_kernel<DQK, DV>;
   constexpr size_t smem = tc_smem_bytes<DQK, DV>();
@@ -567,14 +572,14 @@ int launch_tc(const void* q, const void* k, const void* v, const uint8_t* allowe
   kernel<<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), allowed, static_cast<bf16*>(out), lse, S, T_, hk, g,
-      pos, window, full, scale);
+      pos, pos_dev, window, full, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, void* out,
-           float* lse, int B, int S, int T_, int H, int hk, int pos, int window,
-           bool full, float scale, cudaStream_t stream) {
+           float* lse, int B, int S, int T_, int H, int hk, int pos, const int* pos_dev,
+           int window, bool full, float scale, cudaStream_t stream) {
   auto kernel = append_attention_kernel<T, DQK, DV>;
   constexpr size_t smem = smem_bytes<DQK, DV>();
   cudaError_t err =
@@ -584,19 +589,19 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* allowed, 
   dim3 grid(B, hk, (g * S + BM - 1) / BM);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      allowed, static_cast<T*>(out), lse, S, T_, hk, g, pos, window, full, scale);
+      allowed, static_cast<T*>(out), lse, S, T_, hk, g, pos, pos_dev, window, full, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DQK, int DV>
 int launch_dtype(const void* q, const void* k, const void* v, const uint8_t* a, void* out,
-                 float* l, int B, int S, int T_, int H, int hk, int pos, int window,
-                 bool full, float scale, int dtype, cudaStream_t s) {
+                 float* l, int B, int S, int T_, int H, int hk, int pos, const int* pd,
+                 int window, bool full, float scale, int dtype, cudaStream_t s) {
   if (dtype == 1)
-    return launch_tc<DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
+    return launch_tc<DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos, pd, window, full,
                               scale, s);
-  return launch<float, DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
-                                scale, s);
+  return launch<float, DQK, DV>(q, k, v, a, out, l, B, S, T_, H, hk, pos, pd, window,
+                                full, scale, s);
 }
 
 }  // namespace
@@ -606,29 +611,33 @@ int launch_dtype(const void* q, const void* k, const void* v, const uint8_t* a, 
 // or null; lse [B, H, S] f32 or null; kind 0 = causal at pos (window 0), 1 = local
 // (window > 0: query s sees only columns pos + s - window < t <= pos + s),
 // 2 = full (window 0, pos not read). dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after launch, or cudaErrorInvalidValue for
-// widths the kernel is not instantiated at or a kind and window that
-// disagree.
+// pos_dev: one int32 on the device that the kernel reads as pos at entry
+// (the Pallas kernel's scalar-prefetch pos: one launch, captured in a CUDA
+// graph, serves every position), or null for the host int `pos`; the grid
+// does not depend on pos. Returns cudaGetLastError() after launch, or
+// cudaErrorInvalidValue for widths the kernel is not instantiated at or a
+// kind and window that disagree.
 extern "C" int pt_append_attention(const void* q, const void* k, const void* v,
                                    const void* allowed, void* out, void* lse, int B,
                                    int S, int T_, int H, int hk, int dqk, int dv, int pos,
                                    int window, float scale, int kind, int dtype,
-                                   void* stream) {
+                                   const void* pos_dev, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* a = static_cast<const uint8_t*>(allowed);
+  const int* pd = static_cast<const int*>(pos_dev);
   float* l = static_cast<float*>(lse);
   if (kind < 0 || kind > 2 || (kind == 1) != (window > 0))
     return (int)cudaErrorInvalidValue;
   const bool full = kind == 2;
   if (dqk == 128 && dv == 128)
-    return launch_dtype<128, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
-                                  scale, dtype, s);
+    return launch_dtype<128, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, pd, window,
+                                  full, scale, dtype, s);
   if (dqk == 192 && dv == 128)
-    return launch_dtype<192, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
-                                  scale, dtype, s);
+    return launch_dtype<192, 128>(q, k, v, a, out, l, B, S, T_, H, hk, pos, pd, window,
+                                  full, scale, dtype, s);
   if (dqk == 64 && dv == 64)
-    return launch_dtype<64, 64>(q, k, v, a, out, l, B, S, T_, H, hk, pos, window, full,
-                                scale, dtype, s);
+    return launch_dtype<64, 64>(q, k, v, a, out, l, B, S, T_, H, hk, pos, pd, window,
+                                full, scale, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

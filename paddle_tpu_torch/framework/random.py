@@ -14,10 +14,13 @@ _generators: dict = {}
 
 
 def seed(value: int) -> None:
-    """Reseed every default generator of the port (lazily, per device)."""
+    """Reseed every default generator of the port: those made already in
+    place (the same objects, so the CUDA graphs they are registered with
+    stay valid), the rest when first asked for."""
     global _seed
     _seed = int(value)
-    _generators.clear()
+    for gen in _generators.values():
+        gen.manual_seed(_seed)
 
 
 def _key(device: torch.device) -> str:

@@ -10,12 +10,27 @@ forward loop, the engine's per-row and speculative units, the beam step),
 and ``generate`` / ``generate_paged`` with greedy, sampled and beam
 decoding over dense, ragged, paged and chunked-prefill caches.
 
-There is no ``jit`` here: PyTorch runs eagerly, so the JAX package's jitted
-step objects become plain callables with the same inputs and outputs, and
-its ``lax.scan`` loops Python loops. Where JAX returns updated buffers
+The JAX package's jitted step objects become ``jit.cuda_graph.GraphedStep``
+units with the same inputs and outputs, memoized per model by the same
+getters (``_memoized_step``): eager on CPU tensors, one captured CUDA graph
+per input signature replayed on CUDA tensors. Its ``lax.scan`` loops are
+Python loops over one unit. Where JAX returns updated buffers
 functionally, the port writes the cache in place and says so. Where JAX
 folds a step index into a ``jax.random`` key, the port draws from one
 explicit ``torch.Generator`` (``framework.random.default_generator``).
+
+The dense caches a prefill writes, and the paged pools ``generate_paged``
+re-lays them into, are made once per shape and kept (``_cache_buffers``,
+``_caches_to_paged``): a prefill writes them in place, so the decode
+graph that reads them (their addresses are in a graph's signature) serves
+every later call of the same batch and ``max_len``, whatever the prompt
+length.
+
+What stays eager, with its reason: the chunked prefill (a host loop over
+chunks whose first chunk routes on the host; JAX scans it), the host-side
+selection with a repetition penalty or an n-gram ban (``_next_token``; JAX
+selects on the host there too, and only the forward, ``_DecodeStep``, is
+replayed), the no-cache path and the paged re-layout of a prefill.
 """
 from __future__ import annotations
 
@@ -25,8 +40,10 @@ import numpy as np
 import torch
 
 from .ops.hopper import fused_norm
+from .jit.cuda_graph import GraphedStep
 from .ops.hopper.append_attention import (append_attention,
                                           append_attention_plain,
+                                          chunk_positions,
                                           grouped_attention_plain)
 from .ops.hopper.flash_attention import flash_attention_bshd
 from .ops.hopper.paged_attention import gather_pages, paged_attention
@@ -57,14 +74,19 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
     """RoPE + cache write + masked grouped-query attention against a dense
     buffer. q [B,S,H,D]; k/v [B,S,hk,D]; cos/sin [>= T, rope_dim];
     k_buf/v_buf [B,T,hk,D], written IN PLACE at ``pos`` (JAX returns new
-    buffers; the port updates the caller's); ``allowed`` optional [B,T]
-    column mask (padded prompts); ``row_pos`` optional [B] per-row rope
-    positions. Routing as in the JAX package (``generation.py:102-128``):
+    buffers; the port updates the caller's); ``pos`` the one-element int32
+    tensor on q's device that the dense caches carry (as the Pallas append
+    kernel takes it by scalar prefetch, so one CUDA graph of a decode step
+    serves every position; an int is taken too); ``allowed`` optional
+    [B,T] column mask (padded prompts); ``row_pos`` optional [B] per-row
+    rope positions. Routing as in the JAX package
+    (``generation.py:102-128``), decided on the host:
 
-    - an unpadded pos=0 prefill of S > 1 tokens with ``use_flash`` takes
-      ``flash_attention_bshd`` (causal attention over the prompt is causal
-      self-attention on the S new tokens), with or without a sliding
-      window: the causal or the LocalMask flash kernel;
+    - an unpadded first prefill (``prefill``) of S > 1 tokens with
+      ``use_flash`` takes ``flash_attention_bshd``
+      (causal attention over the prompt is causal self-attention on the S
+      new tokens), with or without a sliding window: the causal or the
+      LocalMask flash kernel;
     - any other windowless chunk the append-attention kernel (the mask
       counts buffer slots, so per-row rope positions do not change it). On
       CUDA it also takes single tokens and ``use_flash=False``;
@@ -72,23 +94,24 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
       the f32 einsum, ``append_attention_plain``, as the JAX package's
       einsum branch (no kernel there either).
 
-    The wrappers run their plain versions on CPU tensors.
+    The wrappers run their plain versions on CPU tensors. The rope rows
+    and the cache slots are taken by index at ``pos + arange(S)``.
     ``rope_applied``: q and k arrive rotated (the fused decode tail).
     Returns (out [B,S,H,D], k_buf, v_buf)."""
     S = q.shape[1]
-    pos = int(pos)
+    idx = chunk_positions(pos, S, q.device)
     if not rope_applied:
         if row_pos is None:
-            q = fused_norm.rope_ref(q, cos[pos:pos + S], sin[pos:pos + S])
-            k = fused_norm.rope_ref(k, cos[pos:pos + S], sin[pos:pos + S])
+            c, s = cos.index_select(0, idx), sin.index_select(0, idx)
+            q = fused_norm.rope_ref(q, c, s)
+            k = fused_norm.rope_ref(k, c, s)
         else:
             q = _rope_rows(q, cos, sin, row_pos)
             k = _rope_rows(k, cos, sin, row_pos)
-    k_buf[:, pos:pos + S] = k.to(k_buf.dtype)
-    v_buf[:, pos:pos + S] = v.to(v_buf.dtype)
+    k_buf.index_copy_(1, idx, k.to(k_buf.dtype))
+    v_buf.index_copy_(1, idx, v.to(v_buf.dtype))
 
-    if (use_flash and S > 1 and allowed is None and row_pos is None
-            and (prefill or pos == 0)):
+    if use_flash and S > 1 and allowed is None and row_pos is None and prefill:
         out = flash_attention_bshd(q, k, v, causal=True, window=window)
     elif window is None:
         out = append_attention(q, k_buf, v_buf, pos, allowed=allowed)
@@ -402,60 +425,166 @@ def _seen_from_prompt(ids, vocab, pad_mask=None):
 
 
 # ---------------------------------------------------------------------------
-# step units
+# step units and their memoization
 # ---------------------------------------------------------------------------
 
-def _empty_caches(model, batch, max_len, allowed=None, row_pos=None):
-    """Fresh per-layer caches for a prefill (``generation.py:565-592``):
-    dense K/V, or the trunk's own layout where it has an
-    ``empty_cache_layer`` hook (MLA's compressed latent). ``pos`` starts at
-    the int 0 and ``prefill`` marks the first forward, which routes the
-    unpadded prompt to the flash kernel; the attention's returned cache
-    leaves the marker out, so the first forward consumes it. ``allowed``
-    [B, max_len] and ``row_pos`` [B] are shared by every layer."""
+def _trace_flags_key() -> tuple:
+    """The flag values a unit's graph depends on, as THIS thread sees them
+    (its ``flag_overrides`` included), folded into every memoization key
+    (``generation.py:997``): a unit captured with the fused decode tail on
+    is never replayed with it off."""
+    from .utils.flags import flag
+
+    return (bool(flag("FLAGS_use_fused_decode_tail")),)
+
+
+def _lru(owner, attr, key, factory, maxsize=None):
+    """``owner.<attr>[key]``, made by ``factory`` on a miss. ``maxsize``
+    evicts the least recently used entry; a hit re-inserts its key at the
+    back. Returns (value, hit)."""
+    cache = owner.__dict__.get(attr)
+    if cache is None:
+        cache = {}
+        object.__setattr__(owner, attr, cache)
+    value = cache.get(key)
+    if value is None:
+        value = factory()
+        if maxsize is not None and len(cache) >= maxsize:
+            cache.pop(next(iter(cache)))
+        cache[key] = value
+        return value, False
+    if maxsize is not None:
+        cache.pop(key)
+        cache[key] = value
+    return value, True
+
+
+def _memoized_step(model, attr, key, factory, maxsize=None):
+    """Per-model step memoization (``generation.py:1009``): one unit per
+    (key, flag fingerprint) in ``model.<attr>``, so its CUDA graphs are
+    captured once and replayed by every later call. A hit re-checks the
+    model's current weights (``refresh_weights``: a replaced parameter
+    drops the unit's graphs, as JAX re-reads the state on a hit).
+    ``maxsize`` evicts the least recently used entry: a hit re-inserts its
+    key at the back."""
+    step, hit = _lru(model, attr, (key, _trace_flags_key()), factory,
+                     maxsize)
+    refresh = getattr(step, "refresh_weights", None)
+    if hit and refresh is not None:
+        refresh()
+    return step
+
+
+#: cache buffer sets ``generate`` keeps per model (one per batch, max_len
+#: and layout), least recently used dropped first
+CACHE_SETS = 4
+
+
+def _cache_buffers(model, batch, max_len, ragged, owner=None,
+                   maxsize=None):
+    """The per-layer cache buffers a prefill writes (``generation.py:
+    565-592``): dense K/V [batch, max_len, hk, D], or the trunk's own layout
+    where it has an ``empty_cache_layer`` hook (MLA's compressed latent);
+    for a ragged prefill every layer's dict also holds one [batch,
+    max_len] bool column mask ``allowed``. Made once per (batch, max_len)
+    and kept in ``owner`` (LRU ``maxsize``), or made anew without one. A
+    prefill zeroes and writes them in place, so the decode graphs over
+    them serve every later call of the shape. Returns new dicts around the
+    kept tensors."""
     from .models.llama import head_dim_of, torch_dtype
 
-    cfg = model.config
-    shape = (batch, max_len, cfg.num_key_value_heads, head_dim_of(cfg))
-    dt = torch_dtype(cfg.dtype)
-    make = getattr(model.llama, "empty_cache_layer", None)
-    caches = []
-    for _ in range(cfg.num_hidden_layers):
-        if make is not None:
-            c = dict(make(batch, max_len, dt), pos=0, prefill=True)
-        else:
-            c = {"k": torch.zeros(shape, dtype=dt, device=model.device),
-                 "v": torch.zeros(shape, dtype=dt, device=model.device),
-                 "pos": 0, "prefill": True}
-        if allowed is not None:
-            c["allowed"] = allowed
-        if row_pos is not None:
-            c["row_pos"] = row_pos
-        caches.append(c)
-    return caches
+    def make():
+        cfg = model.config
+        shape = (batch, max_len, cfg.num_key_value_heads, head_dim_of(cfg))
+        dt = torch_dtype(cfg.dtype)
+        hook = getattr(model.llama, "empty_cache_layer", None)
+        layers = [hook(batch, max_len, dt) if hook is not None else
+                  {"k": torch.zeros(shape, dtype=dt, device=model.device),
+                   "v": torch.zeros(shape, dtype=dt, device=model.device)}
+                  for _ in range(cfg.num_hidden_layers)]
+        return layers, torch.ones(batch, max_len, dtype=torch.bool,
+                                  device=model.device)
+
+    if owner is None:
+        layers, allowed = make()
+    else:
+        (layers, allowed), _ = _lru(owner, "_cache_sets", (batch, max_len),
+                                    make, maxsize)
+    return [dict(c, allowed=allowed) if ragged else dict(c) for c in layers]
 
 
-class _PrefillStep:
-    """The whole prefill as one call: empty caches -> all layers -> each
-    row's last real logit. Returns (last [B, V], caches)."""
+def _start_caches(caches, pad_mask, device):
+    """The caches of a prefill's first forward over the buffers ``caches``
+    (``_cache_buffers``): zeroed in place, as JAX makes them anew; a
+    ragged prefill's ``pad_mask`` copied into their column mask; every
+    layer at one device int32 ``pos`` of 0 with the ``prefill`` marker,
+    which routes an unpadded first chunk to the flash kernel (the
+    attention's returned cache leaves the marker out, so the first forward
+    consumes it)."""
+    torch._foreach_zero_([t for c in caches for n, t in c.items()
+                          if n != "allowed"])
+    if "allowed" in caches[0]:
+        caches[0]["allowed"].copy_(pad_mask)
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    return [dict(c, pos=pos, prefill=True) for c in caches]
 
-    def __init__(self, model, max_len, ragged, rope_len=None):
-        self._model = model
+
+class _Step(GraphedStep):
+    """A step unit of ``model`` over caches of ``max_len`` slots, its rope
+    tables ``rope_len`` (default ``max_len``) long. Before a capture's
+    warm-ups it makes the rope table and the decode tail's state of the
+    capture stream (``prepare``)."""
+
+    def __init__(self, model, max_len, rope_len=None):
+        super().__init__(model)
         self._max_len = max_len
-        self._ragged = ragged
         self._rope_len = max_len if rope_len is None else rope_len
 
+    def prepare(self, device):
+        from .ops.hopper import decode_tail
+
+        self._model.llama._rope(self._rope_len)
+        decode_tail.prepare_stream(device)
+
+
+class _PrefillStep(_Step):
+    """The whole prefill as one call: the cache buffers zeroed -> all
+    layers -> each row's last real logit. ``caches``: the buffers to write
+    in place (``_cache_buffers``, with ``allowed`` when ``ragged``); new
+    ones when not given. Returns (last [B, V], caches), the caches' ``pos``
+    a device int32."""
+
+    cache_arg = 3
+
+    def __init__(self, model, max_len, ragged, rope_len=None):
+        super().__init__(model, max_len, rope_len)
+        self._ragged = ragged
+
+    def __call__(self, ids, lengths, pad_mask, caches=None):
+        if caches is None:
+            caches = _cache_buffers(self._model, ids.shape[0],
+                                    self._max_len, self._ragged)
+        return super().__call__(ids, lengths, pad_mask, caches)
+
     @torch.inference_mode()
-    def __call__(self, ids, lengths, pad_mask):
+    def eager(self, ids, lengths, pad_mask, caches):
         model = self._model
-        caches = _empty_caches(model, ids.shape[0], self._max_len,
-                               allowed=pad_mask if self._ragged else None)
+        caches = _start_caches(caches, pad_mask, ids.device)
         hidden, caches = model.llama.forward_cached(ids, caches,
                                                     rope_len=self._rope_len)
         idx = (lengths.long() - 1)[:, None, None].expand(-1, 1,
                                                          hidden.shape[-1])
         h_last = torch.gather(hidden, 1, idx)
         return model.lm_head_logits(h_last)[:, 0, :], caches
+
+
+def _get_prefill_step(model, max_len, ragged, rope_len=None):
+    # max_len varies per request: bound the cache
+    return _memoized_step(model, "_prefill_steps",
+                          (max_len, ragged, rope_len),
+                          lambda: _PrefillStep(model, max_len, ragged,
+                                               rope_len=rope_len),
+                          maxsize=16)
 
 
 def _sample_and_forward(model, max_len, last, generator, caches, do_sample,
@@ -477,29 +606,41 @@ def _sample_and_forward(model, max_len, last, generator, caches, do_sample,
     return nxt, lp, logits[:, -1, :], new_caches
 
 
-class _SelectDecodeStep:
-    """Sample + one cached forward: the continuous-batching engine's
-    per-step unit with engine-wide sampling settings."""
+class _SelectDecodeStep(_Step):
+    """Sample + one cached forward with one set of sampling settings: the
+    engine's per-step unit and each step of ``generate``'s fixed-length
+    loop. Returns (token [B], logprob [B], next logits [B, V] f32,
+    caches)."""
+
+    cache_arg = 2
 
     def __init__(self, model, max_len, do_sample, temperature, top_k, top_p):
-        self._model, self._max_len = model, max_len
+        super().__init__(model, max_len)
         self._cfg = (do_sample, temperature, top_k, top_p)
 
     @torch.inference_mode()
-    def __call__(self, last, generator, caches):
+    def eager(self, last, generator, caches):
         nxt, lp, last_n, caches = _sample_and_forward(
             self._model, self._max_len, last, generator, caches, *self._cfg)
         return nxt, lp, last_n.float(), caches
 
 
-class _SelectDecodeRowsStep:
+def _get_select_decode(model, max_len, do_sample, temperature, top_k, top_p):
+    key = (max_len, do_sample, float(temperature), int(top_k), float(top_p))
+    return _memoized_step(
+        model, "_select_decode_steps", key,
+        lambda: _SelectDecodeStep(model, max_len, do_sample,
+                                  float(temperature), int(top_k),
+                                  float(top_p)))
+
+
+class _SelectDecodeRowsStep(_Step):
     """``_SelectDecodeStep`` with per-row sampling settings ([B] tensors)."""
 
-    def __init__(self, model, max_len):
-        self._model, self._max_len = model, max_len
+    cache_arg = 6
 
     @torch.inference_mode()
-    def __call__(self, last, generator, do_s, temp, tk, tp, caches):
+    def eager(self, last, generator, do_s, temp, tk, tp, caches):
         nxt, lp, last_n, caches = _sample_and_forward(
             self._model, self._max_len, last, generator, caches,
             None, None, None, None,
@@ -508,10 +649,16 @@ class _SelectDecodeRowsStep:
         return nxt, lp, last_n.float(), caches
 
 
-class _SpecDecodeStep:
-    """Greedy speculative decode unit of the engine, one eager call per
-    round: argmax of the carried logits (the token a one-token step would
-    emit, g0), a k-token chunk [g0, d_1..d_{k-1}] of host-proposed drafts
+def _get_select_decode_rows(model, max_len):
+    return _memoized_step(
+        model, "_select_decode_rows_steps", (max_len,),
+        lambda: _SelectDecodeRowsStep(model, max_len))
+
+
+class _SpecDecodeStep(_Step):
+    """Greedy speculative decode unit of the engine, one call per round:
+    argmax of the carried logits (the token a one-token step would emit,
+    g0), a k-token chunk [g0, d_1..d_{k-1}] of host-proposed drafts
     through the paged cache at per-row positions, and the longest accepted
     run computed on the device. Returns (chunk [B, k], emitted count
     [B] = accepted + 1, logprobs [B, k] under the raw distributions, the
@@ -520,11 +667,10 @@ class _SpecDecodeStep:
     Token identity holds by construction: draft j is emitted only when it
     equals the target's greedy choice at its position."""
 
-    def __init__(self, model, max_len):
-        self._model, self._max_len = model, max_len
+    cache_arg = 2
 
     @torch.inference_mode()
-    def __call__(self, last, drafts, caches):
+    def eager(self, last, drafts, caches):
         B = last.shape[0]
         rows = torch.arange(B, device=last.device)
         g0 = torch.argmax(last, dim=-1).to(torch.int32)
@@ -544,43 +690,29 @@ class _SpecDecodeStep:
         return chunk, n_acc + 1, lps, new_last, caches
 
 
-class _DecodeStep:
+def _get_spec_decode(model, max_len, k):
+    return _memoized_step(
+        model, "_spec_decode_steps", (max_len, int(k)),
+        lambda: _SpecDecodeStep(model, max_len), maxsize=8)
+
+
+class _DecodeStep(_Step):
     """One cached forward for a generated token (``generation.py:631``):
     embed, all layers (the caches written in place), lm-head logits.
     Returns (logits [B, S, V], caches)."""
 
-    def __init__(self, model, max_len):
-        self._model, self._max_len = model, max_len
+    cache_arg = 1
 
     @torch.inference_mode()
-    def __call__(self, token, caches):
+    def eager(self, token, caches):
         hidden, caches = self._model.llama.forward_cached(
             token, caches, rope_len=self._max_len)
         return self._model.lm_head_logits(hidden), caches
 
 
-class _ScanDecodeStep:
-    """The fixed-length decode loop (``generation.py:1166``): each of
-    ``steps`` steps samples from the carried logits and runs one cached
-    forward (``_sample_and_forward``). JAX scans it as one program; here it
-    is an eager loop with the same inputs and outputs, drawing from
-    ``generator`` in step order where JAX folds the step index into one
-    key. Returns (tokens [steps, B], the last logits [B, V], caches)."""
-
-    def __init__(self, model, max_len, steps, do_sample, temperature, top_k,
-                 top_p):
-        self._model, self._max_len, self._steps = model, max_len, steps
-        self._cfg = (do_sample, temperature, top_k, top_p)
-
-    @torch.inference_mode()
-    def __call__(self, last, generator, caches):
-        toks = []
-        for _ in range(self._steps):
-            nxt, _lp, last, caches = _sample_and_forward(
-                self._model, self._max_len, last, generator, caches,
-                *self._cfg)
-            toks.append(nxt)
-        return torch.stack(toks), last, caches
+def _get_decode_step(model, max_len):
+    return _memoized_step(model, "_decode_steps", max_len,
+                          lambda: _DecodeStep(model, max_len))
 
 
 class _ChunkedPrefillStep:
@@ -589,30 +721,28 @@ class _ChunkedPrefillStep:
     through the cache's position and column masks, so the result is the
     one-shot prefill's. The running last-real hidden [B, hidden] is carried
     from chunk to chunk, as the JAX scan carries it, and only it reaches
-    the lm head.
+    the lm head. ``caches``: the buffers to write in place
+    (``_cache_buffers``).
 
-    Route: the caches carry no ``prefill`` marker and ``pos`` is an int,
-    so chunk 0 of an unpadded prompt (pos 0, no column mask) takes the
-    flash kernel, as ``cached_attention`` routes any unpadded pos-0 chunk,
-    and every later chunk (or every chunk of a padded prompt) the
-    append-attention kernel; windowed chunks past 0 take the f32 einsum.
-    The JAX scan carries a traced pos, so there every chunk takes
-    append attention; both routes are exact. Returns (last [B, V],
-    caches)."""
+    Route: chunk 0 carries the ``prefill`` marker, so an unpadded prompt's
+    first chunk (no column mask) takes the flash kernel, and every later
+    chunk (or every chunk of a padded prompt) the append-attention kernel;
+    windowed chunks past 0 take the f32 einsum. The JAX scan carries a
+    traced pos, so there every chunk takes append attention; both routes
+    are exact. A host loop over the chunks, run eagerly (never captured).
+    Returns (last [B, V], caches)."""
 
     def __init__(self, model, max_len, chunk, n_chunks):
         self._model, self._max_len = model, max_len
         self._chunk, self._n = int(chunk), int(n_chunks)
 
     @torch.inference_mode()
-    def __call__(self, ids_pad, lengths, allowed):
+    def __call__(self, ids_pad, lengths, allowed, caches):
         from .models.llama import torch_dtype
 
         model, C = self._model, self._chunk
         B = ids_pad.shape[0]
-        caches = _empty_caches(model, B, self._max_len, allowed=allowed)
-        for c in caches:
-            c.pop("prefill", None)
+        caches = _start_caches(caches, allowed, ids_pad.device)
         h_last = torch.zeros(B, model.config.hidden_size,
                              dtype=torch_dtype(model.config.dtype),
                              device=ids_pad.device)
@@ -635,18 +765,17 @@ def _rows_match(a, n):
     return hasattr(a, "ndim") and a.ndim >= 1 and a.shape[0] == n
 
 
-class _BeamStep:
+class _BeamStep(_Step):
     """Beam-search decode unit (``generation.py:736``): take the cache rows
     each surviving beam came from (the buffers, and the ``allowed`` and
-    ``row_pos`` rows; ``index_select`` makes new buffers), run the cached
-    forward on the chosen tokens, return the next position's f32
-    log-probs [B*K, V] and the caches."""
+    ``row_pos`` rows; ``index_select`` makes new buffers, as JAX's take),
+    run the cached forward on the chosen tokens, return the next position's
+    f32 log-probs [B*K, V] and the caches."""
 
-    def __init__(self, model, max_len):
-        self._model, self._max_len = model, max_len
+    cache_arg = 2
 
     @torch.inference_mode()
-    def __call__(self, token, row_idx, caches):
+    def eager(self, token, row_idx, caches):
         n = row_idx.shape[0]
         caches = [{k: (torch.index_select(v, 0, row_idx)
                        if _rows_match(v, n) else v) for k, v in c.items()}
@@ -655,6 +784,11 @@ class _BeamStep:
             token, caches, rope_len=self._max_len)
         logits = self._model.lm_head_logits(hidden)
         return torch.log_softmax(logits[:, -1, :].float(), dim=-1), caches
+
+
+def _get_beam_step(model, max_len):
+    return _memoized_step(model, "_beam_steps", (max_len,),
+                          lambda: _BeamStep(model, max_len))
 
 
 class _BeamHyps:
@@ -693,7 +827,7 @@ def _beam_search(model, last, caches, max_len, max_new_tokens, num_beams,
     caches = [{k: (torch.repeat_interleave(v, K, dim=0)
                    if _rows_match(v, B) else v) for k, v in c.items()}
               for c in caches]
-    step_fn = _BeamStep(model, max_len)
+    step_fn = _get_beam_step(model, max_len)
     holder = {"caches": caches}
     dev = last.device
 
@@ -1027,15 +1161,18 @@ def generate(model, input_ids, max_new_tokens=20, do_sample=False,
         ids_pad = torch.cat(
             [ids, torch.zeros(B, prompt_pad - S0, dtype=ids.dtype,
                               device=dev)], dim=1)
-        last, caches = _ChunkedPrefillStep(model, max_len, chunk,
-                                           n_chunks)(ids_pad, lengths,
-                                                     pad_mask)
+    buffers = _cache_buffers(model, B, max_len, pad_mask is not None,
+                             owner=model, maxsize=CACHE_SETS)
+    if chunk:
+        last, caches = _ChunkedPrefillStep(model, max_len, chunk, n_chunks)(
+            ids_pad, lengths, pad_mask, buffers)
     else:
-        last, caches = _PrefillStep(model, max_len, pad_mask is not None)(
-            ids, lengths, pad_mask)
+        last, caches = _get_prefill_step(model, max_len,
+                                         pad_mask is not None)(
+            ids, lengths, pad_mask, buffers)
 
     if paged:
-        caches = _caches_to_paged(caches, page_size, lengths, pad_mask)
+        caches = _caches_to_paged(caches, page_size, lengths, owner=model)
 
     # per-row RoPE positions of the generated tokens (ragged rows continue
     # at their true lengths)
@@ -1056,16 +1193,22 @@ def generate(model, input_ids, max_new_tokens=20, do_sample=False,
                             ngram=ngram)
 
     if eos_token_id is None and max_new_tokens > 1 and not penalized:
-        # fixed length: the sample -> forward loop, then a final sample
-        scan = _ScanDecodeStep(model, max_len, max_new_tokens - 1, do_sample,
-                               float(temperature), int(top_k), float(top_p))
-        toks, last, caches = scan(last, generator, caches)
-        final = _select(last, generator, do_sample, float(temperature),
-                        int(top_k), float(top_p))
-        return torch.cat([toks.t().to(ids.dtype),
-                          final.reshape(B, 1).to(ids.dtype)], dim=1)
+        # fixed length (``generation.py:1166``): the sample -> forward loop,
+        # then a final sample. JAX scans the loop as one program; here each
+        # step is one call of the select-decode unit (on CUDA one replay of
+        # its graph), drawing from ``generator`` in step order where JAX
+        # folds the step index into one key
+        step = _get_select_decode(model, max_len, do_sample, temperature,
+                                  top_k, top_p)
+        toks = torch.empty(max_new_tokens, B, dtype=ids.dtype, device=dev)
+        for i in range(max_new_tokens - 1):
+            nxt, _lp, last, caches = step(last, generator, caches)
+            toks[i] = nxt
+        toks[-1] = _select(last, generator, do_sample, float(temperature),
+                           int(top_k), float(top_p))
+        return toks.t().contiguous()
 
-    step = _DecodeStep(model, max_len)
+    step = _get_decode_step(model, max_len)
     finished = torch.zeros(B, dtype=torch.bool, device=dev)
     seen = (_seen_from_prompt(ids, cfg.vocab_size, pad_mask)
             if rp != 1.0 else None)
@@ -1148,27 +1291,35 @@ def _generate_no_cache(model, ids, max_new_tokens, do_sample, temperature,
 # paged cache construction
 # ---------------------------------------------------------------------------
 
-def _caches_to_paged(caches, page_size, lengths, pad_mask):
+def _caches_to_paged(caches, page_size, lengths, owner):
     """Re-lay dense prefilled buffers [B, max_len, hk, D] into paged dicts
     (``generation.py:1674``): pools [hk, B * pages per row, page_size, D],
     row b owning pages [b * pps, (b + 1) * pps) through a contiguous page
     table. ``lengths`` [B] are each row's valid tokens; the right-pad
-    garbage above them is never attended and is overwritten by decode."""
+    garbage above them is never attended and is overwritten by decode.
+    The pools and the page table are made once per shape and kept in
+    ``owner``, as the dense buffers are."""
     k0 = caches[0]["k"]
     B, max_len, hk, D = k0.shape
     pps = max_len // page_size
 
-    def to_pages(buf):
-        p = buf.reshape(B, pps, page_size, hk, D)
-        return p.movedim(3, 0).reshape(hk, B * pps, page_size,
-                                       D).contiguous()
+    def make():
+        pools = [{n: k0.new_empty(hk, B * pps, page_size, D)
+                  for n in ("k_pages", "v_pages")} for _ in caches]
+        return pools, torch.arange(B * pps, dtype=torch.int32,
+                                   device=k0.device).reshape(B, pps)
 
-    page_indices = torch.arange(B * pps, dtype=torch.int32,
-                                device=k0.device).reshape(B, pps)
+    (pools, page_indices), _ = _lru(
+        owner, "_cache_sets", ("paged", B, max_len, page_size), make,
+        CACHE_SETS)
+    for c, p in zip(caches, pools):
+        for name, pool in (("k", p["k_pages"]), ("v", p["v_pages"])):
+            pool.view(hk, B, pps, page_size, D).copy_(
+                c[name].view(B, pps, page_size, hk, D).permute(3, 0, 1, 2,
+                                                               4))
     lengths = lengths.to(torch.int32)
-    return [{"k_pages": to_pages(c["k"]), "v_pages": to_pages(c["v"]),
-             "page_indices": page_indices, "lengths": lengths,
-             "page_size": page_size} for c in caches]
+    return [dict(p, page_indices=page_indices, lengths=lengths,
+                 page_size=page_size) for p in pools]
 
 
 def generate_paged(model, input_ids, max_new_tokens=20, page_size=16,

@@ -2,9 +2,9 @@
 ``train_step``.
 
 The JAX package compiles forward, backward and the optimizer update into
-one donated XLA computation. The port runs the same three eagerly:
-PyTorch has no ``jit`` the port needs here (a CUDA graph of the step is
-later work)."""
+one donated XLA computation. The port runs the same three eagerly (a
+CUDA graph of the training step is later work). The serving and
+``generate`` step units are CUDA graphs: ``jit/cuda_graph.py``."""
 from __future__ import annotations
 
 import torch

@@ -44,6 +44,7 @@ from torch import nn as tnn
 
 from .. import nn
 from ..ops.hopper import fused_norm
+from ..ops.hopper.append_attention import chunk_positions
 from ..ops.hopper.flash_attention import flash_attention_bshd
 from ..ops.hopper.mla_decode import mla_decode
 from .llama import _rope_type, _width_norm, _yarn_get_mscale, torch_dtype
@@ -150,9 +151,11 @@ def mla_cached_attention(q_nope, q_pe, c_kv, k_pe, cos, sin, ckv_buf,
     buffer (``deepseek.py:177-247``). q_nope [B,S,H,dn], q_pe [B,S,H,dr],
     c_kv [B,S,r] (normed), k_pe [B,S,dr] (before RoPE), cos/sin
     [>= T, dr], ckv_buf [B,T,r] and kpe_buf [B,T,dr] written IN PLACE at
-    ``pos`` (JAX returns new buffers), w_kv_b [r, H*(dn+dv)]. An unpadded
-    first prefill (``prefill``, S > 1, no ``allowed`` / ``row_pos``) takes
-    the expanded path; every other chunk the absorbed one. Returns
+    ``pos`` (JAX returns new buffers), w_kv_b [r, H*(dn+dv)]; ``pos`` an
+    int or the device int32 the dense caches carry (rope rows and cache
+    slots taken by index at ``pos + arange(S)``). An unpadded first
+    prefill (``prefill``, S > 1, no ``allowed`` / ``row_pos``) takes the
+    expanded path; every other chunk the absorbed one. Returns
     (out [B,S,H,dv], ckv_buf, kpe_buf)."""
     from ..generation import _rope_rows
 
@@ -161,17 +164,17 @@ def mla_cached_attention(q_nope, q_pe, c_kv, k_pe, cos, sin, ckv_buf,
     r = c_kv.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(nope_dim
                                                                   + dr)
-    pos = int(pos)
+    qpos = chunk_positions(pos, S, q_nope.device)
     k_pe4 = k_pe[:, :, None, :]
     if row_pos is None:
-        cos_s, sin_s = cos[pos:pos + S], sin[pos:pos + S]
+        cos_s, sin_s = cos.index_select(0, qpos), sin.index_select(0, qpos)
         q_pe = fused_norm.rope_ref(q_pe, cos_s, sin_s)
         k_pe4 = fused_norm.rope_ref(k_pe4, cos_s, sin_s)
     else:
         q_pe = _rope_rows(q_pe, cos, sin, row_pos)
         k_pe4 = _rope_rows(k_pe4, cos, sin, row_pos)
-    ckv_buf[:, pos:pos + S] = c_kv.to(ckv_buf.dtype)
-    kpe_buf[:, pos:pos + S] = k_pe4[:, :, 0, :].to(kpe_buf.dtype)
+    ckv_buf.index_copy_(1, qpos, c_kv.to(ckv_buf.dtype))
+    kpe_buf.index_copy_(1, qpos, k_pe4[:, :, 0, :].to(kpe_buf.dtype))
 
     w3 = w_kv_b.reshape(r, H, nope_dim + v_dim)
     if prefill and S > 1 and allowed is None and row_pos is None:
@@ -189,7 +192,6 @@ def mla_cached_attention(q_nope, q_pe, c_kv, k_pe, cos, sin, ckv_buf,
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope.float(), w_uk.float())
     T = ckv_buf.shape[1]
     t_idx = torch.arange(T, device=q_nope.device)
-    qpos = pos + torch.arange(S, device=q_nope.device)
     mask = (t_idx[None, :] <= qpos[:, None])[None, None]        # [1,1,S,T]
     if allowed is not None:
         mask = mask & allowed.bool()[:, None, None, :]

@@ -414,8 +414,9 @@ def _rope_rows_for_cache(cos, sin, kv_cache, b, s=1):
     fused kernel ropes in-register, so the table gather happens here.
     Paged caches decode at per-row ``lengths`` (token j of a verify chunk
     at lengths[b] + j), ragged dense caches at ``row_pos``, plain dense
-    batches at the shared scalar ``pos``. S > 1 is paged only (the gate
-    keeps dense chunks on the discrete path)."""
+    batches at the shared ``pos`` (the device int32 the dense caches
+    carry). S > 1 is paged only (the gate keeps dense chunks on the
+    discrete path)."""
     if "k_pages" in kv_cache:
         idx = kv_cache["lengths"].long()
         if s > 1:
@@ -424,8 +425,8 @@ def _rope_rows_for_cache(cos, sin, kv_cache, b, s=1):
     elif "row_pos" in kv_cache:
         idx = kv_cache["row_pos"].long()
     else:
-        pos = int(kv_cache["pos"])
-        return (cos[pos:pos + 1].expand(b, -1), sin[pos:pos + 1].expand(b, -1))
+        idx = torch.as_tensor(kv_cache["pos"], device=cos.device).reshape(
+            1).long().expand(b)
     return cos[idx], sin[idx]
 
 

@@ -174,8 +174,9 @@ class MoEMLP(tnn.Module):
         wts = torch.where(keep, topk_p, 0.0).to(ye.dtype).float()
         out = (wts[..., None] * picked.float()).sum(1).to(ye.dtype)
         if cfg.routed_scaling_factor != 1.0:
-            out = out * torch.tensor(cfg.routed_scaling_factor,
-                                     dtype=ye.dtype, device=ye.device)
+            # filled on the device: no host copy inside a captured step
+            out = out * torch.full((), cfg.routed_scaling_factor,
+                                   dtype=ye.dtype, device=ye.device)
         # Switch-style aux value on the router distribution (the softmax of
         # the logits, also under sigmoid scores)
         dist = (probs if cfg.moe_scoring_func == "softmax"

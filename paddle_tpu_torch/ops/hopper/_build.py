@@ -133,6 +133,14 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def capturing(device) -> bool:
+    """Whether ``device``'s current stream is capturing a CUDA graph."""
+    import torch
+
+    return (device.type == "cuda" and torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 _sm_counts: dict = {}
 
 

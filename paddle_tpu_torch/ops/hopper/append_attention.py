@@ -48,16 +48,25 @@ def grouped_attention_plain(q, k, v, mask, scale):
     return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
+def chunk_positions(pos, S, device):
+    """[S] int64 positions pos .. pos + S - 1 of a chunk: ``pos`` an int or
+    a one-element int tensor on ``device`` (the device ``pos`` of the dense
+    caches)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(()).long() + torch.arange(S, device=device)
+    return torch.arange(int(pos), int(pos) + S, device=device)
+
+
 def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None):
     """The einsum branch of ``generation.cached_attention`` (no softcap):
     f32 scores over the whole buffer with the causal, column and sliding
     window masks, f32 softmax. A window with a column mask counts true
     positions (right-padded rows); the kernel takes a window only without
-    one, where it counts buffer slots, and only on the flash route."""
+    one, where it counts buffer slots, and only on the flash route.
+    ``pos``: an int or a one-element int32 tensor on q's device."""
     S, T = q.shape[1], k_buf.shape[1]
-    pos = int(pos)
     t_idx = torch.arange(T, device=q.device)
-    qpos = pos + torch.arange(S, device=q.device)
+    qpos = chunk_positions(pos, S, q.device)
     mask = (t_idx[None, :] <= qpos[:, None])[None]              # [1, S, T]
     if window is not None and allowed is None:
         mask = mask & (t_idx[None, :] > qpos[:, None] - window)
@@ -67,7 +76,7 @@ def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None):
             # right-padded rows: the window counts true positions, i.e.
             # allowed columns before the query's slot
             colpos = torch.cumsum(allowed.int(), dim=1) - 1      # [B, T]
-            curpos = colpos[:, pos:pos + S]                      # [B, S]
+            curpos = colpos.index_select(1, qpos)                # [B, S]
             mask = mask & (colpos[:, None, :] > curpos[:, :, None] - window)
     return grouped_attention_plain(q, k_buf, v_buf, mask,
                                    1.0 / math.sqrt(q.shape[-1]))
@@ -80,9 +89,18 @@ def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False,
     the kernel). ``kind``: "causal" (query s sees columns t <= pos + s),
     "local" (also t > pos + s - window) or "full" (every column; ``pos``
     is not read); by default "local" with a window, else "causal".
-    Returns out, or (out, lse [B, H, S] f32) with ``with_lse``."""
+    ``pos``: an int, or a one-element int32 tensor on q's device that the
+    kernel reads at entry (``pos_dev``; a CUDA graph of the call then
+    serves every position). Returns out, or (out, lse [B, H, S] f32) with
+    ``with_lse``."""
     kind = kind or ("causal" if window is None else "local")
-    tensors = [q, k_buf, v_buf] + ([allowed] if allowed is not None else [])
+    pos_dev = None
+    if isinstance(pos, torch.Tensor):
+        _build.require(pos.dtype == torch.int32 and pos.numel() == 1,
+                       f"{counter}: a device pos is one int32")
+        pos_dev, pos = pos, 0
+    tensors = [q, k_buf, v_buf] + [t for t in (allowed, pos_dev)
+                                   if t is not None]
     _build.require_cuda(*tensors)
     code = _build.dtype_code(q)
     B, S, H, D = q.shape
@@ -119,20 +137,24 @@ def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False,
     if q.numel() > 0:
         fn = _build.function(_STEM, "pt_append_attention", [_build.VOIDP] * 6 + [
             _build.INT] * 9 + [_build.FLOAT, _build.INT, _build.INT,
-                               _build.VOIDP])
+                               _build.VOIDP, _build.VOIDP])
         err = fn(_build.ptr(q), _build.ptr(k_buf), _build.ptr(v_buf), a_ptr,
                  _build.ptr(out), None if lse is None else _build.ptr(lse),
                  B, S, T, H, hk, D, Dv, int(pos), int(window or 0),
-                 float(scale), KINDS[kind], code, _build.stream(q.device))
+                 float(scale), KINDS[kind], code,
+                 None if pos_dev is None else _build.ptr(pos_dev),
+                 _build.stream(q.device))
         _build.launches[counter] += 1
         _build.check(err, _STEM, counter)
     return (out, lse) if with_lse else out
 
 
 def append_attention(q, k_buf, v_buf, pos, allowed=None):
-    """q [B,S,H,D] against k_buf/v_buf [B,T,hk,D] at offset ``pos`` with an
-    optional [B,T] column mask. Returns [B,S,H,D] in q's dtype. On CUDA it
-    has no backward and refuses inputs that need a gradient."""
+    """q [B,S,H,D] against k_buf/v_buf [B,T,hk,D] at offset ``pos`` (an int,
+    or a one-element int32 tensor on q's device, as the Pallas kernel takes
+    it by scalar prefetch) with an optional [B,T] column mask. Returns
+    [B,S,H,D] in q's dtype. On CUDA it has no backward and refuses inputs
+    that need a gradient."""
     if q.device.type == "cpu":
         return append_attention_plain(q, k_buf, v_buf, pos, allowed)
     _build.require_no_grad("append_attention", q, k_buf, v_buf)

@@ -203,15 +203,35 @@ _BARRIER = 2
 
 
 def _state(device, n_counters: int) -> torch.Tensor:
-    """The kernels' persistent int32 state on ``device``: the qkv kernel's
-    grid barrier, then at least ``n_counters`` arrival counters of the f32
-    epilogue. Zeroed when made; every launch leaves its part as the next
-    launch needs it (one stream per device)."""
-    c = _states.get(device)
+    """The kernels' persistent int32 state for ``device``'s current stream
+    (read as ``_build.stream`` reads it): the qkv kernel's grid barrier,
+    then at least ``n_counters`` arrival counters of the f32 epilogue.
+    Zeroed when made; every launch leaves its part as the next launch needs
+    it. Two streams never share a buffer, so a CUDA graph captured on a
+    side stream owns its own; within one stream launches run in order. A
+    buffer is made before a capture, by the warm-up runs on the capture
+    stream (``jit/cuda_graph.py``): one first made inside a capture would
+    come from the graph's pool, and the capture would record its zero-fill.
+    One replay of such a graph at a time."""
+    key = (device, _build.stream(device))
+    c = _states.get(key)
     if c is None or c.numel() < _BARRIER + n_counters:
-        c = _states[device] = torch.zeros(_BARRIER + max(n_counters, _TILES),
-                                          dtype=torch.int32, device=device)
+        if _build.capturing(device):
+            raise RuntimeError(
+                "decode tail: its barrier state for this stream must exist "
+                "before a CUDA-graph capture (run the unit eagerly on the "
+                "capture stream first)")
+        c = _states[key] = torch.zeros(_BARRIER + max(n_counters, _TILES),
+                                       dtype=torch.int32, device=device)
     return c
+
+
+def prepare_stream(device) -> None:
+    """Make the persistent state of ``device``'s current stream now (a
+    graph's warm-up must not be where it is first made). The CPU has
+    none."""
+    if device.type == "cuda":
+        _state(device, 0)
 
 
 def _check(what, code_of, specs):

@@ -3,7 +3,11 @@
 
 Requests join at any time; every ``step()`` decodes one token for every
 active slot (sample + forward in one call), a finished request frees its
-slot at once, and the FIFO queue refills it. Admission runs one bucketed
+slot at once, and the FIFO queue refills it. The step units come from the
+model's memoized getters (``generation._get_select_decode`` and the rest,
+keyed with the flag fingerprint as in the JAX engine): on CUDA each is a
+replayed CUDA graph over the engine's pool, its page table and one
+``lengths`` tensor that every layer's cache holds. Admission runs one bucketed
 prefill into a dense cache (flash kernel for a prompt that fills its
 power-of-two bucket, append-attention kernel for a padded one) and copies
 that cache into the slot's pages of the pool.
@@ -41,8 +45,9 @@ import numpy as np
 import torch
 
 from .framework.random import default_generator
-from .generation import (_PrefillStep, _SelectDecodeRowsStep,
-                         _SelectDecodeStep, _SpecDecodeStep)
+from .generation import (_cache_buffers, _get_prefill_step,
+                         _get_select_decode, _get_select_decode_rows,
+                         _get_spec_decode)
 from .models.llama import head_dim_of, torch_dtype
 from .speculative import ngram_propose
 
@@ -167,8 +172,13 @@ class ContinuousBatchEngine:
                                     device=self.device).reshape(
                                         max_batch, self._pages_per_slot)
         self._lengths = np.zeros(max_batch, np.int32)   # tokens per slot
+        # their device copy, refreshed each step: one tensor that every
+        # layer's cache dict holds
+        self._lengths_dev = torch.zeros(max_batch, dtype=torch.int32,
+                                        device=self.device)
         if self._latent_mode:
-            self._caches = [make(max_batch, max_len, dt)
+            self._caches = [dict(make(max_batch, max_len, dt),
+                                 lengths=self._lengths_dev)
                             for _ in range(cfg.num_hidden_layers)]
         else:
             self._caches = [{
@@ -178,6 +188,7 @@ class ContinuousBatchEngine:
                                        device=self.device),
                 "page_indices": page_indices,
                 "page_size": page_size,
+                "lengths": self._lengths_dev,
             } for _ in range(cfg.num_hidden_layers)]
         self._last = torch.zeros(max_batch, cfg.vocab_size,
                                  dtype=torch.float32, device=self.device)
@@ -191,7 +202,6 @@ class ContinuousBatchEngine:
         self._n_tokens = self._n_steps = 0
         self._n_spec_steps = self._n_spec_emitted = 0
         self._n_spec_accepted = self._n_spec_slot_rounds = 0
-        self._steps: dict = {}
 
     # ---- public API -----------------------------------------------------
     def add_request(self, ids, max_new_tokens: int = 64, do_sample=None,
@@ -276,18 +286,15 @@ class ContinuousBatchEngine:
         self._admit()
         if self.num_active == 0:
             return self._drain_finished()
-        lengths = torch.from_numpy(self._lengths).to(self.device)
-        for c in self._caches:
-            c["lengths"] = lengths
+        self._lengths_dev.copy_(torch.from_numpy(self._lengths))
         if self.speculative_k is not None and self._spec_eligible():
             return self._step_speculative()
         if any(r is not None and r.sampling is not None for r in self._slots):
             rows = [(r.sampling or self._sample_cfg) if r is not None
                     else self._sample_cfg for r in self._slots]
             dev = self.device
-            step = self._step_unit("rows", lambda: _SelectDecodeRowsStep(
-                self.model, self.max_len))
-            nxt, logps, self._last, self._caches = step(
+            step = _get_select_decode_rows(self.model, self.max_len)
+            nxt, logps, last, _ = step(
                 self._last, self._generator,
                 torch.tensor([r[0] for r in rows], dtype=torch.bool, device=dev),
                 torch.tensor([r[1] for r in rows], dtype=torch.float32,
@@ -298,10 +305,11 @@ class ContinuousBatchEngine:
                              device=dev),
                 self._caches)
         else:
-            step = self._step_unit(self._sample_cfg, lambda: _SelectDecodeStep(
-                self.model, self.max_len, *self._sample_cfg))
-            nxt, logps, self._last, self._caches = step(
-                self._last, self._generator, self._caches)
+            step = _get_select_decode(self.model, self.max_len,
+                                      *self._sample_cfg)
+            nxt, logps, last, _ = step(self._last, self._generator,
+                                       self._caches)
+        self._keep_last(last)
         # the one device -> host sync of the step
         toks = nxt.cpu().numpy()[:, None]
         lps = logps.cpu().numpy()[:, None]
@@ -348,11 +356,11 @@ class ContinuousBatchEngine:
             prop = ngram_propose(hist, k, self.speculative_ngram)
             if prop.size > 1:
                 drafts[s, :prop.size - 1] = prop[1:]
-        step = self._step_unit(("spec", k), lambda: _SpecDecodeStep(
-            self.model, self.max_len))
-        emitted, n_emit, logps, self._last, self._caches = step(
+        step = _get_spec_decode(self.model, self.max_len, k)
+        emitted, n_emit, logps, last, _ = step(
             self._last, torch.from_numpy(drafts).to(self.device),
             self._caches)
+        self._keep_last(last)
         # the one device -> host sync of the step
         toks = emitted.cpu().numpy()
         n_row = n_emit.cpu().numpy()
@@ -447,11 +455,14 @@ class ContinuousBatchEngine:
                     float(eng_p if top_p is None else top_p))
         return None if sampling == self._sample_cfg else sampling
 
-    def _step_unit(self, key, factory):
-        unit = self._steps.get(key)
-        if unit is None:
-            unit = self._steps[key] = factory()
-        return unit
+    @torch.inference_mode()
+    def _keep_last(self, last):
+        """Keep a copy of a decode unit's next logits as the engine's own:
+        a unit's outputs last only until the model's next unit call (its
+        CUDA graphs share one pool), and admission replays prefills. A new
+        tensor, so a reference to the previous ``_last`` keeps its
+        values."""
+        self._last = last.clone()
 
     def _record_reason(self, rid, reason, logprobs=None):
         if reason == "cancelled":
@@ -505,13 +516,14 @@ class ContinuousBatchEngine:
             pad_mask[0, :S0] = True
         ids = np.zeros((1, bucket), np.int32)
         ids[0, :S0] = req.ids
-        prefill = self._step_unit(("prefill", bucket, ragged),
-                                  lambda: _PrefillStep(self.model, bucket,
-                                                       ragged,
-                                                       rope_len=self.max_len))
+        prefill = _get_prefill_step(self.model, bucket, ragged,
+                                    rope_len=self.max_len)
+        # the engine keeps one set of dense buffers a bucket
         last, caches = prefill(torch.from_numpy(ids).to(self.device),
                                torch.tensor([S0], dtype=torch.int32,
-                                            device=self.device), pad_mask)
+                                            device=self.device), pad_mask,
+                               _cache_buffers(self.model, 1, bucket, ragged,
+                                              owner=self))
         return last, caches, S0, bucket
 
     def _prefill_into(self, slot: int, req: _Request):

@@ -348,7 +348,7 @@ def test_qkv_cuda_route_arguments_scratch_and_one_count(fake_kernels,
     assert a[12:] == (3, 256, 2, 1, D, split, EPS, 1, None)
     assert a[:7] == tuple(t.data_ptr() for t in args)
     assert a[7:10] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    state = port_tail._states[args[0].device]
+    state = port_tail._states[(args[0].device, None)]
     assert a[11] == state.data_ptr() and int(state.sum()) == 0
     assert (q.shape, k.shape, v.shape) == ((3, 256), (3, 128), (3, 128))
 
@@ -384,7 +384,7 @@ def test_f32_routes_take_no_split_and_the_counters(fake_kernels,
     eargs = _epilogue_inputs(dtype=torch.float32)
     port_tail.fused_epilogue(*eargs, EPS)
     a = fake_kernels[1][1]
-    state = port_tail._states[eargs[0].device]
+    state = port_tail._states[(eargs[0].device, None)]
     assert a[7] == state.data_ptr() + 4 * port_tail._BARRIER
     assert a[11] == 1 and a[13] == 0
     assert scratch_sizes == [3 * 256 + 3 * 256 // 32]

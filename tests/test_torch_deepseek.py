@@ -303,7 +303,9 @@ def test_latent_engine_matches_jax_and_solo(engine_pair, monkeypatch):
     jax_eng = JaxEngine(jax_model, **ENGINE)
     port_eng = PortEngine(port_model, **ENGINE)
     assert port_eng._latent_mode and jax_eng._latent_mode
-    assert set(port_eng._caches[0]) == {"c_kv", "k_pe"}
+    # the latent rows and the engine's one device lengths tensor, no pages
+    assert set(port_eng._caches[0]) == {"c_kv", "k_pe", "lengths"}
+    assert port_eng._caches[0]["lengths"] is port_eng._caches[1]["lengths"]
     want = _run(jax_eng, prompts, NEW_TOKENS)
     got = _run(port_eng, prompts, NEW_TOKENS)
     for (wt, wl), (gt, gl), n in zip(want, got, NEW_TOKENS):
