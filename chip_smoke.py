@@ -7,6 +7,7 @@ NVIDIA H100.
     python3 chip_smoke.py --decode-profile-only   # phase 3's trace alone
     python3 chip_smoke.py --decode-tail-only      # phase 2's tail rows alone
     python3 chip_smoke.py --mla-only              # phase 2's MLA rows alone
+    python3 chip_smoke.py --optimizer-only        # phase 2's update rows
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -71,7 +72,19 @@ Phases (any failure raises, so the script exits non-zero):
    [1, 32 | 8, 4096, 128] for each kind of the ring's hops (full, causal at
    offset 0, local at offset 4096 with window 4096, whose dead row must be
    out 0 and lse -inf) beside SDPA on the hop's mask, and a local hop with
-   dead rows 95-127 in f32.
+   dead rows 95-127 in f32. The training update's two kernels, which
+   replace no TPU kernel (the XLA fusion of the JAX train step's update
+   and clip): ``adam_update`` over one Llama-3-8B layer's tensors and a
+   64 Mi-element slice of the embedding in three variants (phase 5's
+   recipe: bf16 parameters, f32 masters, bf16 moments, decoupled decay;
+   f32 amsgrad with L2 decay; the recipe clipped), each bit for bit
+   against the plain version on the CPU from the same state (the clipped
+   row given the plain scale), the plain version on the card logged
+   against the CPU's bits, ``_fused_adamw_`` / ``_fused_adam_`` over f32
+   copies as the yardstick; ``grad_norm`` over the depth-4 set's
+   gradients (about 1.4e9 bf16 terms): the norm within 1e-5 relative of
+   the plain one, two calls bit-identical, ``_foreach_norm`` and the sum
+   as the yardstick.
 3. The serving path at full width: Llama-3-8B (bf16, all 32 layers, random
    weights from a seeded generator on the card) behind
    ``ContinuousBatchEngine(max_batch=8, max_len=2048)``, ten greedy
@@ -92,7 +105,14 @@ Phases (any failure raises, so the script exits non-zero):
    seeded generator, one fixed random batch; ``train_step`` once to warm
    up, then 5 timed steps; one more step under ``torch.profiler`` for the
    kernels' share of the step. Launch counts are zeroed just before the
-   first step and read just after the last timed one.
+   first step and read just after the last timed one; ``adam_update``
+   must run once a step (the bf16 set is one group). Step ms, peak memory
+   and the profile's "other" group are logged beside the earlier figures
+   (phases 8 and 12 too). Then the same run with ``recompute=True``: the
+   same losses and parameters after it, bit for bit, a lower peak, and
+   ``rms_norm``, ``add_rms_norm``, ``fused_rope`` and
+   ``flash_attention_bshd`` launched once more per layer and step (one
+   forward's count), every other kernel as often.
 6. Training wiring: two layers at full width in f32, sequence 128, the
    same weights on the card and on the CPU; one ``train_step`` each; the
    losses, every gradient and every parameter after the step must agree.
@@ -104,7 +124,7 @@ Phases (any failure raises, so the script exits non-zero):
    fused tail off, then on. Counts zeroed before and read after each run.
 8. Mistral-7B training: its widths at depth 4, sequence 8192 (above the
    window), phase 5's recipe with untied embeddings; the local kernels
-   must run once per layer and step.
+   must run once per layer and step, ``adam_update`` once a step.
 9. Windowed wiring, f32, card against CPU: two Mistral layers at full
    width, window 256, a 512-token prompt and 16 greedy tokens at max_len
    1024 (tokens identical, prefill logits within 1e-3); one training step
@@ -128,7 +148,8 @@ Phases (any failure raises, so the script exits non-zero):
    parameters; phase 5's AdamW with DeepSeek-V2's beta2 0.95 and
    global-norm clip 1.0, and a linear warm-up to 3e-4 cut to 2 steps so
    the loss can fall within the run. The width-192 flash forward and
-   backward kernels must run once per layer and step; every parameter
+   backward kernels must run once per layer and step, ``adam_update``
+   and ``grad_norm`` once a step; every parameter
    gets a gradient, the first loss is within 5% of ln V + std^2 / 2 and
    the loss falls. One more step is profiled.
 13. DeepSeek training wiring, f32, card against CPU: two V2-Lite layers at
@@ -240,6 +261,10 @@ REPLACES = {
     "flash_attention_full": "paddle_tpu/ops/pallas/flash_attention.py:106",
     "flash_attention_full_bwd": "paddle_tpu/ops/pallas/flash_attention.py:122",
     "splash_hop": "paddle_tpu/ops/pallas/flash_attention.py:171",
+    # not TPU kernels: the hand-written counterparts of the XLA fusion of
+    # the JAX train step's update and clip (Adam.update, functional_clip)
+    "adam_update": "paddle_tpu/optimizer/optimizer.py:245",
+    "grad_norm": "paddle_tpu/optimizer/clip.py:62",
 }
 SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -259,18 +284,22 @@ SOURCES = {
     "flash_attention_full": "paddle_tpu_torch/csrc/append_attention.cu",
     "flash_attention_full_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
     "splash_hop": "paddle_tpu_torch/csrc/append_attention.cu",
+    "adam_update": "paddle_tpu_torch/csrc/adam_update.cu",
+    "grad_norm": "paddle_tpu_torch/csrc/grad_norm.cu",
 }
 # the kernels each main path must launch
 SERVING_KERNELS = ("rms_norm", "add_rms_norm", "append_attention",
                    "flash_attention_bshd", "paged_attention")
 TRAINING_KERNELS = ("rms_norm", "add_rms_norm", "fused_rope",
-                    "flash_attention_bshd", "flash_attention_bwd")
+                    "flash_attention_bshd", "flash_attention_bwd",
+                    "adam_update")
 FUSED_KERNELS = ("fused_qkv_rope", "fused_epilogue", "paged_attention")
 MISTRAL_TRAINING_KERNELS = ("rms_norm", "add_rms_norm", "fused_rope",
                             "flash_attention_local",
-                            "flash_attention_local_bwd")
+                            "flash_attention_local_bwd", "adam_update")
 DEEPSEEK_TRAINING_KERNELS = ("rms_norm", "add_rms_norm", "flash_attention_mla",
-                             "flash_attention_mla_bwd")
+                             "flash_attention_mla_bwd", "adam_update",
+                             "grad_norm")
 SPEC_K = 4
 TRAIN_SEQ, TRAIN_DEPTH, TRAIN_STEPS = 4096, 4, 5
 # Mistral-7B: sliding window 4096; training at 8192, above the window
@@ -333,6 +362,10 @@ def host_us(fn, calls=HOST_CALLS):
     return (time.perf_counter() - t0) / calls * 1e6
 
 
+# device cycles of the spin kernels around a profiled window (about 10 ms)
+SPIN_CYCLES = 20_000_000
+
+
 def profiled_ms(fn, calls=10):
     """Device ms of one call: the durations of every device kernel (and
     memset or copy) that ``torch.profiler`` records over ``calls`` calls,
@@ -340,28 +373,38 @@ def profiled_ms(fn, calls=10):
     host's time nor the gaps between launches count. The profiler can drop
     a session's records (a session has come back empty), which only
     lowers the sum: two sessions that each record at least one kernel a
-    call are taken, up to five tried, and the larger figure stands."""
+    call are taken, up to five tried, and the larger figure stands. A
+    spin kernel of about 10 ms (``torch.cuda._sleep``, not counted) runs
+    before the timed calls and another after them, so that none of them
+    sits at an edge of the trace's window: late in a run, sessions have
+    come back with 9 of 10 launches each, the same kernel timed in full
+    in a fresh process."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    totals = []
+    totals, seen = [], []
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
             for _ in range(calls):
                 fn()
+            torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        if sum(e.count for e in kernels) >= calls:
+                   if e.device_type == DeviceType.CUDA
+                   and "spin" not in e.key]
+        seen.append(sum(e.count for e in kernels))
+        if seen[-1] >= calls:
             totals.append(sum(e.device_time_total for e in kernels))
             if len(totals) == 2:
                 break
     if not totals:
-        raise AssertionError("torch.profiler recorded no device time")
+        raise AssertionError(f"torch.profiler recorded no device time "
+                             f"(device records a session: {seen})")
     return max(totals) / 1e3 / calls
 
 
@@ -588,6 +631,9 @@ def check_kernels(results):
     torch.cuda.empty_cache()
     log(f"  the full-mask and splash_hop rows took "
         f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    check_update_rows(record)
+    log(f"  the update rows took {time.perf_counter() - t0:.1f}s")
 
 
 # generate's dense decode: B 4 rows at pos 1040 of a T 1056 buffer (the
@@ -1809,6 +1855,223 @@ def check_mla_backward(record, randn, scale):
            bound(nbytes, (6 * dqk + 4 * dv) * H * cells, "bfloat16"), True)
 
 
+# ------------------------------------------------- phase 2: the update --
+
+# one Llama-3-8B layer's tensors (q, k, v, o, gate, up, down, two norms)
+# and a 64 Mi-element slice of the embedding: the update's shapes (the
+# depth-4 set is the 128256 x 4096 embedding and four such layers)
+LAYER_SHAPES = ((4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
+                (4096, 14336), (4096, 14336), (14336, 4096), (4096,),
+                (4096,))
+EMBED_SLICE = (16384, 4096)
+# (label, parameter dtype, master, moment dtype, amsgrad, decoupled, clip)
+UPDATE_ROWS = (
+    ("recipe", "bfloat16", True, "bfloat16", False, True, False),
+    ("amsgrad", "float32", False, "float32", True, False, False),
+    ("clipped", "bfloat16", True, "bfloat16", False, True, True),
+)
+
+
+def update_row_state(row, shapes, gen):
+    """(items on the card, hyper, clip norm or None) of one update row:
+    random state as a few steps in (masters N(0, 0.02), m N(0, 1e-3), v
+    (1e-3 N(0, 1))^2, gradients N(0, 1e-3)), the 1-D tensors excluded
+    from decay, the hyper at step 3 (rate 3e-4, betas 0.9 / 0.95, decay
+    0.1)."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper.adam_update import AdamHyper
+
+    _, pdt, master, mdt, ams, decoupled, clip = row
+    pdt, mdt = getattr(torch, pdt), getattr(torch, mdt)
+
+    def rnd(shape, std):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(std)
+
+    items = []
+    for shape in shapes:
+        w = rnd(shape, 0.02)
+        state = {"moment1": rnd(shape, 1e-3).to(mdt),
+                 "moment2": rnd(shape, 1e-3).square_().to(mdt)}
+        if master:
+            state["master"] = w
+        if ams:
+            state["moment2_max"] = (state["moment2"].float() * 1.5).to(mdt)
+        items.append((w.to(pdt), rnd(shape, 1e-3).to(pdt), state,
+                      len(shape) > 1))
+    hp = AdamHyper(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8,
+                   weight_decay=0.1, decoupled=decoupled, amsgrad=ams,
+                   step=3)
+    return items, hp, (1.0 if clip else None)
+
+
+def copy_items(items, device):
+    return [(p.to(device, copy=True), g.to(device, copy=True),
+             {k: t.to(device, copy=True) for k, t in state.items()}, decay)
+            for p, g, state, decay in items]
+
+
+def item_outputs(items):
+    """The tensors an update writes, in one order."""
+    out = []
+    for p, _, state, _ in items:
+        out.append(p)
+        out.extend(state[k] for k in sorted(state))
+    return out
+
+
+def bits_differ(a, b) -> int:
+    """Elements of ``a`` and ``b`` (one shape and dtype, on the card) whose
+    bits differ."""
+    import torch
+
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(view) != b.view(view)).sum())
+
+
+def update_bytes(items) -> int:
+    """Bytes the update must move: each gradient, moment and master (or
+    parameter, without one) read once, each moment, master and parameter
+    written once."""
+    n = 0
+    for p, g, state, _ in items:
+        n += g.numel() * g.element_size() + p.numel() * p.element_size()
+        for key, t in state.items():
+            n += 2 * t.numel() * t.element_size()
+        if "master" not in state:
+            n += p.numel() * p.element_size()
+    return n
+
+
+def update_yardstick(items, hp, scale):
+    """One PyTorch call computing the nearest function: ``_fused_adamw_``
+    (decoupled) or ``_fused_adam_`` (L2), over f32 copies of the values,
+    gradients and moments (the kernel's bf16 moments and masters are not
+    its function); the clip scale as its gradient scale (it divides by
+    it)."""
+    import torch
+
+    vals = [(st.get("master", p)).float().clone() for p, _, st, _ in items]
+    grads = [g.float() for _, g, _, _ in items]
+    ms = [st["moment1"].float() for _, _, st, _ in items]
+    vs = [st["moment2"].float() for _, _, st, _ in items]
+    vmax = ([st["moment2_max"].float() for _, _, st, _ in items]
+            if hp.amsgrad else [])
+    steps = [torch.full((), float(hp.step), device="cuda") for _ in items]
+    inv = None if scale is None else (1.0 / scale).reshape(())
+    fn = torch._fused_adamw_ if hp.decoupled else torch._fused_adam_
+
+    def call():
+        fn(vals, grads, ms, vs, vmax, steps, lr=hp.lr, beta1=hp.beta1,
+           beta2=hp.beta2, weight_decay=hp.weight_decay, eps=hp.eps,
+           amsgrad=hp.amsgrad, maximize=False, grad_scale=inv)
+
+    return call
+
+
+def check_update_rows(record):
+    """Phase 2's ``adam_update`` rows: each variant over one Llama-3-8B
+    layer plus a 64 Mi-element slice of the embedding, bit for bit against
+    the plain version on the CPU from the same state (the clipped row given
+    the plain version's scale, computed on the CPU); the plain version on
+    the card logged against the CPU's bits (PyTorch on CUDA divides by a
+    scalar through its reciprocal), not required."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import adam_update as au
+    from paddle_tpu_torch.ops.hopper import grad_norm as gn
+
+    gen = torch.Generator("cuda").manual_seed(77)
+    shapes = LAYER_SHAPES + (EMBED_SLICE,)
+    n = sum(int(np.prod(s)) for s in shapes)
+    log(f"phase 2: adam_update over one Llama-3-8B layer and a 64 Mi-element "
+        f"slice of the embedding ({len(shapes)} tensors, {n} elements), step "
+        f"3, rate 3e-4; each row against the plain version on the CPU, bit "
+        f"for bit")
+    for row in UPDATE_ROWS:
+        t0 = time.perf_counter()
+        items, hp, clip = update_row_state(row, shapes, gen)
+        cpu = copy_items(items, "cpu")
+        scale = cpu_scale = None
+        if clip is not None:
+            cpu_scale = gn.grad_norm_plain([g for _, g, _, _ in cpu],
+                                           clip)[1]
+            scale = cpu_scale.to("cuda")
+        on_card = copy_items(items, "cuda")
+        au.adam_update(items, hp, scale, au.Tables())
+        au.adam_update_plain(cpu, hp, cpu_scale)
+        au.adam_update_plain(on_card, hp, scale)
+        torch.cuda.synchronize()
+        differ, card_differ, err = 0, 0, 0.0
+        for got, want, plain_card in zip(item_outputs(items),
+                                         item_outputs(cpu),
+                                         item_outputs(on_card)):
+            want = want.to("cuda")
+            differ += bits_differ(got, want)
+            card_differ += bits_differ(plain_card, want)
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        del cpu
+        ok = differ == 0
+        log(f"  adam_update {row[0]}: {differ} of the outputs' elements "
+            f"differ from the plain version on the CPU (required 0); the "
+            f"plain version on the card differs from the CPU's in "
+            f"{card_differ} (logged only)"
+            + ("" if scale is None else f"; clip scale {float(scale):.6g}")
+            + f"; checked in {time.perf_counter() - t0:.1f}s")
+        label = (f"{row[0]}: {len(shapes)} tensors, {n} elements, "
+                 f"{row[1]} params{' + f32 master' if row[2] else ''}, "
+                 f"{row[3]} moments")
+        tables = au.Tables()
+        record("adam_update", label, err, ok,
+               kernel_times(lambda: au.adam_update(items, hp, scale, tables)),
+               time_ms(lambda: au.adam_update_plain(on_card, hp, scale),
+                       reps=5, warmup=1),
+               kernel_times(update_yardstick(items, hp, scale), reps=10),
+               bound(update_bytes(items), 16 * n, "float32"),
+               row[0] == "recipe")
+        del items, on_card
+        torch.cuda.empty_cache()
+    check_grad_norm_row(record, gen)
+
+
+def check_grad_norm_row(record, gen):
+    """``grad_norm`` over the gradients of the Llama-3-8B depth-4 set (the
+    embedding, four layers, the final norm; bf16, N(0, 1e-3)): the norm
+    within 1e-5 relative of the plain version's on the card (f32 sums of
+    about 1.4e9 terms in another order), two calls bit-identical."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import grad_norm as gn
+
+    shapes = ((128256, 4096),) + LAYER_SHAPES * TRAIN_DEPTH + ((4096,),)
+    grads = [torch.randn(s, generator=gen, device="cuda").mul_(1e-3).to(
+        torch.bfloat16) for s in shapes]
+    n = sum(g.numel() for g in grads)
+    first = gn.grad_norm(grads, 1.0)
+    second = gn.grad_norm(grads, 1.0)
+    plain = gn.grad_norm_plain(grads, 1.0)
+    torch.cuda.synchronize()
+    rel = float((first[0] - plain[0]).abs() / plain[0])
+    same = torch.equal(first, second)
+    ok = rel <= 1e-5 and same
+    log(f"  grad_norm over {len(grads)} bf16 gradients, {n} elements: norm "
+        f"{float(first[0]):.7g} (plain on the card {float(plain[0]):.7g}, "
+        f"rel err {rel:.2e}, required <= 1e-5), scale {float(first[1]):.7g} "
+        f"(plain {float(plain[1]):.7g}); two calls bit-identical: {same}")
+
+    def library():
+        norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
+        return torch.stack(norms).square().sum().sqrt()
+
+    record("grad_norm", f"{len(grads)} bf16 gradients, {n} elements",
+           float((first[0] - plain[0]).abs()), ok,
+           kernel_times(lambda: gn.grad_norm(grads, 1.0)),
+           time_ms(lambda: gn.grad_norm_plain(grads, 1.0), reps=5, warmup=1),
+           kernel_times(library), bound(2 * n + 8, 2 * n, "float32"), True)
+    del grads
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 3 --
 
 class _Timed:
@@ -2262,13 +2525,28 @@ def token_batch(vocab, seq, seed, device):
     return ids[:, :-1], ids[:, 1:]
 
 
-def train_run(phase, cfg, seq, kernels, seed, recipe=dict):
+# the training figures of the eager update, which each run logs beside its
+# own (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md names their runs): step
+# ms, peak GiB and the profile's "other" ms
+EARLIER_TRAINING = {"phase 5": (189.4, 25.47, 120.87),
+                    "phase 8": (225.7, 17.26, 109.93),
+                    "phase 12": (262.0, 36.38, 221.12)}
+# launches of one decoder layer's forward that recompute repeats in the
+# backward (Llama, Mistral's causal kernels)
+RECOMPUTED = {"rms_norm": 1, "add_rms_norm": 1, "fused_rope": 2,
+              "flash_attention_bshd": 1}
+
+
+def train_run(phase, cfg, seq, kernels, seed, recipe=dict, keep=False):
     """The training main path of one configuration: ``train_step`` once to
     warm up, then TRAIN_STEPS timed steps on one fixed random batch, launch
     counts zeroed just before the first step and read just after the last;
     then one profiled step. ``recipe()`` gives the AdamW keywords beyond
-    phase 5's (a schedule is stepped after each step). Returns the
-    counts."""
+    phase 5's (a schedule is stepped after each step). The update runs one
+    ``adam_update`` launch a step (the bf16 set is one group) and, with a
+    global-norm clip, one ``grad_norm``. Returns {"counts", "losses",
+    "peak", "step_ms", "other_ms"} and, with ``keep``, "params": a copy of
+    the parameters after the profiled step."""
     import torch
 
     from paddle_tpu_torch.ops.hopper import launches, reset_launches
@@ -2279,12 +2557,13 @@ def train_run(phase, cfg, seq, kernels, seed, recipe=dict):
                                  seed))
     n_params = sum(p.numel() for p in model.parameters())
     opt_kw = recipe()
-    step = make_train_step(model, **opt_kw)[0]
+    step, opt = make_train_step(model, **opt_kw)
     x, y = token_batch(cfg.vocab_size, seq, 0, "cuda")
     card = card_line()
     log(f"{phase}: {cfg.num_hidden_layers} layers, {n_params / 1e9:.3f}B "
         f"parameters, bf16, seq {seq}, batch 1, window "
-        f"{cfg.sliding_window}, {recipe_text(opt_kw)}")
+        f"{cfg.sliding_window}, recompute {cfg.recompute}, "
+        f"{recipe_text(opt_kw)}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path's run: counts zeroed just before, read just after
@@ -2306,6 +2585,18 @@ def train_run(phase, cfg, seq, kernels, seed, recipe=dict):
         f"{peak / 2**30:.2f} GiB")
     log(f"  launches ({1 + TRAIN_STEPS} steps): {json.dumps(counts)}")
     require_launched(counts, kernels, "training")
+    groups = {(p.dtype, "master" in opt._state[name],
+               opt._state[name]["moment1"].dtype)
+              for name, p in model.named_parameters()}
+    want_norm = 1 + TRAIN_STEPS if opt_kw.get("grad_clip") else 0
+    log(f"  the update: {len(groups)} group(s) of tensors "
+        f"{sorted(str(g) for g in groups)}; adam_update "
+        f"{counts.get('adam_update', 0)} launches (required "
+        f"{1 + TRAIN_STEPS}), grad_norm {counts.get('grad_norm', 0)} "
+        f"(required {want_norm})")
+    if (counts.get("adam_update", 0) != 1 + TRAIN_STEPS
+            or counts.get("grad_norm", 0) != want_norm):
+        raise AssertionError("the update's launches are not one a step")
     # logits at init: normed hidden (rms 1) times the output embedding
     # (std 0.02) have std 0.02 * sqrt(hidden); for V such logits the
     # expected loss is ln V + std^2 / 2
@@ -2323,24 +2614,77 @@ def train_run(phase, cfg, seq, kernels, seed, recipe=dict):
     for name, p in model.named_parameters():
         if p.grad is None or not float(p.grad.abs().max()) > 0:
             raise AssertionError(f"{name} got no gradient")
-    profile_train_step(step, x, y, card, med)
-    del step, model
+    by_group = profile_train_step(step, x, y, card, med)
+    earlier = EARLIER_TRAINING.get(phase.split(":")[0])
+    if earlier is not None:
+        log(f"  [{card}] {phase.split(':')[0]} beside the earlier figures: "
+            f"step {med:.1f} ms (eager update {earlier[0]}), peak "
+            f"{peak / 2**30:.2f} GiB ({earlier[1]}), other "
+            f"{by_group['other']:.2f} ms ({earlier[2]})")
+    out = dict(counts=counts, losses=losses, peak=peak, step_ms=med,
+               other_ms=by_group["other"])
+    if keep:
+        out["params"] = {name: p.detach().clone()
+                         for name, p in model.named_parameters()}
+    del step, model, opt
     torch.cuda.empty_cache()
-    return counts
+    return out
 
 
 def train_full_width():
-    """Phase 5: the Llama-3-8B recipe at depth 4, sequence 4096."""
-    return train_run("phase 5: training, Llama-3-8B widths",
+    """Phase 5: the Llama-3-8B recipe at depth 4, sequence 4096; then the
+    same run with ``recompute=True``: the same losses and parameters after
+    the profiled step, bit for bit, a lower peak, and each recomputed
+    kernel launched once more per layer and step (``RECOMPUTED``), every
+    other kernel as often."""
+    import torch
+
+    base = train_run("phase 5: training, Llama-3-8B widths",
                      train_config(num_hidden_layers=TRAIN_DEPTH), TRAIN_SEQ,
-                     TRAINING_KERNELS, 2)
+                     TRAINING_KERNELS, 2, keep=True)
+    rc = train_run("phase 5 with recompute: training, Llama-3-8B widths",
+                   train_config(num_hidden_layers=TRAIN_DEPTH,
+                                recompute=True), TRAIN_SEQ,
+                   TRAINING_KERNELS, 2, keep=True)
+    steps = 1 + TRAIN_STEPS
+    want = {k: v + RECOMPUTED.get(k, 0) * TRAIN_DEPTH * steps
+            for k, v in base["counts"].items()}
+    differ = [name for name, t in base["params"].items()
+              if not torch.equal(t, rc["params"][recompute_name(name)])]
+    same_losses = base["losses"] == rc["losses"]
+    log(f"  [{card_line()}] phase 5 recompute against without: losses equal "
+        f"{same_losses}; parameters after the run bit-identical: "
+        f"{len(base['params']) - len(differ)} of {len(base['params'])}"
+        + (f" (differ: {differ[:6]})" if differ else "")
+        + f"; peak {rc['peak'] / 2**30:.2f} GiB against "
+        f"{base['peak'] / 2**30:.2f}; step {rc['step_ms']:.1f} ms against "
+        f"{base['step_ms']:.1f}; launches {json.dumps(rc['counts'])} "
+        f"(required {json.dumps(want)})")
+    if not same_losses or differ:
+        raise AssertionError("recompute changed the losses or the "
+                             "parameters")
+    if not rc["peak"] < base["peak"]:
+        raise AssertionError("recompute did not lower the peak memory")
+    if rc["counts"] != want:
+        raise AssertionError("recompute's launches are not one more forward "
+                             "per layer and step")
+    return Counter(base["counts"]) + Counter(rc["counts"])
+
+
+def recompute_name(name: str) -> str:
+    """``llama.layers.N.x`` -> ``llama.layers.N.inner.x`` (the state name
+    of the same parameter in a recompute model)."""
+    parts = name.split(".")
+    if parts[:2] == ["llama", "layers"]:
+        parts.insert(3, "inner")
+    return ".".join(parts)
 
 
 def profile_train_step(step, x, y, card, step_ms):
     """Device time of one more step by kernel, from ``torch.profiler``; one
     stream, so kernel times add up, and their sum over the unprofiled step
     time ``step_ms`` is the device's busy share. The port's kernels are
-    named ``*_kernel`` in csrc."""
+    named ``*_kernel`` in csrc. Returns the device ms by group."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2362,7 +2706,9 @@ def profile_train_step(step, x, y, card, step_ms):
                                 "flash_bwd_dkdv_tc_kernel",
                                 "flash_bwd_dq_tc_kernel",
                                 "flash_bwd_delta_kernel", "rope_kernel",
-                                "add_rms_norm_kernel", "rms_norm_kernel")
+                                "add_rms_norm_kernel", "rms_norm_kernel",
+                                "adam_update_kernel", "sumsq_kernel",
+                                "finish_kernel")
                     if t in key), None)
         if tag is not None:
             ours[tag] = ours.get(tag, 0.0) + ms
@@ -2379,6 +2725,7 @@ def profile_train_step(step, x, y, card, step_ms):
         f"{json.dumps({k: round(v, 2) for k, v in ours.items()})}")
     for ms, count, key in rows[:16]:
         log(f"  {ms:9.3f} ms {count:5d}x  {key[:80]}")
+    return groups
 
 
 # ---------------------------------------------------------------- phase 6 --
@@ -2554,7 +2901,7 @@ def train_mistral():
     counts = train_run("phase 8: training, Mistral-7B widths",
                        mistral_config(num_hidden_layers=TRAIN_DEPTH,
                                       fuse_linear_cross_entropy=True),
-                       LOCAL_SEQ, MISTRAL_TRAINING_KERNELS, 6)
+                       LOCAL_SEQ, MISTRAL_TRAINING_KERNELS, 6)["counts"]
     per_run = TRAIN_DEPTH * (1 + TRAIN_STEPS)
     for name in ("flash_attention_local", "flash_attention_local_bwd"):
         if counts.get(name, 0) != per_run:
@@ -2785,7 +3132,7 @@ def train_deepseek():
                        deepseek_config(num_hidden_layers=TRAIN_DEPTH,
                                        fuse_linear_cross_entropy=True),
                        TRAIN_SEQ, DEEPSEEK_TRAINING_KERNELS, 12,
-                       recipe=deepseek_recipe)
+                       recipe=deepseek_recipe)["counts"]
     per_run = TRAIN_DEPTH * (1 + TRAIN_STEPS)
     for name in ("flash_attention_mla", "flash_attention_mla_bwd"):
         if counts.get(name, 0) != per_run:
@@ -3846,6 +4193,10 @@ def main(argv=None) -> int:
                          "edges); prints no result line. Run from another "
                          "checkout's root, it measures that checkout's "
                          "kernel")
+    ap.add_argument("--optimizer-only", action="store_true",
+                    help="phase 1, then phase 2's adam_update and grad_norm "
+                         "rows alone (bits against the CPU, timings, "
+                         "yardsticks); prints no result line")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -3879,7 +4230,7 @@ def main(argv=None) -> int:
     # multiply on the tensor cores (the partial runs may measure an earlier
     # checkout)
     partial = (args.decode_tail_only or args.decode_profile_only
-               or args.mla_only)
+               or args.mla_only or args.optimizer_only)
     for stem in ("append_attention", "flash_attention", "paged_attention",
                  "mla_decode", "decode_tail"):
         hmma, hgmma = tensor_core_sass(_build.build()[stem])
@@ -3893,6 +4244,9 @@ def main(argv=None) -> int:
         return 0
     if args.mla_only:
         check_mla_rows(make_record({}))
+        return 0
+    if args.optimizer_only:
+        check_update_rows(make_record({}))
         return 0
     if args.decode_profile_only:
         from paddle_tpu_torch.models.llama import (LlamaConfig,

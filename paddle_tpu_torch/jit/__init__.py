@@ -2,7 +2,9 @@
 ``train_step``.
 
 The JAX package compiles forward, backward and the optimizer update into
-one donated XLA computation. The port runs the same three eagerly (a
+one donated XLA computation. The port runs the same three eagerly, the
+update as one multi-tensor kernel (Adam / AdamW) over parameters,
+masters and moments updated in place, which is the port's donation (a
 CUDA graph of the training step is later work). The serving and
 ``generate`` step units are CUDA graphs: ``jit/cuda_graph.py``."""
 from __future__ import annotations
@@ -20,10 +22,13 @@ class TrainStep:
     learning-rate scheduler is read on every call and never stepped here:
     stepping it is the caller's choice."""
 
-    def __init__(self, model, loss_fn, optimizer):
+    def __init__(self, model, loss_fn, optimizer, donate=True):
         self._model = model
         self._loss_fn = loss_fn
         self._optimizer = optimizer
+        # the update is in place whatever ``donate`` says (kept for the
+        # JAX signature)
+        self._donate = donate
 
     def __call__(self, *batch):
         params = {name: p for name, p in self._model.named_parameters()
@@ -37,5 +42,5 @@ class TrainStep:
         return loss.detach()
 
 
-def train_step(model, loss_fn, optimizer) -> TrainStep:
-    return TrainStep(model, loss_fn, optimizer)
+def train_step(model, loss_fn, optimizer, donate=True) -> TrainStep:
+    return TrainStep(model, loss_fn, optimizer, donate)

@@ -11,9 +11,12 @@ labels (the chunked fused lm-head + cross-entropy, or the logits and
 ``causal_lm_loss``), ``LlamaForCausalLM.generate``, and the fused decode
 tail behind
 ``FLAGS_use_fused_decode_tail`` (two kernels per layer for a decode step
-or a paged speculative-verify chunk). Not ported:
-context parallelism (the port has no process group), attention
-soft-capping, qk-norm and layer recompute.
+or a paged speculative-verify chunk), and layer recompute
+(``recompute=True`` wraps every decoder layer in
+``distributed.recompute_layer.RecomputeLayer``, as ``llama.py:903-906``;
+the cached forward calls the bare layers). Not ported: context
+parallelism (the port has no process group), attention soft-capping and
+qk-norm.
 
 Parameter names equal the JAX package's (``llama.layers.0.self_attn.
 q_proj.weight``, ``lm_head.weight``, ...), and Linear weights keep Paddle's
@@ -32,6 +35,7 @@ import torch
 from torch import nn as tnn
 
 from .. import nn
+from ..distributed.recompute_layer import RecomputeLayer
 from ..framework.random import default_device, default_generator
 from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.hopper import decode_tail, fused_norm
@@ -77,18 +81,19 @@ class LlamaConfig:
     # training loss through the chunked fused lm-head + CE
     # (ops/fused_loss.py) instead of the full logits
     fuse_linear_cross_entropy: bool = False
+    # recompute each decoder layer's activations in the backward (the
+    # Llama and Mistral trunks; the MoE and MLA trunks train unwrapped, as
+    # in the JAX package)
+    recompute: bool = False
     # not ported; each raises NotImplementedError when asked for
     attn_logit_softcapping: Optional[float] = None
     qk_norm: bool = False
-    recompute: bool = False
 
     def __post_init__(self):
         for name, where in (
                 ("attn_logit_softcapping", "paddle_tpu/models/llama.py:637, "
                  ":708 (_sdpa_ref softcap)"),
-                ("qk_norm", "paddle_tpu/models/llama.py:624-632"),
-                ("recompute", "paddle_tpu/models/llama.py:903-906 "
-                 "(RecomputeLayer)")):
+                ("qk_norm", "paddle_tpu/models/llama.py:624-632")):
             if getattr(self, name):
                 raise NotImplementedError(
                     f"{name} is not ported to paddle_tpu_torch (JAX: {where})")
@@ -525,15 +530,21 @@ class LlamaDecoderLayer(tnn.Module):
 
 
 class LlamaModel(tnn.Module):
+    # ``config.recompute`` wraps each decoder layer (the MoE trunks say no:
+    # their aux-loss walk reads ``layer.mlp``, as in the JAX package)
+    wraps_recompute = True
+
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         self.config = config
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
                                          device=device,
                                          dtype=torch_dtype(config.dtype))
-        self.layers = tnn.ModuleList(
-            [self._make_layer(config, i, device)
-             for i in range(config.num_hidden_layers)])
+        layers = [self._make_layer(config, i, device)
+                  for i in range(config.num_hidden_layers)]
+        if config.recompute and self.wraps_recompute:
+            layers = [RecomputeLayer(layer) for layer in layers]
+        self.layers = tnn.ModuleList(layers)
         self.norm = LlamaRMSNorm(config, device=device)
         # plain tensors keyed by table length — nothing traced is cached
         self._rope_cache: dict = {}
@@ -577,7 +588,8 @@ class LlamaModel(tnn.Module):
         hidden = self.embed_tokens(input_ids).to(torch_dtype(self.config.dtype))
         new_caches = []
         for layer, cache in zip(self.layers, kv_caches):
-            hidden, c = layer(hidden, cos, sin, cache)
+            inner = getattr(layer, "inner", layer)   # unwrap RecomputeLayer
+            hidden, c = inner(hidden, cos, sin, cache)
             new_caches.append(c)
         return self.norm(hidden), new_caches
 

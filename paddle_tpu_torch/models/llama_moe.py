@@ -234,9 +234,12 @@ class LlamaMoEDecoderLayer(tnn.Module):
 
 
 class LlamaMoEModel(LlamaModel):
-    """``LlamaModel`` with MoE decoder layers (embedding, rope, norm kept)."""
+    """``LlamaModel`` with MoE decoder layers (embedding, rope, norm kept).
+    Not wrapped for recompute, as in the JAX package
+    (``deepseek.py:478-479``): ``aux_loss`` reads each layer's ``mlp``."""
 
     layer_cls = LlamaMoEDecoderLayer
+    wraps_recompute = False
 
     def _make_layer(self, config, layer_idx, device):
         return type(self).layer_cls(config, layer_idx, device=device)

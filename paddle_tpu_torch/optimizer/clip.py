@@ -6,10 +6,18 @@ their own dtype, as the JAX function returns new arrays: norms are taken
 in f32, each gradient is scaled in f32 and rounded back once. The global
 norm adds ``1e-6`` before the division (``clip.py:66``). An optimizer
 given ``grad_clip=`` clips before its update.
+
+``ClipGradByGlobalNorm`` takes its norm and scale from
+``ops/hopper/grad_norm.py`` (the plain sum on CPU tensors, the kernel on
+CUDA ones); ``norm_and_scale`` returns them on the gradients' device, and
+Adam / AdamW hand that scale to the fused update instead of clipped
+copies. ``ClipGradByNorm`` and ``ClipGradByValue`` stay plain PyTorch.
 """
 from __future__ import annotations
 
 import torch
+
+from ..ops.hopper.grad_norm import grad_norm, sq_norm
 
 
 class ClipGradBase:
@@ -35,10 +43,6 @@ class ClipGradByValue(ClipGradBase):
                 for k, g in grads.items()}
 
 
-def _sq_norm(g):
-    return torch.sum(torch.square(g.float()))
-
-
 class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = clip_norm
@@ -46,7 +50,7 @@ class ClipGradByNorm(ClipGradBase):
     def functional_clip(self, grads):
         out = {}
         for k, g in grads.items():
-            n = torch.sqrt(_sq_norm(g))
+            n = torch.sqrt(sq_norm(g))
             scale = torch.where(n > self.clip_norm, self.clip_norm / n, 1.0)
             out[k] = (g.float() * scale).to(g.dtype)
         return out
@@ -57,9 +61,13 @@ class ClipGradByGlobalNorm(ClipGradBase):
                  auto_skip_clip=False):
         self.clip_norm = clip_norm
 
+    def norm_and_scale(self, grads: dict):
+        """(global norm, clip scale) of ``{name: gradient}`` as an f32
+        tensor [2] on their device (``grad_norm``)."""
+        return grad_norm(list(grads.values()), self.clip_norm)
+
     def functional_clip(self, grads):
         if not grads:
             return {}
-        total = torch.sqrt(sum(_sq_norm(g) for g in grads.values()))
-        scale = torch.clamp(self.clip_norm / (total + 1e-6), max=1.0)
+        scale = self.norm_and_scale(grads)[1]
         return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}

@@ -231,8 +231,7 @@ def test_serving_builds_no_graph():
     assert all(p.grad is None for p in port_model.parameters())
 
 
-@pytest.mark.parametrize("option", [dict(recompute=True),
-                                    dict(attn_logit_softcapping=50.0),
+@pytest.mark.parametrize("option", [dict(attn_logit_softcapping=50.0),
                                     dict(qk_norm=True)])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="paddle_tpu/models/llama"):
