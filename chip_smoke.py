@@ -8,6 +8,7 @@ NVIDIA H100.
     python3 chip_smoke.py --decode-tail-only      # phase 2's tail rows alone
     python3 chip_smoke.py --mla-only              # phase 2's MLA rows alone
     python3 chip_smoke.py --optimizer-only        # phase 2's update rows
+    python3 chip_smoke.py --moe-only              # MoE rows, phases 18-21
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -26,10 +27,11 @@ Phases (any failure raises, so the script exits non-zero):
    time, the least time the card could take (bound), and one PyTorch
    library call computing the same function, timed the same three ways,
    as a yardstick only (the port never calls it). Paged decode attention
-   runs at 13 shapes (the main one B 8, max_len 2048, page size 16, sum
+   runs at 14 shapes (the main one B 8, max_len 2048, page size 16, sum
    of lengths 5594; the decode profile's 8 x 512; B 1 and 32; 1, 2, 8
    and 16 query heads per KV head; page sizes 8 and 32; f32; ragged
-   lengths with a dead row, which must be exactly 0), timed cold: kernel
+   lengths with a dead row, which must be exactly 0; ERNIE-4.5-21B-A3B's
+   20 | 4 heads, a group of 5, at the main lengths), timed cold: kernel
    and yardstick rotate over copies of the pool and of the gathered pages
    that touch more than 100 MB, as each layer's own pool is cold in a
    decode step; the warm figure is printed beside it. Append attention
@@ -216,7 +218,38 @@ Phases (any failure raises, so the script exits non-zero):
    set of its dense caches (the prefill writes kept buffers in place).
    Phase 7 logs Mistral-7B's units and its graph pool after both engine
    runs, beside the memory reserved and the engine's KV pool.
-18. The kernels line, then the card line, then the result line
+   Phase 2 also holds the paged kernel untimed at the groups that are not
+   powers of two (3, 5, 6, 7; f32 and bf16, the edge lengths), the splash
+   forward at [1, 4096, 20 | 4, 128] causal and append attention at one
+   query a row (B 4, pos 1040 of 1056), both at group 5 beside SDPA, and
+   ``rms_norm`` at width 128 over 8 x 1024 x 32 rows (Qwen3-MoE's
+   per-head q norm at a 1024-token prefill) beside ``F.rms_norm``.
+18. ``MoELayer`` at d_model 4096, 64 experts of hidden 1536: for each gate
+   (naive, GShard, Switch) and grouped expert kind (swiglu, gelu), the
+   card against the CPU in f32 at 512 tokens (output and every gradient
+   within 1e-4 of its tensor's largest, the gate's and experts' non-zero),
+   then 8192 tokens on the card in f32 and bf16 with the gates' random
+   draws on, forward and backward timed; a list of 4 expert modules
+   (d_model 1024, hidden 2048, 2048 tokens) the same way;
+   ``forward_ragged`` against ``forward_expert_batch`` on the card;
+   ``global_gather`` of ``global_scatter`` the identity.
+19. ERNIE-4.5-21B-A3B at the published shape, no cut (bf16, random seeded
+   weights, the selection bias drawn too): phase 3's ten requests through
+   the paged engine (8 slots, max_len 2048) with exact launch counts
+   (``paged_attention`` once a layer and decode step, at group 5), the
+   same run on the eager bodies (tokens and counts equal), ``generate``
+   dense and paged (B 4 x 512, 32 new, counts exact), the engine against
+   solo ``generate`` (the first token of each exact-bucket prompt equal,
+   the rest reported), the units and the peak memory.
+20. Qwen3-30B-A3B (depth cut 48 -> 16), Qwen1.5-MoE-A2.7B (whole) and
+   Mixtral-8x7B (depth cut 32 -> 4) at full width, bf16: three requests
+   through the paged engine and ``generate`` dense and paged (B 4 x 512,
+   16 new), counts exact, the engine against solo ``generate`` as in 19.
+21. Two layers of each of the four families at full width in f32, the
+   same weights on the card and the CPU, a 64-token prompt through the
+   one-slot engine: tokens identical, the prefill and first decode step's
+   logits within 1e-3; the engine's tokens equal solo ``generate``'s.
+22. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -611,6 +644,8 @@ def check_kernels(results):
 
     check_norm_edges()
     check_paged_rows(record)
+    check_paged_groups()
+    check_group5_rows(record, randn)
     torch.cuda.empty_cache()
     check_decode_tail_kernels(record)
     check_training_kernels(record, randn)
@@ -666,11 +701,12 @@ def check_device_pos(q, k, v, pos, allowed, out, label):
                              "disagrees")
 
 
-def check_append_decode_rows(record):
+def check_append_decode_rows(record, H=32, hk=8, masked=True):
     """``append_attention`` at the dense decode shape of ``generate`` (S 1,
-    B 4, 32 | 8 heads of 128, pos 1040 of T 1056), with no column mask and
-    with run c's ``allowed`` (each row's prompt, then the decode columns
-    from 1024), held against its plain version at the attention tolerance.
+    B 4, ``H`` | ``hk`` heads of 128, pos 1040 of T 1056), with no column
+    mask and, where ``masked``, with run c's ``allowed`` (each row's
+    prompt, then the decode columns from 1024), held against its plain
+    version at the attention tolerance.
     Timed cold, as on the main path, where each of 32 layers has its own
     buffer and a decode step finds it out of L2: the kernel and its
     yardstick (SDPA with the visibility as a boolean mask, over K / V laid
@@ -685,12 +721,13 @@ def check_append_decode_rows(record):
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
-    B, H, hk, D, T, pos = DECODE_B, 32, 8, 128, DECODE_T, DECODE_POS
+    B, D, T, pos = DECODE_B, 128, DECODE_T, DECODE_POS
+    group = "" if (H, hk) == (32, 8) else f" G={H // hk} ({H} | {hk})"
     gen = torch.Generator(dev).manual_seed(4242)
     cols = torch.arange(T, device=dev)
     padded = torch.stack([(cols < n) | (cols >= 1024)
                           for n in DECODE_PROMPTS])
-    for allowed in (None, padded):
+    for allowed in (None, padded) if masked else (None,):
         vis = (cols <= pos)[None, :].expand(B, T)
         if allowed is not None:
             vis = vis & allowed
@@ -731,7 +768,7 @@ def check_append_decode_rows(record):
             else "prompts " + "/".join(map(str, DECODE_PROMPTS)))
         log(f"  append_attention {label}: {copies} copies, {n_vis} visible "
             "columns")
-        record("append_attention", label + " cold", err, ok,
+        record("append_attention", label + group + " cold", err, ok,
                kernel_times(kernel),
                time_ms(lambda: append_attention.append_attention_plain(
                    q, k, v, pos, allowed)),
@@ -788,14 +825,20 @@ PAGED_CASES = (
     ("f32", 8, 2048, 16, 8, "float32", None),
     # 1, ps - 1, ps, ps + 1, a dead row, a full row and one past the pages
     ("edges", 7, 2048, 16, 8, "bfloat16", [1, 15, 16, 17, 0, 2048, 2100]),
+    # ERNIE-4.5-21B-A3B: 20 query heads over 4 KV heads, a group of 5
+    ("ERNIE-4.5 G=5", 8, 2048, 16, 4, "bfloat16", None, 20),
 )
+# the groups that are not powers of two, held untimed (H = 2 G over 2 KV
+# heads) at the edge lengths
+ODD_GROUPS = (3, 5, 6, 7)
 # bytes each timed call of a paged row's rotation must touch in all, so
 # that no call finds its pages in the 50 MB L2
 PAGED_COLD_BYTES = 120e6
 
 
-def check_paged_rows(record):
-    """Paged decode attention at ``PAGED_CASES`` (H 32, D 128), each held
+def check_paged_rows(record, cases=PAGED_CASES):
+    """Paged decode attention at ``PAGED_CASES`` (H 32 unless the case
+    names another, D 128), each held
     against its plain version at the attention tolerance (a dead row must
     be exactly 0 and finite; the plain version, whose dead row is NaN, is
     compared on the live rows). Timed cold, as on the main path, where
@@ -813,12 +856,13 @@ def check_paged_rows(record):
     from paddle_tpu_torch.ops.hopper import paged_attention
 
     dev = torch.device("cuda")
-    H, D = 32, 128
+    D = 128
     gen = torch.Generator(dev).manual_seed(77)
     rng = np.random.RandomState(7)
     rng.permutation(8 * 2048 // 16)
     main_lens = rng.randint(1, 2048 + 1, size=8)     # sum 5594
-    for label, B, max_len, ps, hk, dt, lens in PAGED_CASES:
+    for label, B, max_len, ps, hk, dt, lens, *heads in cases:
+        H = heads[0] if heads else 32
         dtype = getattr(torch, dt)
         es = 2 if dtype == torch.bfloat16 else 4
         pps = max_len // ps
@@ -889,6 +933,93 @@ def check_paged_rows(record):
                bound(nbytes, 4 * H * D * n_tok, dt), label == "main",
                warm=warm)
         del q, kps, vps, kgs, vgs, out, ref
+    torch.cuda.empty_cache()
+
+
+def check_paged_groups():
+    """Paged decode attention at each group of ``ODD_GROUPS`` (H = 2 G over
+    2 KV heads, B 7 at the edge lengths of ``PAGED_CASES``: 1, ps - 1, ps,
+    ps + 1, a dead row, a full row and one past the pages), f32 and bf16,
+    each against its plain version at the attention tolerance; the dead
+    row exactly 0. Untimed."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import paged_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(78)
+    B, ps, pps, hk, D = 7, 16, 128, 2, 128
+    lengths = torch.tensor([1, 15, 16, 17, 0, 2048, 2100], dtype=torch.int32,
+                           device=dev)
+    page_indices = torch.from_numpy(np.random.RandomState(9).permutation(
+        B * pps).astype(np.int32).reshape(B, pps)).to(dev)
+    live = lengths > 0
+    worst = 0.0
+    for G in ODD_GROUPS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, hk * G, D, generator=gen, device=dev).to(dtype)
+            kp, vp = (torch.randn(hk, B * pps, ps, D, generator=gen,
+                                  device=dev).to(dtype) for _ in range(2))
+            out = paged_attention.paged_attention(q, kp, vp, lengths,
+                                                  page_indices)
+            ref = paged_attention.paged_attention_plain(q, kp, vp, lengths,
+                                                        page_indices)
+            err, ok = close_bf16(out[live], ref[live])
+            dead_ok = bool((out[~live] == 0).all()) and bool(
+                torch.isfinite(out).all())
+            worst = max(worst, err)
+            if not (ok and dead_ok):
+                raise AssertionError(
+                    f"paged_attention G={G} {dtype}: kernel disagrees with "
+                    f"its plain version (max abs err {err}, dead row 0 and "
+                    f"finite: {dead_ok})")
+    log(f"  paged_attention groups {'/'.join(map(str, ODD_GROUPS))} (H 2G "
+        f"over 2 KV heads, B {B}, edge lengths, f32 and bf16): max abs err "
+        f"{worst:.3e}, all within tolerance, the dead row exactly 0")
+
+
+def check_group5_rows(record, randn):
+    """The attention kernels at ERNIE-4.5-21B-A3B's group of 5 (20 query
+    heads over 4 KV heads), each against its plain version at the
+    attention tolerance: the splash forward at [1, 4096, 20 | 4, 128]
+    causal beside SDPA; append attention at one query a row
+    (``check_append_decode_rows`` with no mask, cold). Then ``rms_norm``
+    at width 128 over 8 x 1024 x 32 rows, Qwen3-MoE's per-head q norm at
+    a 1024-token prefill, beside ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.hopper import flash_attention, fused_norm
+
+    H, hk, D, S = 20, 4, 128, 4096
+    q, k, v = randn(1, S, H, D), randn(1, S, hk, D), randn(1, S, hk, D)
+    out = flash_attention.flash_attention_bshd(q, k, v, causal=True)
+    ref = flash_attention.flash_attention_plain(q, k, v, causal=True)
+    err, ok = close_bf16(out, ref)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    record("flash_attention_bshd", f"S={S} causal G=5 ({H} | {hk})", err,
+           ok, kernel_times(lambda: flash_attention.flash_attention_bshd(
+               q, k, v, causal=True), 5, 2),
+           time_ms(lambda: flash_attention.flash_attention_plain(
+               q, k, v, causal=True), 3, 1),
+           kernel_times(lambda: sdpa_gqa(qt, kt, vt, causal=True), 5, 2),
+           bound(2 * S * (H + hk) * D * 2, 4 * D * H * S * (S + 1) // 2,
+                 "bfloat16"), False)
+    del q, k, v, qt, kt, vt, out, ref
+
+    check_append_decode_rows(record, H=H, hk=hk, masked=False)
+
+    rows, d = 8 * 1024 * 32, 128
+    x = randn(rows, d)
+    w = randn(d, scale=0.5) + 1
+    out = fused_norm.rms_norm(x, w, 1e-6)
+    ref = fused_norm.rms_norm_plain(x, w, 1e-6)
+    err, ok = close_bf16(out, ref, atol=1e-6, rtol=2.0 ** -6)
+    record("rms_norm", f"rows={rows} d={d} (Qwen3-MoE q norm)", err, ok,
+           kernel_times(lambda: fused_norm.rms_norm(x, w, 1e-6), 100, 20),
+           time_ms(lambda: fused_norm.rms_norm_plain(x, w, 1e-6)),
+           kernel_times(lambda: F.rms_norm(x, (d,), w, 1e-6), 100, 20),
+           bound(2 * rows * d * 2 + d * 2, 4 * rows * d, "bfloat16"), False)
     torch.cuda.empty_cache()
 
 
@@ -3437,7 +3568,8 @@ class _PrefillClock:
                 cls.__call__ = real
 
 
-def generate_run(model, card, label, ids, want, fused=False, **kw):
+def generate_run(model, card, label, ids, want, fused=False,
+                 phase="phase 16", **kw):
     """One ``model.generate`` run of the main path: launch counts zeroed
     just before and read just after, ``want`` ({kernel: launches}) required
     exactly and the norm kernels launched; tokens in range and of the
@@ -3462,24 +3594,24 @@ def generate_run(model, card, label, ids, want, fused=False, **kw):
         counts = dict(launches)
     toks = out.cpu().numpy()
     if toks.shape != (B, n_new):
-        raise AssertionError(f"phase 16 {label}: tokens {toks.shape}, want "
+        raise AssertionError(f"{phase} {label}: tokens {toks.shape}, want "
                              f"{(B, n_new)}")
     if toks.min() < 0 or toks.max() >= model.config.vocab_size:
-        raise AssertionError(f"phase 16 {label}: token out of range")
+        raise AssertionError(f"{phase} {label}: token out of range")
     for name, n in want.items():
         if counts.get(name, 0) != n:
-            raise AssertionError(f"phase 16 {label}: {name} launched "
+            raise AssertionError(f"{phase} {label}: {name} launched "
                                  f"{counts.get(name, 0)} times, expected {n}")
     require_launched(counts, ("rms_norm", "add_rms_norm"), f"generate {label}")
     pre = sum(clock.ms)
     dec = total - pre
-    log(f"  [{card}] phase 16 {label}: B {B}, {n_new} new tokens: prefill "
+    log(f"  [{card}] {phase} {label}: B {B}, {n_new} new tokens: prefill "
         f"{pre:.2f} ms; decode {dec / (n_new - 1):.3f} ms per forward "
         f"({n_new - 1} forwards), {B * (n_new - 1) / (dec / 1e3):.1f} "
         f"tokens/s; whole call {total:.1f} ms, "
         f"{B * n_new / (total / 1e3):.1f} tokens/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"  launches (phase 16 {label}): {json.dumps(counts)}")
+    log(f"  launches ({phase} {label}): {json.dumps(counts)}")
     return toks, counts, dec / (n_new - 1)
 
 
@@ -4136,6 +4268,651 @@ def graphs_deepseek(model, card, prompts, news, outputs, gen_runs, gen_toks):
     log(f"phase 17 on DeepSeek-V2-Lite took {time.perf_counter() - t0:.1f}s")
 
 
+# --------------------------------------------------------------- phase 18 --
+
+# the MoE layer at full width: d_model 4096, 64 experts of hidden 1536,
+# 8192 tokens; the card-vs-CPU f32 check at the same widths over 512 tokens
+# (the CPU's f32 products at 8192 tokens would take minutes); the list of
+# expert modules at d_model 1024, hidden 2048, 4 experts, 2048 tokens
+MOE_D, MOE_E, MOE_H, MOE_TOKENS, MOE_CPU_TOKENS = 4096, 64, 1536, 8192, 512
+MOE_LIST = (1024, 2048, 4, 2048)
+# (label, gate keywords): training mode; the card-vs-CPU runs take no draw
+# (GShard's random routing off, the Switch jitter 0), the full-size runs
+# draw from the gate's generator
+MOE_GATES = (("naive", {"type": "naive"}),
+             ("gshard", {"type": "gshard", "random_routing": False}),
+             ("switch", {"type": "switch", "switch_eps": 0.0}))
+
+
+def moe_card_vs_cpu(label, layer, cpu_layer, x_np):
+    """One MoE layer's forward and backward on the card and on the CPU in
+    f32 from the same weights and tokens: out within 1e-4 of its largest
+    entry, every gradient (tokens, gate, experts) within 1e-4 of its
+    tensor's largest, and the gate's and experts' gradients non-zero.
+    Returns the worst relative error."""
+    import torch
+
+    worst = 0.0
+    outs, grads = [], []
+    for lyr, dev in ((layer, "cuda"), (cpu_layer, "cpu")):
+        lyr.zero_grad(set_to_none=True)
+        x = torch.from_numpy(x_np).to(dev).requires_grad_(True)
+        out = lyr(x)
+        (out.pow(2).sum() + lyr.gate.get_loss()).backward()
+        outs.append(out.detach().cpu())
+        grads.append({"x": x.grad.cpu()})
+        grads[-1].update({n: None if p.grad is None else p.grad.cpu()
+                          for n, p in lyr.named_parameters()})
+    top = float(outs[1].abs().max())
+    worst = float((outs[0] - outs[1]).abs().max()) / top
+    for name, ref in grads[1].items():
+        got = grads[0][name]
+        if got is None or ref is None:
+            raise AssertionError(f"phase 18 {label}: no gradient for {name}")
+        scale = float(ref.abs().max())
+        if scale == 0.0 and (name.startswith("gate.gate_weight")
+                             or name.endswith(("w1", "w2", "weight"))):
+            raise AssertionError(f"phase 18 {label}: {name}'s gradient is 0")
+        worst = max(worst, float((got - ref).abs().max()) / max(scale,
+                                                                1e-30))
+    if not worst <= 1e-4:
+        raise AssertionError(f"phase 18 {label}: card and CPU differ, worst "
+                             f"relative error {worst:.3e}")
+    return worst
+
+
+def moe_full_size(label, layer, x):
+    """Forward and backward of the layer at full size on the card (one
+    warm-up, then one timed of each on the host clock around synchronised
+    calls): finite outputs of x's shape, the gate's and experts' gradients
+    non-zero. Returns (forward ms, backward ms)."""
+    import torch
+
+    times = []
+    for _ in range(2):
+        layer.zero_grad(set_to_none=True)
+        xx = x.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = layer(xx)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (out.float().pow(2).mean() + layer.gate.get_loss()).backward()
+        torch.cuda.synchronize()
+        times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+    if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"phase 18 {label}: output {tuple(out.shape)} "
+                             "not finite or of the wrong shape")
+    for name, p in layer.named_parameters():
+        if name.endswith(("gate_weight", "w1", "w2")) and not bool(
+                p.grad.detach().any()):
+            raise AssertionError(f"phase 18 {label}: {name}'s gradient is 0")
+    return times[-1]
+
+
+def list_expert(d, h, device, gen):
+    """One expert of the list: d -> h (gelu) -> d, biased, N(0, 0.02)."""
+    import torch
+
+    from paddle_tpu_torch import nn as pnn
+
+    class Expert(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = pnn.Linear(d, h, device=device, bias=True)
+            self.fc2 = pnn.Linear(h, d, device=device, bias=True)
+            with torch.no_grad():
+                for p in self.parameters():
+                    p.normal_(0.0, 0.02, generator=gen)
+
+        def forward(self, x):
+            return self.fc2(torch.nn.functional.gelu(self.fc1(x)))
+
+    return Expert()
+
+
+def moe_layer_on_card():
+    """Phase 18: ``MoELayer`` at d_model 4096, 64 experts of hidden 1536,
+    for each gate (naive, GShard, Switch) and each grouped expert kind
+    (swiglu, gelu): f32 card against CPU at 512 tokens, forward and
+    backward; then 8192 tokens on the card in f32 and bf16, timed, the
+    gates drawing from their generators; a list of 4 expert modules the
+    same way at a smaller size; ``forward_ragged`` against
+    ``forward_expert_batch`` on the card; ``global_scatter`` then
+    ``global_gather`` the identity."""
+    import copy
+
+    import torch
+
+    from paddle_tpu_torch.distributed import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"phase 18: MoELayer, d_model {MOE_D}, {MOE_E} experts of hidden "
+        f"{MOE_H}; card vs CPU in f32 at {MOE_CPU_TOKENS} tokens (tolerance "
+        f"1e-4 of each tensor's largest), then {MOE_TOKENS} tokens on the "
+        f"card in f32 and bf16 (training mode, random draws on)")
+    rng = np.random.RandomState(18)
+    x_cpu = rng.randn(MOE_CPU_TOKENS, MOE_D).astype(np.float32)
+    gen = torch.Generator("cuda").manual_seed(18)
+    x_full = torch.randn(MOE_TOKENS, MOE_D, generator=gen, device="cuda")
+    for act in ("swiglu", "gelu"):
+        experts = moe.GroupedMLP(MOE_E, MOE_D, MOE_H, activation=act,
+                                 device="cuda", generator=gen)
+        with torch.no_grad():   # non-zero biases, so their terms count
+            experts.b1.normal_(0.0, 0.02, generator=gen)
+            experts.b2.normal_(0.0, 0.02, generator=gen)
+        cpu_experts = copy.deepcopy(experts).cpu()
+        for label, kw in MOE_GATES:
+            layer = moe.MoELayer(MOE_D, experts, gate=dict(kw)).train()
+            cpu_layer = moe.MoELayer(MOE_D, cpu_experts,
+                                     gate=dict(kw)).train()
+            cpu_layer.gate.load_state_dict(
+                {k: v.cpu() for k, v in layer.gate.state_dict().items()})
+            err = moe_card_vs_cpu(f"{label} {act}", layer, cpu_layer, x_cpu)
+            full = dict(kw, generator=torch.Generator("cuda").manual_seed(5))
+            full.pop("random_routing", None)
+            full.pop("switch_eps", None)
+            fl = moe.MoELayer(MOE_D, experts, gate=full).train()
+            fl.gate.load_state_dict(layer.gate.state_dict())
+            f_ms = moe_full_size(f"{label} {act} f32", fl, x_full)
+            bf_experts = copy.deepcopy(experts).to(torch.bfloat16)
+            bl = moe.MoELayer(MOE_D, bf_experts, gate=dict(full)).train()
+            bl.gate.load_state_dict(layer.gate.state_dict())
+            b_ms = moe_full_size(f"{label} {act} bf16", bl,
+                                 x_full.to(torch.bfloat16))
+            cap = bl.gate._capacity(MOE_TOKENS, True)
+            log(f"  [{card}] phase 18 {label} gate, GroupedMLP {act}: card "
+                f"= CPU (f32, {MOE_CPU_TOKENS} tokens; out and every "
+                f"gradient, worst {err:.2e} of the tensor's largest); "
+                f"{MOE_TOKENS} tokens, C {cap}: f32 forward {f_ms[0]:.2f} "
+                f"ms, backward {f_ms[1]:.2f} ms; bf16 forward {b_ms[0]:.2f} "
+                f"ms, backward {b_ms[1]:.2f} ms")
+            del layer, cpu_layer, fl, bl, bf_experts
+            torch.cuda.empty_cache()
+        if act == "swiglu":
+            check_ragged(card, experts, gen)
+        del experts, cpu_experts
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    d, h, n_exp, tokens = MOE_LIST
+    lgen = torch.Generator("cuda").manual_seed(19)
+    experts = [list_expert(d, h, "cuda", lgen) for _ in range(n_exp)]
+    cpu_experts = [copy.deepcopy(e).cpu() for e in experts]
+    x_list = rng.randn(tokens, d).astype(np.float32)
+    parts = []
+    for label, kw in MOE_GATES:
+        layer = moe.MoELayer(d, experts, gate=dict(kw)).train()
+        cpu_layer = moe.MoELayer(d, cpu_experts, gate=dict(kw)).train()
+        cpu_layer.gate.load_state_dict(
+            {k: v.cpu() for k, v in layer.gate.state_dict().items()})
+        err = moe_card_vs_cpu(f"{label} list", layer, cpu_layer, x_list)
+        bl = copy.deepcopy(layer).to(torch.bfloat16)
+        bl.gate.float()
+        b_ms = moe_full_size(f"{label} list bf16", bl, torch.from_numpy(
+            x_list).cuda().to(torch.bfloat16))
+        parts.append(f"{label} worst {err:.2e}, bf16 forward {b_ms[0]:.2f} "
+                     f"ms, backward {b_ms[1]:.2f} ms")
+    log(f"  [{card}] phase 18 a list of {n_exp} expert modules (d_model {d}"
+        f", hidden {h}, gelu, {tokens} tokens): card = CPU in f32 for each "
+        f"gate; {'; '.join(parts)}")
+    del experts, cpu_experts, layer, cpu_layer, bl
+    check_global_exchange(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18 took {time.perf_counter() - t_start:.1f}s")
+
+
+def check_ragged(card, experts, gen):
+    """``forward_ragged`` on tokens sorted by expert (group sizes of a
+    seeded multinomial over 8192 tokens, one expert empty) against
+    ``forward_expert_batch`` on the same rows laid out [E, C, M], f32
+    within 1e-4 of the largest entry, bf16 within 2^-6 of it; both timed
+    (host clock around synchronised calls, median of 3)."""
+    import copy
+
+    import torch
+
+    sizes = np.random.RandomState(20).multinomial(
+        MOE_TOKENS, np.full(MOE_E, 1.0 / MOE_E))
+    sizes[3] += sizes[7]
+    sizes[7] = 0
+    x = torch.randn(MOE_TOKENS, MOE_D, generator=gen, device="cuda")
+    cap = int(sizes.max())
+    slot = np.concatenate([np.arange(n) for n in sizes])
+    expert = np.repeat(np.arange(MOE_E), sizes)
+    e_idx = torch.from_numpy(expert).cuda()
+    s_idx = torch.from_numpy(slot).cuda()
+    res = []
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)):
+        g = experts if dtype == torch.float32 else copy.deepcopy(
+            experts).to(dtype)
+        xx = x.to(dtype)
+        sz = torch.from_numpy(sizes).cuda()
+
+        def ragged():
+            return g.forward_ragged(xx, sz)
+
+        def batch():
+            xe = xx.new_zeros(MOE_E, cap, MOE_D)
+            xe[e_idx, s_idx] = xx
+            return g.forward_expert_batch(xe)[e_idx, s_idx]
+
+        with torch.no_grad():
+            a, b = ragged(), batch()
+            top = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max()) / top
+            ms = []
+            for fn in (ragged, batch):
+                t = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    t.append((time.perf_counter() - t0) * 1e3)
+                ms.append(statistics.median(t))
+        if not err <= tol:
+            raise AssertionError(f"phase 18 forward_ragged {dtype}: differs "
+                                 f"from forward_expert_batch ({err:.3e} of "
+                                 f"the largest entry)")
+        res.append(f"{str(dtype)[6:]} {err:.2e} of the largest entry, ragged "
+                   f"{ms[0]:.2f} ms, expert batch (C {cap}) {ms[1]:.2f} ms")
+    log(f"  [{card}] phase 18 forward_ragged = forward_expert_batch on the "
+        f"card ({MOE_TOKENS} tokens sorted by expert, one group empty): "
+        f"{'; '.join(res)}")
+
+
+def check_global_exchange(card):
+    """``global_scatter`` then ``global_gather`` on the card (4 ranks of 16
+    experts, seeded uneven counts, width 4096): each rank's buffer comes
+    back bit for bit, and the scattered one is laid out expert-major then
+    source rank."""
+    import torch
+
+    from paddle_tpu_torch.distributed import moe
+
+    world, n_expert, M = 4, 16, MOE_D
+    rng = np.random.RandomState(21)
+    lc = rng.randint(0, 9, size=(world, world * n_expert)).astype(np.int64)
+    gcnt = np.zeros_like(lc)
+    for dst in range(world):
+        for src in range(world):
+            for e in range(n_expert):
+                gcnt[dst, src * n_expert + e] = lc[src, dst * n_expert + e]
+    x = torch.zeros(world, int(lc.sum(1).max()), M, device="cuda")
+    for r in range(world):
+        n = int(lc[r].sum())
+        x[r, :n] = torch.randn(n, M, device="cuda")
+    lct, gct = torch.from_numpy(lc).cuda(), torch.from_numpy(gcnt).cuda()
+    xs = moe.global_scatter(x, lct, gct)
+    first = xs[0, :int(lc[0, 0])]
+    back = moe.global_gather(xs, lct, gct)
+    ok = torch.equal(back, x) and torch.equal(first, x[0, :int(lc[0, 0])])
+    log(f"  [{card}] phase 18 global_gather(global_scatter(x)) = x on the "
+        f"card ({world} ranks, {n_expert} experts, width {M}, "
+        f"{int(lc.sum())} rows, receive buffers {tuple(xs.shape)}): {ok}")
+    if not ok:
+        raise AssertionError("phase 18: global_gather(global_scatter(x)) "
+                             "is not x")
+
+
+# --------------------------------------------------------- phases 19-21 --
+
+# phase 3's ten requests (prompt lengths, new tokens)
+SERVE_LENS = (100, 128, 256, 300, 512, 700, 1000, 1024, 64, 33)
+SERVE_NEWS = tuple(16 if i % 2 == 0 else 64 for i in range(len(SERVE_LENS)))
+# phase 20's three requests a family, 16 new tokens each
+FAMILY_LENS, FAMILY_NEW = (512, 300, 1024), 16
+
+
+def family_config(name, **kw):
+    """The published shape of each family (bf16), ``kw`` on top: the depth
+    cuts of phases 20 and 21 come in through it."""
+    from paddle_tpu_torch import models
+
+    kw = dict(dict(dtype="bfloat16"), **kw)
+    if name == "ERNIE-4.5-21B-A3B":
+        return models.Ernie45Config.a3b(**kw)
+    cls = {"Qwen3-30B-A3B": models.Qwen3MoeConfig,
+           "Qwen1.5-MoE-A2.7B": models.Qwen2MoeConfig,
+           "Mixtral-8x7B": models.MixtralConfig}[name]
+    return cls(**kw)
+
+
+def family_model(name, seed, **kw):
+    """The family's model on the card, weights drawn from ``seed``, then
+    the terms a fresh model leaves at 0 drawn too: the q/k/v biases
+    N(0, 0.02) and ERNIE's selection bias N(0, 0.005) (the router's
+    probabilities are about 1/64), so that every path of the family
+    runs with a real value."""
+    import torch
+
+    from paddle_tpu_torch.weights import model_class
+
+    cfg = family_config(name, **kw)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    model = model_class(cfg)(cfg, device="cuda", generator=gen)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if pname.endswith("_proj.bias"):
+                p.normal_(0.0, 0.02, generator=gen)
+            elif pname.endswith("e_score_correction_bias"):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * 0.005)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def serving_counts_want(cfg, steps, prefills_exact, prefills_padded):
+    """Exact launches of an engine run: per forward (prefill or decode
+    step) one ``rms_norm`` a layer's input norm, two more a layer for
+    per-head or full q/k norms, one for the final norm, one
+    ``add_rms_norm`` a layer; per decode step ``paged_attention`` a layer;
+    per exact prefill the flash kernel a layer, per padded one append
+    attention a layer; no fused tail."""
+    L = cfg.num_hidden_layers
+    forwards = steps + prefills_exact + prefills_padded
+    norms = L * (1 + (2 if cfg.qk_norm else 0)) + 1
+    return {"rms_norm": norms * forwards, "add_rms_norm": L * forwards,
+            "paged_attention": L * steps,
+            "flash_attention_bshd": L * prefills_exact,
+            "append_attention": L * prefills_padded,
+            "fused_qkv_rope": 0, "fused_epilogue": 0, "mla_decode": 0,
+            "flash_attention_mla": 0}
+
+
+def require_counts(label, counts, want):
+    for name, n in want.items():
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{counts.get(name, 0)} times, expected {n}")
+
+
+def exact_bucket(n, page=16):
+    b = page
+    while b < n:
+        b *= 2
+    return b == n
+
+
+class _GroupSpy:
+    """Records the (query heads, KV heads) group of every call of the paged
+    wrapper the model makes (in a graph, the calls of its capture)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch import generation as pa
+
+        self.groups, self._mod = Counter(), pa
+        self._real = pa.paged_attention
+
+        def spy(q, k_pages, *a, **k):
+            self.groups[q.shape[1] // k_pages.shape[0]] += 1
+            return self._real(q, k_pages, *a, **k)
+
+        pa.paged_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.paged_attention = self._real
+
+
+def engine_vs_solo(model, card, label, prompts, n_new, engine_out):
+    """The engine's tokens against ``generate`` on each prompt alone. The
+    first token of a prompt that fills its bucket comes from the same
+    prefill on both sides and must be equal; the rest is reported: at full
+    width the dense dispatch's capacity, ceil(S k f / E) slots an expert,
+    depends on how many rows decode together (S = the engine's slots,
+    1 alone), so a route dropped in the batch is kept alone, as in the JAX
+    package, and bf16 products at other shapes round differently."""
+    import torch
+
+    same, total, first = 0, 0, []
+    for p, toks in zip(prompts, engine_out):
+        solo = model.generate(torch.from_numpy(np.asarray(p)[None]).to(
+            model.device), max_new_tokens=n_new).cpu().numpy()[0]
+        same += int((solo == toks).sum())
+        total += n_new
+        run = int(np.argmin(np.append(solo == toks, False)))
+        first.append(run)
+        if exact_bucket(len(p)) and solo[0] != toks[0]:
+            raise AssertionError(f"{label}: the engine's first token "
+                                 f"{toks[0]} != solo generate's {solo[0]} "
+                                 f"for an exact {len(p)}-token prompt")
+    log(f"  [{card}] {label}: engine against solo generate (bf16): first "
+        f"tokens equal on every exact-bucket prompt; {same}/{total} tokens "
+        f"equal, leading run equal {first}")
+
+
+def serve_family(model, card, label, lens, news, seed, max_batch=8):
+    """An engine run of the family (paged, ``max_batch`` slots, max_len
+    2048) with its exact launch counts and the paged kernel's group.
+    Returns (counts, outputs, prompts, stats)."""
+    cfg = model.config
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in lens]
+    with _GroupSpy() as spy:
+        counts, stats, _, _, outputs = serve_run(
+            model, card, label, prompts, news, False, max_batch=max_batch)
+    n_exact = sum(exact_bucket(n) for n in lens)
+    want = serving_counts_want(cfg, stats["decode_steps"], n_exact,
+                               len(lens) - n_exact)
+    require_counts(label, counts, want)
+    group = cfg.num_attention_heads // cfg.num_key_value_heads
+    if set(spy.groups) != {group}:
+        raise AssertionError(f"{label}: paged_attention ran at groups "
+                             f"{dict(spy.groups)}, expected {group}")
+    L = cfg.num_hidden_layers
+    log(f"  [{card}] {label}: launch counts exact for "
+        f"{stats['decode_steps']} decode steps, {n_exact} exact and "
+        f"{len(lens) - n_exact} padded prefills; a decode step: "
+        f"paged_attention {L} at group {group}, rms_norm "
+        f"{want['rms_norm'] // (stats['decode_steps'] + len(lens))}, "
+        f"add_rms_norm {L}")
+    return counts, outputs, prompts, stats
+
+
+def generate_family(model, card, phase, label, n_new, seed):
+    """``generate`` dense and paged on B 4 x 512 prompts, launch counts
+    exact. Returns (counts, ids, dense tokens)."""
+    import torch
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (GEN_B, GEN_PROMPT))).to(model.device)
+    n = n_new - 1
+    norms = L * (1 + (2 if cfg.qk_norm else 0)) + 1
+    total = Counter()
+    toks = {}
+    for run, kw, want in (
+            ("dense", {}, {"flash_attention_bshd": L,
+                           "append_attention": L * n, "paged_attention": 0}),
+            ("paged", {"paged": True, "page_size": 16},
+             {"flash_attention_bshd": L, "paged_attention": L * n,
+              "append_attention": 0})):
+        want = dict(want, rms_norm=norms * n_new, add_rms_norm=L * n_new)
+        toks[run], counts, _ = generate_run(
+            model, card, f"{label} {run}", ids, want, phase=phase,
+            max_new_tokens=n_new, **kw)
+        total.update(counts)
+    same = int((toks["dense"] == toks["paged"]).sum())
+    log(f"  [{card}] {phase} {label}: generate dense and paged, {same}/"
+        f"{toks['dense'].size} tokens equal (bf16, reported)")
+    return total, ids, toks["dense"]
+
+
+def serve_ernie(profile=False):
+    """Phase 19: ERNIE-4.5-21B-A3B at its published shape, no cut (28
+    layers, 64 experts top-6 + 2 shared, 20 | 4 heads: the paged kernel at
+    group 5), bf16, random seeded weights: phase 3's ten requests through
+    the paged engine (8 slots, max_len 2048), the same run on the eager
+    bodies (graph = eager tokens and counts), ``generate`` dense and paged
+    (B 4 x 512, 32 new), the engine against solo ``generate``; peak memory;
+    with ``profile`` the decode trace of 8 slots of 512-token prompts.
+    Returns the launch counts."""
+    import torch
+
+    label = "ERNIE-4.5-21B-A3B"
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, secs = family_model(label, 19)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    card = card_line()
+    log(f"phase 19: {label}, {cfg.num_hidden_layers} layers (no cut), bf16, "
+        f"{n_params / 1e9:.2f}B parameters drawn in {secs:.1f}s; "
+        f"{cfg.n_routed_experts} experts top-{cfg.num_experts_per_tok} + "
+        f"{cfg.n_shared_experts} shared, {cfg.num_attention_heads} | "
+        f"{cfg.num_key_value_heads} heads, capacity factor "
+        f"{cfg.moe_capacity_factor}; memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    counts, outputs, prompts, _ = serve_family(
+        model, card, f"phase 19 {label}", SERVE_LENS, SERVE_NEWS, 3)
+    total = Counter(counts)
+    with eager_units():
+        e_counts, _, _, _, eager = serve_run(
+            model, card, f"phase 19 {label}, eager", prompts, SERVE_NEWS,
+            False)
+    require_same(f"{label} engine", outputs, eager, counts, e_counts)
+    g_counts, ids, dense = generate_family(model, card, "phase 19", label,
+                                           GEN_NEW, 17)
+    total.update(g_counts)
+    eng = engine_tokens(model, list(ids.cpu().numpy()), GEN_NEW)
+    engine_vs_solo(model, card, f"phase 19 {label}", list(ids.cpu().numpy()),
+                   GEN_NEW, eng)
+    log_units(model, card, label, ("_prefill_steps", "_select_decode_steps"))
+    log(f"  [{card}] phase 19 {label}: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_decode(model, card)
+    log(f"phase 19 took {time.perf_counter() - t0:.1f}s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# (family, depth cut or None): the three other families at full width
+OTHER_FAMILIES = (("Qwen3-30B-A3B", 16), ("Qwen1.5-MoE-A2.7B", None),
+                  ("Mixtral-8x7B", 4))
+
+
+def serve_families():
+    """Phase 20: Qwen3-30B-A3B (depth 48 -> 16), Qwen1.5-MoE-A2.7B (whole)
+    and Mixtral-8x7B (depth 32 -> 4) at full width, bf16, random seeded
+    weights: three requests through the paged engine and ``generate`` dense
+    and paged (B 4 x 512, 16 new), launch counts exact, the engine against
+    solo ``generate``. Returns the launch counts."""
+    import torch
+
+    total = Counter()
+    t0 = time.perf_counter()
+    for i, (label, depth) in enumerate(OTHER_FAMILIES):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kw = {} if depth is None else {"num_hidden_layers": depth}
+        model, secs = family_model(label, 30 + i, **kw)
+        cfg = model.config
+        card = card_line()
+        n_params = sum(p.numel() for p in model.parameters())
+        cut = "whole" if depth is None else f"depth cut to {depth}"
+        log(f"phase 20: {label}, {cfg.num_hidden_layers} layers ({cut}), "
+            f"bf16, {n_params / 1e9:.2f}B parameters drawn in {secs:.1f}s; "
+            f"{cfg.n_routed_experts} experts top-{cfg.num_experts_per_tok}"
+            f" + {cfg.n_shared_experts} shared, {cfg.num_attention_heads} | "
+            f"{cfg.num_key_value_heads} heads, qk_norm {cfg.qk_norm}, "
+            f"attention_bias {cfg.attention_bias}")
+        counts, outputs, prompts, _ = serve_family(
+            model, card, f"phase 20 {label}", FAMILY_LENS,
+            (FAMILY_NEW,) * len(FAMILY_LENS), 40 + i)
+        total.update(counts)
+        g_counts, _, _ = generate_family(model, card, "phase 20", label,
+                                         FAMILY_NEW, 50 + i)
+        total.update(g_counts)
+        engine_vs_solo(model, card, f"phase 20 {label}", prompts, FAMILY_NEW,
+                       outputs)
+        log(f"  [{card}] phase 20 {label}: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 20 took {time.perf_counter() - t0:.1f}s")
+    return total
+
+
+def families_wiring_check():
+    """Phase 21: two layers of each family at full width in f32 (ERNIE one
+    dense and one MoE), the same weights on the card and the CPU, a
+    64-token prompt, 6 greedy tokens through the one-slot engine: the
+    tokens identical card vs CPU, the prefill logits within 1e-3 (f32 on
+    both sides, sums in another order), the first decode step's too; on
+    the card the engine's tokens equal solo ``generate``'s (one slot: the
+    dispatch's capacity is the same as alone)."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    tol = 1e-3
+    for i, name in enumerate(("ERNIE-4.5-21B-A3B",) + tuple(
+            n for n, _ in OTHER_FAMILIES)):
+        m_gpu, _ = family_model(name, 60 + i, num_hidden_layers=2,
+                                dtype="float32")
+        m_cpu = cpu_copy(m_gpu)
+        prompt = np.random.RandomState(60 + i).randint(
+            0, m_gpu.config.vocab_size, size=64)
+
+        def run(model):
+            eng = ContinuousBatchEngine(model, max_batch=1, max_len=128)
+            rid = eng.add_request(prompt, max_new_tokens=6)
+            first = eng._last[0].cpu().clone()
+            eng.step()
+            step1 = eng._last[0].cpu().clone()
+            return eng.run_until_done()[rid], first, step1
+
+        reset_launches()
+        card, card_first, card_step1 = run(m_gpu)
+        counts = dict(launches)
+        cpu, cpu_first, cpu_step1 = run(m_cpu)
+        solo = m_gpu.generate(torch.from_numpy(prompt[None]).cuda(),
+                              max_new_tokens=6).cpu().numpy()[0]
+        err = float((card_first - cpu_first).abs().max())
+        err1 = float((card_step1 - cpu_step1).abs().max())
+        log(f"phase 21: {name} wiring, 2 layers at full width, f32, prompt "
+            f"64: card tokens {card.tolist()} cpu tokens {cpu.tolist()} solo "
+            f"generate {solo.tolist()}; prefill logits card vs cpu max abs "
+            f"err {err:.3e}, first decode step's {err1:.3e} (tolerance {tol},"
+            f" |logits| <= {float(cpu_first.abs().max()):.3f}); card "
+            f"launches {json.dumps(counts)}")
+        if not np.array_equal(card, cpu):
+            raise AssertionError(f"phase 21 {name}: card and CPU greedy "
+                                 "tokens differ")
+        if not np.array_equal(card, solo):
+            raise AssertionError(f"phase 21 {name}: engine tokens differ "
+                                 "from solo generate")
+        if not (err <= tol and err1 <= tol):
+            raise AssertionError(f"phase 21 {name}: logits differ beyond the "
+                                 "tolerance")
+        require_launched(counts, ("rms_norm", "add_rms_norm",
+                                  "flash_attention_bshd", "paged_attention"),
+                         f"phase 21 {name}")
+        del m_gpu, m_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 21 took {time.perf_counter() - t0:.1f}s")
+
+
 def tensor_core_sass(lib) -> tuple:
     """(HMMA, HGMMA) instructions in a built library's SASS, from
     ``cuobjdump -sass``: mma.sync and wgmma products on the tensor cores."""
@@ -4177,11 +4954,13 @@ def kernel_name(mangled: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after phases 3, 7 and 10, trace 10 decode steps "
-                         "with torch.profiler, fused tail off and on "
+                    help="after phases 3, 7, 10 and 19, trace 10 decode "
+                         "steps with torch.profiler, fused tail off and on "
                          "(Llama-3-8B at 8 slots, Mistral-7B at 4 slots of "
                          "8192-token prompts; DeepSeek-V2-Lite at 8 slots of "
-                         "1024-token prompts, no fused tail)")
+                         "1024-token prompts, no fused tail; "
+                         "ERNIE-4.5-21B-A3B at 8 slots of 512-token "
+                         "prompts, its MoE layers discrete)")
     ap.add_argument("--decode-tail-only", action="store_true",
                     help="phase 1, then phase 2's decode-tail rows alone "
                          "(cold and warm, yardsticks, host us, edges); prints "
@@ -4197,6 +4976,12 @@ def main(argv=None) -> int:
                     help="phase 1, then phase 2's adam_update and grad_norm "
                          "rows alone (bits against the CPU, timings, "
                          "yardsticks); prints no result line")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="phase 1, phase 2's rows at the MoE families' "
+                         "shapes (paged decode at ERNIE-4.5's group of 5 "
+                         "and at groups 3, 5, 6, 7; splash and append at "
+                         "group 5; rms_norm at width 128), then phases "
+                         "18-21; prints no result line")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -4230,7 +5015,7 @@ def main(argv=None) -> int:
     # multiply on the tensor cores (the partial runs may measure an earlier
     # checkout)
     partial = (args.decode_tail_only or args.decode_profile_only
-               or args.mla_only or args.optimizer_only)
+               or args.mla_only or args.optimizer_only or args.moe_only)
     for stem in ("append_attention", "flash_attention", "paged_attention",
                  "mla_decode", "decode_tail"):
         hmma, hgmma = tensor_core_sass(_build.build()[stem])
@@ -4247,6 +5032,24 @@ def main(argv=None) -> int:
         return 0
     if args.optimizer_only:
         check_update_rows(make_record({}))
+        return 0
+    if args.moe_only:
+        gen = torch.Generator("cuda").manual_seed(1234)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * scale).to(torch.bfloat16)
+
+        record = make_record({})
+        check_paged_rows(record, [c for c in PAGED_CASES
+                                  if c[0].startswith("ERNIE")])
+        check_paged_groups()
+        check_group5_rows(record, randn)
+        moe_layer_on_card()
+        serve_ernie(args.profile)
+        serve_families()
+        families_wiring_check()
+        log(f"total {time.perf_counter() - t_start:.1f}s")
         return 0
     if args.decode_profile_only:
         from paddle_tpu_torch.models.llama import (LlamaConfig,
@@ -4286,6 +5089,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     generate_wiring_check()
     counts.update(entry_on_card())
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_layer_on_card()
+    counts.update(serve_ernie(args.profile))
+    counts.update(serve_families())
+    families_wiring_check()
 
     kernels = []
     for name in SOURCES:

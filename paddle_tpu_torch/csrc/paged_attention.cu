@@ -37,7 +37,10 @@
 //   chunks are on their way. No block barrier: a warp is its own block.
 // - Each K and V row is read once for all G query heads of its KV head, on
 //   the tensor cores (mma.sync m16n8k16, csrc/tensor_core.cuh): S = q K^T
-//   with the G heads as the 16 rows (q held as A fragments in registers,
+//   with the G heads as the first G of the 16 rows (G from 1 to 16, any
+//   group: rows past G load zeros and are never stored, so one body
+//   serves every group, G passed at run time; q held as A fragments in
+//   registers,
 //   K through ldmatrix), f32 softmax in registers, then O += P V with P
 //   as two bf16 terms, hi + lo (16 bits of p, as the attention kernels
 //   carry it). On the CUDA cores the body was bounded by its shared-memory
@@ -46,7 +49,8 @@
 // - Rows padded by 16 bytes, so ldmatrix's 8 row addresses hit 32 banks.
 // f32 (the wiring checks): the same split and combine on the CUDA cores,
 // 8 warps a block through a 2-stage ring of 32-token tiles, lane = token
-// for the scores, f32 FMAs throughout.
+// for the scores, f32 FMAs throughout; templated on G (its per-head sums
+// live in registers), instantiated for every G from 1 to 16.
 // Later work: a last-block-done combine would save the second launch
 // (about 2 us of device time).
 
@@ -62,6 +66,7 @@ namespace {
 constexpr int D = 128;            // head width, fixed
 constexpr int MAX_PAGES = 16384;  // page indices of a row held in shared memory
 constexpr int MAX_SPLIT = 4096;   // a combine block's weights in shared memory
+constexpr int MAX_G = 16;         // query heads a KV head: the 16 rows of an mma tile
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -125,15 +130,15 @@ template <int G> size_t f32_smem(int pps) {
 }
 
 // bf16 body. Block (split, b, kh), one warp: its run of row b's pages, the
-// G query heads of KV head kh; writes the run's (m, l, acc) of each head
-// to the partials [B, H, n_split] (acc [B, H, n_split, D]; not written
-// for an empty run, whose m = -inf the combine skips).
-template <int G>
+// G (1 to 16) query heads of KV head kh; writes the run's (m, l, acc) of
+// each head to the partials [B, H, n_split] (acc [B, H, n_split, D]; not
+// written for an empty run, whose m = -inf the combine skips). Rows G to
+// 15 of the products are zeros and are never stored.
 __global__ void __launch_bounds__(tck::NT)
 paged_split_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
                       const __nv_bfloat16* __restrict__ vp, const int* __restrict__ lengths,
                       const int* __restrict__ page_indices, float* __restrict__ part_m,
-                      float* __restrict__ part_l, float* __restrict__ part_acc, int H,
+                      float* __restrict__ part_l, float* __restrict__ part_acc, int H, int G,
                       int n_pages, int ps, int pps, float scale) {
   using namespace tck;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -557,42 +562,46 @@ template <typename K> int allow_smem(K kernel, size_t bytes, size_t& allowed) {
   return (int)err;
 }
 
-template <int G>
-int launch_g(const void* q, const void* kp, const void* vp, const int* lengths, const int* pidx,
-             float* pm, float* pl, float* pa, void* out, int B, int H, int hk, int n_pages,
-             int ps, int pps, int n_split, float scale, bool bf16, cudaStream_t s) {
-  const dim3 grid(n_split, B, hk);
+int launch_bf16(const void* q, const void* kp, const void* vp, const int* lengths,
+                const int* pidx, float* pm, float* pl, float* pa, void* out, int B, int H,
+                int hk, int n_pages, int ps, int pps, int n_split, float scale, cudaStream_t s) {
+  static size_t allowed = 0;
+  const size_t smem = tck::RING_BYTES + sizeof(int) * (size_t)((pps + n_split - 1) / n_split);
   int err;
-  if (bf16) {
-    static size_t allowed = 0;
-    const size_t smem = tck::RING_BYTES + sizeof(int) * (size_t)((pps + n_split - 1) / n_split);
-    if ((err = allow_smem(paged_split_tc_kernel<G>, smem, allowed))) return err;
-    paged_split_tc_kernel<G><<<grid, tck::NT, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-        static_cast<const __nv_bfloat16*>(vp), lengths, pidx, pm, pl, pa, H, n_pages, ps, pps,
-        scale);
-    if ((err = (int)cudaGetLastError())) return err;
-    paged_combine_kernel<__nv_bfloat16><<<dim3(H, B), D * combine_groups(n_split),
-                                         sizeof(float) * n_split, s>>>(
-        pm, pl, pa, static_cast<__nv_bfloat16*>(out), n_split);
-  } else {
-    static size_t allowed = 0;
-    const size_t smem = f32_smem<G>(pps);
-    if ((err = allow_smem(paged_split_f32_kernel<G>, smem, allowed))) return err;
-    paged_split_f32_kernel<G><<<grid, f32k::NT, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(kp),
-        static_cast<const float*>(vp), lengths, pidx, pm, pl, pa, H, n_pages, ps, pps, scale);
-    if ((err = (int)cudaGetLastError())) return err;
-    paged_combine_kernel<float><<<dim3(H, B), D * combine_groups(n_split),
-                                 sizeof(float) * n_split, s>>>(
-        pm, pl, pa, static_cast<float*>(out), n_split);
-  }
+  if ((err = allow_smem(paged_split_tc_kernel, smem, allowed))) return err;
+  paged_split_tc_kernel<<<dim3(n_split, B, hk), tck::NT, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), lengths, pidx, pm, pl, pa, H, H / hk, n_pages, ps,
+      pps, scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  paged_combine_kernel<__nv_bfloat16><<<dim3(H, B), D * combine_groups(n_split),
+                                       sizeof(float) * n_split, s>>>(
+      pm, pl, pa, static_cast<__nv_bfloat16*>(out), n_split);
+  return (int)cudaGetLastError();
+}
+
+template <int G>
+int launch_f32(const void* q, const void* kp, const void* vp, const int* lengths,
+               const int* pidx, float* pm, float* pl, float* pa, void* out, int B, int H,
+               int hk, int n_pages, int ps, int pps, int n_split, float scale, cudaStream_t s) {
+  static size_t allowed = 0;
+  const size_t smem = f32_smem<G>(pps);
+  int err;
+  if ((err = allow_smem(paged_split_f32_kernel<G>, smem, allowed))) return err;
+  paged_split_f32_kernel<G><<<dim3(n_split, B, hk), f32k::NT, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp),
+      static_cast<const float*>(vp), lengths, pidx, pm, pl, pa, H, n_pages, ps, pps, scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  paged_combine_kernel<float><<<dim3(H, B), D * combine_groups(n_split),
+                               sizeof(float) * n_split, s>>>(
+      pm, pl, pa, static_cast<float*>(out), n_split);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out [B, H, D]; k_pages, v_pages [hk, n_pages, ps, D]; lengths [B] int32;
+// q, out [B, H, D], H a multiple of hk with 1 <= H / hk <= 16; k_pages,
+// v_pages [hk, n_pages, ps, D]; lengths [B] int32;
 // page_indices [B, pps] int32, pps <= 16384; partials part_m, part_l
 // [B, H, n_split] and part_acc [B, H, n_split, D] f32, scratch;
 // 1 <= n_split <= min(max(pps, 1), 4096). dtype: 0 = float32, 1 = bfloat16. Block
@@ -605,7 +614,7 @@ extern "C" int pt_paged_attention(const void* q, const void* kp, const void* vp,
                                   int B, int H, int hk, int n_pages, int ps, int pps,
                                   int n_split, float scale, int dtype, void* stream) {
   if (n_split < 1 || n_split > max(pps, 1) || n_split > MAX_SPLIT || pps > MAX_PAGES ||
-      ps < 1 || hk < 1 || H % hk != 0)
+      ps < 1 || hk < 1 || H % hk != 0 || H / hk < 1 || H / hk > MAX_G)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
@@ -613,15 +622,21 @@ extern "C" int pt_paged_attention(const void* q, const void* kp, const void* vp,
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
-  const bool bf16 = dtype == 1;
+  if (dtype == 1)
+    return launch_bf16(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps,
+                       n_split, scale, s);
+#define PT_F32_CASE(g)                                                                     \
+  case g:                                                                                  \
+    return launch_f32<g>(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps, \
+                         n_split, scale, s);
   switch (H / hk) {
-    case 1: return launch_g<1>(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps, n_split, scale, bf16, s);
-    case 2: return launch_g<2>(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps, n_split, scale, bf16, s);
-    case 4: return launch_g<4>(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps, n_split, scale, bf16, s);
-    case 8: return launch_g<8>(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps, n_split, scale, bf16, s);
-    case 16: return launch_g<16>(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps, n_split, scale, bf16, s);
+    PT_F32_CASE(1) PT_F32_CASE(2) PT_F32_CASE(3) PT_F32_CASE(4)
+    PT_F32_CASE(5) PT_F32_CASE(6) PT_F32_CASE(7) PT_F32_CASE(8)
+    PT_F32_CASE(9) PT_F32_CASE(10) PT_F32_CASE(11) PT_F32_CASE(12)
+    PT_F32_CASE(13) PT_F32_CASE(14) PT_F32_CASE(15) PT_F32_CASE(16)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PT_F32_CASE
 }
 
 extern "C" const char* pt_error_string(int code) {

@@ -1,3 +1,3 @@
 """paddle.incubate.nn: its functional module (memory-efficient
-attention)."""
+attention, and ``fused_moe``, which raises as in the JAX package)."""
 from . import functional  # noqa: F401

@@ -1,5 +1,6 @@
 """paddle.incubate.nn.functional's memory-efficient attention
-(``paddle_tpu/incubate/nn/functional.py:230-268``).
+(``paddle_tpu/incubate/nn/functional.py:230-268``) and ``fused_moe``
+(``:217-227``), which raises there and here.
 
 Without a bias the memory-efficient algorithm is flash attention: the
 port's full-mask flash kernel on CUDA where ``supported`` holds. With an
@@ -11,6 +12,18 @@ import torch
 
 from ...framework import random as _random
 from ...nn.functional.attention import flash_attention
+
+
+def fused_moe(x, gate_weight, expert_weights1, expert_biases1,
+              expert_weights2, expert_biases2, quant_method="None",
+              moe_topk=2, norm_topk_prob=True):
+    """The cutlass ``fused_moe`` surface: not a functional here, as in the
+    JAX package; ``distributed.moe.MoELayer`` over a ``GroupedMLP`` is the
+    MoE layer."""
+    raise NotImplementedError(
+        "use paddle_tpu_torch.distributed.moe.MoELayer(GroupedMLP) — the "
+        "grouped-GEMM MoE; a stateless functional wrapper is tracked for a "
+        "later round")
 
 
 def memory_efficient_attention(query, key, value, attn_bias=None, p=0.0,

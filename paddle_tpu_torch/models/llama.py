@@ -11,12 +11,13 @@ labels (the chunked fused lm-head + cross-entropy, or the logits and
 ``causal_lm_loss``), ``LlamaForCausalLM.generate``, and the fused decode
 tail behind
 ``FLAGS_use_fused_decode_tail`` (two kernels per layer for a decode step
-or a paged speculative-verify chunk), and layer recompute
+or a paged speculative-verify chunk), layer recompute
 (``recompute=True`` wraps every decoder layer in
 ``distributed.recompute_layer.RecomputeLayer``, as ``llama.py:903-906``;
-the cached forward calls the bare layers). Not ported: context
-parallelism (the port has no process group), attention soft-capping and
-qk-norm.
+the cached forward calls the bare layers), q/k/v projection biases
+(``attention_bias``, Qwen2) and q/k RMSNorm (``qk_norm``: per head, Qwen3,
+or over the projected width, OLMo2). Not ported: context parallelism (the
+port has no process group) and attention soft-capping.
 
 Parameter names equal the JAX package's (``llama.layers.0.self_attn.
 q_proj.weight``, ``lm_head.weight``, ...), and Linear weights keep Paddle's
@@ -85,18 +86,25 @@ class LlamaConfig:
     # Llama and Mistral trunks; the MoE and MLA trunks train unwrapped, as
     # in the JAX package)
     recompute: bool = False
-    # not ported; each raises NotImplementedError when asked for
+    # q/k/v projection biases (Qwen2; o_proj never has one)
+    attention_bias: bool = False
+    # RMSNorm on q and k before RoPE: True / "per_head" (Qwen3, one norm of
+    # head_dim per head after the split) or "full" (OLMo2, one norm over
+    # the projected width before the split)
+    qk_norm: bool | str = False
+    # not ported; raises NotImplementedError when asked for
     attn_logit_softcapping: Optional[float] = None
-    qk_norm: bool = False
 
     def __post_init__(self):
-        for name, where in (
-                ("attn_logit_softcapping", "paddle_tpu/models/llama.py:637, "
-                 ":708 (_sdpa_ref softcap)"),
-                ("qk_norm", "paddle_tpu/models/llama.py:624-632")):
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"{name} is not ported to paddle_tpu_torch (JAX: {where})")
+        if self.attn_logit_softcapping:
+            raise NotImplementedError(
+                "attn_logit_softcapping is not ported to paddle_tpu_torch "
+                "(JAX: paddle_tpu/models/llama.py:637, :708 (_sdpa_ref "
+                "softcap))")
+        if self.qk_norm not in (False, True, "per_head", "full"):
+            raise ValueError(
+                f"qk_norm must be False, True, 'per_head' or 'full', "
+                f"got {self.qk_norm!r}")
         if self.hidden_act not in ("silu", "gelu_pytorch_tanh"):
             raise NotImplementedError(
                 f"hidden_act must be 'silu' or 'gelu_pytorch_tanh', "
@@ -312,9 +320,25 @@ class LlamaAttention(tnn.Module):
         self.window = config.sliding_window
         dt = torch_dtype(config.dtype)
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
-        self.q_proj = nn.Linear(self.hidden_size, h * d, device=device, dtype=dt)
-        self.k_proj = nn.Linear(self.hidden_size, hk * d, device=device, dtype=dt)
-        self.v_proj = nn.Linear(self.hidden_size, hk * d, device=device, dtype=dt)
+        self.qk_norm_mode = ("per_head" if config.qk_norm is True
+                             else (config.qk_norm or None))
+        if self.qk_norm_mode == "per_head":
+            # Qwen3: one norm of head_dim per head, after the head split
+            self.q_norm = _width_norm(config, d, device=device)
+            self.k_norm = _width_norm(config, d, device=device)
+        elif self.qk_norm_mode == "full":
+            # OLMo2: one norm over the projected width, before the split
+            self.q_norm = _width_norm(config, h * d, device=device)
+            self.k_norm = _width_norm(config, hk * d, device=device)
+        else:
+            self.q_norm = self.k_norm = None
+        bias = config.attention_bias
+        self.q_proj = nn.Linear(self.hidden_size, h * d, device=device,
+                                dtype=dt, bias=bias)
+        self.k_proj = nn.Linear(self.hidden_size, hk * d, device=device,
+                                dtype=dt, bias=bias)
+        self.v_proj = nn.Linear(self.hidden_size, hk * d, device=device,
+                                dtype=dt, bias=bias)
         self.o_proj = nn.Linear(h * d, self.hidden_size, device=device, dtype=dt)
 
     def cached_attn_core(self, q, k, v, cos, sin, kv_cache,
@@ -371,12 +395,19 @@ class LlamaAttention(tnn.Module):
         Without: RoPE on q and k (fused kernel), then causal flash attention
         over the sequence, within the layer's sliding window if it has one
         (``llama.py:644-710``), returns out. On a CPU tensor the plain flash
-        version runs, the same math as the JAX ``_sdpa_ref`` fallback."""
+        version runs, the same math as the JAX ``_sdpa_ref`` fallback. The
+        q/k norms run first on both paths (``llama.py:614-632``)."""
         b, s = hidden_states.shape[0], hidden_states.shape[1]
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
-        q = self.q_proj(hidden_states).reshape(b, s, h, d)
-        k = self.k_proj(hidden_states).reshape(b, s, hk, d)
+        q = self.q_proj(hidden_states)
+        k = self.k_proj(hidden_states)
+        if self.qk_norm_mode == "full":
+            q, k = self.q_norm(q), self.k_norm(k)
+        q = q.reshape(b, s, h, d)
+        k = k.reshape(b, s, hk, d)
         v = self.v_proj(hidden_states).reshape(b, s, hk, d)
+        if self.qk_norm_mode == "per_head":
+            q, k = self.q_norm(q), self.k_norm(k)
         if isinstance(kv_cache, dict):
             out, new = self.cached_attn_core(q, k, v, cos, sin, kv_cache)
             return self.o_proj(out), new
@@ -436,12 +467,15 @@ def _rope_rows_for_cache(cos, sin, kv_cache, b, s=1):
 
 
 def fused_decode_structural(layer, dtype) -> bool:
-    """The weight-structure half of the fused decode-tail gate: Llama
-    attention whose projections are the port's bias-free ``nn.Linear``,
-    and weights and RMSNorm scales all of ``dtype``. (The port builds no
-    qk-norm or q pre-multiplier layer: ``LlamaConfig`` refuses them.)"""
+    """The weight-structure half of the fused decode-tail gate
+    (``llama.py:773``): Llama attention with no q/k norm, whose
+    projections are the port's ``nn.Linear`` without a bias, and weights
+    and RMSNorm scales all of ``dtype``. (The port builds no q
+    pre-multiplier.)"""
     attn = getattr(layer, "self_attn", None)
     if not isinstance(attn, LlamaAttention):
+        return False
+    if attn.qk_norm_mode is not None:
         return False
     lins = (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj)
     if any(type(lin) is not nn.Linear
@@ -599,7 +633,7 @@ class LlamaForCausalLM(tnn.Module):
     and raises where there is none (pass ``device="cpu"`` for the plain
     versions). Weights are drawn from ``generator`` (default: the port's
     generator on ``device``): Normal(0, initializer_range) for embeddings
-    and projections, ones for norms."""
+    and projections, ones for norms, zeros for projection biases."""
 
     model_cls = LlamaModel  # trunk hook (the MoE and MLA families swap it)
 
@@ -625,6 +659,8 @@ class LlamaForCausalLM(tnn.Module):
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
+            elif name.endswith("_proj.bias"):
+                p.zero_()
             else:
                 p.normal_(0.0, std, generator=gen)
 

@@ -12,16 +12,22 @@ from torch import nn
 
 
 class Linear(nn.Module):
-    """Bias-free linear map (the Llama projections)."""
+    """Linear map ``x @ W (+ b)``, W [in, out]; a bias [out] (zeros) only
+    with ``bias=True`` (the Qwen2 q/k/v projections), added after the
+    product as the JAX package adds it."""
 
     def __init__(self, in_features: int, out_features: int, device=None,
-                 dtype=None):
+                 dtype=None, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_features, out_features,
                                                device=device, dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
+                                              dtype=dtype))
+                     if bias else None)
 
     def forward(self, x):
-        return torch.matmul(x, self.weight)
+        out = torch.matmul(x, self.weight)
+        return out if self.bias is None else out + self.bias
 
 
 class Embedding(nn.Module):

@@ -10,11 +10,13 @@ D], lengths [B] (columns t < lengths[b] are visible), page_indices
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
 kernel or raises. The kernel takes head width 128, float32 / bfloat16, and
-1, 2, 4, 8 or 16 query heads per KV head, any page size, at most
-``MAX_PAGES`` pages a row. It splits each
-row's visible prefix over ``split_count`` blocks and merges their partial
-softmax states in a second launch (counted as one ``paged_attention``
-launch), with f32 scratch from ``torch.empty``.
+any group of 1 to ``MAX_GROUP`` (16) query heads per KV head (the bf16
+body takes the group at run time as the first rows of a 16-row
+tensor-core tile; the f32 body is instantiated for each), any page size,
+at most ``MAX_PAGES`` pages a row; another group is refused before any
+launch. It splits each row's visible prefix over ``split_count`` blocks
+and merges their partial softmax states in a second launch (counted as
+one ``paged_attention`` launch), with f32 scratch from ``torch.empty``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from .append_attention import grouped_attention_plain
 
 _STEM = "paged_attention"
 HEAD_DIM = 128
-GROUPS = (1, 2, 4, 8, 16)
+MAX_GROUP = 16          # query heads a KV head: the rows of an mma tile
 # blocks a split count aims at per SM: the bf16 body's one-warp blocks
 # (8 fit an SM's shared memory), the f32 body's 8-warp blocks
 WARPS_PER_SM, F32_BLOCKS_PER_SM = 8, 2
@@ -84,9 +86,9 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices):
                    "paged_attention: q, k_pages and v_pages disagree")
     _build.require(D == HEAD_DIM, f"paged_attention: the kernel takes "
                                   f"head_dim {HEAD_DIM}, got {D}")
-    _build.require(H % hk == 0 and H // hk in GROUPS,
-                   f"paged_attention: {H} heads over {hk} KV heads (groups "
-                   f"of {GROUPS})")
+    _build.require(hk > 0 and H % hk == 0 and 1 <= H // hk <= MAX_GROUP,
+                   f"paged_attention: {H} heads over {hk} KV heads (the "
+                   f"kernel takes whole groups of 1 to {MAX_GROUP})")
     _build.require(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
                    "paged_attention: q and the pages must share one dtype")
     _build.require(lengths.dtype == torch.int32 and tuple(lengths.shape) == (B,),

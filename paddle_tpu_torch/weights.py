@@ -4,10 +4,12 @@
 converted to numpy by the caller ({name: np.ndarray}, same names as the
 port's parameters, ``mlp.experts.w1`` and ``self_attn.kv_b_proj.weight``
 included) and returns the port's causal LM of the config's family
-(``model_class``); ``to_numpy_state`` goes the other way. Linear weights
-are [in, out] in both packages, so nothing is transposed. numpy has no bfloat16: bf16 travels as
-its uint16 bit pattern (a ``bfloat16`` array from ml_dtypes is taken as
-well), so the round trip is bit-exact.
+(``model_class``); ``load_jax_state`` fills any module (a standalone
+``MoELayer`` or gate) by parameter name; ``to_numpy_state`` goes the other
+way. Linear weights are [in, out] in both packages, so nothing is
+transposed. numpy has no bfloat16: bf16 travels as its uint16 bit pattern
+(a ``bfloat16`` array from ml_dtypes is taken as well), so the round trip
+is bit-exact.
 """
 from __future__ import annotations
 
@@ -17,9 +19,13 @@ import numpy as np
 import torch
 
 from .models.deepseek import DeepseekV2Config, DeepseekV2ForCausalLM
+from .models.ernie45 import Ernie45Config, Ernie45ForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM, torch_dtype
 from .models.llama_moe import LlamaMoEConfig, LlamaMoEForCausalLM
 from .models.mistral import MistralConfig, MistralForCausalLM
+from .models.mixtral import MixtralConfig, MixtralForCausalLM
+from .models.qwen2_moe import Qwen2MoeConfig, Qwen2MoeForCausalLM
+from .models.qwen3_moe import Qwen3MoeConfig, Qwen3MoeForCausalLM
 
 
 def _to_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
@@ -33,8 +39,13 @@ def _to_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 
 def model_class(config: LlamaConfig):
-    """The causal-LM class of a config's family."""
+    """The causal-LM class of a config's family (each MoE family before
+    ``LlamaMoEConfig``, which they all extend)."""
     for cfg_cls, model_cls in ((DeepseekV2Config, DeepseekV2ForCausalLM),
+                               (Ernie45Config, Ernie45ForCausalLM),
+                               (Qwen2MoeConfig, Qwen2MoeForCausalLM),
+                               (Qwen3MoeConfig, Qwen3MoeForCausalLM),
+                               (MixtralConfig, MixtralForCausalLM),
                                (LlamaMoEConfig, LlamaMoEForCausalLM),
                                (MistralConfig, MistralForCausalLM)):
         if isinstance(config, cfg_cls):
@@ -50,9 +61,20 @@ def from_jax_state(state: dict, config: LlamaConfig, device=None,
     if dtype is not None:
         config = dataclasses.replace(
             config, dtype=str(torch_dtype(dtype)).replace("torch.", ""))
-    dt = torch_dtype(config.dtype)
     model = model_class(config)(config, device=device)
-    params = dict(model.named_parameters())
+    return _load(model, state, torch_dtype(config.dtype))
+
+
+def load_jax_state(module: torch.nn.Module, state: dict) -> torch.nn.Module:
+    """``module`` (any ``nn.Module``: a ``MoELayer``, a gate, a model)
+    holding ``state`` ({name: np.ndarray} by its parameter names), each
+    parameter keeping its own dtype and device. Every parameter must be in
+    ``state``, and nothing else."""
+    return _load(module, state, None)
+
+
+def _load(module, state, dtype):
+    params = dict(module.named_parameters())
     missing = sorted(set(params) - set(state))
     extra = sorted(set(state) - set(params))
     if missing or extra:
@@ -60,12 +82,12 @@ def from_jax_state(state: dict, config: LlamaConfig, device=None,
                        f"unexpected {extra}")
     with torch.no_grad():
         for name, p in params.items():
-            src = _to_tensor(np.asarray(state[name]), dt)
+            src = _to_tensor(np.asarray(state[name]), dtype or p.dtype)
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                                  f"{tuple(p.shape)}")
             p.data = src.to(p.device)
-    return model
+    return module
 
 
 def to_numpy_state(model: LlamaForCausalLM) -> dict:

@@ -214,22 +214,15 @@ def test_gate_decisions_match_jax(fused_flag, kw, s, flag_on, want):
 @pytest.mark.parametrize("kw", [dict(qk_norm=True),
                                 dict(attention_bias=True)])
 def test_gate_declines_what_the_port_cannot_build(fused_flag, kw):
-    """qk-norm and projection bias: the JAX gate declines them, and the port
-    cannot build such a layer at all (its config refuses qk-norm and has no
-    bias field); a foreign projection module is declined structurally."""
-    from paddle_tpu.models.llama import LlamaConfig, LlamaForCausalLM
-
-    from paddle_tpu_torch.models.llama import LlamaConfig as PortConfig
-
+    """qk-norm and projection bias: the tail's kernels take neither, so the
+    JAX gate declines such a layer and so does the port's, which builds it
+    (``attention_bias``, ``qk_norm``); a foreign projection module is
+    declined structurally."""
     jax_set_flags({"FLAGS_use_fused_decode_tail": True})
-    jm = LlamaForCausalLM(LlamaConfig(**FUSABLE, **kw))
-    cache = {"k": jnp.zeros((2, 16, 1, 128)), "v": jnp.zeros((2, 16, 1, 128)),
-             "pos": 4}
-    hidden = paddle_tpu.to_tensor(np.zeros((2, 1, 256), np.float32))
-    assert not jax_supported(jm.llama.layers[0], hidden, cache,
-                             jm.llama._rope(16)[0])
-    with pytest.raises((NotImplementedError, TypeError)):
-        PortConfig(**FUSABLE, **kw)
+    jax_args, port_args = _gate_inputs(kw)
+    assert not jax_supported(*jax_args)
+    with flags.flag_overrides({"use_fused_decode_tail": True}):
+        assert not port_supported(*port_args)
     _, (layer, p_hidden, p_cache, cos) = _gate_inputs({})
     layer.self_attn.q_proj = torch.nn.Linear(256, 256)   # carries a bias
     with flags.flag_overrides({"use_fused_decode_tail": True}):

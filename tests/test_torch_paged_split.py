@@ -273,23 +273,26 @@ def test_paged_cuda_route_f32_dtype_code(fake_kernels, monkeypatch):
                                               port_paged.F32_BLOCKS_PER_SM)
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "groups", "lengths_dtype",
-                                 "index_shape", "dtype_mix", "grad",
-                                 "pages"])
+@pytest.mark.parametrize("bad", ["head_dim", "groups", "groups_ragged",
+                                 "lengths_dtype", "index_shape", "dtype_mix",
+                                 "grad", "pages"])
 def test_paged_cuda_route_refusals_unchanged(bad, fake_kernels, monkeypatch):
-    """The wrapper's refusals: head width 128, 1-16 query heads a KV head in
-    powers of two, int32 lengths [B], int32 page indices [B, pages], one
-    dtype, no input that needs a gradient (as before), and at most
-    ``MAX_PAGES`` pages a row (the split kernel holds a row's page table in
-    shared memory); no launch is counted."""
+    """The wrapper's refusals: head width 128, whole groups of 1-16 query
+    heads a KV head (17 over 1 is refused, and so are 7 heads over 2),
+    int32 lengths [B], int32 page indices [B, pages], one dtype, no input
+    that needs a gradient (as before), and at most ``MAX_PAGES`` pages a
+    row (the split kernel holds a row's page table in shared memory); no
+    launch is counted."""
     monkeypatch.setattr(_build, "sm_count", lambda device: H100_SMS)
     q, kv, lengths, idx = _paged_cuda()
     err = ValueError
     if bad == "head_dim":
         q = posing_as_cuda(torch.zeros(3, 8, 64, dtype=torch.bfloat16))
         kv = posing_as_cuda(torch.zeros(2, 18, 16, 64, dtype=torch.bfloat16))
-    elif bad == "groups":
-        q = posing_as_cuda(torch.zeros(3, 6, 128, dtype=torch.bfloat16))
+    elif bad == "groups":        # G 17: past the 16 rows of an mma tile
+        q = posing_as_cuda(torch.zeros(3, 34, 128, dtype=torch.bfloat16))
+    elif bad == "groups_ragged":  # H % hk != 0
+        q = posing_as_cuda(torch.zeros(3, 7, 128, dtype=torch.bfloat16))
     elif bad == "lengths_dtype":
         lengths = posing_as_cuda(torch.ones(3, dtype=torch.int64))
     elif bad == "index_shape":
@@ -421,3 +424,42 @@ def test_rms_norm_cuda_route_refusals(bad, fake_kernels):
     with pytest.raises(err):
         port_norm.rms_norm(x, w)
     assert not fake_kernels and not _build.launches
+
+
+@pytest.mark.parametrize("g", [3, 5, 6, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_route_at_odd_groups_matches_jax_ref(g, dtype):
+    """Groups that are not powers of two (ERNIE-4.5-21B-A3B has 20 query
+    heads over 4 KV heads, a group of 5): the wrapper's CPU route against
+    the JAX ``_paged_attention_ref``, f32 within 1e-5, bf16 inputs (both
+    sides from the same bf16 values, f32 sums) within phase 2's 2e-3 +
+    2^-7 |p|; the split kernel's arithmetic model at 3 runs a row within
+    the same tolerances."""
+    q, kp, vp, lengths, idx = _paged(EDGE_LENGTHS, H=2 * g, hk=2, seed=30 + g)
+    args = [_t(a).to(dtype) for a in (q, kp, vp)] + [_t(lengths), _t(idx)]
+    got = port_paged.paged_attention(*args)
+    jargs = [jnp.asarray(a.float().numpy()) for a in args[:3]]
+    if dtype == torch.bfloat16:
+        jargs = [a.astype(jnp.bfloat16) for a in jargs]
+    want = np.asarray(jax_gen._paged_attention_ref(
+        *jargs, jnp.asarray(lengths), jnp.asarray(idx))).astype(np.float32)
+    model = model_paged(*args, 3).float().numpy()
+    atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (ATOL, RTOL)
+    for out in (got.float().numpy(), model):
+        np.testing.assert_allclose(out, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("g", [3, 5, 6, 7, 16])
+def test_paged_cuda_route_admits_every_group(g, fake_kernels, monkeypatch):
+    """On CUDA tensors every whole group of 1-16 query heads a KV head
+    reaches the kernel: one ``pt_paged_attention`` call with H = g * hk,
+    the split count planned from B * hk, one launch counted."""
+    monkeypatch.setattr(_build, "sm_count", lambda device: H100_SMS)
+    q, kv, lengths, idx = _paged_cuda(H=2 * g)
+    out = port_paged.paged_attention(q, kv, kv, lengths, idx)
+    assert dict(_build.launches) == {"paged_attention": 1}
+    (name, args), = fake_kernels
+    assert name == "pt_paged_attention"
+    assert (args[9], args[10], args[11]) == (3, 2 * g, 2)
+    assert args[15] == port_paged.split_count(3, 2, 6, H100_SMS)
+    assert out.shape == (3, 2 * g, 128)

@@ -232,7 +232,14 @@ def test_serving_builds_no_graph():
 
 
 @pytest.mark.parametrize("option", [dict(attn_logit_softcapping=50.0),
-                                    dict(qk_norm=True)])
+                                    dict(qk_norm="rms")])
 def test_unported_options_raise(option):
+    """Soft-capping is not ported and names its JAX lines; qk_norm is, and
+    refuses a mode the JAX config refuses, with its message."""
+    if "qk_norm" in option:
+        with pytest.raises(ValueError, match="qk_norm must be False, True, "
+                                             "'per_head' or 'full'"):
+            PortConfig.tiny(**option)
+        return
     with pytest.raises(NotImplementedError, match="paddle_tpu/models/llama"):
         PortConfig.tiny(**option)
