@@ -9,6 +9,7 @@ NVIDIA H100.
     python3 chip_smoke.py --mla-only              # phase 2's MLA rows alone
     python3 chip_smoke.py --optimizer-only        # phase 2's update rows
     python3 chip_smoke.py --moe-only              # MoE rows, phases 18-21
+    python3 chip_smoke.py --engine-only           # phase 22 alone
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -249,7 +250,34 @@ Phases (any failure raises, so the script exits non-zero):
    same weights on the card and the CPU, a 64-token prompt through the
    one-slot engine: tokens identical, the prefill and first decode step's
    logits within 1e-3; the engine's tokens equal solo ``generate``'s.
-22. The kernels line, then the card line, then the result line
+22. The engine's scheduler, bundles and OOM degrade (runs inside phases 3
+   and 10 on their models, before each is freed; its wiring after phase
+   16's): on Llama-3-8B (bf16, 32 layers) the prefix cache (8 slots,
+   ``max_len`` 2048: a 1024-token prefix + 200 decoding while the same
+   prefix + 150, 300 and 600 arrive; each hit copies 64 pages and
+   prefills its suffix on append attention at pos 1024; admission ms
+   against the cache off), chunked prefill (seven live 512-token requests,
+   then 1792 tokens in chunks of 256; the worst step wall while the chunks
+   land against the step that admits it whole), preemption (4 slots of
+   priority-2 requests of 1000 tokens, a priority-0 arrival evicts one to
+   the host after 30 steps: 256 MiB bundles; preempt and restore ms, the
+   CRC apart), migration and handoff between two engines on the model
+   (bundle MiB, ms, decode captures and the graph pool), and a real OOM
+   (a ballast from ``torch.cuda.mem_get_info()`` leaves 64 MiB, so a
+   2048-bucket admission raises ``torch.cuda.OutOfMemoryError``: the
+   request is shed with ``where="oom"``, ``max_active_slots`` 4 -> 3, the
+   others finish with the tokens of a run without the OOM); on
+   DeepSeek-V2-Lite (latent mode, 8 slots, ``max_len`` 4096) the prefix
+   cache with chunks of 512. Launch counts exact: append attention L a
+   suffix chunk or padded prefill, the flash kernel L an exact one,
+   ``paged_attention`` / ``mla_decode`` L a decode step. Then the f32
+   wiring at two layers of Llama-3-8B and DeepSeek-V2-Lite, card = CPU and
+   on each, token for token: prefix-cached = uncached, chunked =
+   monolithic (both layouts), preempted and restored = never preempted,
+   migrated = stayed, handed off = prefilled locally (paged). Phase 2 holds
+   append attention at the suffix shape (S 256, pos 1024, T 1280, 1224
+   columns allowed) against its plain version, SDPA with the mask beside.
+23. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -590,7 +618,11 @@ def check_kernels(results):
     # (S, T, pos, valid prompt length or None): prefill buckets of the
     # serving path (padded ones carry `allowed`) and one chunk at pos > 0
     cases = [(128, 128, 0, 100), (512, 512, 0, 300), (1024, 1024, 0, 700),
-             (128, 1024, 500, None)]
+             (128, 1024, 500, None),
+             # the engine's prefix-cached suffix prefill (phase 22): a
+             # 200-token suffix in its 256 bucket at pos 1024, the column
+             # mask over 1224 of the 1280 columns
+             (256, 1280, 1024, 1224)]
     for S, T, pos, n_valid in cases:
         q, k, v = randn(1, S, H, D), randn(1, T, hk, D), randn(1, T, hk, D)
         allowed = None
@@ -2368,6 +2400,7 @@ def serve_full_width(profile=False):
                  gen_toks)
     if profile:
         profile_decode(model, card)
+    engine_counts = engine_llama(model, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2375,6 +2408,7 @@ def serve_full_width(profile=False):
     total.update(on[0])
     total.update(spec_counts)
     total.update(gen_counts)
+    total.update(engine_counts)
     return total
 
 
@@ -3186,6 +3220,7 @@ def serve_deepseek(profile=False):
     graphs_deepseek(model, card, prompts, news, outputs, gen_runs, gen_toks)
     if profile:
         profile_decode(model, card, slots=8, max_len=4096, prompt=1024)
+    counts.update(engine_latent(model, card))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4913,6 +4948,658 @@ def families_wiring_check():
     log(f"phase 21 took {time.perf_counter() - t0:.1f}s")
 
 
+# --------------------------------------------------------------- phase 22 --
+
+# the prefix-cache traffic: a 1024-token prefix, suffixes of 200 (the first
+# request) and 150, 300, 600 (arriving while it decodes)
+ENGINE_PREFIX, ENGINE_SUFFIXES = 1024, (200, 150, 300, 600)
+# chunked prefill: seven live 512-token requests, then a 1792-token prompt
+# in chunks of 256
+ENGINE_CHUNK, ENGINE_LIVE, ENGINE_LONG = 256, 512, 1792
+# device bytes left free beside the ballast of the real OOM: less than the
+# 256 MiB of dense buffers a 2048-token prefill allocates
+OOM_MARGIN = 64 * 2**20
+
+
+def synced_ms(fn):
+    """(result of ``fn()``, its ms between two card synchronisations)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _timed(real, name, times):
+    """``real`` wrapped to time each call (synchronised) into
+    ``times[name]``."""
+    def call(*a, **kw):
+        out, ms = synced_ms(lambda: real(*a, **kw))
+        times.setdefault(name, []).append(ms)
+        return out
+
+    return call
+
+
+def timed_method(eng, name, times):
+    """Time each call of ``eng.<name>`` into ``times[name]``."""
+    setattr(eng, name, _timed(getattr(eng, name), name, times))
+
+
+@contextlib.contextmanager
+def timed_functions(mod, names, times):
+    """Time each call of the module functions ``mod.<name>`` into
+    ``times[name]`` while the block runs (the engine calls them by their
+    module-level names, so the calls inside its methods are timed)."""
+    real = {n: getattr(mod, n) for n in names}
+    for n, f in real.items():
+        setattr(mod, n, _timed(f, n, times))
+    try:
+        yield
+    finally:
+        for n, f in real.items():
+            setattr(mod, n, f)
+
+
+def crc_ms(times):
+    """(total ms, calls) of the seals and checks timed in ``times``."""
+    ms = [t for n in ("seal_bundle", "verify_bundle")
+          for t in times.get(n, [])]
+    return sum(ms), len(ms)
+
+
+def run_engine(eng, prompts, news, **kw):
+    """Every prompt queued (``add_request`` keywords ``kw``), then the
+    engine run out; returns the outputs by rid and the rids."""
+    rids = [eng.add_request(p, max_new_tokens=n, **kw)
+            for p, n in zip(prompts, news)]
+    return eng.run_until_done(), rids
+
+
+def same_share(a, b):
+    """'k/n' tokens equal between two runs' outputs."""
+    same = sum(int(np.sum(np.asarray(x) == np.asarray(y)))
+               for x, y in zip(a, b) if len(x) == len(y))
+    return f"{same}/{sum(len(x) for x in a)}"
+
+
+def bundle_mib(bundle) -> float:
+    return sum(k.nbytes + v.nbytes for k, v in bundle["layers"]) / 2**20
+
+
+def engine_prefix(model, card):
+    """Phase 22 prefix cache: ``max_batch`` 8, ``max_len`` 2048. A request
+    of the 1024-token prefix + 200 decodes while three more with the same
+    prefix and suffixes of 150, 300 and 600 arrive: each copies 64 pages
+    and prefills its suffix through append attention at pos 1024. Each
+    engine runs the traffic twice (the first run captures its graphs);
+    the second is timed and counted. Returns the counts."""
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    cfg = model.config
+    rng = np.random.RandomState(22)
+    prefix = rng.randint(0, cfg.vocab_size, ENGINE_PREFIX)
+    prompts = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size, n)])
+               for n in ENGINE_SUFFIXES]
+    news = [48, 16, 16, 16]
+    res = {}
+    for cache in (False, True):
+        eng = ContinuousBatchEngine(model, max_batch=8, max_len=2048,
+                                    enable_prefix_cache=cache)
+        for rep in range(2):
+            reused0 = eng.prefix_pages_reused
+            steps0 = eng.stats()["decode_steps"]
+            reset_launches()
+            out, ms, rids = {}, [], []
+            for i, (p, n) in enumerate(zip(prompts, news)):
+                rid, t = synced_ms(lambda: eng.add_request(
+                    p, max_new_tokens=n))
+                rids.append(rid)
+                ms.append(t)
+                if i == 0:
+                    for _ in range(2):    # it decodes while the rest arrive
+                        out.update(eng.step())
+            out.update(eng.run_until_done())
+            counts = Counter(launches)
+        steps = eng.stats()["decode_steps"] - steps0
+        reused = eng.prefix_pages_reused - reused0
+        want = serving_counts_want(cfg, steps, 0, len(prompts))
+        require_counts(f"phase 22 prefix cache {'on' if cache else 'off'}",
+                       counts, want)
+        if reused != (3 * ENGINE_PREFIX // 16 if cache else 0):
+            raise AssertionError(f"phase 22 prefix cache: {reused} pages "
+                                 "reused")
+        res[cache] = (ms, [out[r] for r in rids], counts, reused)
+        if [len(out[r]) for r in rids] != news:
+            raise AssertionError("phase 22 prefix cache: a request fell "
+                                 "short")
+    (off_ms, off_out, _, _), (on_ms, on_out, counts, reused) = (res[False],
+                                                                res[True])
+    lines = ", ".join(
+        f"suffix {s}: {a:.2f} (off {b:.2f})"
+        for s, a, b in zip(ENGINE_SUFFIXES[1:], on_ms[1:], off_ms[1:]))
+    log(f"  [{card}] phase 22 prefix cache: admission ms with the cache "
+        f"(the first request's 1224-token prefill {on_ms[0]:.2f}, off "
+        f"{off_ms[0]:.2f}); {lines}; prefix_pages_reused {reused} (64 a "
+        f"hit); append_attention {counts['append_attention']} (L x 4: one "
+        f"padded prefill, three suffixes), paged_attention "
+        f"{counts['paged_attention']}; tokens cache on = off (bf16, "
+        f"reported) {same_share(on_out, off_out)}")
+    return counts
+
+
+def engine_chunked(model, card):
+    """Phase 22 chunked prefill: seven live 512-token requests decode (with
+    chunks of 256 they land in two chunks each), then a 1792-token prompt
+    lands in chunks of 256 (the first an exact prefill, six suffix chunks),
+    one a step with a decode between; against the same traffic admitted
+    whole. Each engine runs the traffic twice; the second
+    is timed and counted. Returns the chunked run's counts."""
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    cfg = model.config
+    rng = np.random.RandomState(23)
+    live = [rng.randint(0, cfg.vocab_size, ENGINE_LIVE) for _ in range(7)]
+    long_p = rng.randint(0, cfg.vocab_size, ENGINE_LONG)
+    res = {}
+    for chunk in (None, ENGINE_CHUNK):
+        eng = ContinuousBatchEngine(model, max_batch=8, max_len=2048,
+                                    prefill_chunk_tokens=chunk)
+        for rep in range(2):
+            steps0 = eng.stats()["decode_steps"]
+            reset_launches()
+            out = {}
+            rids = [eng.add_request(p, max_new_tokens=48) for p in live]
+            while eng._chunking:      # chunked, the live prompts land too
+                out.update(eng.step())
+            steady = []
+            for _ in range(3):
+                o, t = synced_ms(eng.step)
+                out.update(o)
+                steady.append(t)
+            rid, t_add = synced_ms(lambda: eng.add_request(
+                long_p, max_new_tokens=16))
+            walls = []
+            while True:
+                o, t = synced_ms(eng.step)
+                out.update(o)
+                walls.append(t)
+                if not eng._chunking:
+                    break
+            out.update(eng.run_until_done())
+            counts = Counter(launches)
+        steps = eng.stats()["decode_steps"] - steps0
+        n_chunks = -(-ENGINE_LONG // ENGINE_CHUNK)
+        # chunked: each live prompt an exact first chunk and one suffix,
+        # the long one an exact first chunk and n - 1 suffixes
+        want = (serving_counts_want(cfg, steps, 7 + 1, 7 + n_chunks - 1)
+                if chunk else serving_counts_want(cfg, steps, 7, 1))
+        require_counts(f"phase 22 chunked prefill (chunk {chunk})", counts,
+                       want)
+        if chunk and len(walls) != n_chunks:
+            raise AssertionError(f"phase 22 chunked prefill: {len(walls)} "
+                                 f"steps landed {n_chunks} chunks")
+        res[chunk] = (t_add, walls, statistics.median(steady), out[rid],
+                      counts)
+    t_add, walls, steady, mono_tok, _ = res[None]
+    c_add, c_walls, c_steady, chunk_tok, counts = res[ENGINE_CHUNK]
+    log(f"  [{card}] phase 22 chunked prefill: 7 live x {ENGINE_LIVE} + "
+        f"{ENGINE_LONG} in chunks of {ENGINE_CHUNK}: worst step while the "
+        f"chunks land {max(c_walls):.2f} ms (steps "
+        f"{', '.join(f'{w:.2f}' for w in c_walls)}; add_request "
+        f"{c_add:.2f}; a plain decode step {c_steady:.2f}) against "
+        f"{t_add + walls[0]:.2f} ms for the step that admits it whole "
+        f"(admission {t_add:.2f} + step {walls[0]:.2f}; a plain decode step "
+        f"{steady:.2f}); flash_attention_bshd "
+        f"{counts['flash_attention_bshd']}, append_attention "
+        f"{counts['append_attention']}; the long prompt's tokens chunked = "
+        f"whole (bf16, reported) {same_share([chunk_tok], [mono_tok])}")
+    return counts
+
+
+def engine_preempt(model, card):
+    """Phase 22 priorities and preemption: ``max_batch`` 4 filled with
+    priority-2 requests of 1000 tokens; after 30 steps (2048-position
+    bundles) a priority-0 request of 512 evicts the most recently admitted
+    one to the host; it restores when a slot frees. Against the same
+    traffic without preemption. Returns the preempting run's counts."""
+    import paddle_tpu_torch.serving as serving
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+
+    cfg = model.config
+    rng = np.random.RandomState(24)
+    low = [rng.randint(0, cfg.vocab_size, 1000) for _ in range(4)]
+    hi = rng.randint(0, cfg.vocab_size, 512)
+    res = {}
+    for preempt in (False, True):
+        eng = serving.ContinuousBatchEngine(
+            model, max_batch=4, max_len=2048, enable_preemption=preempt)
+        times, seal, check = {}, {}, {}
+        timed_method(eng, "_preempt_slot", times)
+        timed_method(eng, "_restore_into", times)
+        reset_launches()
+        out = {}
+        rids = [eng.add_request(p, max_new_tokens=48, priority=2)
+                for p in low]
+        for _ in range(30):
+            out.update(eng.step())
+        # the seal runs inside the preemption, the check inside the
+        # restore: each is timed where the engine calls it
+        with timed_functions(serving, ["seal_bundle"], seal):
+            r_hi = eng.add_request(hi, max_new_tokens=16, priority=0)
+        mib = None
+        if preempt:
+            victim = next(r for r in eng._queue if r.resume is not None)
+            mib = bundle_mib(victim.resume)
+        with timed_functions(serving, ["verify_bundle"], check):
+            out.update(eng.run_until_done())
+        counts = Counter(launches)
+        want = serving_counts_want(cfg, eng.stats()["decode_steps"], 1, 4)
+        require_counts(f"phase 22 preemption ({preempt})", counts, want)
+        if eng.stats()["requests_preempted"] != int(preempt):
+            raise AssertionError("phase 22: the preemption did not happen")
+        res[preempt] = ([out[r] for r in rids + [r_hi]], times, seal, check,
+                        mib, counts)
+    ref = res[False][0]
+    got, times, seal, check, mib, counts = res[True]
+    pre, rest = times["_preempt_slot"][0], times["_restore_into"][0]
+    if len(seal.get("seal_bundle", [])) != 1 or len(
+            check.get("verify_bundle", [])) != 1:
+        raise AssertionError(f"phase 22: one seal and one check expected, "
+                             f"got {seal} and {check}")
+    seal_ms, check_ms = seal["seal_bundle"][0], check["verify_bundle"][0]
+    log(f"  [{card}] phase 22 preemption: bundle {mib:.1f} MiB (2048 "
+        f"positions x 128 KiB), preempt {pre:.2f} ms (the seal's CRC "
+        f"{seal_ms:.2f}, timed inside it; the rest, the copies to the host "
+        f"and the bookkeeping, {pre - seal_ms:.2f}), restore {rest:.2f} ms "
+        f"(the check's CRC {check_ms:.2f}, timed inside it; the rest, the "
+        f"copies back and the page write, {rest - check_ms:.2f}); tokens "
+        f"preempted and restored = never "
+        f"preempted (bf16, reported) {same_share(got, ref)}, the victim's "
+        f"{same_share(got[3:4], ref[3:4])}")
+    return counts
+
+
+def engine_migrate(model, card):
+    """Phase 22 migration and handoff on one model and two engines:
+    ``export_slot`` mid-decode (30 steps into a 1000-token prompt), then
+    ``admit_migrated`` on the second engine; ``export_prefill`` of a
+    900-token prompt, then ``admit_prefilled``. Against the same requests
+    served where they started. Returns the counts."""
+    import paddle_tpu_torch.serving as serving
+    from paddle_tpu_torch.jit.cuda_graph import pool_bytes
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    cfg = model.config
+    rng = np.random.RandomState(25)
+    p_mig = rng.randint(0, cfg.vocab_size, 1000)
+    p_hand = rng.randint(0, cfg.vocab_size, 900)
+    pool0 = pool_bytes(model)
+    src = ContinuousBatchEngine(model, max_batch=4, max_len=2048)
+    dst = ContinuousBatchEngine(model, max_batch=4, max_len=2048)
+    reset_launches()
+    rid = src.add_request(p_mig, max_new_tokens=48)
+    for _ in range(30):
+        src.step()
+    crc = ("seal_bundle", "verify_bundle")
+    t_exp, t_adm = {}, {}
+    with timed_functions(serving, crc, t_exp):
+        mig, export_ms = synced_ms(lambda: src.export_slot(rid))
+    with timed_functions(serving, crc, t_adm):
+        rid2, admit_ms = synced_ms(lambda: dst.admit_migrated(mig))
+    migrated = dst.run_until_done()[rid2]
+    hand, hexport_ms = synced_ms(lambda: src.export_prefill(
+        p_hand, max_new_tokens=16))
+    rid3, hadmit_ms = synced_ms(lambda: dst.admit_prefilled(
+        hand, max_new_tokens=16))
+    handed = dst.run_until_done()[rid3]
+    steps = src.stats()["decode_steps"] + dst.stats()["decode_steps"]
+    counts = Counter(launches)
+    require_counts("phase 22 migration and handoff", counts,
+                   serving_counts_want(cfg, steps, 0, 2))
+    stay = ContinuousBatchEngine(model, max_batch=4, max_len=2048)
+    out, (r_m, r_h) = run_engine(stay, [p_mig, p_hand], [48, 16])
+    unit = model.__dict__["_select_decode_steps"]
+    caps = sum(u.captures for u in unit.values())
+    exp_crc, n_exp = crc_ms(t_exp)
+    adm_crc, n_adm = crc_ms(t_adm)
+    log(f"  [{card}] phase 22 migration: bundle {bundle_mib(mig):.1f} MiB, "
+        f"export_slot {export_ms:.2f} ms (its {n_exp} seals' CRCs "
+        f"{exp_crc:.2f}, timed inside it), admit_migrated {admit_ms:.2f} ms "
+        f"with the restore at admission (its {n_adm} seals' and checks' "
+        f"CRCs {adm_crc:.2f}, timed inside it); "
+        f"handoff: bundle {bundle_mib(hand):.1f} MiB, export_prefill "
+        f"{hexport_ms:.2f} ms, admit_prefilled {hadmit_ms:.2f} ms; the "
+        f"one-token decode unit {caps} captures so far (one an engine "
+        f"pool), graph pool {pool0 / 2**20:.1f} -> "
+        f"{pool_bytes(model) / 2**20:.1f} MiB; migrated = stayed "
+        f"{same_share([migrated], [out[r_m]])}, handed off = prefilled "
+        f"locally {same_share([handed], [out[r_h]])} (bf16, reported)")
+    return counts
+
+
+def oom_ballast():
+    """Device memory held so that only ``OOM_MARGIN`` stays free: a block of
+    ``torch.cuda.mem_get_info()``'s free bytes less the margin, then blocks
+    of 16, 4 and 1 MiB until none fits (that figure misses the free
+    parts of segments the allocator keeps, which earlier runs left), then
+    the margin's worth of the 16 MiB ones freed into the allocator's cache.
+    Returns (blocks, the free bytes read, the bytes of the top-up)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    blocks = [torch.empty(free - OOM_MARGIN, dtype=torch.uint8,
+                          device="cuda")]
+    tops = {}
+    for step in (16 * 2**20, 4 * 2**20, 2**20):
+        top = tops[step] = []
+        try:
+            while True:
+                top.append(torch.empty(step, dtype=torch.uint8,
+                                       device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            pass
+    topped = sum(len(v) * k for k, v in tops.items())
+    del tops[16 * 2**20][:OOM_MARGIN // 2**24]
+    return blocks + [t for v in tops.values() for t in v], free, topped
+
+
+def engine_oom(model, card):
+    """Phase 22 real OOM: three requests decode on a 4-slot engine; a
+    ballast takes all but ``OOM_MARGIN`` of the card's free memory, so
+    admitting a 1500-token prompt (a 2048 bucket this engine has not used:
+    256 MiB of dense buffers) raises ``torch.cuda.OutOfMemoryError``. The
+    request is shed (``where="oom"``), ``max_active_slots`` shrinks to 3;
+    the ballast goes and the three finish with the tokens of a run without
+    the OOM. Returns the counts."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    cfg = model.config
+    rng = np.random.RandomState(26)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (100, 200, 300)]
+    big = rng.randint(0, cfg.vocab_size, 1500)
+    res = {}
+    for oom in (False, True):
+        eng = ContinuousBatchEngine(model, max_batch=4, max_len=2048)
+        reset_launches()
+        out = {}
+        rids = [eng.add_request(p, max_new_tokens=24) for p in prompts]
+        for _ in range(4):
+            out.update(eng.step())
+        info = None
+        if oom:
+            ballast, free, topped = oom_ballast()
+            shed = []
+            r_big, ms = synced_ms(lambda: eng.add_request(
+                big, max_new_tokens=8,
+                on_shed=lambda r, i: shed.append(i)))
+            st = eng.stats()
+            info = (eng.finish_reason(r_big), shed, st["max_active_slots"],
+                    st["requests_degraded"], ms,
+                    sum(t.numel() for t in ballast), free, topped)
+            del ballast
+            torch.cuda.empty_cache()
+        out.update(eng.run_until_done())
+        counts = Counter(launches)
+        res[oom] = ([out[r] for r in rids], info, counts,
+                    eng.stats()["decode_steps"])
+    ref = res[False][0]
+    got, (reason, shed, budget, degraded, ms, ballast_b, free,
+          topped), counts, steps = res[True]
+    log(f"  [{card}] phase 22 real OOM: the admission's finish reason "
+        f"{reason}, on_shed {[i['where'] for i in shed]}, max_active_slots "
+        f"{budget}, degraded {degraded}, {steps} decode steps, launches "
+        f"{json.dumps(dict(counts))}")
+    for oom in (False, True):
+        require_counts(f"phase 22 OOM ({oom})", res[oom][2],
+                       serving_counts_want(cfg, res[oom][3], 0, 3))
+    if not (reason == "shed" and len(shed) == 1 and shed[0]["where"] == "oom"
+            and budget == 3 and degraded == 1):
+        raise AssertionError(f"phase 22 OOM: reason {reason}, shed {shed}, "
+                             f"max_active_slots {budget}, degraded "
+                             f"{degraded}")
+    same = all(np.array_equal(a, b) for a, b in zip(got, ref))
+    log(f"  [{card}] phase 22 real OOM: ballast {ballast_b / 2**30:.2f} GiB "
+        f"(mem_get_info's free {free / 2**30:.2f} GiB less "
+        f"{OOM_MARGIN / 2**20:.0f} MiB, then {topped / 2**20:.0f} MiB more "
+        f"in blocks of 16, 4 and 1 MiB until none fit, "
+        f"{OOM_MARGIN / 2**20:.0f} MiB of them given back), "
+        f"the 2048-bucket admission shed in {ms:.2f} ms (where "
+        f"{shed[0]['where']!r}: {shed[0]['error'][:160]}...), "
+        f"max_active_slots 4 -> {budget}; the survivors' tokens = the run "
+        f"without the OOM: {same}")
+    if not same:
+        raise AssertionError("phase 22 OOM: the survivors' tokens differ "
+                             "from the run without the OOM")
+    return counts
+
+
+def engine_llama(model, card):
+    """Phase 22 on phase 3's Llama-3-8B. Returns the counts."""
+    t0 = time.perf_counter()
+    log(f"phase 22: the engine's scheduler, bundles and OOM degrade on "
+        f"Llama-3-8B ({model.config.num_hidden_layers} layers, bf16)")
+    counts = Counter()
+    for part in (engine_prefix, engine_chunked, engine_preempt,
+                 engine_migrate, engine_oom):
+        counts.update(part(model, card))
+    log(f"phase 22 on Llama-3-8B took {time.perf_counter() - t0:.1f}s")
+    return counts
+
+
+def engine_latent(model, card):
+    """Phase 22 latent mode on phase 10's DeepSeek-V2-Lite (``max_batch`` 8,
+    ``max_len`` 4096) with the prefix cache and chunks of 512: A = a
+    1024-token prefix + 100 (three chunks: an exact 512 on the width-192
+    flash kernel, then two suffixes), B = the prefix + 300 (a 64-page hit,
+    one suffix chunk), C = 700 new tokens (an exact 512, one suffix).
+    ``flash_attention_mla`` 27 a first chunk, ``mla_decode`` 27 a step,
+    nothing else of attention. Against the same prompts without either.
+    Returns the counts."""
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    t0 = time.perf_counter()
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(27)
+    prefix = rng.randint(0, cfg.vocab_size, 1024)
+    prompts = [np.concatenate([prefix, rng.randint(0, cfg.vocab_size, n)])
+               for n in (100, 300)] + [rng.randint(0, cfg.vocab_size, 700)]
+    news = [32, 16, 16]
+    eng = ContinuousBatchEngine(model, max_batch=8, max_len=4096,
+                                enable_prefix_cache=True,
+                                prefill_chunk_tokens=512)
+    times = {}
+    timed_method(eng, "_run_suffix_chunk", times)
+    reset_launches()
+    out = {}
+    r_a = eng.add_request(prompts[0], max_new_tokens=news[0])
+    while eng._chunking or eng.stats()["decode_steps"] < 2:
+        out.update(eng.step())
+    r_b = eng.add_request(prompts[1], max_new_tokens=news[1])
+    r_c = eng.add_request(prompts[2], max_new_tokens=news[2])
+    out.update(eng.run_until_done())
+    counts = Counter(launches)
+    steps = eng.stats()["decode_steps"]
+    want = {"flash_attention_mla": 2 * L, "mla_decode": L * steps,
+            "flash_attention_bshd": 0, "append_attention": 0,
+            "paged_attention": 0, "fused_qkv_rope": 0, "fused_epilogue": 0}
+    require_counts("phase 22 DeepSeek-V2-Lite latent", counts, want)
+    if eng.prefix_pages_reused != 64:
+        raise AssertionError(f"phase 22 latent: {eng.prefix_pages_reused} "
+                             "pages reused")
+    plain = ContinuousBatchEngine(model, max_batch=8, max_len=4096)
+    ref, rids = run_engine(plain, prompts, news)
+    got = [out[r] for r in (r_a, r_b, r_c)]
+    log(f"  [{card}] phase 22 DeepSeek-V2-Lite latent: prefix cache + "
+        f"chunks of 512: suffix prefills ms "
+        f"{', '.join(f'{t:.2f}' for t in times['_run_suffix_chunk'])}; "
+        f"prefix_pages_reused 64; flash_attention_mla "
+        f"{counts['flash_attention_mla']}, mla_decode {counts['mla_decode']}"
+        f" ({steps} steps); tokens = no cache, no chunks (bf16, reported) "
+        f"{same_share(got, [ref[r] for r in rids])}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return counts
+
+
+def engine_wiring_check():
+    """Phase 22 wiring, f32, ``allow_tf32`` off: two layers at full width of
+    Llama-3-8B and DeepSeek-V2-Lite, the same weights on the card and the
+    CPU. On each device, token for token: prefix-cached = uncached and
+    chunked = monolithic (both layouts); preempted and restored = never
+    preempted, migrated = stayed, handed off = prefilled locally (paged:
+    the JAX engine refuses them in latent mode); and card = CPU."""
+    import torch
+
+    from paddle_tpu_torch.models import DeepseekV2ForCausalLM, LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.serving import ContinuousBatchEngine as Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    kw = dict(max_len=128, page_size=16)
+    new = 6
+
+    def prefix(m, ps, cache):
+        eng = Engine(m, max_batch=2, enable_prefix_cache=cache, **kw)
+        a = eng.add_request(ps[0], max_new_tokens=new)
+        eng.step()
+        b = eng.add_request(ps[1], max_new_tokens=new)
+        out = eng.run_until_done()
+        if cache and eng.prefix_pages_reused != 2:
+            raise AssertionError("phase 22 wiring: no prefix hit")
+        return [out[a], out[b]]
+
+    def chunked(m, ps, chunk):
+        eng = Engine(m, max_batch=2, prefill_chunk_tokens=chunk, **kw)
+        a = eng.add_request(ps[2], max_new_tokens=new + 4)
+        eng.step()
+        eng.step()
+        b = eng.add_request(ps[3], max_new_tokens=new)
+        out = eng.run_until_done()
+        return [out[a], out[b]]
+
+    def preempt(m, ps, on):
+        eng = Engine(m, max_batch=1, enable_preemption=on, **kw)
+        out = {}
+        a = eng.add_request(ps[2], max_new_tokens=new + 4, priority=2)
+        for _ in range(3):
+            out.update(eng.step())
+        b = eng.add_request(ps[3], max_new_tokens=new, priority=0)
+        out.update(eng.run_until_done())
+        if eng.stats()["requests_preempted"] != int(on):
+            raise AssertionError("phase 22 wiring: preemption count")
+        return [out[a], out[b]]
+
+    def migrate(m, ps, move):
+        src = Engine(m, max_batch=1, **kw)
+        a = src.add_request(ps[3], max_new_tokens=new + 4)
+        for _ in range(3):
+            src.step()
+        if not move:
+            return [src.run_until_done()[a]]
+        dst = Engine(m, max_batch=1, **kw)
+        b = dst.admit_migrated(src.export_slot(a))
+        return [dst.run_until_done()[b]]
+
+    def handoff(m, ps, hand):
+        eng = Engine(m, max_batch=1, **kw)
+        if hand:
+            bundle = Engine(m, max_batch=1, **kw).export_prefill(
+                ps[3], max_new_tokens=new)
+            r = eng.admit_prefilled(bundle, max_new_tokens=new)
+        else:
+            r = eng.add_request(ps[3], max_new_tokens=new)
+        return [eng.run_until_done()[r]]
+
+    # (label, run, paged layout only)
+    checks = (("prefix-cached = uncached", prefix, False),
+              ("chunked = monolithic", chunked, False),
+              ("preempted and restored = never preempted", preempt, True),
+              ("migrated = stayed", migrate, True),
+              ("handed off = prefilled locally", handoff, True))
+    families = (
+        ("Llama-3-8B", LlamaForCausalLM,
+         LlamaConfig.llama3_8b(num_hidden_layers=2, dtype="float32"), False),
+        ("DeepSeek-V2-Lite", DeepseekV2ForCausalLM,
+         deepseek_config(num_hidden_layers=2, dtype="float32"), True),
+    )
+    for i, (name, cls, cfg, latent) in enumerate(families):
+        m_gpu = cls(cfg, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(40 + i))
+        m_cpu = cpu_copy(m_gpu)
+        rng = np.random.RandomState(40 + i)
+        shared = rng.randint(0, cfg.vocab_size, 32)
+        ps = [np.concatenate([shared, rng.randint(0, cfg.vocab_size, n)])
+              for n in (10, 20)]
+        ps += [rng.randint(0, cfg.vocab_size, n) for n in (5, 45)]
+        got = {}
+        for label, fn, paged_only in checks:
+            if latent and paged_only:
+                continue
+            pair = []
+            for m in (m_gpu, m_cpu):
+                a = fn(m, ps, {"chunked = monolithic": 16}.get(label, True))
+                b = fn(m, ps, None if label == "chunked = monolithic"
+                       else False)
+                if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(
+                        f"phase 22 wiring {name} on {m.device}: {label} "
+                        f"fails: {[x.tolist() for x in a]} against "
+                        f"{[y.tolist() for y in b]}")
+                pair.append(a)
+            if not all(np.array_equal(x, y) for x, y in zip(*pair)):
+                raise AssertionError(f"phase 22 wiring {name}: {label}: "
+                                     "card tokens differ from the CPU's")
+            got[label] = [x.tolist() for x in pair[0]]
+        log(f"phase 22 wiring, {name}, 2 layers at full width, f32: card = "
+            f"CPU, and on both {'; '.join(got)} token for token: "
+            f"{json.dumps(got)}")
+        del m_gpu, m_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 22 wiring took {time.perf_counter() - t0:.1f}s")
+
+
+def engine_only():
+    """``--engine-only``: phase 22 on models built here, as phases 3 and 10
+    build them (same seeds), then its f32 wiring."""
+    import torch
+
+    from paddle_tpu_torch.models import DeepseekV2ForCausalLM
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    card = card_line()
+    model = LlamaForCausalLM(LlamaConfig.llama3_8b(dtype="bfloat16"),
+                             device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    engine_llama(model, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = DeepseekV2ForCausalLM(
+        deepseek_config(), device="cuda",
+        generator=torch.Generator("cuda").manual_seed(11))
+    engine_latent(model, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine_wiring_check()
+
+
 def tensor_core_sass(lib) -> tuple:
     """(HMMA, HGMMA) instructions in a built library's SASS, from
     ``cuobjdump -sass``: mma.sync and wgmma products on the tensor cores."""
@@ -4982,6 +5669,11 @@ def main(argv=None) -> int:
                          "and at groups 3, 5, 6, 7; splash and append at "
                          "group 5; rms_norm at width 128), then phases "
                          "18-21; prints no result line")
+    ap.add_argument("--engine-only", action="store_true",
+                    help="phase 1, then phase 22 alone: the scheduler, "
+                         "bundles and OOM degrade on Llama-3-8B and "
+                         "DeepSeek-V2-Lite (built here), then the f32 "
+                         "wiring; prints no result line")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -5015,7 +5707,8 @@ def main(argv=None) -> int:
     # multiply on the tensor cores (the partial runs may measure an earlier
     # checkout)
     partial = (args.decode_tail_only or args.decode_profile_only
-               or args.mla_only or args.optimizer_only or args.moe_only)
+               or args.mla_only or args.optimizer_only or args.moe_only
+               or args.engine_only)
     for stem in ("append_attention", "flash_attention", "paged_attention",
                  "mla_decode", "decode_tail"):
         hmma, hgmma = tensor_core_sass(_build.build()[stem])
@@ -5049,6 +5742,10 @@ def main(argv=None) -> int:
         serve_ernie(args.profile)
         serve_families()
         families_wiring_check()
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        return 0
+    if args.engine_only:
+        engine_only()
         log(f"total {time.perf_counter() - t_start:.1f}s")
         return 0
     if args.decode_profile_only:
@@ -5088,6 +5785,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     generate_wiring_check()
+    engine_wiring_check()
     counts.update(entry_on_card())
     gc.collect()
     torch.cuda.empty_cache()

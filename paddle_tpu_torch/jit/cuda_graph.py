@@ -18,7 +18,8 @@ unit derives from :class:`GraphedStep` and puts its body in
   tensor's shape, strides, dtype and device, every other value, and the
   addresses of the state below.
 - Nothing falls back to the eager body on CUDA: a capture or a replay
-  that fails raises.
+  that fails raises. A failed capture keeps no graph and gives back the
+  launches its warm-ups counted; the next call captures anew.
 
 Inputs. ``cache_arg`` is the index of the argument that holds the caches.
 A tensor in it that the body returns as the very object it was given (a
@@ -374,11 +375,23 @@ class GraphedStep:
                      and id(leaves[i]) in returned)
 
     def _capture(self, sig, args, leaves, spec, device):
+        """Warm-ups and capture of a new graph. One that fails (out of
+        memory in a warm-up or in the capture) keeps no graph, so nothing
+        broken is ever replayed, and gives the launch counts back; the
+        next call of the signature captures anew."""
+        before = Counter(_build.launches)
+        try:
+            return self._capture_new(sig, args, leaves, spec, device, before)
+        except BaseException:
+            _build.launches.clear()
+            _build.launches.update(before)
+            raise
+
+    def _capture_new(self, sig, args, leaves, spec, device, before):
         t0 = time.perf_counter()
         self._take_weights()
         gens = [i for i, x in enumerate(leaves)
                 if isinstance(x, torch.Generator)]
-        before = Counter(_build.launches)
         cur = _CUDA.current_stream(device)
         side = _CUDA.side_stream(device)
         side.wait_stream(cur)

@@ -1,9 +1,9 @@
 """Continuous batching over a paged KV pool — counterpart of
-``paddle_tpu/serving.py`` ``ContinuousBatchEngine`` (first sub-slice).
+``paddle_tpu/serving.py`` ``ContinuousBatchEngine``.
 
 Requests join at any time; every ``step()`` decodes one token for every
 active slot (sample + forward in one call), a finished request frees its
-slot at once, and the FIFO queue refills it. The step units come from the
+slot at once, and the queue refills it. The step units come from the
 model's memoized getters (``generation._get_select_decode`` and the rest,
 keyed with the flag fingerprint as in the JAX engine): on CUDA each is a
 replayed CUDA graph over the engine's pool, its page table and one
@@ -23,22 +23,41 @@ serves in latent mode (``serving.py:1041-1047``): each layer keeps per-slot
 rows of its compressed buffers (``c_kv`` [max_batch, max_len, r], ``k_pe``
 [max_batch, max_len, dr]) in place of the K/V pages, admission copies the
 prompt's latent rows into the slot's row, and decode attends over the rows
-at each slot's length. Latent mode refuses speculation, as the JAX engine
-does (the port has none of the other paged-only features: preemption,
-handoff, migration).
+at each slot's length. Latent mode refuses speculation, preemption,
+handoff and migration, as the JAX engine does.
 
-Ported: the pool layout, ``add_request``, FIFO admission, ``_bucket``,
-``_bucketed_prefill``, ``_prefill_into``, ``_scatter_prefill``, ``step``,
-``run_until_done``, ``cancel``, ``finish_reason``, ``logprobs``, ``stats``
-and speculation with an integer k (``_spec_eligible``,
-``_step_speculative``). Not ported yet: ``speculative_k="auto"`` (the
-autotune search), prefix cache, chunked prefill, priorities and deadlines,
-preemption, migration and handoff, OOM degradation, the flight recorder,
-tracing, the KV atlas, the step-anatomy clock and metrics.
+Scheduling (``serving.py:423-443``, ``:1300-1420``, ``:2273-2564``): the
+queue admits by (aged priority class, EDF deadline, rid); ``max_queue``
+bounds it (``QueueFull``, or a capacity shed of a less important queued
+request); a request whose deadline passed, or whose remaining budget is
+below the observed admission-to-first-token floor, is shed before it takes
+a slot; a strictly more important request may evict a slot's KV to the
+host (``enable_preemption``) and the victim restores token-identically;
+``prefill_chunk_tokens`` lands a long prompt one chunk a step with a decode
+dispatch between chunks; ``enable_prefix_cache`` copies the longest
+page-aligned prefix shared with an active slot and prefills only the
+suffix. ``export_prefill`` / ``admit_prefilled`` hand a prefill to a peer
+engine, ``export_slot`` / ``admit_migrated`` move a live stream; both seal
+their host bundles with a CRC (``seal_bundle`` / ``verify_bundle``, the JAX
+package's format and checksum). A ``torch.cuda.OutOfMemoryError`` at
+admission or in a decode dispatch sheds the triggering request and shrinks
+``max_active_slots``; a failure while the pool is being written poisons the
+engine.
+
+Not ported: ``speculative_k="auto"`` (the autotune search), multimodal
+``pixel_values``, ``preflight``, and the host-side serving subsystems: the
+flight recorder, tracing, the KV atlas, the step-anatomy clock, metrics
+(with the usage block and ``debug_state``), the correctness sentinel (a
+bundle's ``audit`` mark is carried as data), the deathnote and the chaos
+hooks; ``Seq2SeqBatchEngine`` neither.
 """
 from __future__ import annotations
 
 import inspect
+import math
+import time
+import zlib
+from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -51,6 +70,119 @@ from .generation import (_cache_buffers, _get_prefill_step,
 from .models.llama import head_dim_of, torch_dtype
 from .speculative import ngram_propose
 
+#: default priority class — lower value is MORE important (0 interactive,
+#: 1 default, 2+ batch traffic)
+PRIORITY_DEFAULT = 1
+
+#: finish reasons (and logprobs) kept for the last this many requests
+_REASON_KEEP = 4096
+
+#: schema version stamped on every handoff / preemption / migration bundle
+#: (an engine admits only bundles of its own version)
+HANDOFF_SCHEMA_VERSION = 2
+
+
+class HandoffCorrupt(RuntimeError):
+    """A handoff / preemption / migration bundle failed its integrity
+    check: checksum mismatch, schema version skew, the wrong kind, or an
+    inconsistent payload. A RuntimeError, as in the JAX package: a fresh
+    export makes a fresh bundle, so the fault is retryable upstream."""
+
+
+def _bundle_digest(bundle: dict) -> int:
+    """CRC32 over a bundle's leaves in sorted-key order: numpy leaves hash
+    dtype + shape + raw bytes, scalars their repr; the top-level
+    ``checksum`` is left out. The JAX package's digest, line for line, so
+    both packages compute one checksum for one bundle."""
+    crc = 0
+
+    def upd(b: bytes):
+        nonlocal crc
+        crc = zlib.crc32(b, crc)
+
+    def walk(path, o):
+        if isinstance(o, np.ndarray):
+            upd(f"{path}:{o.dtype.str}:{o.shape}".encode())
+            upd(np.ascontiguousarray(o).tobytes())
+        elif isinstance(o, dict):
+            for k in sorted(o):
+                if path == "" and k == "checksum":
+                    continue
+                walk(f"{path}/{k}", o[k])
+        elif isinstance(o, (list, tuple)):
+            for i, x in enumerate(o):
+                walk(f"{path}[{i}]", x)
+        else:
+            upd(f"{path}={o!r}".encode())
+
+    walk("", bundle)
+    return crc
+
+
+def seal_bundle(bundle: dict) -> dict:
+    """Stamp ``version`` + ``checksum`` onto a bundle (in place)."""
+    bundle["version"] = HANDOFF_SCHEMA_VERSION
+    bundle.pop("checksum", None)
+    bundle["checksum"] = _bundle_digest(bundle)
+    return bundle
+
+
+def verify_bundle(bundle, kind: Optional[str] = None) -> dict:
+    """The integrity gate in front of every bundle admission: schema
+    version, checksum and (when given) the bundle ``kind``. Raises
+    :class:`HandoffCorrupt`."""
+    if not isinstance(bundle, dict):
+        raise HandoffCorrupt(
+            f"bundle is a {type(bundle).__name__}, not a dict")
+    v = bundle.get("version")
+    if v != HANDOFF_SCHEMA_VERSION:
+        raise HandoffCorrupt(
+            f"bundle schema version skew: bundle says {v!r}, this engine "
+            f"speaks {HANDOFF_SCHEMA_VERSION} — prefill and decode tiers "
+            "must run the same bundle schema")
+    if kind is not None and bundle.get("kind", "prefill") != kind:
+        raise HandoffCorrupt(
+            f"bundle kind {bundle.get('kind')!r} where {kind!r} was "
+            "expected")
+    got = bundle.get("checksum")
+    if got is None:
+        raise HandoffCorrupt("bundle carries no checksum")
+    want = _bundle_digest(bundle)
+    if int(got) != want:
+        raise HandoffCorrupt(
+            f"bundle checksum mismatch (stored {int(got):#010x}, "
+            f"computed {want:#010x}) — corrupted in transport or host "
+            "memory; discard and re-export")
+    return bundle
+
+
+class QueueFull(RuntimeError):
+    """Typed admission rejection: the bounded queue (``max_queue``) is at
+    capacity and no slot is free. ``retry_after_s`` comes from the queue
+    depth and the observed drain rate (``_retry_after_estimate``)."""
+
+    def __init__(self, engine: str, depth: int, max_queue: int,
+                 retry_after_s: float = 1.0):
+        super().__init__(
+            f"{engine} engine admission queue is full "
+            f"({depth}/{max_queue} queued, no free slot); retry later")
+        self.retry_after_s = float(retry_after_s)
+
+
+class DeadlineExceeded(RuntimeError):
+    """Typed deadline rejection: the request was submitted with no budget
+    left (``slo_ms <= 0``)."""
+
+    def __init__(self, engine: str, miss_ms: Optional[float] = None,
+                 rid: Optional[int] = None):
+        miss = (f" (deadline missed by {miss_ms:.0f}ms)"
+                if miss_ms is not None else "")
+        super().__init__(
+            f"{engine} engine request deadline exceeded{miss}; "
+            "the SLO budget was spent before decoding could start")
+        self.miss_ms = miss_ms
+        self.rid = rid
+
 
 def _page_tiles(buf, page_size):
     """[n_tokens, hk, D] dense rows -> [hk, n_pages, page_size, D] page
@@ -58,6 +190,34 @@ def _page_tiles(buf, page_size):
     n_pages = buf.shape[0] // page_size
     hk, d = buf.shape[1], buf.shape[2]
     return buf.reshape(n_pages, page_size, hk, d).movedim(2, 0)
+
+
+def _host_leaf(t: torch.Tensor) -> np.ndarray:
+    """A bundle leaf: a host copy of ``t`` in memory of its own (never a
+    view of the pool or of a kept buffer, which later admissions
+    overwrite). numpy has no bfloat16 without ml_dtypes, so a bf16 tensor
+    is written as its raw 16-bit words, ``np.uint16``; other dtypes as
+    themselves."""
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).to("cpu", copy=True).numpy().view(
+            np.uint16)
+    return t.to("cpu", copy=True).numpy()
+
+
+def _leaf_tensor(a, device) -> torch.Tensor:
+    """A bundle leaf on ``device``: raw bf16 words (the port's ``uint16``,
+    or an ml_dtypes ``bfloat16`` array as the JAX package writes it, whose
+    dtype is a 2-byte void, ``'<V2'``) read by their bits as
+    ``torch.bfloat16``; any other dtype as itself."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:     # torch.from_numpy wants writable memory
+        a = a.copy()
+    if a.dtype.itemsize == 2 and (a.dtype.kind == "V"
+                                  or a.dtype == np.uint16):
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _on_token_arity(on_token) -> int:
@@ -77,16 +237,27 @@ def _on_token_arity(on_token) -> int:
 
 
 class _Request:
-    __slots__ = ("rid", "ids", "max_new_tokens", "tokens", "sampling",
-                 "on_token", "on_token_arity", "stop_token_ids", "logprobs",
-                 "want_logprobs", "spec_rounds", "spec_accepted")
+    __slots__ = ("rid", "ids", "max_new_tokens", "tokens", "slot",
+                 "sampling", "on_token", "on_token_arity", "stop_token_ids",
+                 "logprobs", "want_logprobs", "spec_rounds", "spec_accepted",
+                 "t_enqueue", "t_admit", "t_last", "handoff", "priority",
+                 "deadline", "resume", "n_preempted", "on_shed", "ext_id",
+                 "audit")
 
     def __init__(self, rid, ids, max_new_tokens, sampling=None, on_token=None,
-                 stop_token_ids=None, want_logprobs=False):
+                 stop_token_ids=None, want_logprobs=False, priority=None,
+                 slo_ms=None, request_id=None):
         self.rid = rid
+        # the caller's request identity (engine rids are process-local)
+        self.ext_id = None if request_id is None else str(request_id)
         self.ids = np.asarray(ids).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.tokens: List[int] = []
+        self.slot = -1
+        # submission -> admission -> first token -> each later token
+        self.t_enqueue = time.perf_counter()
+        self.t_admit = None
+        self.t_last = None
         self.sampling = sampling  # (do_sample, temperature, top_k, top_p)
         # callback (rid, token, done) or (rid, token, done, logprob)
         self.on_token = on_token
@@ -99,6 +270,29 @@ class _Request:
         self.logprobs: List[float] = []
         # speculative rounds this request rode, and drafts it accepted
         self.spec_rounds = self.spec_accepted = 0
+        self.handoff = None         # prefilled-KV bundle from a peer
+        # admission order: (aged priority, deadline, rid)
+        self.priority = PRIORITY_DEFAULT if priority is None else int(priority)
+        self.deadline = (self.t_enqueue + float(slo_ms) / 1000.0
+                         if slo_ms is not None else math.inf)
+        self.resume = None          # host KV bundle after a preemption
+        self.n_preempted = 0
+        self.on_shed = None         # callback (rid, info dict) or None
+        # the sentinel's mark, carried through migration as data only
+        self.audit = None
+
+
+class _ChunkState:
+    """A request mid chunked prefill: it has reserved a slot (invisible to
+    ``_alloc_slot``) but does not decode yet; ``pos`` tokens of its prompt
+    are in the slot's pages, the rest lands one chunk per ``step()``."""
+
+    __slots__ = ("req", "slot", "pos")
+
+    def __init__(self, req: _Request, slot: int):
+        self.req = req
+        self.slot = slot
+        self.pos = 0          # prompt tokens already prefilled (page-aligned)
 
 
 class ContinuousBatchEngine:
@@ -109,17 +303,27 @@ class ContinuousBatchEngine:
     >>> rid = eng.add_request(prompt_ids, max_new_tokens=64)
     >>> done = eng.run_until_done()   # {rid: np.ndarray of generated ids}
 
-    The engine runs where the model's weights lie. ``speculative_k`` (an
-    int >= 1, or None for off) is the chunk width of a speculative dispatch:
-    one verified token plus up to k-1 drafts from an n-gram lookup of
-    length up to ``speculative_ngram``. Dispatches with a sampling slot
-    active take the one-token step."""
+    The engine runs where the model's weights lie. ``enable_prefix_cache``
+    reuses a page-aligned prompt prefix shared with an active slot;
+    ``prefill_chunk_tokens`` (a multiple of ``page_size``) admits longer
+    prompts one chunk a step; ``max_queue`` bounds the waiting queue;
+    ``enable_preemption`` lets a strictly more important request evict a
+    slot's KV to the host; ``aging_s`` improves a waiting request's class
+    by one per ``aging_s`` seconds (0: strict classes).
+    ``speculative_k`` (an int >= 1, or None for off) is the chunk width of
+    a speculative dispatch: one verified token plus up to k-1 drafts from
+    an n-gram lookup of length up to ``speculative_ngram``. Dispatches with
+    a sampling slot active take the one-token step."""
 
     def __init__(self, model, max_batch: int, max_len: int,
                  page_size: int = 16, eos_token_id: Optional[int] = None,
                  do_sample: bool = False, temperature: float = 1.0,
-                 top_k: int = 0, top_p: float = 1.0, speculative_k=None,
-                 speculative_ngram: int = 3):
+                 top_k: int = 0, top_p: float = 1.0,
+                 enable_prefix_cache: bool = False,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 max_queue: Optional[int] = None,
+                 enable_preemption: bool = False, aging_s: float = 5.0,
+                 speculative_k=None, speculative_ngram: int = 3):
         if max_len % page_size != 0:
             raise ValueError("max_len must be a multiple of page_size")
         if speculative_k == "auto":
@@ -146,6 +350,16 @@ class ContinuousBatchEngine:
                 "append path")
         self.speculative_k = speculative_k or None
         self.speculative_ngram = int(speculative_ngram)
+        if prefill_chunk_tokens is not None:
+            prefill_chunk_tokens = int(prefill_chunk_tokens)
+            if (prefill_chunk_tokens <= 0
+                    or prefill_chunk_tokens % page_size != 0):
+                raise ValueError(
+                    f"prefill_chunk_tokens must be a positive multiple of "
+                    f"page_size ({page_size}), got {prefill_chunk_tokens} "
+                    "— later chunks continue at page-aligned positions")
+        if max_queue is not None and int(max_queue) < 0:
+            raise ValueError(f"max_queue must be >= 0, got {max_queue}")
         cfg = model.config
         if max_len > cfg.max_position_embeddings:
             raise ValueError(f"max_len {max_len} exceeds "
@@ -154,6 +368,10 @@ class ContinuousBatchEngine:
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature} "
                              "(0 decodes greedily)")
+        if enable_preemption and self._latent_mode:
+            raise ValueError(
+                "enable_preemption requires the paged KV layout — the "
+                "latent (MLA) compressed rows have no host eviction path")
         self.model = model
         self.device = model.device
         self.max_batch, self.max_len, self.page_size = (max_batch, max_len,
@@ -162,6 +380,11 @@ class ContinuousBatchEngine:
         self._sample_cfg = (bool(do_sample), float(temperature), int(top_k),
                             float(top_p))
         self._generator = default_generator(self.device)
+        self.enable_prefix_cache = bool(enable_prefix_cache)
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.enable_preemption = bool(enable_preemption)
+        self.aging_s = float(aging_s)
 
         # the pool: slot s owns pages [s*pps, (s+1)*pps) of every layer
         self._pages_per_slot = max_len // page_size
@@ -192,22 +415,44 @@ class ContinuousBatchEngine:
             } for _ in range(cfg.num_hidden_layers)]
         self._last = torch.zeros(max_batch, cfg.vocab_size,
                                  dtype=torch.float32, device=self.device)
+        self._poisoned = False
         self._slots: List[Optional[_Request]] = [None] * max_batch
+        # slot -> _ChunkState, in service order
+        self._chunking: Dict[int, _ChunkState] = {}
+        # queue and finish state and the lifetime counters
+        # (``serving.py:334-419``, without the metrics registry)
+        self._engine_label = "decoder"
+        self._next_rid = 0
+        # the admission budget: max_batch until an OOM degrade shrinks it
+        self.max_active_slots = int(self.max_batch)
         self._queue: List[_Request] = []
         self._finished: Dict[int, np.ndarray] = {}
         self._finished_reason: Dict[int, str] = {}
         self._finished_logprobs: Dict[int, list] = {}
-        self._next_rid = 0
+        self._reason_order = deque()   # the retention window's order
         self._n_requests = self._n_finished = self._n_cancelled = 0
+        self._n_rejected = self._n_preempted = 0
+        self._n_migrated_out = self._n_migrated_in = 0
+        self._n_shed = self._n_deadline_misses = self._n_degraded = 0
+        self._n_slo_good = self._n_slo_late = 0
         self._n_tokens = self._n_steps = 0
         self._n_spec_steps = self._n_spec_emitted = 0
         self._n_spec_accepted = self._n_spec_slot_rounds = 0
+        self.prefix_pages_reused = 0   # pages copied by prefix hits
+        # overload estimators: the best admission -> first token ever seen
+        # (the provably-unmeetable floor) and the EWMA gap between
+        # finishes (the drain rate behind Retry-After)
+        self._ttft_admit_floor: Optional[float] = None
+        self._ttft_admit_n = 0
+        self._finish_interval_ewma: Optional[float] = None
+        self._t_last_finish: Optional[float] = None
 
     # ---- public API -----------------------------------------------------
     def add_request(self, ids, max_new_tokens: int = 64, do_sample=None,
                     temperature=None, top_k=None, top_p=None,
                     stop_token_ids=None, logprobs=False,
-                    on_token=None) -> int:
+                    on_token=None, priority=None, slo_ms=None,
+                    on_shed=None, request_id=None) -> int:
         """Queue one request (admitted at once when a slot is free).
         Sampling knobs default to the engine's; any override routes decoding
         through the per-row program. ``stop_token_ids`` retires the request
@@ -215,24 +460,29 @@ class ContinuousBatchEngine:
         the chosen-token logprobs; ``on_token(rid, token, done)`` streams
         each token, and a callback with four required positional
         parameters (or ``*args``) also gets the token's logprob as the 4th
-        argument. The keywords are the JAX engine's."""
+        argument. ``priority`` (lower is more important, default
+        ``PRIORITY_DEFAULT``) and ``slo_ms`` order admission; ``slo_ms`` is
+        also a deadline: a request still queued when it passes is shed
+        (``on_shed(rid, info)``), and ``slo_ms <= 0`` raises
+        :class:`DeadlineExceeded`. With ``max_queue`` a request that would
+        wait behind a full queue raises :class:`QueueFull`, unless a less
+        important queued request can be shed for it. The keywords are the
+        JAX engine's."""
+        self._gate(priority, slo_ms)
         ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor)
                          else ids).reshape(-1)
         self._require_fit(ids.size, int(max_new_tokens))
-        if temperature is not None and temperature < 0:
-            raise ValueError(f"temperature must be >= 0, got {temperature} "
-                             "(0 decodes greedily)")
-        sampling = self._merge_sampling(do_sample, temperature, top_k, top_p)
-        rid = self._next_rid
-        self._next_rid += 1
-        self._n_requests += 1
-        self._queue.append(_Request(rid, ids, max_new_tokens, sampling,
-                                    on_token, stop_token_ids, logprobs))
-        self._admit()
-        return rid
+        sampling = self._request_sampling(do_sample, temperature, top_k,
+                                          top_p)
+        return self._enqueue(_Request(
+            -1, ids, max_new_tokens, sampling, on_token,
+            stop_token_ids, logprobs, priority=priority, slo_ms=slo_ms,
+            request_id=request_id), on_shed)
 
     def finish_reason(self, rid: int):
-        """"stop" | "length" | "cancelled" once finished, else None."""
+        """"stop" | "length" | "cancelled" | "shed" | "migrated" once
+        finished (kept for the last ``_REASON_KEEP`` requests), else
+        None."""
         return self._finished_reason.get(rid)
 
     def logprobs(self, rid: int):
@@ -249,11 +499,24 @@ class ContinuousBatchEngine:
             "requests_admitted": self._n_requests,
             "requests_finished": self._n_finished,
             "requests_cancelled": self._n_cancelled,
+            "requests_rejected": self._n_rejected,
+            "requests_preempted": self._n_preempted,
+            "requests_shed": self._n_shed,
+            "deadline_misses": self._n_deadline_misses,
+            "requests_migrated_out": self._n_migrated_out,
+            "requests_migrated_in": self._n_migrated_in,
+            "requests_slo_good": self._n_slo_good,
+            "requests_slo_late": self._n_slo_late,
             "requests_active": active,
             "requests_queued": len(self._queue),
+            "requests_prefilling": len(self._chunking),
             "decode_steps": self._n_steps,
             "tokens_generated": self._n_tokens,
             "slot_utilization": active / self.max_batch,
+            # the live admission budget (an OOM degrade shrinks it)
+            "max_active_slots": self.max_active_slots,
+            "requests_degraded": self._n_degraded,
+            "prefix_pages_reused": self.prefix_pages_reused,
             # tokens retired per slot per speculative dispatch (1.0 = no
             # gain); zeros while speculation is off
             "spec_dispatches": self._n_spec_steps,
@@ -265,8 +528,8 @@ class ContinuousBatchEngine:
         }
 
     def cancel(self, rid: int) -> bool:
-        """Drop a queued request or free an active one's slot; True if it
-        was live."""
+        """Drop a queued request, free an active one's slot, or release a
+        slot reserved mid chunked prefill; True if it was live."""
         for i, req in enumerate(self._queue):
             if req.rid == rid:
                 del self._queue[i]
@@ -278,37 +541,60 @@ class ContinuousBatchEngine:
                 self._record_reason(rid, "cancelled")
                 self._admit()
                 return True
+        for s, st in list(self._chunking.items()):
+            if st.req.rid == rid:
+                del self._chunking[s]
+                self._release_slot(s)
+                self._record_reason(rid, "cancelled")
+                self._admit()
+                return True
         return False
 
     def step(self) -> Dict[int, np.ndarray]:
-        """Decode one token for every active slot; returns the requests
-        that finished {rid: generated ids}."""
+        """Admit, advance at most one prefill chunk, then decode one token
+        for every active slot; returns the requests that finished {rid:
+        generated ids}. The final chunk's logits row is consumed by the
+        same step's decode."""
+        self._check_poisoned()
         self._admit()
+        self._advance_chunk()
         if self.num_active == 0:
             return self._drain_finished()
+        # reserved (mid-chunk) slots hold their length at the chunk
+        # frontier: the fixed-shape decode writes a throwaway token's KV
+        # there, and the next chunk overwrites it (a length of 0 would put
+        # it inside the prefix that chunk gathers)
         self._lengths_dev.copy_(torch.from_numpy(self._lengths))
         if self.speculative_k is not None and self._spec_eligible():
             return self._step_speculative()
-        if any(r is not None and r.sampling is not None for r in self._slots):
-            rows = [(r.sampling or self._sample_cfg) if r is not None
-                    else self._sample_cfg for r in self._slots]
-            dev = self.device
-            step = _get_select_decode_rows(self.model, self.max_len)
-            nxt, logps, last, _ = step(
-                self._last, self._generator,
-                torch.tensor([r[0] for r in rows], dtype=torch.bool, device=dev),
-                torch.tensor([r[1] for r in rows], dtype=torch.float32,
-                             device=dev),
-                torch.tensor([r[2] for r in rows], dtype=torch.int32,
-                             device=dev),
-                torch.tensor([r[3] for r in rows], dtype=torch.float32,
-                             device=dev),
-                self._caches)
-        else:
-            step = _get_select_decode(self.model, self.max_len,
-                                      *self._sample_cfg)
-            nxt, logps, last, _ = step(self._last, self._generator,
-                                       self._caches)
+        try:
+            if any(r is not None and r.sampling is not None
+                   for r in self._slots):
+                rows = [(r.sampling or self._sample_cfg) if r is not None
+                        else self._sample_cfg for r in self._slots]
+                dev = self.device
+                step = _get_select_decode_rows(self.model, self.max_len)
+                nxt, logps, last, _ = step(
+                    self._last, self._generator,
+                    torch.tensor([r[0] for r in rows], dtype=torch.bool,
+                                 device=dev),
+                    torch.tensor([r[1] for r in rows], dtype=torch.float32,
+                                 device=dev),
+                    torch.tensor([r[2] for r in rows], dtype=torch.int32,
+                                 device=dev),
+                    torch.tensor([r[3] for r in rows], dtype=torch.float32,
+                                 device=dev),
+                    self._caches)
+            else:
+                step = _get_select_decode(self.model, self.max_len,
+                                          *self._sample_cfg)
+                nxt, logps, last, _ = step(self._last, self._generator,
+                                           self._caches)
+        except torch.cuda.OutOfMemoryError as e:
+            # shed the most recently admitted slot and shrink the budget;
+            # its throwaway KV writes sit above every frontier
+            self._degrade_on_oom(None, where="step", exc=e)
+            return self._drain_finished()
         self._keep_last(last)
         # the one device -> host sync of the step
         toks = nxt.cpu().numpy()[:, None]
@@ -320,13 +606,194 @@ class ContinuousBatchEngine:
                        ) -> Dict[int, np.ndarray]:
         out: Dict[int, np.ndarray] = {}
         steps = 0
-        while self._queue or self.num_active:
+        while self._queue or self.num_active or self._chunking:
             out.update(self.step())
             steps += 1
             if max_steps is not None and steps >= max_steps:
                 break
         out.update(self._drain_finished())
         return out
+
+    # ---- disaggregated serving: prefill export / prefilled admission ----
+    def export_prefill(self, ids, max_new_tokens: int = 64) -> dict:
+        """Run the bucketed prefill of one prompt and return its KV as a
+        sealed host bundle instead of admitting it (``serving.py:1436``):
+        the prompt ids, each layer's dense K / V at the prefill bucket (bf16
+        as raw 16-bit words) and the last-logit row. No slot is taken and no
+        engine state changes."""
+        if self._latent_mode:
+            raise NotImplementedError(
+                "KV handoff is not supported in latent (MLA) mode — the "
+                "compressed cache rows are engine-layout-specific")
+        ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor)
+                         else ids).reshape(-1)
+        if ids.size + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({ids.size}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds engine max_len {self.max_len}")
+        req = _Request(-1, ids, max_new_tokens)
+        last, caches, S0, bucket = self._bucketed_prefill(req)
+        layers = [(_host_leaf(c["k"][0]), _host_leaf(c["v"][0]))
+                  for c in caches]
+        return seal_bundle({
+            "kind": "prefill",
+            "ids": np.asarray(ids, np.int64),
+            "prompt_tokens": int(S0),
+            "bucket": int(bucket),
+            "page_size": int(self.page_size),
+            "layers": layers,
+            "last": _host_leaf(last[0].float()),
+        })
+
+    def admit_prefilled(self, handoff: dict, max_new_tokens: int = 64,
+                        do_sample=None, temperature=None, top_k=None,
+                        top_p=None, on_token=None, stop_token_ids=None,
+                        logprobs=False, priority=None, slo_ms=None,
+                        on_shed=None, request_id=None) -> int:
+        """Queue a request whose prefill ran on a peer engine
+        (``export_prefill`` over the same weights): admission copies the
+        bundle's K / V into the slot's pages and decoding starts from the
+        shipped last-logit row. The other knobs are ``add_request``'s."""
+        self._gate(priority, slo_ms)
+        if self._latent_mode:
+            raise NotImplementedError(
+                "KV handoff is not supported in latent (MLA) mode")
+        verify_bundle(handoff, kind="prefill")
+        bucket = int(handoff["bucket"])
+        if bucket % self.page_size != 0 or bucket > self.max_len:
+            raise ValueError(
+                f"handoff bucket {bucket} does not fit this engine "
+                f"(page_size {self.page_size}, max_len {self.max_len}) — "
+                f"prefill and decode engines must share the serving shape")
+        if len(handoff["layers"]) != len(self._caches):
+            raise ValueError(
+                f"handoff carries {len(handoff['layers'])} layers, engine "
+                f"has {len(self._caches)} — different models?")
+        ids = np.asarray(handoff["ids"]).reshape(-1)
+        self._require_fit(int(ids.size), int(max_new_tokens))
+        sampling = self._request_sampling(do_sample, temperature, top_k,
+                                          top_p)
+        req = _Request(-1, ids, max_new_tokens, sampling,
+                       on_token, stop_token_ids, logprobs, priority=priority,
+                       slo_ms=slo_ms, request_id=request_id)
+        req.handoff = handoff
+        return self._enqueue(req, on_shed)
+
+    def _admit_handoff(self, slot: int, req: _Request):
+        """Admission from a handoff bundle: the shipped buffers go to the
+        card, then through the same page write as a local prefill; no
+        model forward runs."""
+        h, req.handoff = req.handoff, None
+        self._write_bundle(slot, h, "handoff admission")
+        self._lengths[slot] = int(h["prompt_tokens"])
+
+    # ---- live migration: export a decoding slot / admit it elsewhere -----
+    def export_slot(self, rid: int) -> dict:
+        """Export a request that is decoding as a sealed migration bundle
+        and release its slot (``serving.py:1566``): its KV pages densified
+        to host numpy, the last-logit row, the prompt, the tokens so far and
+        the decode-side state (sampling, stops, logprobs, priority,
+        remaining SLO, the sentinel mark). ``admit_migrated`` on a peer over
+        the same weights continues the stream token-identically. Queued or
+        prefilling requests raise ValueError."""
+        if self._latent_mode:
+            raise NotImplementedError(
+                "migration is not supported in latent (MLA) mode — the "
+                "compressed cache rows are engine-layout-specific")
+        slot = next((s for s, r in enumerate(self._slots)
+                     if r is not None and r.rid == rid), None)
+        if slot is None:
+            raise ValueError(
+                f"request {rid} holds no decoding slot (queued, "
+                "prefilling, finished or unknown) — only active slots "
+                "migrate; re-place queued requests from scratch")
+        req = self._slots[slot]
+        kv = self._slot_kv_bundle(slot, req)
+        now = time.perf_counter()
+        bundle = seal_bundle({
+            "kind": "migrate",
+            "ids": np.asarray(req.ids, np.int64),
+            "prompt_tokens": int(req.ids.size),
+            "tokens": np.asarray(req.tokens, np.int64),
+            "max_new_tokens": int(req.max_new_tokens),
+            "sampling": list(req.sampling or self._sample_cfg),
+            "stop_token_ids": (sorted(req.stop_token_ids)
+                               if req.stop_token_ids else None),
+            "want_logprobs": bool(req.want_logprobs),
+            "logprobs": [float(x) for x in req.logprobs],
+            "audit": req.audit,
+            "priority": int(req.priority),
+            "slo_remaining_s": (None if req.deadline == math.inf
+                                else float(req.deadline - now)),
+            "page_size": int(self.page_size),
+            "bucket": int(kv["bucket"]),
+            "kv_len": int(kv["kv_len"]),
+            "layers": kv["layers"],
+            "last": kv["last"],
+        })
+        self._release_slot(slot)
+        self._n_migrated_out += 1
+        self._record_reason(rid, "migrated")
+        req.slot = -1
+        self._admit()     # the freed slot can refill at once
+        return bundle
+
+    def admit_migrated(self, handoff: dict, on_token=None,
+                       on_shed=None) -> int:
+        """Admit a mid-stream request exported by a peer's
+        :meth:`export_slot`: the KV restores through the preemption-restore
+        path and decoding resumes where the source stopped. The decode-side
+        knobs come from the bundle; ``on_token`` fires for new tokens
+        only."""
+        if not isinstance(handoff, dict):
+            raise HandoffCorrupt(
+                f"bundle is a {type(handoff).__name__}, not a dict")
+        self._check_queue_bound(
+            priority=int(handoff.get("priority", PRIORITY_DEFAULT)))
+        if self._latent_mode:
+            raise NotImplementedError(
+                "migration is not supported in latent (MLA) mode")
+        verify_bundle(handoff, kind="migrate")
+        bucket = int(handoff["bucket"])
+        if bucket % self.page_size != 0 or bucket > self.max_len:
+            raise ValueError(
+                f"migration bucket {bucket} does not fit this engine "
+                f"(page_size {self.page_size}, max_len {self.max_len}) — "
+                "source and destination engines must share the serving "
+                "shape")
+        if len(handoff["layers"]) != len(self._caches):
+            raise ValueError(
+                f"migration bundle carries {len(handoff['layers'])} "
+                f"layers, engine has {len(self._caches)} — different "
+                "models?")
+        ids = np.asarray(handoff["ids"]).reshape(-1)
+        tokens = [int(t) for t in np.asarray(handoff["tokens"]).reshape(-1)]
+        kv_len = int(handoff["kv_len"])
+        if kv_len != ids.size + len(tokens):
+            raise HandoffCorrupt(
+                f"migration bundle is inconsistent: kv_len {kv_len} != "
+                f"prompt {ids.size} + generated {len(tokens)}")
+        max_new = int(handoff["max_new_tokens"])
+        self._require_fit(int(ids.size), max_new)
+        samp = handoff.get("sampling")
+        sampling = self._merge_sampling(*samp) if samp else None
+        slo_rem = handoff.get("slo_remaining_s")
+        req = _Request(-1, ids, max_new, sampling, on_token,
+                       handoff.get("stop_token_ids"),
+                       bool(handoff.get("want_logprobs")),
+                       priority=handoff.get("priority"),
+                       slo_ms=(slo_rem * 1000.0 if slo_rem is not None
+                               else None))
+        req.tokens = tokens
+        req.logprobs = [float(x) for x in handoff.get("logprobs") or []]
+        if handoff.get("audit") in ("shadow", "ondemand"):
+            req.audit = handoff["audit"]
+        # the restore path takes it: no model forward runs
+        req.resume = seal_bundle({
+            "bucket": bucket, "kv_len": kv_len,
+            "layers": handoff["layers"], "last": handoff["last"]})
+        self._n_migrated_in += 1
+        return self._enqueue(req, on_shed)
 
     # ---- speculative decoding -------------------------------------------
     def _spec_eligible(self) -> bool:
@@ -343,7 +810,9 @@ class ContinuousBatchEngine:
 
     def _step_speculative(self) -> Dict[int, np.ndarray]:
         """One multi-token step: drafts from each slot's history, one verify
-        call, and each slot's accepted run committed (``_commit``)."""
+        call, and each slot's accepted run committed (``_commit``).
+        Reserved slots hold their length, so the k throwaway tokens written
+        for them park where the next chunk lands."""
         k = self.speculative_k
         drafts = np.zeros((self.max_batch, k - 1), np.int32)
         for s, r in enumerate(self._slots):
@@ -356,10 +825,14 @@ class ContinuousBatchEngine:
             prop = ngram_propose(hist, k, self.speculative_ngram)
             if prop.size > 1:
                 drafts[s, :prop.size - 1] = prop[1:]
-        step = _get_spec_decode(self.model, self.max_len, k)
-        emitted, n_emit, logps, last, _ = step(
-            self._last, torch.from_numpy(drafts).to(self.device),
-            self._caches)
+        try:
+            step = _get_spec_decode(self.model, self.max_len, k)
+            emitted, n_emit, logps, last, _ = step(
+                self._last, torch.from_numpy(drafts).to(self.device),
+                self._caches)
+        except torch.cuda.OutOfMemoryError as e:
+            self._degrade_on_oom(None, where="step", exc=e)
+            return self._drain_finished()
         self._keep_last(last)
         # the one device -> host sync of the step
         toks = emitted.cpu().numpy()
@@ -382,10 +855,12 @@ class ContinuousBatchEngine:
         """Hand each active slot s its emitted run toks[s, :n_emit[s]]
         (logprobs lps[s, j]), cut at the request's stop condition (eos,
         stop set, token budget); retire finished requests, advance the
-        others' lengths by what they took, stream, then refill the slots.
-        Returns the requests that finished {rid: generated ids}."""
+        others' lengths by what they took (reserved slots hold theirs),
+        stream, then refill the slots. Returns the requests that finished
+        {rid: generated ids}."""
         retiring, events = [], []
         adv = np.zeros(self.max_batch, np.int32)
+        now = time.perf_counter()
         for s, req in enumerate(self._slots):
             if req is None:
                 continue
@@ -400,10 +875,11 @@ class ContinuousBatchEngine:
                     break
                 if len(req.tokens) + len(deliver) >= req.max_new_tokens:
                     break
-            req.tokens.extend(deliver)
-            if req.want_logprobs:
-                req.logprobs.extend(float(lp) for lp in lps[s, :len(deliver)])
-            self._n_tokens += len(deliver)
+            for j, t in enumerate(deliver):
+                req.tokens.append(t)
+                if req.want_logprobs:
+                    req.logprobs.append(float(lps[s, j]))
+                self._observe_token(req, now)
             finished = stopped or len(req.tokens) >= req.max_new_tokens
             if finished:
                 self._record_reason(
@@ -421,17 +897,55 @@ class ContinuousBatchEngine:
         for s in retiring:
             req = self._slots[s]
             self._finished[req.rid] = np.asarray(req.tokens, np.int64)
-            self._n_finished += 1
+            self._count_finished(req)
             self._release_slot(s)
-        for cb, arity, rid, t, lp, done in events:   # state is consistent
-            if arity == 4:
-                cb(rid, t, done, lp)
-            else:
-                cb(rid, t, done)
+        # stream after the state is consistent: every callback fires, the
+        # first exception then propagates
+        first_exc = None
+        for cb, arity, rid, t, lp, done in events:
+            try:
+                if arity == 4:
+                    cb(rid, t, done, lp)
+                else:
+                    cb(rid, t, done)
+            except BaseException as e:  # noqa: BLE001 -- re-raised below
+                if first_exc is None:
+                    first_exc = e
+        if first_exc is not None:
+            raise first_exc
         self._admit()
         return self._drain_finished()
 
-    # ---- internals ------------------------------------------------------
+    # ---- bookkeeping ----------------------------------------------------
+    def _gate(self, priority, slo_ms):
+        """The checks every submission runs first: a budget already spent
+        raises :class:`DeadlineExceeded` (counted as a shed), a full queue
+        :class:`QueueFull` (``_check_queue_bound``)."""
+        if slo_ms is not None and float(slo_ms) <= 0:
+            self._count_deadline_reject()
+            raise DeadlineExceeded(self._engine_label,
+                                   miss_ms=-float(slo_ms))
+        self._check_queue_bound(
+            priority=PRIORITY_DEFAULT if priority is None else int(priority))
+
+    def _enqueue(self, req: _Request, on_shed) -> int:
+        """Give a built request the next rid, count it, queue it, and admit
+        what fits."""
+        req.rid = self._next_rid
+        self._next_rid += 1
+        self._n_requests += 1
+        req.on_shed = on_shed
+        self._queue.append(req)
+        self._admit()
+        return req.rid
+
+    def _request_sampling(self, do_sample, temperature, top_k, top_p):
+        """A submission's sampling overrides, checked, over the engine's."""
+        if temperature is not None and temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature} "
+                             "(0 decodes greedily)")
+        return self._merge_sampling(do_sample, temperature, top_k, top_p)
+
     def _require_fit(self, n_prompt: int, max_new: int):
         """Slot capacity at admission. With speculation every dispatch
         writes a k-token chunk from the row's frontier, so the last one
@@ -464,20 +978,75 @@ class ContinuousBatchEngine:
         values."""
         self._last = last.clone()
 
+    def _sched_key(self, req: _Request, now: float):
+        """Admission order: (aged priority class, deadline, rid). Aging
+        takes one class off per ``aging_s`` waited; within a class the
+        earliest deadline wins; rid keeps the rest FIFO."""
+        eff = req.priority
+        if self.aging_s > 0:
+            eff -= int((now - req.t_enqueue) / self.aging_s)
+        return (eff, req.deadline, req.rid)
+
+    def _peek_next(self, now: float) -> Optional[_Request]:
+        if not self._queue:
+            return None
+        return min(self._queue, key=lambda r: self._sched_key(r, now))
+
+    def _pop_next(self, now: float) -> _Request:
+        req = self._peek_next(now)
+        self._queue.remove(req)
+        return req
+
+    def _count_finished(self, req: _Request):
+        """Retirement accounting: the counter plus, for a request that
+        carried an ``slo_ms``, whether it retired inside it."""
+        self._n_finished += 1
+        if req.deadline != math.inf:
+            if time.perf_counter() <= req.deadline:
+                self._n_slo_good += 1
+            else:
+                self._n_slo_late += 1
+
+    def _observe_token(self, req: _Request, now: float):
+        """Per-token accounting (after the append): the first token's
+        admission -> token time lowers the service floor."""
+        if len(req.tokens) == 1 and req.t_admit is not None:
+            x = now - req.t_admit
+            f = self._ttft_admit_floor
+            self._ttft_admit_floor = x if f is None else min(f, x)
+            self._ttft_admit_n += 1
+        req.t_last = now
+        self._n_tokens += 1
+
     def _record_reason(self, rid, reason, logprobs=None):
         if reason == "cancelled":
             self._n_cancelled += 1
+        elif reason in ("stop", "length"):
+            # drain rate: EWMA of the gap between finishes
+            now = time.perf_counter()
+            if self._t_last_finish is not None:
+                iv = now - self._t_last_finish
+                e = self._finish_interval_ewma
+                self._finish_interval_ewma = (iv if e is None
+                                              else 0.7 * e + 0.3 * iv)
+            self._t_last_finish = now
         self._finished_reason[rid] = reason
         if logprobs is not None:
             self._finished_logprobs[rid] = logprobs
+        self._reason_order.append(rid)
+        while len(self._reason_order) > _REASON_KEEP:
+            old = self._reason_order.popleft()
+            self._finished_reason.pop(old, None)
+            self._finished_logprobs.pop(old, None)
 
     def _drain_finished(self):
         done, self._finished = self._finished, {}
         return done
 
     def _alloc_slot(self) -> int:
+        """A free slot that no chunked admission has reserved, or -1."""
         for s, r in enumerate(self._slots):
-            if r is None:
+            if r is None and s not in self._chunking:
                 return s
         return -1
 
@@ -493,15 +1062,160 @@ class ContinuousBatchEngine:
             b *= 2
         return min(b, self.max_len)
 
+    def _check_poisoned(self):
+        if self._poisoned:
+            raise RuntimeError(
+                "ContinuousBatchEngine: a failed admission invalidated the "
+                "page pool; rebuild the engine and resubmit requests")
+
+    # ---- bounded queue, deadlines, shedding -----------------------------
+    def _retry_after_estimate(self) -> float:
+        """Queue depth times the EWMA gap between finishes, clamped to
+        [0.5 s, 30 s]; 1 s before the first finish."""
+        iv = self._finish_interval_ewma
+        if not iv:
+            return 1.0
+        est = (len(self._queue) + 1) * iv
+        return min(30.0, max(0.5, est))
+
+    def _check_queue_bound(self, priority: Optional[int] = None):
+        """With the queue at ``max_queue`` and no free slot, shed the least
+        important queued request for a strictly more important newcomer,
+        else raise :class:`QueueFull`."""
+        if (self.max_queue is None
+                or len(self._queue) < self.max_queue
+                or self._alloc_slot() >= 0):
+            return
+        if priority is not None and self._queue:
+            # lowest class first, latest deadline within a class
+            victim = max(self._queue,
+                         key=lambda r: (r.priority, r.deadline, r.rid))
+            if victim.priority > int(priority):
+                self._shed_request(victim, where="capacity")
+                return
+        self._n_rejected += 1
+        raise QueueFull(self._engine_label, len(self._queue),
+                        self.max_queue,
+                        retry_after_s=self._retry_after_estimate())
+
+    def _shed_request(self, req: _Request, where: str):
+        """Drop one queued request, typed: ``where`` is "expired",
+        "unmeetable" or "capacity"; ``req.on_shed`` hears of it."""
+        self._queue.remove(req)
+        now = time.perf_counter()
+        miss_ms = ((now - req.deadline) * 1000.0
+                   if req.deadline != math.inf else None)
+        self._n_shed += 1
+        if where == "expired":
+            msg = (f"request {req.rid} deadline expired "
+                   f"{miss_ms:.0f}ms before admission")
+        elif where == "unmeetable":
+            msg = (f"request {req.rid} shed: remaining budget "
+                   f"{-miss_ms:.0f}ms is below the engine's observed "
+                   "service floor")
+        else:
+            msg = (f"request {req.rid} displaced by a higher-priority "
+                   "arrival at a full admission queue; retry later")
+        info = {"where": where, "miss_ms": miss_ms, "error": msg}
+        if where != "capacity":
+            self._n_deadline_misses += 1
+        else:
+            info["retry_after"] = self._retry_after_estimate()
+        self._record_reason(req.rid, "shed")
+        if req.on_shed is not None:
+            req.on_shed(req.rid, info)
+
+    def _shed_expired(self, now: float):
+        """Shed every queued request whose deadline passed, or whose
+        remaining budget is below the observed admission -> first-token
+        floor (armed after three first tokens)."""
+        if not self._queue:
+            return
+        est = (self._ttft_admit_floor
+               if self._ttft_admit_n >= 3 else None) or 0.0
+        for req in [r for r in self._queue if r.deadline != math.inf]:
+            if now >= req.deadline:
+                self._shed_request(req, where="expired")
+            elif est and now + est > req.deadline:
+                self._shed_request(req, where="unmeetable")
+
+    def _count_deadline_reject(self):
+        """A request submitted with its budget spent: counted as a shed."""
+        self._n_shed += 1
+        self._n_deadline_misses += 1
+
+    def _degrade_on_oom(self, req: Optional[_Request], where: str, exc):
+        """A ``torch.cuda.OutOfMemoryError`` caught before any pool write
+        (``where`` "admit" or "step", ``serving.py:2219``): shed the
+        triggering request (the admitting one, or the most recently
+        admitted slot), and shrink ``max_active_slots`` to one below the
+        occupancy that ran out (floor 1)."""
+        occupancy = (self.num_active + len(self._chunking)
+                     + (1 if req is not None else 0))
+        prev = self.max_active_slots
+        self.max_active_slots = max(1, min(prev, occupancy - 1))
+        victim = req
+        if victim is None:
+            cands = [r for r in self._slots if r is not None]
+            victim = max(cands, key=lambda r: (r.t_admit or 0.0, r.rid)) \
+                if cands else None
+        if (victim is not None and victim.slot >= 0
+                and self._slots[victim.slot] is victim):
+            self._release_slot(victim.slot)
+            victim.slot = -1
+        self._n_degraded += 1
+        if victim is None:
+            return
+        self._n_shed += 1
+        msg = (f"request {victim.rid} shed: device out of memory during "
+               f"{where}; engine degraded max_active_slots "
+               f"{prev} -> {self.max_active_slots} ({exc})")
+        self._record_reason(victim.rid, "shed")
+        if victim.on_shed is not None:
+            victim.on_shed(victim.rid, {
+                "where": "oom", "error": msg, "miss_ms": None,
+                "retry_after": self._retry_after_estimate()})
+
+    # ---- admission ------------------------------------------------------
     def _admit(self):
-        """FIFO admission: prefill queued requests into free slots."""
+        """Fill free slots from the queue (``serving.py:2273``): shed what
+        expired, respect a degraded budget, preempt under a full pool,
+        then restore, start a chunked prefill, or prefill (an OOM there
+        sheds the request)."""
+        if self._poisoned and self._queue:
+            self._check_poisoned()
         while self._queue:
+            now = time.perf_counter()
+            self._shed_expired(now)
+            if not self._queue:
+                return
+            if (self.max_active_slots < self.max_batch
+                    and self.num_active + len(self._chunking)
+                    >= self.max_active_slots):
+                return
             slot = self._alloc_slot()
             if slot < 0:
-                return
-            req = self._queue.pop(0)
-            self._prefill_into(slot, req)
+                if not self._maybe_preempt(now):
+                    return
+                slot = self._alloc_slot()
+                if slot < 0:
+                    return
+            req = self._pop_next(now)
+            req.t_admit = time.perf_counter()
+            if req.resume is not None:
+                self._restore_into(slot, req)
+                self._slots[slot] = req
+                req.slot = slot
+                continue
+            if self._start_chunked(slot, req):
+                continue
+            try:
+                self._prefill_into(slot, req)
+            except torch.cuda.OutOfMemoryError as e:
+                self._degrade_on_oom(req, where="admit", exc=e)
+                continue
             self._slots[slot] = req
+            req.slot = slot
 
     def _bucketed_prefill(self, req: _Request):
         """One prompt through the bucketed prefill. Returns (last [1, V],
@@ -527,30 +1241,279 @@ class ContinuousBatchEngine:
         return last, caches, S0, bucket
 
     def _prefill_into(self, slot: int, req: _Request):
-        """Admission of one prompt in either mode (the JAX package's
-        ``_prefill_into_latent`` differs only by the prefix cache, which is
-        not ported): bucketed prefill, then its caches copied into the
-        slot."""
+        """Admission of one prompt in either layout: a handoff bundle's
+        copy; with a prefix-cache hit, the prefix copy and the suffix
+        prefill; else the bucketed prefill copied into the slot."""
+        if req.handoff is not None:
+            return self._admit_handoff(slot, req)
+        if self.enable_prefix_cache:
+            src, n_pref = self._find_shared_prefix(req)
+            if n_pref > 0:
+                return self._run_prefix_admission(slot, req, src, n_pref)
         last, caches, S0, bucket = self._bucketed_prefill(req)
         self._scatter_prefill(slot, last, caches, bucket)
         self._lengths[slot] = S0
 
     @torch.inference_mode()
-    def _scatter_prefill(self, slot: int, last, caches, bucket: int):
+    def _scatter_prefill(self, slot: int, last, caches, bucket: int,
+                         what: str = "admission"):
         """Copy one prefill's caches into ``slot`` (in place): its first
         pages of every layer, or in latent mode the first ``bucket``
         positions of its row (``_latent_scatter_fn``, ``serving.py:2891``,
-        as a plain row copy); seed its last-logit row."""
-        if self._latent_mode:
-            for c_eng, c_new in zip(self._caches, caches):
-                for key in ("c_kv", "k_pe"):
-                    c_eng[key][slot, :bucket].copy_(c_new[key][0])
+        as a plain row copy); seed its last-logit row. Does not set the
+        slot's length. A failure once the writes began leaves the pool
+        half written: the engine is poisoned."""
+        try:
+            if self._latent_mode:
+                for c_eng, c_new in zip(self._caches, caches):
+                    for key in ("c_kv", "k_pe"):
+                        c_eng[key][slot, :bucket].copy_(c_new[key][0])
+            else:
+                ps = self.page_size
+                n = bucket // ps
+                base = slot * self._pages_per_slot
+                for c_eng, c_new in zip(self._caches, caches):
+                    for key, pool in (("k", "k_pages"), ("v", "v_pages")):
+                        c_eng[pool][:, base:base + n].copy_(
+                            _page_tiles(c_new[key][0], ps))
+            self._last[slot] = last[0].float()
+        except Exception as e:
+            self._poison(what, e)
+
+    def _poison(self, what: str, exc):
+        self._poisoned = True
+        raise RuntimeError(
+            f"ContinuousBatchEngine: {what} failed while writing the KV "
+            "pool in place; the engine's cache state is invalid — rebuild "
+            "the engine and resubmit in-flight requests") from exc
+
+    # ---- preemption: KV eviction to host, restore on re-admission -------
+    def _maybe_preempt(self, now: float) -> bool:
+        """Under a full pool, evict the least important active slot when a
+        strictly more important request is queued (raw classes: aging
+        never preempts). Returns True if a slot was freed."""
+        if not self.enable_preemption or not self._queue:
+            return False
+        cand = self._peek_next(now)
+        victim_slot, victim_key = -1, None
+        for s, r in enumerate(self._slots):
+            if r is None or r.priority <= cand.priority:
+                continue
+            # least important first; within a class the most recently
+            # admitted loses
+            key = (r.priority, r.t_admit if r.t_admit is not None else now)
+            if victim_key is None or key > victim_key:
+                victim_slot, victim_key = s, key
+        if victim_slot < 0:
+            return False
+        self._preempt_slot(victim_slot)
+        return True
+
+    @torch.inference_mode()
+    def _slot_kv_bundle(self, s: int, req: _Request):
+        """Slot ``s``'s state as a sealed host bundle: each layer's KV
+        pages densified to [bucket, hk, D] host copies (bf16 as 16-bit
+        words), the last-logit row, the kv length. The one serializer
+        behind preemption and migration."""
+        ps = self.page_size
+        kv_len = int(req.ids.size) + len(req.tokens)
+        bucket = self._bucket(kv_len)
+        n_pages = bucket // ps
+        base = s * self._pages_per_slot
+        layers = []
+        for c in self._caches:
+            pair = []
+            for key in ("k_pages", "v_pages"):
+                tiles = c[key][:, base:base + n_pages]
+                hk, n, _, d = tiles.shape
+                pair.append(_host_leaf(
+                    tiles.movedim(0, 2).reshape(n * ps, hk, d)))
+            layers.append(tuple(pair))
+        return seal_bundle({"bucket": bucket, "kv_len": kv_len,
+                            "layers": layers,
+                            "last": _host_leaf(self._last[s].float())})
+
+    def _preempt_slot(self, s: int):
+        """Evict slot ``s`` to a host bundle, free it, and requeue its
+        request with its tokens; ``_restore_into`` brings it back."""
+        req = self._slots[s]
+        req.resume = self._slot_kv_bundle(s, req)
+        req.n_preempted += 1
+        self._n_preempted += 1
+        self._release_slot(s)
+        req.slot = -1
+        self._queue.append(req)
+
+    def _restore_into(self, slot: int, req: _Request):
+        """Re-admission of a preempted or migrated-in request: its bundle
+        copied back into the slot's pages and its last-logit row seeded;
+        decoding continues where it stopped."""
+        r, req.resume = req.resume, None
+        verify_bundle(r)
+        self._write_bundle(slot, r, "preemption restore")
+        self._lengths[slot] = int(r["kv_len"])
+
+    def _write_bundle(self, slot: int, bundle: dict, what: str):
+        """A bundle's layers and last row onto the card (before any pool
+        write), then the prefill's page write of its bucket into
+        ``slot``."""
+        caches = [{"k": _leaf_tensor(k, self.device)[None],
+                   "v": _leaf_tensor(v, self.device)[None]}
+                  for k, v in bundle["layers"]]
+        last = _leaf_tensor(bundle["last"], self.device)[None]
+        self._scatter_prefill(slot, last, caches, int(bundle["bucket"]),
+                              what=what)
+
+    # ---- chunked prefill: admission interleaved with decode -------------
+    def _start_chunked(self, slot: int, req: _Request) -> bool:
+        """Reserve ``slot`` for a chunked admission when the prompt is
+        longer than one chunk (handoff admissions run no prefill)."""
+        ct = self.prefill_chunk_tokens
+        if (ct is None or req.handoff is not None
+                or int(req.ids.size) <= ct):
+            return False
+        self._chunking[slot] = _ChunkState(req, slot)
+        req.slot = slot
+        return True
+
+    def _advance_chunk(self) -> bool:
+        """Advance one prefill chunk of the oldest reserved slot. The first
+        chunk runs the bucketed prefill (or, on a prefix-cache hit, the
+        prefix copy and the suffix's first chunk); later ones the suffix
+        prefill with the slot as its own source. The last one publishes the
+        slot."""
+        if not self._chunking:
+            return False
+        slot, st = next(iter(self._chunking.items()))
+        req = st.req
+        ps = self.page_size
+        S0 = int(req.ids.size)
+        ct = self.prefill_chunk_tokens
+        if st.pos == 0:
+            src, n_pref = (-1, 0)
+            if self.enable_prefix_cache:
+                src, n_pref = self._find_shared_prefix(req)
+            if n_pref > 0:
+                pref_len = n_pref * ps
+                take = min(ct, S0 - pref_len)
+                self._run_suffix_chunk(slot, src, n_pref,
+                                       req.ids[pref_len:pref_len + take])
+                self.prefix_pages_reused += n_pref
+                st.pos = pref_len + take
+            else:
+                take = min(ct, S0)
+                first = _Request(-1, req.ids[:take], 0)
+                last, caches, _, bucket = self._bucketed_prefill(first)
+                self._scatter_prefill(slot, last, caches, bucket)
+                st.pos = take
         else:
-            ps = self.page_size
-            n = bucket // ps
-            base = slot * self._pages_per_slot
-            for c_eng, c_new in zip(self._caches, caches):
+            take = min(ct, S0 - st.pos)
+            self._run_suffix_chunk(slot, slot, st.pos // ps,
+                                   req.ids[st.pos:st.pos + take])
+            st.pos += take
+        if st.pos < S0:
+            # park the reserved slot's length at the chunk frontier
+            self._lengths[slot] = st.pos
+            return True
+        del self._chunking[slot]
+        self._lengths[slot] = S0
+        self._slots[slot] = req
+        return True
+
+    # ---- prefix caching -------------------------------------------------
+    def _find_shared_prefix(self, req: _Request):
+        """Longest page-aligned token prefix shared with an active slot's
+        prompt, capped one token short of the whole prompt (the suffix
+        prefill needs a token to give the slot its logits). Returns (source
+        slot, pages)."""
+        ps = self.page_size
+        cap = (int(req.ids.size) - 1) // ps
+        best_slot, best_n = -1, 0
+        for s, r in enumerate(self._slots):
+            if r is None or cap <= 0:
+                continue
+            c = min(cap * ps, (int(r.ids.size) // ps) * ps)
+            if c <= 0:
+                continue
+            neq = req.ids[:c] != r.ids[:c]
+            common = c if not neq.any() else int(np.argmax(neq))
+            n = common // ps
+            if n > best_n:
+                best_slot, best_n = s, n
+        return best_slot, best_n
+
+    @torch.inference_mode()
+    def _suffix_forward(self, src: int, n_pref: int, ids, suffix_len: int):
+        """The model over a suffix chunk at pos = n_pref * page_size against
+        a dense buffer that holds the prefix copied from slot ``src``
+        (``_suffix_prefill_fn`` ``serving.py:2670``, ``_latent_suffix_
+        prefill_fn`` ``:2763``): pages (or latent rows) gathered into
+        [1, pref_len + sb, ...] buffers, the column mask ``allowed`` over
+        pref_len + suffix_len columns, the forward (append attention on
+        the paged layout, the absorbed einsum on the latent one), and the
+        last real token's logits. Nothing is written into the pool here.
+
+        Eager, not a CUDA graph: the JAX package compiles one program per
+        (n_pref, sb), up to 64 of them; a capture costs two warm-ups and a
+        capture each, and the model's graph pool keeps the largest
+        intermediates of any capture. Returns (last [1, V], per-layer dense
+        caches)."""
+        ps = self.page_size
+        pref_len = n_pref * ps
+        sb = ids.shape[1]
+        total = pref_len + sb
+        dev = self.device
+        allowed = (torch.arange(total, device=dev)[None, :]
+                   < pref_len + suffix_len)
+        pos = torch.full((), pref_len, dtype=torch.int32, device=dev)
+        caches = []
+        for c in self._caches:
+            if self._latent_mode:
+                new = {}
+                for key in ("c_kv", "k_pe"):
+                    buf = c[key]
+                    t = buf.new_empty(1, total, buf.shape[-1])
+                    t[0, :pref_len].copy_(buf[src, :pref_len])
+                    new[key] = t
+            else:
+                new = {}
+                base = src * self._pages_per_slot
                 for key, pool in (("k", "k_pages"), ("v", "v_pages")):
-                    c_eng[pool][:, base:base + n].copy_(
-                        _page_tiles(c_new[key][0], ps))
-        self._last[slot] = last[0].float()
+                    pg = c[pool]
+                    hk, d = pg.shape[0], pg.shape[-1]
+                    t = pg.new_empty(1, total, hk, d)
+                    t[0, :pref_len].view(n_pref, ps, hk, d).copy_(
+                        pg[:, base:base + n_pref].movedim(0, 2))
+                    new[key] = t
+            caches.append(dict(new, allowed=allowed, pos=pos))
+        hidden, caches = self.model.llama.forward_cached(
+            torch.from_numpy(ids).to(dev), caches, rope_len=self.max_len)
+        h_last = hidden[:, suffix_len - 1:suffix_len]
+        return self.model.lm_head_logits(h_last)[:, 0, :], caches
+
+    def _run_suffix_chunk(self, slot: int, src: int, n_pref: int, suf):
+        """One suffix prefill: ``n_pref`` prefix pages (or rows) copied from
+        slot ``src`` (``slot`` itself for a chunk continuation), the model
+        over ``suf`` at pos = n_pref * page_size, and prefix + suffix
+        written into ``slot``; its last-logit row seeded. Does not set the
+        slot's length. An error in the forward leaves the pool as it was;
+        one during the write poisons the engine."""
+        ps = self.page_size
+        pref_len = n_pref * ps
+        suf = np.asarray(suf).reshape(-1)
+        sb = min(self._bucket(int(suf.size)), self.max_len - pref_len)
+        ids = np.zeros((1, sb), np.int32)
+        ids[0, :suf.size] = suf
+        last, caches = self._suffix_forward(src, n_pref, ids, int(suf.size))
+        # the dense buffers hold exactly the prefix and the suffix bucket
+        self._scatter_prefill(slot, last, caches, pref_len + sb,
+                              what="suffix prefill")
+
+    def _run_prefix_admission(self, slot, req, src, n_pref):
+        """Prefix-cached monolithic admission: the prefix copy and the
+        whole remaining suffix in one prefill, then the slot's length."""
+        S0 = int(req.ids.size)
+        self._run_suffix_chunk(slot, src, n_pref,
+                               req.ids[n_pref * self.page_size:])
+        self._lengths[slot] = S0
+        self.prefix_pages_reused += n_pref

@@ -620,3 +620,42 @@ def test_prepare_makes_kept_state_outside_the_pool(card, monkeypatch):
     _generate(model, _ids(), {"prefill_chunk_size": 8})
     assert made and all(not pooled for _, pooled in made)
     assert made[0][0] == S0 + NEW
+
+
+class _Failing(cuda_graph.GraphedStep):
+    """A unit whose body counts one launch a run and runs out of memory at
+    the listed runs (1 and 2 are the warm-ups, 3 the capture)."""
+
+    cache_arg = 1
+
+    def __init__(self, model, fail_at):
+        super().__init__(model)
+        self.runs, self.fail_at = 0, fail_at
+
+    def eager(self, x, caches):
+        self.runs += 1
+        _build.launches["k"] += 1
+        if self.runs in self.fail_at:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        caches[0].add_(x)
+        return x * 2, caches
+
+
+@pytest.mark.parametrize("fail_at", [{2}, {3}], ids=["warm-up", "capture"])
+def test_failed_capture_keeps_no_graph_and_recovers(card, monkeypatch,
+                                                    fail_at):
+    """An out-of-memory error in a warm-up or in the capture keeps no graph
+    (nothing broken can be replayed) and gives back the launches the
+    failed runs counted; the next call of the signature captures anew and
+    replays correctly."""
+    monkeypatch.setattr(_build, "launches", Counter(k=5))
+    unit = _Failing(torch.nn.Linear(2, 2), fail_at)
+    x, buf = torch.ones(3), torch.zeros(3)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        unit(x, [buf])
+    assert _build.launches == Counter(k=5)
+    assert not unit._graphs and unit.captures == 0
+    out, caches = unit(x, [buf])
+    assert unit.captures == 1 and len(unit._graphs) == 1
+    assert torch.equal(out, 2 * x) and caches[0] is buf
+    assert _build.launches == Counter(k=6)       # one replay's count
