@@ -10,6 +10,7 @@ NVIDIA H100.
     python3 chip_smoke.py --optimizer-only        # phase 2's update rows
     python3 chip_smoke.py --moe-only              # MoE rows, phases 18-21
     python3 chip_smoke.py --engine-only           # phase 22 alone
+    python3 chip_smoke.py --autotune-only         # phase 23 alone
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -277,7 +278,31 @@ Phases (any failure raises, so the script exits non-zero):
    migrated = stayed, handed off = prefilled locally (paged). Phase 2 holds
    append attention at the suffix shape (S 256, pos 1024, T 1280, 1224
    columns allowed) against its plain version, SDPA with the mask beside.
-23. The kernels line, then the card line, then the result line
+23. The autotune search and ``speculative_generate`` (last, on a fresh
+   Llama-3-8B, bf16, 32 layers), ``FLAGS_use_autotune`` on and the cache
+   at a fresh file in a temporary directory: (a) each hooked kernel swept
+   eagerly before any unit is built (``rms_norm`` at 8 rows of 4096 and
+   262,144 of 128, the decode tail at 8 rows, the MLA decode at B 8, H
+   16, r 512, T 4096): its cost table, every measured candidate against
+   the plain version at its row's tolerance, the default's and the
+   winner's profiled ms; (b) an engine with ``speculative_k="auto"`` (8
+   slots): the measured k table, the chosen k (the best ms over expected
+   retired tokens), eight prompts that repeat a pattern, tokens against
+   ``generate`` reported (bf16); (c) the decode tail swept at the verify
+   chunk's rows, then a second engine (fused tail on) and a second sweep
+   at (a)'s shapes: every search ends at the cache (the stage counts) and
+   the captured verify launches the winning split; (d)
+   ``speculative_generate`` (prompt 128, 64 new, k 4) with a
+   Llama-3.2-1B-shaped draft (published config, random weights) and
+   with the target as its own draft: ms and tokens a round against
+   ``generate``'s ms a token, append attention exactly L_target + k x
+   L_draft a round; (e) f32 at two layers (the draft at one): card = CPU
+   = ``generate`` tokens, the engine's ``"auto"`` = solo ``generate``.
+   Phase 2 also holds the flash backward at the entry's heads ([1, 4096,
+   8 | 4, 64]), and phase 16 trains the entry config on the card (one
+   bf16 step, the (64, 64) backward once a layer; an f32 step card =
+   CPU).
+24. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -287,8 +312,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
+import math
+import os
 import re
 import shutil
 import statistics
@@ -312,6 +340,9 @@ REPLACES = {
     "paged_attention": "paddle_tpu/generation.py:289",
     "fused_rope": "paddle_tpu/ops/pallas/fused_norm.py:289",
     "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:122",
+    # the entry's heads of 64: the same splash backward (JAX trains them
+    # through its einsum reference, llama.py:692-709)
+    "flash_attention_bwd_64": "paddle_tpu/ops/pallas/flash_attention.py:122",
     "fused_qkv_rope": "paddle_tpu/ops/pallas/decode_tail.py:260",
     "fused_epilogue": "paddle_tpu/ops/pallas/decode_tail.py:347",
     "flash_attention_local": "paddle_tpu/ops/pallas/flash_attention.py:97",
@@ -335,6 +366,7 @@ SOURCES = {
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
     "fused_rope": "paddle_tpu_torch/csrc/fused_norm.cu",
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_64": "paddle_tpu_torch/csrc/flash_attention.cu",
     "fused_qkv_rope": "paddle_tpu_torch/csrc/decode_tail.cu",
     "fused_epilogue": "paddle_tpu_torch/csrc/decode_tail.cu",
     "flash_attention_local": "paddle_tpu_torch/csrc/append_attention.cu",
@@ -440,6 +472,17 @@ def profiled_ms(fn, calls=10):
     sits at an edge of the trace's window: late in a run, sessions have
     come back with 9 of 10 launches each, the same kernel timed in full
     in a fresh process."""
+    totals, seen = profile_sessions(fn, calls)
+    if not totals:
+        raise AssertionError(f"torch.profiler recorded no device time "
+                             f"(device records a session: {seen})")
+    return max(totals) / 1e3 / calls
+
+
+def profile_sessions(fn, calls=10):
+    """``profiled_ms``'s sessions: (the device µs of each session that
+    recorded at least one kernel a call, at most two; the device records
+    of each session tried)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -463,10 +506,7 @@ def profiled_ms(fn, calls=10):
             totals.append(sum(e.device_time_total for e in kernels))
             if len(totals) == 2:
                 break
-    if not totals:
-        raise AssertionError(f"torch.profiler recorded no device time "
-                             f"(device records a session: {seen})")
-    return max(totals) / 1e3 / calls
+    return totals, seen
 
 
 def kernel_times(fn, reps=20, warmup=3):
@@ -1475,6 +1515,9 @@ def check_training_kernels(record, randn):
                            "bfloat16"), heads == H)
 
     check_flash_rows(record, randn, S, None)
+    # the entry model's heads (8 | 4 of 64): the backward the entry trains
+    # through
+    check_flash_rows(record, randn, S, None, H=8, hk=4, D=64, fwd_main=False)
 
 
 def band_cells(s, window):
@@ -1551,10 +1594,13 @@ def check_local_edges():
                                  f"W={W} {dtype}")
 
 
-def check_flash_rows(record, randn, S, window, full=False):
-    """The flash forward with lse and its backward at [1, S, 32 | 8, 128],
-    bf16, causal (``window`` None), under the LocalMask of ``window``, or
-    under the FullMask (``full``):
+def check_flash_rows(record, randn, S, window, full=False, H=32, hk=8, D=128,
+                     fwd_main=True):
+    """The flash forward with lse and its backward at [1, S, H | hk, D]
+    (32 | 8, 128 by default; the entry's 8 | 4, 64 too), bf16, causal
+    (``window`` None), under the LocalMask of ``window``, or under the
+    FullMask (``full``); ``fwd_main``: the forward's row is its kernel's
+    main one:
     each against its plain version, which runs one KV head (its g query
     heads) at a time, the same function in 1/8 of the memory (its f32
     scores take 1.1 GB per KV head at S = 8192); the backward against
@@ -1569,12 +1615,13 @@ def check_flash_rows(record, randn, S, window, full=False):
 
     from paddle_tpu_torch.ops.hopper import append_attention, flash_attention
 
-    H, hk, D = 32, 8, 128
     g = H // hk
     scale = 1.0 / math.sqrt(D)
-    fwd_name, bwd_name = flash_attention._counters(window, full=full)
+    fwd_name, bwd_name = flash_attention._counters(window, D, full=full)
     label = (f"S={S} full" if full else f"S={S} causal" if window is None
              else f"S={S} W={window} local")
+    if (H, hk, D) != (32, 8, 128):
+        label += f" [{H} | {hk}, {D}]"
     q, k, v = randn(1, S, H, D), randn(1, S, hk, D), randn(1, S, hk, D)
     dout = randn(1, S, H, D)
     cells = S * S if full else band_cells(S, window or S)
@@ -1623,7 +1670,8 @@ def check_flash_rows(record, randn, S, window, full=False):
     kernel_ms = kernel_times(fwd, reps=5, warmup=1)
     nbytes = 2 * S * (H + hk) * D * 2
     record(fwd_name, f"{label}, lse", err, ok, kernel_ms, plain_ms, sdpa_t,
-           bound(nbytes + H * S * 4, 4 * D * H * cells, "bfloat16"), True)
+           bound(nbytes + H * S * 4, 4 * D * H * cells, "bfloat16"),
+           fwd_main)
     if window is not None:
         causal_ms = time_ms(lambda: fwd("flash_attention_bshd", None, None),
                             reps=5, warmup=1)
@@ -3875,7 +3923,8 @@ def entry_on_card():
     its (64, 64) instantiation; its logits against the same state's on the
     CPU (plain versions) within 0.03 + 2^-7 |logit|; then the flash kernel
     alone at the entry's attention shape against its plain version at the
-    attention tolerance. Returns the launch counts of the forward."""
+    attention tolerance; then the entry trains on the card (``entry_train``).
+    Returns the launch counts of the forward and of the training step."""
     import torch
 
     from paddle_tpu_torch.entry import entry
@@ -3911,6 +3960,52 @@ def entry_on_card():
                              "layer")
     if not (ok and bool(torch.isfinite(logits).all())):
         raise AssertionError("entry: card logits disagree with the CPU's")
+    counts = Counter(counts)
+    counts.update(entry_train())
+    return counts
+
+
+def entry_train():
+    """The entry model trains on the card, as the JAX package trains it: one
+    bf16 ``train_step`` (AdamW, ids [1, 128]), the (64, 64) flash backward
+    once per layer; then the f32 training wiring of the same config, card
+    = CPU (``train_wiring_check``). Returns the bf16 step's launch
+    counts."""
+    import dataclasses
+
+    import torch
+
+    from paddle_tpu_torch.entry import entry_config
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+
+    cfg = entry_config()
+    n = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(64))
+    step, _ = make_train_step(model)
+    x, y = token_batch(cfg.vocab_size, 128, 64, "cuda")
+    reset_launches()
+    loss = float(step(x, y))
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    log(f"phase 16 entry training: one bf16 step of the entry model "
+        f"({n} layers, heads 8 | 4 of 64, ids [1, 128]), loss {loss:.4f} "
+        f"(ln V = {math.log(cfg.vocab_size):.4f}); launches "
+        f"{json.dumps(counts)}")
+    if not math.isfinite(loss):
+        raise AssertionError("entry training: non-finite loss")
+    if counts.get("flash_attention_bwd_64", 0) != n or counts.get(
+            "adam_update", 0) != 1:
+        raise AssertionError("entry training: the (64, 64) backward did not "
+                             "run once per layer, or the update not once")
+    del model, step
+    wired = train_wiring_check("phase 16 entry training wiring",
+                               cfg=dataclasses.replace(cfg, dtype="float32"),
+                               seq=128)
+    if wired.get("flash_attention_bwd_64", 0) != n:
+        raise AssertionError("entry training wiring: the (64, 64) backward "
+                             "did not run once per layer")
     return counts
 
 
@@ -5574,6 +5669,518 @@ def engine_wiring_check():
     log(f"phase 22 wiring took {time.perf_counter() - t0:.1f}s")
 
 
+# --------------------------------------------------------------- phase 23 --
+
+# the published meta-llama/Llama-3.2-1B config.json: phase 23's draft model
+LLAMA32_1B = dict(vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+                  num_hidden_layers=16, num_attention_heads=32,
+                  num_key_value_heads=8, head_dim=64,
+                  max_position_embeddings=131072, rms_norm_eps=1e-5,
+                  rope_theta=500000.0, tie_word_embeddings=True,
+                  rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                                "low_freq_factor": 1.0,
+                                "high_freq_factor": 4.0,
+                                "original_max_position_embeddings": 8192})
+# speculative_generate's prompt, new tokens and draft width (one max_len,
+# P + new + k + 2, so each model captures one set of graphs)
+SPECGEN_PROMPT, SPECGEN_NEW, SPECGEN_K = 128, 64, 4
+
+
+@contextlib.contextmanager
+def autotune_on():
+    """``FLAGS_use_autotune`` on and ``PD_AUTOTUNE_CACHE`` at a fresh file
+    in a temporary directory for the block; both restored after. Yields
+    the file's path."""
+    import tempfile
+
+    from paddle_tpu_torch.ops.hopper import autotune
+    from paddle_tpu_torch.utils.flags import flag, set_flags
+
+    prev_flag, prev_env = flag("FLAGS_use_autotune"), os.environ.get(
+        "PD_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        os.environ["PD_AUTOTUNE_CACHE"] = path
+        set_flags({"FLAGS_use_autotune": True})
+        try:
+            yield path
+        finally:
+            autotune.flush_cache()
+            set_flags({"FLAGS_use_autotune": prev_flag})
+            if prev_env is None:
+                os.environ.pop("PD_AUTOTUNE_CACHE", None)
+            else:
+                os.environ["PD_AUTOTUNE_CACHE"] = prev_env
+
+
+def stages_seen():
+    from paddle_tpu_torch.ops.hopper import autotune
+
+    return dict(sorted(autotune.stages.items()))
+
+
+def tuned_row(card, kernel, sig, call, launch, plain, close, default,
+              tolerance):
+    """One hooked kernel's sweep at a main-path shape: ``call()`` (the
+    wrapper, flag on, before any unit is built) must measure; its cost
+    table printed; every measured candidate's output (``launch(choice)``)
+    held against ``plain()`` by ``close``; the default's and the winner's
+    device ms by the sweep's own measure (``autotune._device_ms``: CUDA
+    events around back-to-back launches behind a spin kernel) and
+    profiled (``profile_sessions``; "not measured" where the profiler
+    records no device time, which it has done late in a full run).
+    Returns (winner, (default events ms, profiled ms or None), (the
+    winner's))."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import autotune
+
+    autotune.stages.clear()
+    call()
+    torch.cuda.synchronize()
+    if autotune.stages.get(f"{kernel} measured") != 1:
+        raise AssertionError(f"{kernel} {sig}: the sweep did not measure "
+                             f"({stages_seen()})")
+    ent = autotune.get_cache().entry(kernel, autotune.full_key(sig))
+    winner = tuple(ent["choice"])
+    ref = plain()
+    errs = {}
+    for ck, rec in ent["table"].items():
+        if rec.get("status") != "ok":
+            continue
+        err, ok = close(launch(tuple(int(p) for p in ck.split(","))), ref)
+        errs[ck] = err
+        if not ok:
+            raise AssertionError(f"{kernel} {sig} at {ck}: the kernel "
+                                 f"disagrees with its plain version (max "
+                                 f"abs err {err})")
+    torch.cuda.synchronize()
+    ms = {}
+    for what, choice in (("default", default), ("winner", winner)):
+        totals, seen = profile_sessions(lambda: launch(choice))
+        ms[what] = (autotune._device_ms(lambda: launch(choice)),
+                    max(totals) / 1e3 / 10 if totals else None)
+    log(f"  [{card}] {kernel} {sig}: cost table "
+        f"{json.dumps(ent['table'], sort_keys=True)}; est "
+        f"{json.dumps(ent.get('est'))}; every measured candidate within "
+        f"{tolerance} (max abs err by candidate {json.dumps(errs)}); "
+        + ", ".join(
+            f"{what} {list(c)} events_ms={ms[what][0]:.4f} profiled_ms="
+            + ("not measured (the profiler recorded no device time)"
+               if ms[what][1] is None else f"{ms[what][1]:.4f}")
+            for what, c in (("default", default), ("winner", winner))))
+    return winner, ms["default"], ms["winner"]
+
+
+def sweep_specs(spec_rows=()):
+    """Phase 23's sweep shapes, as (row name, kernel, signature, the
+    wrapper's call, a launch at a given choice, the plain version, its
+    closeness test, the default choice, the tolerance's text): ``rms_norm``
+    at 8 rows of 4096 (a decode step at 8 slots) and 262,144 rows of 128
+    (bf16); the decode tail at 8 rows of Llama-3-8B's widths; the MLA
+    decode at B 8, H 16, r 512, dr 64, T 4096 (DeepSeek-V2-Lite, bf16
+    buffers, ragged pos). With ``spec_rows``: the decode tail alone at
+    those rows (a verify chunk)."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import (autotune, decode_tail,
+                                             fused_norm, mla_decode)
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bf = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(23)
+    specs = []
+    if not spec_rows:
+        for rows, d in ((8, 4096), (262144, 128)):
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(bf)
+            w = (torch.randn(d, generator=gen, device="cuda") * 0.5 + 1).to(bf)
+            specs.append((
+                f"rms_norm rows={rows} d={d}", "rms_norm",
+                f"rows{rows} d{d} bfloat16",
+                functools.partial(fused_norm.rms_norm, x, w, 1e-5),
+                functools.partial(_rms_at, x, w, rows, d),
+                functools.partial(fused_norm.rms_norm_plain, x, w, 1e-5),
+                functools.partial(close_bf16, atol=1e-6, rtol=2.0 ** -6),
+                (fused_norm.rms_layout(d, 2)[1],), "1e-6 + 2^-6 |p|"))
+    hidden, H, hk, hd, eps = 4096, 32, 8, 128, 1e-5
+    for R in (spec_rows or (8,)):
+        t = tail_inputs(R, hidden, H, hk, hd, bf, 23 + R)
+        wq, wk, wv = t["wqkv"][0]
+        qkv = (t["x"], t["wn"], wq, wk, wv, t["cos"], t["sin"], eps, H, hk,
+               hd)
+        specs.append((
+            f"fused_qkv_rope R={R}", "fused_qkv_rope", autotune.signature(
+                {"batch": R, "hidden": hidden, "wtot": (H + 2 * hk) * hd,
+                 "dtype": "bfloat16"}),
+            functools.partial(decode_tail.fused_qkv_rope, *qkv),
+            lambda c, qkv=qkv: decode_tail._launch_qkv(*qkv, 1, n_sm, c[0]),
+            functools.partial(decode_tail.fused_qkv_rope_plain, *qkv),
+            one_ulp_of_max,
+            (decode_tail.split_count((H + 2 * hk) * hd // 128, R, hidden,
+                                     n_sm),),
+            "one bf16 ulp of the largest entry"))
+        epi = (t["attn"], t["wo"][0], t["res"], t["wn"], eps)
+        specs.append((
+            f"fused_epilogue R={R}", "fused_epilogue", autotune.signature(
+                {"batch": R, "width": H * hd, "hidden": hidden,
+                 "dtype": "bfloat16"}),
+            functools.partial(decode_tail.fused_epilogue, *epi),
+            lambda c, epi=epi: decode_tail._launch_epilogue(*epi, 1, n_sm,
+                                                            c[0]),
+            functools.partial(decode_tail.fused_epilogue_plain, *epi),
+            one_ulp_of_max,
+            (decode_tail.split_count(hidden // 128, R, H * hd, n_sm),),
+            "one bf16 ulp of the largest entry"))
+    if spec_rows:
+        return specs
+    B, Hm, r, dr, T = 8, 16, 512, 64, 4096
+    q_lat, q_pe, ((ckv, kpe),) = mla_inputs(B, Hm, r, dr, T, bf, gen)
+    pos = torch.tensor([4095, 3000, 2048, 1500, 1024, 700, 100, 0],
+                       dtype=torch.int32, device="cuda")
+    mla = (q_lat, q_pe, ckv, kpe, pos)
+    specs.append((
+        "mla_decode", "mla_decode", f"B{B}xH{Hm}xr{r}xT{T} bfloat16",
+        functools.partial(mla_decode.mla_decode, *mla),
+        lambda c: mla_decode._launch(*mla, None, 1, n_sm, c[0]),
+        functools.partial(mla_decode.mla_decode_plain, *mla), mla_close,
+        (mla_decode.grid_blocks(B, Hm, n_sm),), "1e-4 + 1e-4 |p|"))
+    return specs
+
+
+def _rms_at(x, w, rows, d, choice):
+    from paddle_tpu_torch.ops.hopper import fused_norm
+
+    return fused_norm._launch_rms(x, w, 1e-5, 1, rows, d, choice[0])
+
+
+def autotune_sweeps(card, spec_rows=()):
+    """Phase 23 (a): every ``sweep_specs`` row through ``tuned_row``.
+    Returns {row name: (winner, default ms, winner ms)}."""
+    return {name: tuned_row(card, *rest)
+            for name, *rest in sweep_specs(spec_rows)}
+
+
+def repeat_sweeps():
+    """Phase 23 (c)'s second sweep: each wrapper of (a)'s rows called once
+    more on fresh inputs; returns the stages its searches ended in."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import autotune
+
+    specs = sweep_specs()
+    autotune.stages.clear()
+    for spec in specs:
+        spec[3]()
+    torch.cuda.synchronize()
+    return stages_seen()
+
+
+def spec_k_table(model, max_batch):
+    """{k: verify ms} of the persisted ``spec_verify`` table of ``model``
+    at ``max_batch`` slots, and each k's ms over its expected retired
+    tokens at acceptance 0.7 (what ``_resolve_spec_k`` ranks by)."""
+    from paddle_tpu_torch.ops.hopper import autotune
+    from paddle_tpu_torch.serving import spec_verify_params
+
+    sig = autotune.signature(spec_verify_params(model.config, max_batch))
+    ent = autotune.get_cache().entry("spec_verify", autotune.full_key(sig))
+    table = {int(k): rec.get("ms", rec.get("status"))
+             for k, rec in sorted((ent or {}).get("table", {}).items(),
+                                  key=lambda kv: int(kv[0]))}
+    scores = {k: round(ms / sum(0.7 ** i for i in range(k)), 4)
+              for k, ms in table.items() if isinstance(ms, float)}
+    return table, scores
+
+
+def auto_engine_run(model, card, label, prompts, news, fused,
+                    speculative_k="auto"):
+    """One engine run at 8 slots, max_len 2048, ``speculative_k="auto"``
+    (or the given one): the stage counter and the launch counts zeroed
+    just before the engine is made and read after its requests. Returns
+    (k, outputs, counts, stages, the splits the decode tail's launches took
+    by (rows, split))."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import (autotune, decode_tail, launches,
+                                             reset_launches)
+    from paddle_tpu_torch.utils.flags import flag_overrides
+
+    splits = Counter()
+    real = decode_tail._launch_qkv
+
+    def spy(*a):
+        splits[(a[0].shape[0], a[-1])] += 1
+        return real(*a)
+
+    decode_tail._launch_qkv = spy
+    try:
+        with flag_overrides({"use_fused_decode_tail": fused}):
+            autotune.stages.clear()
+            reset_launches()
+            t0 = time.perf_counter()
+            eng = timed_engine(model, max_batch=8, max_len=2048,
+                               page_size=16, speculative_k=speculative_k)
+            resolve_s = time.perf_counter() - t0
+            rids = [eng.add_request(p, max_new_tokens=m)
+                    for p, m in zip(prompts, news)]
+            out = eng.run_until_done()
+            torch.cuda.synchronize()
+            counts = dict(launches)
+    finally:
+        decode_tail._launch_qkv = real
+    st = eng.stats()
+    outputs = [out[r] for r in rids]
+    for toks, m in zip(outputs, news):
+        if len(toks) != m:
+            raise AssertionError(f"{label}: {len(toks)} tokens of {m}")
+    log(f"  [{card}] {label}: speculative_k={speculative_k!r} resolved to "
+        f"k={eng.speculative_k} in {resolve_s:.2f}s; {st['decode_steps']} "
+        f"dispatches ({st['spec_dispatches']} speculative), "
+        f"{st['tokens_generated']} tokens, accepted drafts "
+        f"{st['spec_accepted_tokens']}, decode ms/dispatch median "
+        f"{statistics.median(eng.step_ms):.3f}; search stages "
+        f"{json.dumps(stages_seen())}; decode-tail launches by (rows, "
+        f"split) {json.dumps({str(k): v for k, v in splits.items()})}; "
+        f"launches {json.dumps(counts)}")
+    return eng.speculative_k, outputs, counts, stages_seen(), splits
+
+
+def specgen_runs(target, card):
+    """Phase 23 (d): ``speculative_generate`` at full depth, target
+    Llama-3-8B (bf16): a Llama-3.2-1B-shaped random draft (rejections) and
+    the target as its own draft (the m == k catch-up). Each run twice (the
+    first captures the graphs), the second timed, launch counts zeroed
+    just before it: append attention exactly L_target a verify plus
+    L_draft x k a proposal round, the flash kernel once a layer of each
+    model's prefill. The target's ``generate`` ms a token beside. Returns
+    the launch counts of the timed runs."""
+    import torch
+
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.speculative import speculative_generate
+
+    draft = LlamaForCausalLM(LlamaConfig(**LLAMA32_1B, dtype="bfloat16"),
+                             device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(
+                                 32))
+    ids = torch.from_numpy(np.random.RandomState(23).randint(
+        0, target.config.vocab_size, size=(1, SPECGEN_PROMPT))).to("cuda")
+    k, new = SPECGEN_K, SPECGEN_NEW
+    generate(target, ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_toks = generate(target, ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  [{card}] phase 23 (d): target generate, prompt "
+        f"{SPECGEN_PROMPT}, {new} new tokens: {gen_ms:.2f} ms, "
+        f"{gen_ms / new:.3f} ms a token (prefill included)")
+    total = Counter()
+    for label, d in (("Llama-3.2-1B-shaped draft (16 layers, random)",
+                      draft), ("the target as its own draft", target)):
+        l_t, l_d = (target.config.num_hidden_layers,
+                    d.config.num_hidden_layers)
+        first, _ = speculative_generate(target, d, ids, new, draft_k=k,
+                                        return_stats=True)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        toks, st = speculative_generate(target, d, ids, new, draft_k=k,
+                                        return_stats=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(launches)
+        want = {"append_attention": st["rounds"] * (l_t + k * l_d),
+                "flash_attention_bshd": l_t + l_d}
+        same = int((toks.cpu() == gen_toks.cpu()).sum())
+        log(f"  [{card}] phase 23 (d) speculative_generate, {label}, k={k}: "
+            f"{st['rounds']} rounds, hits {st['hits']}, acceptance "
+            f"{st['acceptance']:.3f}, {new / st['rounds']:.2f} tokens a "
+            f"round, {ms:.2f} ms, {ms / st['rounds']:.3f} ms a round, "
+            f"{ms / new:.3f} ms a token (prefills included) against "
+            f"generate's {gen_ms / new:.3f}; tokens = generate's "
+            f"{same}/{new} (bf16, reported only); append_attention "
+            f"{counts.get('append_attention', 0)} = {st['rounds']} rounds x "
+            f"({l_t} + {k} x {l_d}); launches {json.dumps(counts)}")
+        if not torch.equal(toks, first):
+            raise AssertionError(f"{label}: two runs gave other tokens")
+        for name, n in want.items():
+            if counts.get(name, 0) != n:
+                raise AssertionError(f"speculative_generate {label}: {name} "
+                                     f"launched {counts.get(name, 0)} "
+                                     f"times, expected {n}")
+        if d is target and st["acceptance"] != 1.0:
+            raise AssertionError("the target as its own draft had a draft "
+                                 "rejected")
+        total.update(counts)
+    del draft
+    return total
+
+
+def autotune_wiring_check():
+    """Phase 23 (e): Llama-3-8B widths at 2 layers in f32 (as phase 4), a
+    Llama-3.2-1B-shaped draft at 1 layer, the same weights on the card and
+    the CPU: ``speculative_generate``'s tokens on the card = the CPU
+    port's = the card's ``generate``; and the card's engine with
+    ``speculative_k="auto"`` (its verify measured at this model's
+    signature) gives each request solo ``generate``'s tokens."""
+    import torch
+
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+    from paddle_tpu_torch.speculative import speculative_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_gpu = LlamaForCausalLM(
+        LlamaConfig.llama3_8b(num_hidden_layers=2, dtype="float32"),
+        device="cuda", generator=torch.Generator("cuda").manual_seed(2))
+    d_gpu = LlamaForCausalLM(
+        LlamaConfig(**dict(LLAMA32_1B, num_hidden_layers=1),
+                    dtype="float32"),
+        device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+    t_cpu, d_cpu = cpu_copy(t_gpu), cpu_copy(d_gpu)
+    rng = np.random.RandomState(4)
+    ids = rng.randint(0, t_gpu.config.vocab_size, size=(1, 37))
+    card, cst = speculative_generate(t_gpu, d_gpu, ids, 16, draft_k=3,
+                                     return_stats=True)
+    cpu, pst = speculative_generate(t_cpu, d_cpu, ids, 16, draft_k=3,
+                                    return_stats=True)
+    solo = generate(t_gpu, torch.from_numpy(ids).to("cuda"),
+                    max_new_tokens=16)
+    self_draft = speculative_generate(t_gpu, t_gpu, ids, 16, draft_k=3)
+    prompts = [rng.randint(0, t_gpu.config.vocab_size, size=n)
+               for n in (40, 23)]
+    eng = ContinuousBatchEngine(t_gpu, max_batch=2, max_len=64,
+                                speculative_k="auto")
+    rids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
+    got = eng.run_until_done()
+    eng_ok = all(np.array_equal(got[r], generate(
+        t_gpu, torch.from_numpy(p[None]).to("cuda"),
+        max_new_tokens=8)[0].cpu().numpy()) for r, p in zip(rids, prompts))
+    log(f"phase 23 (e) wiring, 2 layers of Llama-3-8B and 1 of the "
+        f"Llama-3.2-1B shape, f32: speculative_generate (k=3) card "
+        f"{card[0].tolist()} stats {cst}, cpu {cpu[0].tolist()} stats {pst}, "
+        f"card generate {solo[0].tolist()}, the target as its own draft "
+        f"{self_draft[0].tolist()}; engine speculative_k='auto' resolved to "
+        f"k={eng.speculative_k}, engine = solo generate: {eng_ok}")
+    if not (torch.equal(card.cpu(), cpu) and torch.equal(card, solo)
+            and torch.equal(self_draft, solo) and cst == pst):
+        raise AssertionError("speculative_generate: card, CPU and generate "
+                             "tokens differ")
+    if not eng_ok:
+        raise AssertionError("the 'auto' engine's tokens differ from solo "
+                             "generate")
+    del t_gpu, d_gpu, t_cpu, d_cpu, eng
+    torch.cuda.empty_cache()
+
+
+def autotune_phase():
+    """Phase 23: the autotune search and ``speculative_generate`` at full
+    width, ``FLAGS_use_autotune`` on and the cache at a fresh file in a
+    temporary directory (``autotune_on``); a fresh Llama-3-8B (bf16, 32
+    layers), swept before any of its units is built. (a) the sweeps; (b)
+    an engine with ``speculative_k="auto"`` (fused tail off): the measured
+    k table, the chosen k, 8 prompts that repeat a pattern, tokens against
+    solo ``generate`` (bf16, reported only, as phase 16); (c) the decode
+    tail swept at the verify chunk's rows, then a second engine (fused
+    tail on) and a second sweep at (a)'s shapes, which must measure
+    nothing: every search ends at the cache, and the captured verify
+    launches the winning split; (d) ``specgen_runs``; (e)
+    ``autotune_wiring_check``. Returns the launch counts of the engines'
+    and ``speculative_generate``'s runs (the sweeps' are taken out of the
+    counts)."""
+    import torch
+
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    t_phase = time.perf_counter()
+    total = Counter()
+    with autotune_on() as path:
+        card = card_line()
+        model = LlamaForCausalLM(LlamaConfig.llama3_8b(dtype="bfloat16"),
+                                 device="cuda",
+                                 generator=torch.Generator(
+                                     "cuda").manual_seed(0))
+        log(f"phase 23: the autotune search (FLAGS_use_autotune on, cache "
+            f"{path}) and speculative_generate on Llama-3-8B (32 layers, "
+            f"bf16)")
+        first = autotune_sweeps(card)
+        prompts, news = spec_prompts(model.config.vocab_size)
+        k, outs, counts, _, _ = auto_engine_run(
+            model, card, "phase 23 (b) engine, fused tail off", prompts, news,
+            False)
+        table, scores = spec_k_table(model, 8)
+        log(f"  [{card}] phase 23 (b) spec_verify table, verify ms a "
+            f"dispatch by k: {json.dumps(table)}; ms over the expected "
+            f"retired tokens at acceptance 0.7: {json.dumps(scores)}; "
+            f"chosen k={k}")
+        if not scores or k not in scores or k != min(scores,
+                                                     key=scores.get):
+            raise AssertionError("speculative_k='auto' did not take the "
+                                 "best-ranked measured k")
+        total.update(counts)
+        solo = generate(model, torch.from_numpy(np.stack(prompts)).to(
+            "cuda"), max_new_tokens=news[0]).cpu().numpy()
+        same = sum(int((o == s).sum()) for o, s in zip(outs, solo))
+        log(f"  [{card}] phase 23 (b) engine vs generate on the same "
+            f"prompts (bf16, reported only): {same}/{solo.size} tokens "
+            f"identical")
+        spec_rows = autotune_sweeps(card, spec_rows=(8 * k,))
+        _, outs2, counts, stages, splits = auto_engine_run(
+            model, card, "phase 23 (c) second engine, fused tail on",
+            prompts, news, True)
+        total.update(counts)
+        # the one-token graphed decode at 8 slots, fused tail on: the
+        # winning split of (a)'s 8-row sweep
+        _, _, counts, stages1, splits1 = auto_engine_run(
+            model, card, "phase 23 (c) one-token engine, fused tail on",
+            prompts[:2], [8, 8], True, speculative_k=None)
+        total.update(counts)
+        for name, n in stages1.items():
+            stages[name] = stages.get(name, 0) + n
+        qkv_winner = spec_rows[f"fused_qkv_rope R={8 * k}"][0][0]
+        qkv_winner8 = first["fused_qkv_rope R=8"][0][0]
+        again = repeat_sweeps()
+        log(f"  [{card}] phase 23 (c) the second sweep at (a)'s shapes: "
+            f"stages {json.dumps(again)}")
+        bad = [s for s in list(stages) + list(again)
+               if s.endswith(" measured") or s.endswith(" failed")]
+        need = ("spec_verify cache", "fused_qkv_rope cache",
+                "fused_epilogue cache")
+        if bad or any(stages.get(s, 0) < 1 for s in need):
+            raise AssertionError(f"the second engine measured or missed the "
+                                 f"cache: {stages}")
+        if any(again.get(s, 0) != n for s, n in (
+                ("rms_norm cache", 2), ("fused_qkv_rope cache", 1),
+                ("fused_epilogue cache", 1), ("mla_decode cache", 1))):
+            raise AssertionError(f"the second sweep missed the cache: "
+                                 f"{again}")
+        if not splits.get((8 * k, qkv_winner)) or set(splits1) != {
+                (8, qkv_winner8)}:
+            raise AssertionError(f"the captured units did not launch the "
+                                 f"winning splits {qkv_winner} (verify) and "
+                                 f"{qkv_winner8} (decode): {splits}, "
+                                 f"{splits1}")
+        same = sum(int((a == b).sum()) for a, b in zip(outs, outs2))
+        log(f"  [{card}] phase 23 (c) fused vs discrete engine tokens (bf16, "
+            f"reported only): {same}/{sum(len(o) for o in outs)}")
+        total.update(specgen_runs(model, card))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        autotune_wiring_check()
+    log(f"phase 23 took {time.perf_counter() - t_phase:.1f}s; defaults and "
+        f"winners (events ms, profiled ms): " + "; ".join(
+            f"{name} {list(w)} {d} -> {wm}" for name, (w, d, wm) in
+            {**first, **spec_rows}.items()))
+    return total
+
+
 def engine_only():
     """``--engine-only``: phase 22 on models built here, as phases 3 and 10
     build them (same seeds), then its f32 wiring."""
@@ -5674,6 +6281,11 @@ def main(argv=None) -> int:
                          "bundles and OOM degrade on Llama-3-8B and "
                          "DeepSeek-V2-Lite (built here), then the f32 "
                          "wiring; prints no result line")
+    ap.add_argument("--autotune-only", action="store_true",
+                    help="phase 1, then phase 23 alone: the autotune "
+                         "sweeps, speculative_k='auto', the cache stage, "
+                         "speculative_generate at full depth and its f32 "
+                         "wiring; prints no result line")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -5708,7 +6320,7 @@ def main(argv=None) -> int:
     # checkout)
     partial = (args.decode_tail_only or args.decode_profile_only
                or args.mla_only or args.optimizer_only or args.moe_only
-               or args.engine_only)
+               or args.engine_only or args.autotune_only)
     for stem in ("append_attention", "flash_attention", "paged_attention",
                  "mla_decode", "decode_tail"):
         hmma, hgmma = tensor_core_sass(_build.build()[stem])
@@ -5746,6 +6358,10 @@ def main(argv=None) -> int:
         return 0
     if args.engine_only:
         engine_only()
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        return 0
+    if args.autotune_only:
+        autotune_phase()
         log(f"total {time.perf_counter() - t_start:.1f}s")
         return 0
     if args.decode_profile_only:
@@ -5793,6 +6409,9 @@ def main(argv=None) -> int:
     counts.update(serve_ernie(args.profile))
     counts.update(serve_families())
     families_wiring_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.update(autotune_phase())
 
     kernels = []
     for name in SOURCES:

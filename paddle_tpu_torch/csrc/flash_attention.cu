@@ -18,7 +18,11 @@
 // instantiated at (128, 128), the Llama families' heads, and (192, 128),
 // DeepSeek's MLA training (qk_nope 128 + qk_rope 64 against v 128; the TPU
 // path zero-pads them to 256 and 128 lanes, deepseek.py:125-143, which
-// computes the same function). The window is taken at (128, 128) only.
+// computes the same function), and (64, 64), the entry model's heads
+// (causal only; the JAX package trains them through its einsum reference,
+// llama.py:692-709, since its splash gate refuses widths that are not
+// multiples of 128: the same function). The window is taken at (128, 128)
+// only.
 //
 // Inputs: q [B, S, H, DQK], dout and out [B, S, H, DV]; k [B, T, hk, DQK],
 // v [B, T, hk, DV]; the f32 logsumexp lse [B, H, S] of the forward
@@ -455,12 +459,13 @@ template <int DQK, int DV> struct TcWidths {
   static constexpr int VS = DV + tc::PAD;   // v and dout rows
   // K, V; two stages of Q and dO; P and dS, each as hi and lo bf16 terms;
   // two stages of lse and delta (f32): 139 KB at (128, 128), 163 KB at
-  // (192, 128)
+  // (192, 128), 91 KB at (64, 64)
   static constexpr size_t dkdv_smem =
       (size_t)(TB * QS + TB * VS + 2 * TB * QS + 2 * TB * VS + 4 * TB * PP) *
           sizeof(__nv_bfloat16) +
       4 * TB * sizeof(float);
-  // Q, dO; two stages of K and V: 102 KB at (128, 128), 126 KB at (192, 128)
+  // Q, dO; two stages of K and V: 102 KB at (128, 128), 126 KB at (192, 128),
+  // 54 KB at (64, 64)
   static constexpr size_t dq_smem =
       (size_t)(TB * QS + TB * VS + 2 * TB * QS + 2 * TB * VS) * sizeof(__nv_bfloat16);
 };
@@ -854,8 +859,9 @@ int launch_typed(const void* q, const void* k, const void* v, const void* out,
 // v, dv [B, T, hk, dv]; lse, delta [B, H, S] f32 (delta is scratch, written
 // here); kind 0 = causal at pos = T - S (window 0), 1 = local (window > 0:
 // the band of the last `window` columns up to the diagonal), 2 = full
-// (window 0, pos not read). (dqk, dv_width): (128, 128) or (192, 128), the
-// window at (128, 128) only. dtype: 0 = float32, 1 = bfloat16. Returns
+// (window 0, pos not read). (dqk, dv_width): (128, 128), (192, 128) or
+// (64, 64), the window and the full mask at (128, 128) only, (64, 64)
+// causal (the entry model's heads). dtype: 0 = float32, 1 = bfloat16. Returns
 // cudaGetLastError() after the three launches (the first error stops the
 // sequence), or cudaErrorInvalidValue for widths the kernel is not
 // instantiated at or a kind and window that disagree.
@@ -877,6 +883,9 @@ extern "C" int pt_flash_attention_bwd(const void* q, const void* k, const void* 
   if (dqk == 192 && dv_width == 128 && window == 0)
     return launch_typed<192, 128>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, T_, H, hk,
                                   pos, window, full, scale, dtype, s);
+  if (dqk == 64 && dv_width == 64 && window == 0 && !full)
+    return launch_typed<64, 64>(q, k, v, out, dout, l, dl, dq, dk, dv, B, S, T_, H, hk,
+                                pos, window, full, scale, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

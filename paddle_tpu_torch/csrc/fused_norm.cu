@@ -19,7 +19,10 @@
 // The f32 sum of squares reduces by warp shuffles, and across the group's
 // warps through one shared-memory hop. Blocks hold 128 / tpr rows at
 // small d (4 rows a block at d 512 in bf16, 2 at 2048, 1 at 4096), so 8
-// rows spread over 2-8 SMs and 4096 rows fill the card. Rows up to 4096
+// rows spread over 2-8 SMs and 4096 rows fill the card. The rows a block
+// are an argument (0 keeps that rule): the autotune search
+// (ops/hopper/autotune.py) times the powers of two that keep a block
+// within 1024 threads, where the JAX package searches its row block. Rows up to 4096
 // vectors (d 32768 in bf16, 16384 in f32); the wrapper refuses wider ones.
 // `add_rms_norm` (not redesigned yet): one block per row of d / 8 threads,
 // the sum of squares, then a second pass over the same row (served from
@@ -142,14 +145,17 @@ rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict_
   }
 }
 
+// rpb: rows a block, 0 for the rule above (what the autotune search starts
+// from); any other value must keep the block within 1024 threads
 template <typename T>
 int launch_rms_norm(const void* x, const void* w, void* out, int rows, int d, float eps,
-                    cudaStream_t s) {
+                    int rpb, cudaStream_t s) {
   constexpr int N = 16 / sizeof(T);
   const int n_vec = d / N;
   const int tpr = 32 * ((n_vec + 32 * RMS_VPT - 1) / (32 * RMS_VPT));
-  if (d % N != 0 || tpr > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const int rpb = tpr >= RMS_ROW_THREADS ? 1 : RMS_ROW_THREADS / tpr;
+  if (d % N != 0 || tpr > 1024 || rpb < 0 || tpr * rpb > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rpb == 0) rpb = tpr >= RMS_ROW_THREADS ? 1 : RMS_ROW_THREADS / tpr;
   const int blocks = (rows + rpb - 1) / rpb, threads = tpr * rpb;
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
@@ -276,13 +282,13 @@ extern "C" int pt_fused_rope(const void* x, const void* cos, const void* sin, vo
 }
 
 // x, out [rows, d]; w [d]; d a multiple of the 16-byte vector, at most
-// 4096 vectors. dtype: 0 = float32, 1 = bfloat16. Returns
-// cudaGetLastError() after launch.
+// 4096 vectors. dtype: 0 = float32, 1 = bfloat16. rpb: rows a block, 0 for
+// the kernel's rule. Returns cudaGetLastError() after launch.
 extern "C" int pt_rms_norm(const void* x, const void* w, void* out, int rows, int d,
-                           float eps, int dtype, void* stream) {
+                           float eps, int dtype, int rpb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_rms_norm<__nv_bfloat16>(x, w, out, rows, d, eps, s);
-  return launch_rms_norm<float>(x, w, out, rows, d, eps, s);
+  if (dtype == 1) return launch_rms_norm<__nv_bfloat16>(x, w, out, rows, d, eps, rpb, s);
+  return launch_rms_norm<float>(x, w, out, rows, d, eps, rpb, s);
 }
 
 extern "C" int pt_add_rms_norm(const void* x, const void* r, const void* w, void* out,

@@ -65,6 +65,12 @@ when any of those tensors has been replaced: a ``Parameter`` set anew, a
 submodule swapped, a ``.data`` reassigned. ``load_state_dict`` copies in
 place and keeps them.
 
+Geometry. The warm-ups and the capture run inside ``_build.unit_scope``:
+a kernel wrapper there reads the autotune cost table
+(``ops/hopper/autotune.py``) and measures nothing, as a jitted step of
+the JAX package reads it. A graph keeps the geometry it was captured
+with: a sweep after the capture reaches it only through a new unit.
+
 One replay at a time: the graphs of a model share its pool, and the
 decode tail's barrier state of the capture stream.
 """
@@ -397,7 +403,7 @@ class GraphedStep:
         side.wait_stream(cur)
         with _CUDA.use(side):
             self.prepare(device)
-        with _CUDA.use(side), _CUDA.warm(self._model):
+        with _CUDA.use(side), _CUDA.warm(self._model), _build.unit_scope():
             for _ in range(WARMUP_RUNS):
                 warm = list(leaves)
                 for i in gens:
@@ -418,7 +424,7 @@ class GraphedStep:
             graph.register_generator_state(leaves[i])
         side.wait_stream(cur)
         mark = Counter(_build.launches)
-        with _CUDA.use(side):
+        with _CUDA.use(side), _build.unit_scope():
             out = _CUDA.record(graph, _CUDA.pool(self._model),
                                lambda: self.eager(*unflatten(spec, cap)))
         cur.wait_stream(side)

@@ -18,6 +18,7 @@ main path went through.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -139,6 +140,26 @@ def capturing(device) -> bool:
 
     return (device.type == "cuda" and torch.cuda.is_available()
             and torch.cuda.is_current_stream_capturing())
+
+
+# a step unit's warm-ups and capture on this thread (``jit/cuda_graph.py``)
+_unit = threading.local()
+
+
+@contextlib.contextmanager
+def unit_scope():
+    """Marks the calls inside as a step unit's warm-ups or capture: the body
+    of a graph, which reads the autotune cost table but measures nothing
+    (``autotune.can_measure``), as a jitted step of the JAX package."""
+    _unit.depth = getattr(_unit, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _unit.depth -= 1
+
+
+def in_unit() -> bool:
+    return getattr(_unit, "depth", 0) > 0
 
 
 _sm_counts: dict = {}

@@ -20,11 +20,15 @@ launches its kernel or raises. Neither kernel has a backward (the Pallas
 kernels have none): on CUDA they refuse inputs that need a gradient.
 
 The JAX package searches the contraction block with its autotuner
-(``_block_k``); the card kernels take a fixed geometry instead (bf16: 128
-output columns by up to 32 rows a block, the contraction in chunks of 64
-rows split over blocks, see the source; f32: 32 columns a block over the
-whole contraction), and the wrapper picks the split from shapes alone
-(:func:`split_count`), so nothing is searched here.
+(``_block_k``). The bf16 card kernels (128 output columns by up to 32 rows
+a block, the contraction in chunks of 32 rows split over blocks, see the
+source) take the number of slices of the contraction, ``split``, where
+JAX takes its block: by default :func:`split_count`'s, from shapes alone;
+with ``FLAGS_use_autotune`` the search (``autotune.py``) over
+:func:`split_options`, the splits whose work items are all resident on
+the card at once (the qkv kernel waits on a grid-wide barrier). A wrapper
+refuses any other split before a launch. The f32 bodies (32 columns a
+block over the whole contraction) take none.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, autotune
 
 _STEM = "decode_tail"
 _MIN_BLOCK = 128
@@ -90,6 +94,62 @@ def _epilogue_cost(params: dict) -> dict:
     return {"bytes": (width * hidden * it + b * width * it
                       + 3 * b * hidden * it),
             "flops": 2 * b * width * hidden}
+
+
+def _spec_verify_cost(params: dict, choice: tuple) -> dict:
+    """The JAX ``_spec_verify_cost`` (``decode_tail.py:111-137``): one
+    speculative verify dispatch at chunk width k reads the weights once,
+    whatever k, while operations and activations grow with batch * k."""
+    (k,) = choice
+    b = int(params["batch"])
+    hidden = int(params["hidden"])
+    layers = int(params["layers"])
+    inter = int(params["intermediate"])
+    wtot = int(params["wtot"])          # (H + 2*hk) * head_dim per layer
+    vocab = int(params["vocab"])
+    it = _itemsize(params["dtype"])
+    # weights: qkv + o_proj + 3 MLP mats per layer + the lm head
+    w_elems = layers * (hidden * wtot + hidden * hidden
+                        + 3 * hidden * inter) + hidden * vocab
+    act_elems = b * k * (layers * (4 * hidden + 2 * inter) + vocab)
+    return {"bytes": (w_elems + act_elems) * it,
+            "flops": 2 * b * k * w_elems,
+            "vmem_bytes": 0,
+            "grid": 0}
+
+
+def _tail_geometry(cost, rows, k, n_tiles, split):
+    """A tail kernel's cost at ``split`` slices of its ``k``-row
+    contraction: ``cost``'s bytes plus the f32 partials written and read
+    back (``_partial_floats``), a block's shared memory, its work items as
+    the grid and the blocks an SM holds at that memory."""
+    per = -(-(k // CHUNK) // split)
+    smem = block_smem(rows, per)
+    per_sm = min(BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_RESERVED))
+    return {"bytes": cost["bytes"] + 2 * 4 * _partial_floats(rows, n_tiles,
+                                                             split),
+            "flops": cost["flops"], "vmem_bytes": smem,
+            "grid": n_tiles * split * -(-rows // row_tile(rows)),
+            "blocks_per_sm": max(per_sm, 1)}
+
+
+def _qkv_tune_cost(params: dict, choice: tuple) -> dict:
+    """``fused_qkv_rope``'s autotune cost at split ``choice``."""
+    b, hidden = int(params["batch"]), int(params["hidden"])
+    return _tail_geometry(_qkv_cost(params), b, hidden,
+                          int(params["wtot"]) // TILE, choice[0])
+
+
+def _epilogue_tune_cost(params: dict, choice: tuple) -> dict:
+    """``fused_epilogue``'s autotune cost at split ``choice``."""
+    b, width = int(params["batch"]), int(params["width"])
+    return _tail_geometry(_epilogue_cost(params), b, width,
+                          int(params["hidden"]) // TILE, choice[0])
+
+
+autotune.register_cost_model("fused_qkv_rope", _qkv_tune_cost)
+autotune.register_cost_model("fused_epilogue", _epilogue_tune_cost)
+autotune.register_cost_model("spec_verify", _spec_verify_cost)
 
 
 # ---------------------------------------------------------------------------
@@ -166,35 +226,84 @@ def split_count(n_tiles: int, rows: int, k: int, n_sm: int) -> int:
     return fallback or 1
 
 
+@functools.lru_cache(maxsize=256)
+def split_options(n_tiles: int, rows: int, k: int, n_sm: int) -> tuple:
+    """The splits a bf16 tail kernel takes at this shape, ascending:
+    ``split_count``'s, and every other split into whole, non-empty chunks
+    of 32 rows whose work items, one a block, are all resident on the card
+    at once as the blocks' shared memory allows (a grid barrier over
+    blocks that are not resident would never open). The autotune space,
+    and what the wrappers take."""
+    n_rt = -(-rows // row_tile(rows))
+    chunks = k // CHUNK
+    out = {split_count(n_tiles, rows, k, n_sm)}
+    for want in range(1, min(MAX_SPLIT, chunks) + 1):
+        per = -(-chunks // want)
+        split = -(-chunks // per)
+        per_sm = min(BLOCKS_PER_SM,
+                     SMEM_PER_SM // (block_smem(rows, per) + SMEM_RESERVED))
+        if per_sm and n_tiles * split * n_rt <= per_sm * n_sm:
+            out.add(split)
+    return tuple(sorted(out))
+
+
 def _partial_floats(rows: int, n_tiles: int, split: int) -> int:
     rt = row_tile(rows)
     return -(-rows // rt) * rt * n_tiles * split * TILE
 
 
-def qkv_scratch(rows, hidden, n_heads, n_kv, d, n_sm, code):
+def _pick_split(n_tiles, rows, k, n_sm, split):
+    """``split`` when given, after checking it is one of ``split_options``;
+    else ``split_count``'s."""
+    if split is None:
+        return split_count(n_tiles, rows, k, n_sm)
+    _build.require(split in split_options(n_tiles, rows, k, n_sm),
+                   f"decode tail: split {split} is not one the kernel takes "
+                   f"at {rows} rows, {n_tiles} column tiles and a "
+                   f"contraction of {k} on {n_sm} SMs "
+                   f"({split_options(n_tiles, rows, k, n_sm)})")
+    return split
+
+
+def qkv_scratch(rows, hidden, n_heads, n_kv, d, n_sm, code, split=None):
     """(split, f32 scratch floats) of a ``fused_qkv_rope`` call: the bf16
     body's per-slice partials [row tiles * RT, tiles, split, 128], then the
     rows' sums of squares by 128-column segment [R, hidden / 128]; the f32
-    body takes none."""
+    body takes none. ``split``: a searched one (checked), or None for
+    ``split_count``'s."""
     if not code:
         return 1, 0
     n_tiles = (n_heads + 2 * n_kv) * d // TILE
-    split = split_count(n_tiles, rows, hidden, n_sm)
+    split = _pick_split(n_tiles, rows, hidden, n_sm, split)
     return split, _partial_floats(rows, n_tiles, split) + rows * (hidden // SEG)
 
 
-def epilogue_scratch(rows, width, hidden, n_sm, code):
+def epilogue_scratch(rows, width, hidden, n_sm, code, split=None):
     """(split, f32 scratch floats, arrival counters) of a ``fused_epilogue``
     call. bf16: the partials, then h [R, hidden] and the tiles' sums of
     squares [R, hidden / 128], no counter; f32: h and the blocks' sums of
-    squares [R, hidden / 32], one counter a 32-row tile."""
+    squares [R, hidden / 32], one counter a 32-row tile. ``split`` as in
+    ``qkv_scratch``."""
     if not code:
         return (1, rows * hidden + rows * (hidden // _F32_COLS),
                 -(-rows // _ROW_TILE))
     n_tiles = hidden // TILE
-    split = split_count(n_tiles, rows, width, n_sm)
+    split = _pick_split(n_tiles, rows, width, n_sm, split)
     return (split, _partial_floats(rows, n_tiles, split) + rows * hidden
             + rows * n_tiles, 0)
+
+
+def _tuned_split(kernel, params, n_tiles, rows, k, n_sm, runner, operands):
+    """A bf16 tail kernel's split: ``split_count``'s with the flag off, else
+    the autotune search over ``split_options`` (the JAX ``_block_k``)."""
+    if not autotune.enabled():
+        return None
+    (split,) = autotune.tuned(
+        kernel, autotune.signature(params),
+        (split_count(n_tiles, rows, k, n_sm),),
+        [(c,) for c in split_options(n_tiles, rows, k, n_sm)], runner,
+        operands, params=params)
+    return split
 
 
 _states: dict = {}
@@ -277,14 +386,32 @@ def fused_qkv_rope(x, w_norm, wq, wk, wv, cos_row, sin_row, eps,
     _build.require(supported(R, hidden, n_heads, n_kv, d, d,
                              x.element_size()),
                    "fused_qkv_rope: shape outside the kernel's limits")
-    q = x.new_empty(R, wq_n)
-    k = x.new_empty(R, kv_n)
-    v = x.new_empty(R, kv_n)
     if R == 0:
-        return q, k, v
-    split, n_scratch = qkv_scratch(R, hidden, n_heads, n_kv, d,
-                                   _build.sm_count(x.device), code)
-    scratch = (torch.empty(n_scratch, dtype=f32, device=x.device)
+        return x.new_empty(R, wq_n), x.new_empty(R, kv_n), x.new_empty(R, kv_n)
+    args = (x, w_norm, wq, wk, wv, cos_row, sin_row, eps, n_heads, n_kv, d,
+            code)
+    n_sm = _build.sm_count(x.device)
+    split = None
+    if code:
+        split = _tuned_split(
+            "fused_qkv_rope", {"batch": R, "hidden": hidden,
+                               "wtot": wq_n + 2 * kv_n, "dtype": "bfloat16"},
+            (wq_n + 2 * kv_n) // TILE, R, hidden, n_sm,
+            lambda cfg: lambda: _launch_qkv(*args, n_sm, cfg[0]), (x, wq))
+    return _launch_qkv(*args, n_sm, split)
+
+
+def _launch_qkv(x, w_norm, wq, wk, wv, cos_row, sin_row, eps, n_heads, n_kv,
+                d, code, n_sm, split):
+    """One ``fused_qkv_rope`` launch at ``split`` (None: ``split_count``'s),
+    on inputs the wrapper has checked."""
+    R, hidden = x.shape
+    q = x.new_empty(R, n_heads * d)
+    k = x.new_empty(R, n_kv * d)
+    v = x.new_empty(R, n_kv * d)
+    split, n_scratch = qkv_scratch(R, hidden, n_heads, n_kv, d, n_sm, code,
+                                   split)
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=x.device)
                if n_scratch else None)
     err = _build.function(_STEM, "pt_fused_qkv_rope", _QKV_ARGTYPES)(
         x.data_ptr(), w_norm.data_ptr(), wq.data_ptr(), wk.data_ptr(),
@@ -315,12 +442,30 @@ def fused_epilogue(attn, wo, residual, w_norm, eps):
     _build.require(width % _MIN_BLOCK == 0 and hidden % _MIN_BLOCK == 0
                    and R <= MAX_ROWS,
                    "fused_epilogue: shape outside the kernel's limits")
+    if R == 0:
+        return torch.empty_like(residual), torch.empty_like(residual)
+    args = (attn, wo, residual, w_norm, eps, code)
+    n_sm = _build.sm_count(attn.device)
+    split = None
+    if code:
+        split = _tuned_split(
+            "fused_epilogue", {"batch": R, "width": width, "hidden": hidden,
+                               "dtype": "bfloat16"},
+            hidden // TILE, R, width, n_sm,
+            lambda cfg: lambda: _launch_epilogue(*args, n_sm, cfg[0]),
+            (attn, wo))
+    return _launch_epilogue(*args, n_sm, split)
+
+
+def _launch_epilogue(attn, wo, residual, w_norm, eps, code, n_sm, split):
+    """One ``fused_epilogue`` launch at ``split`` (None: ``split_count``'s),
+    on inputs the wrapper has checked."""
+    R, width = attn.shape
+    hidden = wo.shape[1]
     normed = torch.empty_like(residual)
     new_res = torch.empty_like(residual)
-    if R == 0:
-        return normed, new_res
-    split, n_scratch, n_count = epilogue_scratch(
-        R, width, hidden, _build.sm_count(attn.device), code)
+    split, n_scratch, n_count = epilogue_scratch(R, width, hidden, n_sm, code,
+                                                 split)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=attn.device)
     counter = _state(attn.device, n_count)[_BARRIER:] if n_count else None
     err = _build.function(_STEM, "pt_fused_epilogue", _EPILOGUE_ARGTYPES)(

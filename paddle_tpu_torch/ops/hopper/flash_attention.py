@@ -57,8 +57,10 @@ from . import append_attention as _append
 _STEM = "flash_attention"
 # the masks of one ring hop (``splash_hop``)
 HOP_KINDS = ("full", "causal", "local")
-# (q/k width, v width) pairs the backward kernels are instantiated at
-BWD_WIDTHS = ((128, 128), (192, 128))
+# (q/k width, v width) pairs the backward kernels are instantiated at; (64,
+# 64) causal only (the entry model's heads)
+BWD_WIDTHS = ((128, 128), (192, 128), (64, 64))
+ENTRY_WIDTH = 64
 
 
 def supported(q, k, v, dropout: float = 0.0, interpret: bool = False) -> bool:
@@ -135,6 +137,8 @@ def _counters(window, d_qk=_append.HEAD_DIM, full=False):
         return "flash_attention_full", "flash_attention_full_bwd"
     if d_qk == _append.MLA_WIDTH:
         return "flash_attention_mla", "flash_attention_mla_bwd"
+    if d_qk == ENTRY_WIDTH:
+        return "flash_attention_bshd", "flash_attention_bwd_64"
     if window is None:
         return "flash_attention_bshd", "flash_attention_bwd"
     return "flash_attention_local", "flash_attention_local_bwd"
@@ -147,7 +151,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale, window=None,
     mask (any s_q and s_kv), from the forward's ``out`` and f32 ``lse``
     [B, H, S]: three CUDA launches (delta = rowsum(dout * out), then
     dk/dv, then dq), counted once. q/k width and v width (128, 128), or
-    (192, 128) causal without a window."""
+    (192, 128) or (64, 64) causal without a window."""
     _build.require_cuda(q, k, v, out, lse, dout)
     code = _build.dtype_code(q)
     B, S, H, D = q.shape

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, autotune
 
 _STEM = "fused_norm"
 
@@ -64,8 +64,48 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 # 16-byte vectors of a row the rms_norm kernel holds in registers (1024
 # threads of 4): d up to 32768 in bf16, 16384 in f32
 MAX_ROW_VECTORS = 4096
+# the one-pass kernel's vectors a thread, threads a block at small d, and
+# threads a block at most
+RMS_VPT, RMS_ROW_THREADS, MAX_THREADS = 4, 128, 1024
 _RMS_ARGTYPES = [_build.VOIDP] * 3 + [_build.INT] * 2 + [
-    _build.FLOAT, _build.INT, _build.VOIDP]
+    _build.FLOAT, _build.INT, _build.INT, _build.VOIDP]
+_ITEMSIZE = {"float32": 4, "bfloat16": 2}
+
+
+def rms_layout(d: int, elem_size: int):
+    """(threads a row, rows a block by the kernel's rule) of the one-pass
+    ``rms_norm``: whole warps a row, 4 16-byte vectors a thread; 128
+    threads a block at small d, one row a block from 128 threads a row."""
+    n_vec = d * elem_size // 16
+    tpr = 32 * -(-n_vec // (32 * RMS_VPT))
+    return tpr, (1 if tpr >= RMS_ROW_THREADS else RMS_ROW_THREADS // tpr)
+
+
+def rms_candidates(d: int, elem_size: int):
+    """The autotune space of ``rms_norm``'s rows a block: the powers of two
+    that keep a block within 1024 threads."""
+    tpr, _ = rms_layout(d, elem_size)
+    return [(1 << i,) for i in range(11) if tpr << i <= MAX_THREADS]
+
+
+def _norm_cost(params: dict, choice: tuple) -> dict:
+    """The JAX ``_norm_cost`` of ``rms_norm`` (x read and out written, the
+    weight row once; a few operations an element) with the card's grid: a
+    block of ``rpb`` rows, as many resident on an SM as its 2048 threads
+    (at most 32 blocks) allow; the block's shared memory is its 32 partial
+    sums."""
+    rows, d = int(params["rows"]), int(params["d"])
+    it = _ITEMSIZE[params["dtype"]]
+    (rpb,) = choice
+    threads = rms_layout(d, it)[0] * rpb
+    return {"bytes": 2 * rows * d * it + d * it,
+            "flops": 4 * rows * d,
+            "vmem_bytes": 32 * 4,
+            "grid": -(-rows // max(rpb, 1)),
+            "blocks_per_sm": max(1, min(32, 2048 // threads))}
+
+
+autotune.register_cost_model("rms_norm", _norm_cost)
 _ADD_RMS_ARGTYPES = [_build.VOIDP] * 5 + [_build.INT] * 2 + [
     _build.FLOAT, _build.INT, _build.VOIDP]
 
@@ -107,12 +147,41 @@ def _rms_norm_forward(x, weight, eps):
         raise ValueError(f"rms_norm: the kernel takes rows of at most "
                          f"{MAX_ROW_VECTORS} 16-byte vectors, got d={d} in "
                          f"{x.dtype}")
-    out = torch.empty_like(x)
     if rows == 0:
-        return out
+        return torch.empty_like(x)
+    rpb = (_rows_per_block(x, weight, eps, code, rows, d)
+           if autotune.enabled() else 0)
+    return _launch_rms(x, weight, eps, code, rows, d, rpb)
+
+
+def _rows_per_block(x, weight, eps, code, rows, d):
+    """``rms_norm``'s rows a block from the autotune search (the JAX
+    ``_tuned_block_rows``): the kernel's rule unless the cost table knows,
+    or an eager call on the card can measure, a faster one."""
+    es = x.element_size()
+    dt = "bfloat16" if code else "float32"
+
+    def runner(cfg):
+        return lambda: _launch_rms(x, weight, eps, code, rows, d, cfg[0])
+
+    (rpb,) = autotune.tuned(
+        "rms_norm", f"rows{rows} d{d} {dt}", (rms_layout(d, es)[1],),
+        rms_candidates(d, es), runner, (x, weight),
+        params={"rows": rows, "d": d, "dtype": dt})
+    return rpb
+
+
+def _launch_rms(x, weight, eps, code, rows, d, rpb):
+    """One launch of the kernel at ``rpb`` rows a block (0: its rule),
+    refused before the launch when a block would pass 1024 threads."""
+    tpr = rms_layout(d, x.element_size())[0]
+    _build.require(rpb == 0 or 0 < rpb and tpr * rpb <= MAX_THREADS,
+                   f"rms_norm: {rpb} rows a block of {tpr} threads passes "
+                   f"{MAX_THREADS} threads")
+    out = torch.empty_like(x)
     err = _build.function(_STEM, "pt_rms_norm", _RMS_ARGTYPES)(
         x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, d, float(eps),
-        code, _build.stream(x.device))
+        code, rpb, _build.stream(x.device))
     _build.launches["rms_norm"] += 1
     if err:
         _build.check(err, _STEM, "rms_norm")

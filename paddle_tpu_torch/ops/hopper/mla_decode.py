@@ -21,7 +21,10 @@ buffers 16-byte aligned, as its tensor-map copies need).
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel (a split pass and a combine pass, counted as one
 ``mla_decode`` launch) or raises. The host sizes the split grid from
-shapes alone (``grid_blocks``); the kernel cuts the rows' visible
+shapes alone (``grid_blocks``), or with ``FLAGS_use_autotune`` by the
+search (``autotune.pick``, kernel ``"mla_decode"`` as in the JAX package,
+whose search times its T block) over ``grid_candidates``: from B blocks
+to a few waves of 16-head tiles an SM. The kernel cuts the rows' visible
 prefixes into runs of whole tiles, balanced over its blocks, from the
 lengths on the card (``plan_tiles`` in csrc/mla_decode.cu), so nothing
 waits for ``pos``.
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, autotune
 
 _STEM = "mla_decode"
 BN = 32            # columns per tile (csrc/mla_decode.cu)
@@ -75,6 +78,21 @@ def grid_blocks(B, H, n_sm):
     rows' visible prefixes into at most that many runs and the blocks past
     the last run exit."""
     return max(B, n_sm // -(-H // HEAD_TILE), 1)
+
+
+#: the split launch's blocks at most, in waves of one block an SM for each
+#: 16-head tile (the partials grow with the blocks)
+MAX_WAVES = 4
+
+
+def grid_candidates(B, H, n_sm):
+    """The autotune space of the split launch's blocks, ascending: B (one
+    run a row), half a wave, and one to ``MAX_WAVES`` waves of 16-head
+    tiles an SM, never fewer than B; ``grid_blocks``'s is among them."""
+    wave = n_sm // -(-H // HEAD_TILE)
+    return sorted({max(B, c, 1) for c in
+                   (B, wave // 2, *(w * wave for w in range(1,
+                                                             MAX_WAVES + 1)))})
 
 
 def mla_decode(q_lat, q_pe, ckv_buf, kpe_buf, pos, allowed=None):
@@ -122,10 +140,32 @@ def mla_decode(q_lat, q_pe, ckv_buf, kpe_buf, pos, allowed=None):
         tensors.append(allowed)
         a_ptr = allowed.data_ptr()
     _build.require_cuda(*tensors)
+    if B * H * r == 0 or T == 0:
+        return torch.zeros(B, H, r, dtype=torch.float32, device=q_lat.device)
+    n_sm = _build.sm_count(q_lat.device)
+    args = (q_lat, q_pe, ckv_buf, kpe_buf, rows, a_ptr, code, n_sm)
+    G = grid_blocks(B, H, n_sm)
+    if autotune.enabled():
+        (G,) = autotune.pick(
+            "mla_decode", f"B{B}xH{H}xr{r}xT{T} {_DTYPES[code]}", (G,),
+            [(g,) for g in grid_candidates(B, H, n_sm)],
+            lambda cfg: lambda: _launch(*args, cfg[0]),
+            autotune.can_measure(q_lat, ckv_buf, rows))
+    return _launch(*args, G)
+
+
+_DTYPES = ("float32", "bfloat16")
+
+
+def _launch(q_lat, q_pe, ckv_buf, kpe_buf, rows, a_ptr, code, n_sm, G):
+    """One launch over ``G`` blocks, on inputs the wrapper has checked;
+    ``G`` outside ``[B, MAX_WAVES`` waves] is refused before it."""
+    B, H, r = q_lat.shape
+    T, dr = ckv_buf.shape[1], q_pe.shape[-1]
+    _build.require(B <= G <= max(grid_candidates(B, H, n_sm)),
+                   f"mla_decode: {G} blocks outside [{B}, "
+                   f"{max(grid_candidates(B, H, n_sm))}]")
     out = torch.empty(B, H, r, dtype=torch.float32, device=q_lat.device)
-    if out.numel() == 0 or T == 0:
-        return out.zero_()
-    G = grid_blocks(B, H, _build.sm_count(q_lat.device))
     # one scratch: a slot a block, acc [G, H, r] then m and l [G, H] (f32),
     # then each row's first slot and count [B, 2] (int32)
     part = torch.empty(G * H * (r + 2) + 2 * B, dtype=torch.float32,

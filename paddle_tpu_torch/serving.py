@@ -44,8 +44,11 @@ admission or in a decode dispatch sheds the triggering request and shrinks
 ``max_active_slots``; a failure while the pool is being written poisons the
 engine.
 
-Not ported: ``speculative_k="auto"`` (the autotune search), multimodal
-``pixel_values``, ``preflight``, and the host-side serving subsystems: the
+``speculative_k="auto"`` picks k from the autotune cost table
+(``_resolve_spec_k``): the verify dispatch of each candidate width timed on
+a throwaway pool, then ranked by ms per expected retired token.
+
+Not ported: multimodal ``pixel_values``, ``preflight``, and the host-side serving subsystems: the
 flight recorder, tracing, the KV atlas, the step-anatomy clock, metrics
 (with the usage block and ``debug_state``), the correctness sentinel (a
 bundle's ``audit`` mark is carried as data), the deathnote and the chaos
@@ -295,6 +298,90 @@ class _ChunkState:
         self.pos = 0          # prompt tokens already prefilled (page-aligned)
 
 
+def spec_verify_params(cfg, max_batch: int) -> dict:
+    """The shape params of the ``"spec_verify"`` cost table's signature, as
+    the JAX package records them."""
+    h, hk = cfg.num_attention_heads, cfg.num_key_value_heads
+    return {"batch": int(max_batch), "hidden": int(cfg.hidden_size),
+            "layers": int(cfg.num_hidden_layers),
+            "intermediate": int(cfg.intermediate_size),
+            "wtot": int((h + 2 * hk) * head_dim_of(cfg)),
+            "vocab": int(cfg.vocab_size), "dtype": str(cfg.dtype)}
+
+
+def _resolve_spec_k(model, max_batch: int, max_len: int,
+                    page_size: int = 16, default: int = 4,
+                    acceptance: float = 0.7) -> int:
+    """The speculation chunk width k for this device from the autotune cost
+    table (``serving.py:816-907``): kernel ``"spec_verify"``, candidates
+    the chunk widths 2, 3, 4, 6 and 8 (up to ``max_len``), ranked by the
+    registered cost model; the runner times one graphed verify dispatch
+    (``_get_spec_decode``) on a throwaway pool of ``max_batch`` slots made
+    for that candidate and dropped with it. The measured table is then
+    re-ranked by ms over the expected retired tokens of a dispatch under a
+    geometric acceptance model (sum of ``acceptance**i``), since the raw
+    time of a dispatch always favours the narrowest chunk. With
+    ``FLAGS_use_autotune`` off this returns ``default`` without touching
+    the card; a persisted table re-ranks without measuring."""
+    from .ops.hopper import autotune
+
+    if not autotune.enabled():
+        return default
+    cfg = model.config
+    try:
+        params = spec_verify_params(cfg, max_batch)
+    except (AttributeError, TypeError):
+        return default  # not Llama-shaped: the default
+    hd, hk = head_dim_of(cfg), cfg.num_key_value_heads
+    sig = autotune.signature(params)
+    cands = [(c,) for c in (2, 3, 4, 6, 8) if c <= max_len]
+    dev = model.device
+    probe = torch.empty(0, device=dev)
+    can = autotune.can_measure(probe) and max_len % page_size == 0
+
+    def runner(choice):
+        (kk,) = choice
+        step = _get_spec_decode(model, max_len, kk)
+        pps = max_len // page_size
+        n_pages = max_batch * pps
+        dt = torch_dtype(cfg.dtype)
+        lengths = torch.zeros(max_batch, dtype=torch.int32, device=dev)
+        page_indices = torch.arange(n_pages, dtype=torch.int32,
+                                    device=dev).reshape(max_batch, pps)
+        caches = [{
+            "k_pages": torch.zeros(hk, n_pages, page_size, hd, dtype=dt,
+                                   device=dev),
+            "v_pages": torch.zeros(hk, n_pages, page_size, hd, dtype=dt,
+                                   device=dev),
+            "page_indices": page_indices, "lengths": lengths,
+            "page_size": page_size,
+        } for _ in range(cfg.num_hidden_layers)]
+        last = torch.zeros(max_batch, cfg.vocab_size, dtype=torch.float32,
+                           device=dev)
+        drafts = torch.zeros(max_batch, max(kk - 1, 0), dtype=torch.int32,
+                             device=dev)
+        # every call writes the same pages at lengths 0: one graph serves
+        # the candidate's timed calls
+        return lambda: step(last, drafts, caches)[0]
+
+    choice = autotune.search(
+        "spec_verify", sig, (default,), cands, runner, can, params=params,
+        cost_model=lambda c: autotune.analytical_cost("spec_verify", params,
+                                                      c))
+    ent = autotune.get_cache().entry("spec_verify",
+                                     autotune.full_key(sig)) or {}
+    table = ent.get("table") or {}
+    best_k, best_score = int(choice[0]), None
+    for (kk,) in cands:
+        row = table.get(str(kk))
+        if not row or row.get("status") != "ok":
+            continue
+        score = row["ms"] / sum(acceptance ** i for i in range(kk))
+        if best_score is None or score < best_score:
+            best_k, best_score = kk, score
+    return best_k
+
+
 class ContinuousBatchEngine:
     """In-flight batching: ``add_request()`` any time, ``step()`` decodes one
     token for every active slot.
@@ -310,7 +397,8 @@ class ContinuousBatchEngine:
     ``enable_preemption`` lets a strictly more important request evict a
     slot's KV to the host; ``aging_s`` improves a waiting request's class
     by one per ``aging_s`` seconds (0: strict classes).
-    ``speculative_k`` (an int >= 1, or None for off) is the chunk width of
+    ``speculative_k`` (an int >= 1, None for off, or ``"auto"``: the
+    autotune cost table's width, ``_resolve_spec_k``) is the chunk width of
     a speculative dispatch: one verified token plus up to k-1 drafts from
     an n-gram lookup of length up to ``speculative_ngram``. Dispatches with
     a sampling slot active take the one-token step."""
@@ -327,10 +415,8 @@ class ContinuousBatchEngine:
         if max_len % page_size != 0:
             raise ValueError("max_len must be a multiple of page_size")
         if speculative_k == "auto":
-            raise NotImplementedError(
-                "speculative_k='auto' needs the autotune search, which is "
-                "not ported (paddle_tpu/serving.py _resolve_spec_k, "
-                ":816-907); pass an int")
+            speculative_k = _resolve_spec_k(model, max_batch, max_len,
+                                            page_size=page_size)
         if speculative_k is not None:
             speculative_k = int(speculative_k)
             if speculative_k < 1:

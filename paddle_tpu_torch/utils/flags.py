@@ -108,3 +108,9 @@ define_flag("use_fused_decode_tail", False,
             "norm) into the two kernels of ops/hopper/decode_tail for S=1 "
             "decode steps and the speculative-verify chunk; off = the "
             "discrete kernels")
+define_flag("use_autotune", False,
+            "search the hooked kernels' geometry (ops/hopper/autotune.py): "
+            "an eager call on the card measures each candidate once per "
+            "shape and device and persists the winner; a call inside a "
+            "step unit's capture reads the cost table only; off = every "
+            "kernel's fixed geometry")

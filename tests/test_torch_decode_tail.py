@@ -152,7 +152,8 @@ def test_set_flags_and_thread_local_overrides():
             t.start()
             t.join()
         assert seen == [True] and decode_tail.enabled()
-        assert flags.get_flags() == {"FLAGS_use_fused_decode_tail": True}
+        assert flags.get_flags() == {"FLAGS_use_fused_decode_tail": True,
+                                     "FLAGS_use_autotune": False}
         for bad in (lambda: flags.set_flags({"nope": 1}),
                     lambda: flags.get_flags("nope"),
                     lambda: flags.flag_overrides({"nope": 1}).__enter__()):

@@ -70,8 +70,10 @@ def test_entry_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 def test_width_64_cuda_route(fake_kernels):
     """The entry's heads of 64 on a CUDA tensor: the causal forward kernel
     at its (64, 64) instantiation, counted as ``flash_attention_bshd``; an
-    input that needs a gradient raises before any launch (no backward
-    kernel at that width)."""
+    input that needs a gradient goes through the autograd Function, whose
+    backward launches ``pt_flash_attention_bwd`` at (64, 64), counted as
+    ``flash_attention_bwd_64`` (the entry trains on the card); a window at
+    that width raises before any launch."""
     q = posing_as_cuda(torch.zeros(2, 128, 8, 64, dtype=torch.bfloat16))
     k, v = (posing_as_cuda(torch.zeros(2, 128, 4, 64, dtype=torch.bfloat16))
             for _ in range(2))
@@ -81,11 +83,24 @@ def test_width_64_cuda_route(fake_kernels):
     assert name == "pt_append_attention"
     assert args[6:15] == (2, 128, 128, 8, 4, 64, 64, 0, 0)
     assert dict(_build.launches) == {"flash_attention_bshd": 1}
-    with pytest.raises(NotImplementedError, match="head widths"):
-        flash_attention.flash_attention_bshd(
-            posing_as_cuda(torch.zeros(2, 128, 8, 64), True), k.float(),
-            v.float(), causal=True)
-    assert len(fake_kernels) == 1
+    qg, kg, vg = (posing_as_cuda(torch.zeros(2, 128, h, 64), True)
+                  for h in (8, 4, 4))
+    out = flash_attention.flash_attention_bshd(qg, kg, vg, causal=True)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert [n for n, _ in fake_kernels] == ["pt_append_attention"] * 2 + [
+        "pt_flash_attention_bwd"]
+    fwd, bwd = fake_kernels[1][1], fake_kernels[2][1]
+    assert fwd[5] is not None                      # lse written
+    # B, S, T, H, hk, pos, window, q/k width, v width
+    assert bwd[10:19] == (2, 128, 128, 8, 4, 0, 0, 64, 64)
+    assert dict(_build.launches) == {"flash_attention_bshd": 2,
+                                     "flash_attention_bwd_64": 1}
+    assert [tuple(t.grad.shape) for t in (qg, kg, vg)] == [
+        (2, 128, 8, 64), (2, 128, 4, 64), (2, 128, 4, 64)]
+    with pytest.raises(NotImplementedError, match="window"):
+        flash_attention.flash_attention_bshd(q, k, v, causal=True, window=32)
+    assert len(fake_kernels) == 3
 
 
 def test_entry_and_generate_import_neither_jax_nor_paddle_tpu():

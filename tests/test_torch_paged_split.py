@@ -376,13 +376,14 @@ def _norm_cuda(rows=8, d=512, dtype=torch.bfloat16):
 
 
 def test_rms_norm_cuda_route_arguments_and_one_count(fake_kernels):
-    """``pt_rms_norm`` gets raw pointers, rows, d, eps, the dtype code and
-    the stream; one ``rms_norm`` count a call; ``add_rms_norm`` likewise."""
+    """``pt_rms_norm`` gets raw pointers, rows, d, eps, the dtype code, the
+    rows a block (0, the kernel's rule, with the autotune flag off) and the
+    stream; one ``rms_norm`` count a call; ``add_rms_norm`` likewise."""
     x, w = _norm_cuda(rows=6, d=4096)
     out = port_norm.rms_norm(x, w, 1e-5)
     assert fake_kernels == [("pt_rms_norm", (
         x.data_ptr(), w.data_ptr(), out.data_ptr(), 6, 4096,
-        1e-5, 1, None))]
+        1e-5, 1, 0, None))]
     r = posing_as_cuda(torch.zeros(6, 4096, dtype=torch.bfloat16))
     o, h = port_norm.add_rms_norm(x, r, w, 1e-5)
     name, args = fake_kernels[1]

@@ -183,7 +183,18 @@ def test_sampling_slot_falls_back_to_one_token_step(pair):
 @pytest.mark.parametrize("k, err", [("auto", NotImplementedError),
                                     (0, ValueError), (200, ValueError)])
 def test_spec_k_refused(pair, k, err):
+    """k < 1 and k > max_len raise; "auto" resolves (the autotune search,
+    ``test_torch_autotune``) and is then refused where speculation is, in
+    latent mode, as in the JAX engine."""
     _, port_model = pair
-    with pytest.raises(err, match="speculative_k"):
-        PortEngine(port_model, speculative_k=k, **ENGINE)
+    model, match = port_model, "speculative_k"
+    if k == "auto":
+        from paddle_tpu_torch.models import (DeepseekV2Config,
+                                             DeepseekV2ForCausalLM)
+
+        model = DeepseekV2ForCausalLM(DeepseekV2Config.tiny_mla(),
+                                      device="cpu")
+        match = "speculative decoding needs the paged KV layout"
+    with pytest.raises(err, match=match):
+        PortEngine(model, speculative_k=k, **ENGINE)
     assert PortEngine(port_model, **ENGINE).stats()["spec_dispatches"] == 0
