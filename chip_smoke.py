@@ -11,6 +11,8 @@ NVIDIA H100.
     python3 chip_smoke.py --moe-only              # MoE rows, phases 18-21
     python3 chip_smoke.py --engine-only           # phase 22 alone
     python3 chip_smoke.py --autotune-only         # phase 23 alone
+    python3 chip_smoke.py --http-only             # phase 24 alone
+    python3 chip_smoke.py --engine-step-only      # the engine's step wall
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -302,7 +304,34 @@ Phases (any failure raises, so the script exits non-zero):
    8 | 4, 64]), and phase 16 trains the entry config on the card (one
    bf16 step, the (64, 64) backward once a layer; an f32 step card =
    CPU).
-24. The kernels line, then the card line, then the result line
+24. The HTTP front-end and the engine's observability (after phase 23's
+   sweeps and ``speculative_generate``, on its Llama-3-8B, bf16, 32 layers,
+   ``FLAGS_use_autotune`` off; its f32 wiring before phase 23's): a
+   ``CompletionServer`` over the engine (8 slots, ``max_len`` 2048, page
+   16) on 127.0.0.1, which turns on the tracer, the flight recorder, the
+   step profiler, the KV atlas and the sentinel. (a) Eight concurrent
+   clients, 512-token prompts, 32 new greedy tokens, fused tail off and
+   then on: tokens = the same engine driven directly, launch counts exact
+   (the flash kernel L a prefill, ``paged_attention`` L a decode step, the
+   fused tail's two kernels L a step with the flag on); (b) one SSE
+   stream: its tokens in order, ``[DONE]`` last; (c) ``n`` 2 with logprobs,
+   a stop id, priority + ``slo_ms`` + ``X-Request-Deadline``, and a client
+   that resets its connection mid stream (the engine's ``cancelled``); (d)
+   ``X-Audit: 1`` on a request whose reference replay runs on the audit
+   worker while the engine thread captures a cold bucket (1000 tokens,
+   bucket 1024; both intervals logged, the bf16 verdict and drift
+   reported); (f) two padded prompts (append attention L a prefill,
+   counts exact); (e) /metrics' admitted counter = the requests sent,
+   /health, /v1/models, /profile's phases, /kvstate's capacity = the
+   pool's bytes, a ``traceparent`` echoed with its trace id and its spans
+   on /trace; (g) time to first token over HTTP (SSE) against the
+   engine's own admission, and the graphed decode step's wall at 8 slots
+   with the tracer and recorder off and on, in turns. Then the f32 wiring
+   (two layers of Llama-3-8B): HTTP tokens = the CPU port's ``generate``
+   = the card's ``generate``; an ``X-Audit: 1`` request passes; with
+   ``FLAGS_perturb_decode_token`` on an audited request diverges, its
+   bundle is sealed, and ``replay_bundle`` blames the drill.
+25. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -6078,7 +6107,7 @@ def autotune_wiring_check():
     torch.cuda.empty_cache()
 
 
-def autotune_phase():
+def autotune_phase(then=None):
     """Phase 23: the autotune search and ``speculative_generate`` at full
     width, ``FLAGS_use_autotune`` on and the cache at a fresh file in a
     temporary directory (``autotune_on``); a fresh Llama-3-8B (bf16, 32
@@ -6089,10 +6118,11 @@ def autotune_phase():
     tail swept at the verify chunk's rows, then a second engine (fused
     tail on) and a second sweep at (a)'s shapes, which must measure
     nothing: every search ends at the cache, and the captured verify
-    launches the winning split; (d) ``specgen_runs``; (e)
-    ``autotune_wiring_check``. Returns the launch counts of the engines'
-    and ``speculative_generate``'s runs (the sweeps' are taken out of the
-    counts)."""
+    launches the winning split; (d) ``specgen_runs``; then ``then(model,
+    card)`` (phase 24, with the flag off), the model freed, and (e)
+    ``autotune_wiring_check`` under a fresh cache. Returns the launch
+    counts of the engines', ``speculative_generate``'s and ``then``'s runs
+    (the sweeps' are taken out of the counts)."""
     import torch
 
     from paddle_tpu_torch.generation import generate
@@ -6170,15 +6200,648 @@ def autotune_phase():
         log(f"  [{card}] phase 23 (c) fused vs discrete engine tokens (bf16, "
             f"reported only): {same}/{sum(len(o) for o in outs)}")
         total.update(specgen_runs(model, card))
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
+    t_then = time.perf_counter()
+    if then is not None:
+        # phase 24 on this model, outside FLAGS_use_autotune
+        total.update(then(model, card))
+    t_then = time.perf_counter() - t_then
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with autotune_on():
         autotune_wiring_check()
-    log(f"phase 23 took {time.perf_counter() - t_phase:.1f}s; defaults and "
-        f"winners (events ms, profiled ms): " + "; ".join(
+    log(f"phase 23 took {time.perf_counter() - t_phase - t_then:.1f}s; "
+        f"defaults and winners (events ms, profiled ms): " + "; ".join(
             f"{name} {list(w)} {d} -> {wm}" for name, (w, d, wm) in
             {**first, **spec_rows}.items()))
     return total
+
+
+# ---- phase 24: the HTTP front-end and the engine's observability ----------
+
+HTTP_SLOTS, HTTP_MAX_LEN, HTTP_PROMPT, HTTP_NEW = 8, 2048, 512, 32
+# (d)'s cold bucket and (f)'s padded prompts: bucket 1024
+HTTP_PADDED = (1000, 900)
+
+
+class _Http:
+    """A stdlib client of one ``CompletionServer``: JSON posts, SSE streams
+    and GETs, each on a connection of its own."""
+
+    def __init__(self, srv):
+        self.host, self.port = srv.address
+
+    def _conn(self):
+        import http.client
+
+        return http.client.HTTPConnection(self.host, self.port, timeout=600)
+
+    def post(self, body, headers=None):
+        """(status, JSON body, response headers)."""
+        conn = self._conn()
+        conn.request("POST", "/v1/completions", json.dumps(body),
+                     {"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, json.loads(data), dict(resp.getheaders())
+
+    def stream(self, body):
+        """(status, the data lines in order, seconds to the first one)."""
+        t0 = time.perf_counter()
+        conn = self._conn()
+        conn.request("POST", "/v1/completions", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        events, t_first = [], None
+        while True:
+            line = resp.fp.readline()
+            if not line:
+                break
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                if t_first is None:
+                    t_first = time.perf_counter() - t0
+                events.append(line[len("data: "):])
+            elif line == "0":         # the chunked body's last chunk
+                resp.fp.readline()
+                break
+        conn.close()
+        return resp.status, events, t_first
+
+    def get(self, path, raw=False):
+        conn = self._conn()
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, (data.decode() if raw else json.loads(data))
+
+
+def metric_values(text, name):
+    """{label string: value} of one family in a Prometheus text body."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            key, _, val = line.rpartition(" ")
+            out[key[len(name):]] = float(val)
+    return out
+
+
+def stream_tokens(events):
+    return [json.loads(e)["choices"][0]["token_ids"][0]
+            for e in events if e != "[DONE]"]
+
+
+def direct_run(eng, prompts, n_new, fused):
+    """The engine driven from this thread: {prompt index: tokens} and the
+    launch counts and decode steps of the run."""
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.utils.flags import flag_overrides
+
+    with flag_overrides({"use_fused_decode_tail": fused}):
+        steps0 = eng.stats()["decode_steps"]
+        reset_launches()
+        rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+        out = eng.run_until_done()
+        counts = dict(launches)
+    return ([out[r].tolist() for r in rids], counts,
+            eng.stats()["decode_steps"] - steps0)
+
+
+def concurrent_posts(client, prompts, n_new, extra=None):
+    """One client thread a prompt, all at once; {index: response}."""
+    import threading
+
+    got = {}
+
+    def one(i):
+        got[i] = client.post(dict({"prompt_token_ids": prompts[i].tolist(),
+                                   "max_tokens": n_new}, **(extra or {})))
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return got
+
+
+def fused_counts_want(cfg, steps, prefills_exact):
+    """``serving_counts_want`` with the fused decode tail on: per decode
+    step ``fused_qkv_rope`` and ``fused_epilogue`` a layer, each for one
+    ``rms_norm`` or ``add_rms_norm`` a layer."""
+    want = serving_counts_want(cfg, steps, prefills_exact, 0)
+    L = cfg.num_hidden_layers
+    want["rms_norm"] -= L * steps
+    want["add_rms_norm"] -= L * steps
+    want["fused_qkv_rope"] = want["fused_epilogue"] = L * steps
+    return want
+
+
+class _Intervals:
+    """Records the host interval and thread of every graph capture and of
+    every reference replay of the sentinel, for the block."""
+
+    def __enter__(self):
+        import threading
+
+        from paddle_tpu_torch.jit import cuda_graph
+        from paddle_tpu_torch.observability import sentinel
+
+        self.captures, self.audits = [], []
+        self._cg, self._sn = cuda_graph, sentinel
+        self._cap = cuda_graph.GraphedStep._capture
+        self._ref = sentinel.reference_decode
+        cap, ref, me = self._cap, self._ref, self
+
+        def capture(unit, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return cap(unit, *a, **k)
+            finally:
+                me.captures.append((threading.current_thread().name,
+                                    type(unit).__name__, t0,
+                                    time.perf_counter()))
+
+        def reference(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return ref(*a, **k)
+            finally:
+                me.audits.append((t0, time.perf_counter()))
+
+        cuda_graph.GraphedStep._capture = capture
+        sentinel.reference_decode = reference
+        return self
+
+    def __exit__(self, *exc):
+        self._cg.GraphedStep._capture = self._cap
+        self._sn.reference_decode = self._ref
+
+
+def http_phase(model, card):
+    """Phase 24: ``CompletionServer`` over the engine (8 slots, ``max_len``
+    2048, page 16) at full width on 127.0.0.1, the observability stack on
+    (the server enables the tracer, the flight recorder, the step profiler,
+    the KV atlas and the sentinel). (a) eight concurrent 512-token greedy
+    clients, 32 new tokens, fused tail off and then on: tokens = the same
+    engine driven directly, launch counts exact; (b) one SSE stream; (c)
+    ``n`` 2 with logprobs, a stop id, priority + SLO + deadline header, a
+    client that disconnects mid stream (the engine's ``cancelled``); (d)
+    ``X-Audit: 1`` on a request whose audit runs while the engine thread
+    captures a cold bucket (1000 tokens, bucket 1024): both intervals and
+    the verdict and drift logged, the verdict waited for; (e) /metrics
+    counters = the requests sent, /health, /v1/models, /profile's phases,
+    /kvstate's capacity = the pool's bytes, a ``traceparent`` echoed with
+    its trace id; (g) time to first token over HTTP against the engine's
+    own, and the graphed decode step's wall with the tracer and recorder
+    on and off in turns. Returns (a)'s launch counts."""
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch.observability import flightrecorder, tracing
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+    from paddle_tpu_torch.serving_http import CompletionServer
+    from paddle_tpu_torch.utils.flags import set_flags
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    log(f"phase 24: the HTTP front-end over the engine ({HTTP_SLOTS} slots, "
+        f"max_len {HTTP_MAX_LEN}, page 16) on Llama-3-8B ({L} layers, bf16)")
+    rng = np.random.RandomState(24)
+    prompts = [rng.randint(0, cfg.vocab_size, size=HTTP_PROMPT)
+               for _ in range(HTTP_SLOTS)]
+    eng = ContinuousBatchEngine(model, max_batch=HTTP_SLOTS,
+                                max_len=HTTP_MAX_LEN, page_size=16)
+    ref = {}
+    for fused in (False, True):
+        ref[fused], counts, steps = direct_run(eng, prompts, HTTP_NEW, fused)
+        log(f"  [{card}] phase 24 (a) the engine driven directly, fused "
+            f"tail {'on' if fused else 'off'}: {steps} decode steps, "
+            f"launches {json.dumps(counts)}")
+    total = Counter()
+    srv = CompletionServer(eng, model_name="llama-3-8b").start()
+    client = _Http(srv)
+    try:
+        text0 = client.get("/metrics", raw=True)[1]
+        sent = 0
+        from paddle_tpu_torch.ops.hopper import launches, reset_launches
+
+        # (a) the eight concurrent clients, tail off then on
+        for fused in (False, True):
+            set_flags({"use_fused_decode_tail": fused})
+            try:
+                steps0 = eng.stats()["decode_steps"]
+                reset_launches()
+                got = concurrent_posts(client, prompts, HTTP_NEW)
+                counts = dict(launches)
+            finally:
+                set_flags({"use_fused_decode_tail": False})
+            sent += len(prompts)
+            steps = eng.stats()["decode_steps"] - steps0
+            toks = [got[i][1]["choices"][0]["token_ids"]
+                    for i in range(len(prompts))]
+            if any(got[i][0] != 200 for i in got) or toks != ref[fused]:
+                raise AssertionError(f"phase 24 (a) fused={fused}: HTTP "
+                                     "tokens differ from the engine driven "
+                                     "directly")
+            want = (fused_counts_want(cfg, steps, len(prompts)) if fused
+                    else serving_counts_want(cfg, steps, len(prompts), 0))
+            require_counts(f"phase 24 (a) fused={fused}", counts, want)
+            require_launched(counts, FUSED_KERNELS + (
+                "rms_norm", "add_rms_norm", "flash_attention_bshd")
+                if fused else ("rms_norm", "add_rms_norm",
+                               "flash_attention_bshd", "paged_attention"),
+                "HTTP serving")
+            total.update(counts)
+            usage = got[0][1]["usage"]
+            log(f"  [{card}] phase 24 (a) 8 concurrent HTTP clients, fused "
+                f"tail {'on' if fused else 'off'}: tokens = the engine "
+                f"driven directly: True; {steps} decode steps; launches "
+                f"exact {json.dumps(counts)}; usage of client 0 "
+                f"{json.dumps(usage)}")
+        # (b) one SSE stream
+        status, events, _ = client.stream({
+            "prompt_token_ids": prompts[0].tolist(), "max_tokens": HTTP_NEW,
+            "stream": True})
+        sent += 1
+        if (status != 200 or events[-1] != "[DONE]"
+                or stream_tokens(events) != ref[False][0]):
+            raise AssertionError("phase 24 (b): the SSE stream's tokens, "
+                                 "order or [DONE] are wrong")
+        log(f"  [{card}] phase 24 (b) SSE: {len(events) - 1} token chunks "
+            f"in order, [DONE] last")
+        # (c) n, logprobs, a stop id, priority + SLO + deadline, disconnect
+        status, body, _ = client.post({
+            "prompt_token_ids": prompts[1].tolist(), "max_tokens": 16,
+            "n": 2, "temperature": 0.8, "logprobs": 1})
+        sent += 2
+        lps = [c["logprobs"]["token_logprobs"] for c in body["choices"]]
+        if (status != 200 or len(body["choices"]) != 2
+                or any(len(x) != 16 or max(x) > 0 for x in lps)):
+            raise AssertionError(f"phase 24 (c) n=2: {status} {body}")
+        stop = ref[False][2][HTTP_NEW // 4]
+        status, body, _ = client.post({
+            "prompt_token_ids": prompts[2].tolist(), "max_tokens": HTTP_NEW,
+            "stop_token_ids": [stop]})
+        sent += 1
+        cut = ref[False][2][:ref[False][2].index(stop) + 1]
+        ch = body["choices"][0]
+        if ch["token_ids"] != cut or ch["finish_reason"] != "stop":
+            raise AssertionError(f"phase 24 (c) stop id: {ch}")
+        status, body, _ = client.post({
+            "prompt_token_ids": prompts[3].tolist(), "max_tokens": HTTP_NEW,
+            "priority": 0, "slo_ms": 600000.0},
+            {"X-Request-Deadline": "600000"})
+        sent += 1
+        if status != 200 or body["choices"][0]["token_ids"] != ref[False][3]:
+            raise AssertionError(f"phase 24 (c) priority + SLO: {status}")
+        cancelled0 = eng.stats()["requests_cancelled"]
+        cancel_rid = eng._next_rid
+        http_disconnect(client, prompts[4])
+        sent += 1
+        for _ in range(400):
+            if eng.stats()["requests_cancelled"] > cancelled0:
+                break
+            time.sleep(0.025)
+        reasons = [eng.finish_reason(r) for r in
+                   range(cancel_rid, eng._next_rid)]
+        if "cancelled" not in reasons:
+            raise AssertionError(f"phase 24 (c) disconnect: reasons "
+                                 f"{reasons}")
+        log(f"  [{card}] phase 24 (c) n=2 with logprobs (max "
+            f"{max(max(x) for x in lps):.4f}), stop id {stop} after "
+            f"{len(cut)} tokens (reason stop), priority 0 + slo_ms + "
+            f"X-Request-Deadline = direct tokens, a client that left mid "
+            f"stream: reason cancelled")
+        # (d) an audit in flight while a cold bucket is captured
+        with _Intervals() as iv:
+            fin0 = eng.stats()["requests_finished"]
+            out = {}
+            a = threading.Thread(target=lambda: out.update(a=client.post(
+                {"prompt_token_ids": prompts[5].tolist(),
+                 "max_tokens": HTTP_NEW}, {"X-Audit": "1"})))
+            a.start()
+            while eng.stats()["requests_finished"] == fin0:
+                time.sleep(0.001)
+            long_prompt = rng.randint(0, cfg.vocab_size,
+                                      size=HTTP_PADDED[0])
+            out["b"] = client.post({"prompt_token_ids": long_prompt.tolist(),
+                                    "max_tokens": 8})
+            a.join(600)
+            sent += 2
+        status, body, _ = out["a"]
+        audit = body.get("audit", {})
+        if status != 200 or body["choices"][0]["token_ids"] != ref[False][5]:
+            raise AssertionError(f"phase 24 (d): the audited request: "
+                                 f"{status}")
+        if out["b"][0] != 200 or audit.get("verdict") not in ("pass",
+                                                              "diverged"):
+            raise AssertionError(f"phase 24 (d): {out['b'][0]}, audit "
+                                 f"{audit}")
+        (a0, a1), = iv.audits
+        during = [c for c in iv.captures
+                  if c[0] == "engine-loop" and a0 <= c[2] <= a1]
+        worker = [c for c in iv.captures if c[0].startswith("audit-worker")]
+        log(f"  [{card}] phase 24 (d) X-Audit: 1 (bf16, reported): verdict "
+            f"{audit.get('verdict')}, first divergence "
+            f"{audit.get('first_divergence')}, logprob drift "
+            f"{audit.get('logprob_drift')}; the reference replay ran "
+            f"{a1 - a0:.2f}s on the audit worker (its captures "
+            f"{[(c[1], round(c[3] - c[2], 2)) for c in worker]}), the engine "
+            f"thread captured {[(c[1], round(c[3] - c[2], 2)) for c in during]}"
+            f" inside it")
+        if not during:
+            raise AssertionError("phase 24 (d): no engine-thread capture "
+                                 "while the audit ran")
+        # (f) padded prompts over HTTP: append attention in their prefill
+        padded = [rng.randint(0, cfg.vocab_size, size=n)
+                  for n in HTTP_PADDED]
+        steps0 = eng.stats()["decode_steps"]
+        reset_launches()
+        got = concurrent_posts(client, padded, 8)
+        counts = dict(launches)
+        sent += len(padded)
+        steps = eng.stats()["decode_steps"] - steps0
+        want = serving_counts_want(cfg, steps, 0, len(padded))
+        if any(got[i][0] != 200 for i in got):
+            raise AssertionError("phase 24 (f): a padded request failed")
+        require_counts("phase 24 (f) padded prompts", counts, want)
+        require_launched(counts, ("append_attention", "paged_attention"),
+                         "HTTP serving, padded prompts")
+        total.update(counts)
+        log(f"  [{card}] phase 24 (f) 2 concurrent padded prompts "
+            f"{HTTP_PADDED} (bucket {eng._bucket(HTTP_PADDED[0])}): {steps} "
+            f"decode steps, launches exact {json.dumps(counts)}")
+        # (e) the observability routes
+        tid = "0af7651916cd43dd8448eb211c80319c"
+        status, body, hdrs = client.post(
+            {"prompt_token_ids": prompts[6].tolist(), "max_tokens": 4},
+            {"traceparent": f"00-{tid}-b7ad6b7169203331-01"})
+        sent += 1
+        echoed = tracing.parse_traceparent(hdrs.get("traceparent"))
+        if status != 200 or echoed is None or echoed[0] != tid:
+            raise AssertionError(f"phase 24 (e) traceparent: "
+                                 f"{hdrs.get('traceparent')}")
+        _, spans = client.get(f"/trace?trace_id={tid}")
+        names = sorted({s["name"] for s in spans["spans"]})
+        text1 = client.get("/metrics", raw=True)[1]
+        adm = (metric_values(text1, "serving_requests_total")
+               ['{engine="decoder",event="admitted"}']
+               - metric_values(text0, "serving_requests_total")
+               ['{engine="decoder",event="admitted"}'])
+        if adm != sent:
+            raise AssertionError(f"phase 24 (e) /metrics: {adm} admitted, "
+                                 f"{sent} sent")
+        _, health = client.get("/health")
+        _, models = client.get("/v1/models")
+        _, prof = client.get("/profile")
+        _, kv = client.get("/kvstate")
+        _, aud = client.get("/audit")
+        phases = prof["engines"]["decoder"]["phases"]
+        pool = sum(c[k].numel() * c[k].element_size()
+                   for c in eng._caches for k in ("k_pages", "v_pages"))
+        kvd = kv["engines"]["decoder"]
+        if (health["status"] != "ok" or health["max_batch"] != HTTP_SLOTS
+                or models["data"][0]["id"] != "llama-3-8b"
+                or not {"admit", "prefill", "dispatch", "sync",
+                        "retire"} <= set(phases)
+                or kvd["capacity_bytes"] != pool):
+            raise AssertionError(f"phase 24 (e): health {health['status']}, "
+                                 f"phases {sorted(phases)}, kvstate "
+                                 f"{kvd['capacity_bytes']} B against the "
+                                 f"pool's {pool} B")
+        log(f"  [{card}] phase 24 (e) /metrics admitted {adm:.0f} = sent "
+            f"{sent}; /health ok; /v1/models {models['data'][0]['id']}; "
+            f"/profile phases " + ", ".join(
+                f"{k} p50 {v['p50_ms']:.3f} ms" for k, v in phases.items())
+            + f"; roofline {json.dumps(prof['engines']['decoder']['roofline'])}"
+            f"; /kvstate capacity {kvd['capacity_bytes']} B = the pool, "
+            f"peak {kvd['pages_peak']} pages; /audit "
+            f"{aud['engines']['decoder']['verdicts']}; traceparent trace id "
+            f"echoed, spans {names}")
+        # (g) time to first token: over HTTP, then the engine's own
+        ttft_http = []
+        for i in range(3):
+            _, _, t_first = client.stream({
+                "prompt_token_ids": prompts[7].tolist(), "max_tokens": 2,
+                "stream": True})
+            ttft_http.append(t_first * 1e3)
+    finally:
+        srv.close()
+    ttft_eng = []
+    for i in range(3):
+        first = []
+        t0 = time.perf_counter()
+        eng.add_request(prompts[7], max_new_tokens=2,
+                        on_token=lambda r, t, d: first.append(
+                            time.perf_counter()) if not first else None)
+        eng.run_until_done()
+        ttft_eng.append((first[0] - t0) * 1e3)
+    log(f"  [{card}] phase 24 (g) time to first token, prompt "
+        f"{HTTP_PROMPT} on an idle engine: over HTTP (SSE) "
+        f"{[round(x, 2) for x in ttft_http]} ms, the engine's own admission "
+        f"{[round(x, 2) for x in ttft_eng]} ms")
+    walls = decode_walls_observed(eng, prompts)
+    med = {label: statistics.median([x for lb, w in walls if lb == label
+                                     for x in w])
+           for label in ("tracer+recorder off", "tracer+recorder on")}
+    log(f"  [{card}] phase 24 (g) graphed decode step wall at 8 slots, "
+        f"median ms of each turn's {len(walls[0][1])} steps: " + ", ".join(
+            f"{label} {statistics.median(w):.3f}" for label, w in walls)
+        + "; over all turns " + ", ".join(
+            f"{label} {ms:.3f}" for label, ms in med.items()))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    http_wiring_check()
+    log(f"phase 24 took {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
+def http_disconnect(client, prompt):
+    """A streaming client that reads its first chunk and resets the
+    connection."""
+    import socket
+    import struct
+
+    conn = client._conn()
+    conn.request("POST", "/v1/completions", json.dumps({
+        "prompt_token_ids": prompt.tolist(),
+        "max_tokens": min(400, HTTP_MAX_LEN - prompt.size), "stream": True}),
+        {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"phase 24 (c) disconnect: {resp.status} "
+                             f"{resp.read()}")
+    resp.fp.readline()
+    conn.sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                         struct.pack("ii", 1, 0))
+    conn.sock.close()
+    conn.close()
+
+
+def decode_walls_observed(eng, prompts, turns=4, steps=32):
+    """The graphed one-token decode step's wall at 8 slots (the step
+    already waits for its tokens), with the tracer and the flight
+    recorder off and on, in turns; each turn's steps after a refill."""
+    from paddle_tpu_torch.observability import flightrecorder, tracing
+
+    tracer, rec = tracing.get_tracer(), flightrecorder.get_recorder()
+    walls = []
+    for _ in range(turns):
+        for label, on in (("off", False), ("on", True)):
+            (tracer.enable if on else tracer.disable)()
+            (rec.enable if on else rec.disable)()
+            for p in prompts:
+                eng.add_request(p, max_new_tokens=steps + 1)
+            eng.step()          # the first step after the admissions
+            w = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                eng.step()
+                w.append((time.perf_counter() - t0) * 1e3)
+            eng.run_until_done()
+            walls.append((f"tracer+recorder {label}", w))
+    tracer.enable()
+    rec.enable()
+    return walls
+
+
+def http_wiring_check(device="cuda", cfg=None):
+    """Phase 24 wiring, f32, ``allow_tf32`` off: two layers of Llama-3-8B
+    on the card and the same weights on the CPU. Served over HTTP on the
+    card, each greedy completion = the CPU port's ``generate`` = the card's
+    solo ``generate``; an ``X-Audit: 1`` request passes; with
+    ``FLAGS_perturb_decode_token`` on, an audited request diverges, its
+    bundle is sealed, and ``replay_bundle`` reproduces it and blames the
+    drill. (``device`` and ``cfg`` let the check run off the card.)"""
+    import torch
+
+    from paddle_tpu_torch.generation import generate
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import sentinel
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+    from paddle_tpu_torch.serving_http import CompletionServer
+    from paddle_tpu_torch.utils.flags import set_flags
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = LlamaForCausalLM(
+        cfg or LlamaConfig.llama3_8b(num_hidden_layers=2, dtype="float32"),
+        device=device, generator=torch.Generator(device).manual_seed(2))
+    cpu = cpu_copy(gpu)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, gpu.config.vocab_size, size=n)
+               for n in (40, 23)]
+    want = [generate(cpu, torch.from_numpy(p[None]),
+                     max_new_tokens=8)[0].tolist() for p in prompts]
+    solo = [generate(gpu, torch.from_numpy(p[None]).to(device),
+                     max_new_tokens=8)[0].tolist() for p in prompts]
+    eng = ContinuousBatchEngine(gpu, max_batch=2, max_len=128, page_size=16)
+    srv = CompletionServer(eng).start()
+    client = _Http(srv)
+    try:
+        got = concurrent_posts(client, prompts, 8)
+        toks = [got[i][1]["choices"][0]["token_ids"] for i in range(2)]
+        status, body, _ = client.post(
+            {"prompt_token_ids": prompts[0].tolist(), "max_tokens": 8},
+            {"X-Audit": "1"})
+        audit = body["audit"]
+        set_flags({"perturb_decode_token": True})
+        try:
+            _, bad, _ = client.post(
+                {"prompt_token_ids": prompts[1].tolist(), "max_tokens": 8},
+                {"X-Audit": "1"})
+        finally:
+            set_flags({"perturb_decode_token": False})
+    finally:
+        srv.close()
+    bundle = eng.sentinel.divergence_bundles()[-1]
+    report = sentinel.replay_bundle(bundle, gpu)
+    log(f"phase 24 wiring, 2 layers of Llama-3-8B, f32: HTTP {toks}, CPU "
+        f"{want}, card generate {solo}; X-Audit: {audit['verdict']} (drift "
+        f"{audit['logprob_drift']}); with FLAGS_perturb_decode_token: "
+        f"{bad['audit']['verdict']} at {bad['audit']['first_divergence']}, "
+        f"replay blames {report['blame']} (reference reproduced "
+        f"{report['ref_reproduced']}, divergence reproduced "
+        f"{report['diverged_reproduced']})")
+    if toks != want or toks != solo:
+        raise AssertionError("phase 24 wiring: HTTP, CPU and generate tokens "
+                             "differ")
+    if audit["verdict"] != "pass":
+        raise AssertionError(f"phase 24 wiring: the f32 audit {audit}")
+    if (bad["audit"]["verdict"] != "diverged"
+            or report["blame"] != ["perturb_token"]
+            or not report["ref_reproduced"]
+            or not report["diverged_reproduced"]):
+        raise AssertionError(f"phase 24 wiring: the drill {bad['audit']}, "
+                             f"replay {report['blame']}")
+    del gpu, cpu, eng
+    torch.cuda.empty_cache()
+
+
+def engine_step_walls(card, steps=64, eager_steps=16):
+    """``--engine-step-only``: the engine's one-token decode step wall on a
+    Llama-3-8B (bf16, 32 layers, seed 0), 8 slots of 512-token prompts,
+    ``max_len`` 2048, observability off (the engine's default): the
+    graphed step (median and quartiles of ``steps``) and the eager one
+    (``eager_steps``). It uses only the engine's public API, so an earlier
+    checkout runs it too (this script copied to its root): the parent
+    against the change in turns, on one card."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    model = LlamaForCausalLM(LlamaConfig.llama3_8b(dtype="bfloat16"),
+                             device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    rng = np.random.RandomState(24)
+    prompts = [rng.randint(0, model.config.vocab_size, size=HTTP_PROMPT)
+               for _ in range(HTTP_SLOTS)]
+    eng = ContinuousBatchEngine(model, max_batch=HTTP_SLOTS,
+                                max_len=HTTP_MAX_LEN, page_size=16)
+
+    def walls(n):
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=n + 2)
+        eng.step()
+        w = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            eng.step()
+            w.append((time.perf_counter() - t0) * 1e3)
+        eng.run_until_done()
+        return w
+
+    walls(8)                    # the captures
+    graph = walls(steps)
+    with eager_units():
+        walls(2)
+        eager = walls(eager_steps)
+    q = {k: [round(x, 3) for x in statistics.quantiles(w, n=4)]
+         for k, w in (("graphed", graph), ("eager", eager))}
+    log(f"engine step [{card}] at {HTTP_SLOTS} slots x {HTTP_PROMPT}, "
+        f"observability off: graphed ms (quartiles) {q['graphed']}, eager "
+        f"ms {q['eager']}")
+
+
+def http_only():
+    """``--http-only``: phase 24 on a Llama-3-8B built as phase 23 builds
+    it (same seed)."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    model = LlamaForCausalLM(LlamaConfig.llama3_8b(dtype="bfloat16"),
+                             device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    return http_phase(model, card_line())
 
 
 def engine_only():
@@ -6286,6 +6949,17 @@ def main(argv=None) -> int:
                          "sweeps, speculative_k='auto', the cache stage, "
                          "speculative_generate at full depth and its f32 "
                          "wiring; prints no result line")
+    ap.add_argument("--http-only", action="store_true",
+                    help="phase 1, then phase 24 alone: the HTTP front-end "
+                         "and the engine's observability at full width on "
+                         "a Llama-3-8B built here, then its f32 wiring; "
+                         "prints no result line")
+    ap.add_argument("--engine-step-only", action="store_true",
+                    help="phase 1, then the engine's one-token decode step "
+                         "wall, graphed and eager, on a Llama-3-8B built "
+                         "here (8 slots of 512-token prompts); prints no "
+                         "result line. Run from another checkout's root, "
+                         "it measures that checkout's engine")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -6320,7 +6994,8 @@ def main(argv=None) -> int:
     # checkout)
     partial = (args.decode_tail_only or args.decode_profile_only
                or args.mla_only or args.optimizer_only or args.moe_only
-               or args.engine_only or args.autotune_only)
+               or args.engine_only or args.autotune_only or args.http_only
+               or args.engine_step_only)
     for stem in ("append_attention", "flash_attention", "paged_attention",
                  "mla_decode", "decode_tail"):
         hmma, hgmma = tensor_core_sass(_build.build()[stem])
@@ -6363,6 +7038,13 @@ def main(argv=None) -> int:
     if args.autotune_only:
         autotune_phase()
         log(f"total {time.perf_counter() - t_start:.1f}s")
+        return 0
+    if args.http_only:
+        http_only()
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        return 0
+    if args.engine_step_only:
+        engine_step_walls(card_line())
         return 0
     if args.decode_profile_only:
         from paddle_tpu_torch.models.llama import (LlamaConfig,
@@ -6411,7 +7093,7 @@ def main(argv=None) -> int:
     families_wiring_check()
     gc.collect()
     torch.cuda.empty_cache()
-    counts.update(autotune_phase())
+    counts.update(autotune_phase(then=http_phase))
 
     kernels = []
     for name in SOURCES:

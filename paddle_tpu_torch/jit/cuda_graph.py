@@ -73,10 +73,21 @@ with: a sweep after the capture reaches it only through a new unit.
 
 One replay at a time: the graphs of a model share its pool, and the
 decode tail's barrier state of the capture stream.
+
+Threads. A capture runs in torch's default (global) capture-error mode:
+a CUDA call from another thread while it records can invalidate it. So
+every capture holds :data:`DEVICE_LOCK`, a process-wide reentrant lock,
+and so does any other thread's device work that must not overlap a
+capture or interleave with a step's replays and the reads of their
+outputs: the serving engine holds it across each step and admission,
+the correctness sentinel across each of its reference replays
+(``observability/sentinel.py``). A host thread that touches no CUDA
+tensor needs nothing.
 """
 from __future__ import annotations
 
 import itertools
+import threading
 import time
 import weakref
 from collections import Counter, OrderedDict
@@ -91,6 +102,10 @@ MAX_GRAPHS = 8
 WARMUP_RUNS = 2
 
 _NODES = (list, tuple, dict)
+
+#: held by every capture and by device work on other threads that must
+#: not overlap one (module docstring, "Threads")
+DEVICE_LOCK = threading.RLock()
 
 
 def flatten(tree):
@@ -385,13 +400,15 @@ class GraphedStep:
         memory in a warm-up or in the capture) keeps no graph, so nothing
         broken is ever replayed, and gives the launch counts back; the
         next call of the signature captures anew."""
-        before = Counter(_build.launches)
-        try:
-            return self._capture_new(sig, args, leaves, spec, device, before)
-        except BaseException:
-            _build.launches.clear()
-            _build.launches.update(before)
-            raise
+        with DEVICE_LOCK:
+            before = Counter(_build.launches)
+            try:
+                return self._capture_new(sig, args, leaves, spec, device,
+                                         before)
+            except BaseException:
+                _build.launches.clear()
+                _build.launches.update(before)
+                raise
 
     def _capture_new(self, sig, args, leaves, spec, device, before):
         t0 = time.perf_counter()

@@ -308,6 +308,11 @@ def get_cache() -> AutotuneCache:
         if not _ATEXIT_REGISTERED:
             _ATEXIT_REGISTERED = True
             atexit.register(flush_cache)
+        # incident bundles flush every tracked writer first: a crash in
+        # the middle of a search keeps the sweep's rows
+        from ...observability.snapshot import track_flushable
+
+        track_flushable(_cache)
     return _cache
 
 
@@ -417,12 +422,20 @@ def _measure(fn: Callable[[], Any], reps: int = 3) -> float:
 def _record_sweep(kernel: str, key: str, choice: Tuple[int, ...],
                   ms: float, measured: int, failed: int, pruned: int,
                   log: bool):
-    """The sweep's log line (the flight-recorder event is not ported)."""
+    """Audit one sweep: the log line and the ``autotune.sweep``
+    flight-recorder event."""
     if log:
         _logger().info(
             "autotune[%s] %s -> %s (%.3f ms; measured=%d failed=%d "
             "pruned=%d)", kernel, key, choice, ms, measured, failed,
             pruned)
+    from ...observability import flightrecorder as _frec
+
+    rec = _frec.get_recorder()
+    if rec.enabled:
+        rec.record(_frec.EV_AUTOTUNE_SWEEP, kernel=kernel, key=key,
+                   choice=list(choice), ms=round(ms, 4),
+                   measured=measured, failed=failed, pruned=pruned)
 
 
 def _end(kernel: str, stage: str, choice):

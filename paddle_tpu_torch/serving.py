@@ -48,11 +48,22 @@ engine.
 (``_resolve_spec_k``): the verify dispatch of each candidate width timed on
 a throwaway pool, then ranked by ms per expected retired token.
 
-Not ported: multimodal ``pixel_values``, ``preflight``, and the host-side serving subsystems: the
-flight recorder, tracing, the KV atlas, the step-anatomy clock, metrics
-(with the usage block and ``debug_state``), the correctness sentinel (a
-bundle's ``audit`` mark is carried as data), the deathnote and the chaos
-hooks; ``Seq2SeqBatchEngine`` neither.
+Observability (``paddle_tpu_torch/observability``, the JAX engine's hooks
+site for site): the catalog's metrics, the request spans (request, queue
+wait, prefill, sampled decode steps, prefix lookup, slot free), the flight
+recorder's events, the KV atlas fed from the host page accounting (never
+from a device page table), the step-anatomy clock (``profiler``), the
+per-request ``usage`` block (``request_usage``), ``debug_state`` and the
+correctness sentinel (``sentinel``). Every hook guards on one attribute
+(``enabled``) and costs nothing more while its subscriber is off, the
+default when the engine is driven from Python; none adds a device sync.
+The step and each admission hold ``cuda_graph.DEVICE_LOCK``, a host lock
+that keeps the sentinel's reference replays off the engine's captures and
+replays (``observability/sentinel.py``).
+
+Not ported: multimodal ``pixel_values``, ``preflight``, the deathnote and
+the chaos hooks (the sentinel's drill is ``FLAGS_perturb_decode_token``);
+``Seq2SeqBatchEngine`` neither.
 """
 from __future__ import annotations
 
@@ -70,8 +81,16 @@ from .framework.random import default_generator
 from .generation import (_cache_buffers, _get_prefill_step,
                          _get_select_decode, _get_select_decode_rows,
                          _get_spec_decode)
+from .jit.cuda_graph import DEVICE_LOCK
 from .models.llama import head_dim_of, torch_dtype
+from .observability import catalog as _metrics
+from .observability import flightrecorder as _frec
+from .observability import kvatlas as _kvatlas
+from .observability import perf as _perf
+from .observability import sentinel as _sentinel
+from .observability import tracing as _tracing
 from .speculative import ngram_propose
+from .utils import flags as _flags
 
 #: default priority class — lower value is MORE important (0 interactive,
 #: 1 default, 2+ batch traffic)
@@ -223,6 +242,12 @@ def _leaf_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _bundle_nbytes(bundle: dict) -> int:
+    """Host bytes of a bundle's per-layer K / V leaves (the bundle-size
+    histogram and the KV atlas's parked bytes)."""
+    return int(sum(k.nbytes + v.nbytes for k, v in bundle["layers"]))
+
+
 def _on_token_arity(on_token) -> int:
     """4 when the streaming callback takes the chosen-token logprob as a
     4th argument: four REQUIRED positional parameters, or ``*args``; else
@@ -245,7 +270,7 @@ class _Request:
                  "logprobs", "want_logprobs", "spec_rounds", "spec_accepted",
                  "t_enqueue", "t_admit", "t_last", "handoff", "priority",
                  "deadline", "resume", "n_preempted", "on_shed", "ext_id",
-                 "audit")
+                 "audit", "span", "queue_span", "dispatches")
 
     def __init__(self, rid, ids, max_new_tokens, sampling=None, on_token=None,
                  stop_token_ids=None, want_logprobs=False, priority=None,
@@ -281,8 +306,16 @@ class _Request:
         self.resume = None          # host KV bundle after a preemption
         self.n_preempted = 0
         self.on_shed = None         # callback (rid, info dict) or None
-        # the sentinel's mark, carried through migration as data only
+        # the sentinel's mark: None (unaudited), "shadow" (rate-sampled)
+        # or "ondemand" (X-Audit forced), carried through preemption and
+        # migration, consumed at retirement
         self.audit = None
+        # the request's root span and its queue-wait child (None while
+        # tracing is off)
+        self.span = None
+        self.queue_span = None
+        # decode dispatches this request rode (the usage block)
+        self.dispatches = 0
 
 
 class _ChunkState:
@@ -290,12 +323,14 @@ class _ChunkState:
     ``_alloc_slot``) but does not decode yet; ``pos`` tokens of its prompt
     are in the slot's pages, the rest lands one chunk per ``step()``."""
 
-    __slots__ = ("req", "slot", "pos")
+    __slots__ = ("req", "slot", "pos", "t_admit", "span")
 
-    def __init__(self, req: _Request, slot: int):
+    def __init__(self, req: _Request, slot: int, t_admit: float, span=None):
         self.req = req
         self.slot = slot
         self.pos = 0          # prompt tokens already prefilled (page-aligned)
+        self.t_admit = t_admit
+        self.span = span      # the serving.prefill span, open across chunks
 
 
 def spec_verify_params(cfg, max_batch: int) -> dict:
@@ -382,6 +417,20 @@ def _resolve_spec_k(model, max_batch: int, max_len: int,
     return best_k
 
 
+def _preflight_kv_bytes(cfg, max_batch: int, max_len: int) -> Optional[int]:
+    """The predicted pool footprint the KV atlas joins its measured
+    occupancy against (``analysis/graph/cost.py`` ``kv_cache_bytes`` of
+    the JAX package): layers x 2 (K+V) x kv heads x max_batch x max_len x
+    head_dim x itemsize; None for a config without those fields."""
+    try:
+        layers, hk = int(cfg.num_hidden_layers), int(cfg.num_key_value_heads)
+        d = int(head_dim_of(cfg))
+        item = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+    except (AttributeError, TypeError, ValueError, KeyError):
+        return None
+    return layers * 2 * hk * max_batch * max_len * d * item or None
+
+
 class ContinuousBatchEngine:
     """In-flight batching: ``add_request()`` any time, ``step()`` decodes one
     token for every active slot.
@@ -402,6 +451,10 @@ class ContinuousBatchEngine:
     a speculative dispatch: one verified token plus up to k-1 drafts from
     an n-gram lookup of length up to ``speculative_ngram``. Dispatches with
     a sampling slot active take the one-token step."""
+
+    # decode-step spans are sampled: a request's first token, then every
+    # Nth (a full-length request traces O(tokens / N) spans)
+    trace_decode_every = 16
 
     def __init__(self, model, max_batch: int, max_len: int,
                  page_size: int = 16, eos_token_id: Optional[int] = None,
@@ -525,6 +578,25 @@ class ContinuousBatchEngine:
         self._n_spec_steps = self._n_spec_emitted = 0
         self._n_spec_accepted = self._n_spec_slot_rounds = 0
         self.prefix_pages_reused = 0   # pages copied by prefix hits
+        # per-request usage, kept over the finish reasons' window
+        self._finished_usage: Dict[int, dict] = {}
+        self._bind_metrics(self._engine_label)
+        # the step-anatomy clock, the KV atlas and the correctness
+        # sentinel: constructed disabled (each hot site reads one
+        # ``enabled`` attribute); the HTTP server or a harness enables
+        self.profiler = _perf.StepProfiler(self._engine_label)
+        self.profiler.set_cost_params(
+            _perf.decode_step_params(cfg, max_batch))
+        self.kvatlas = _kvatlas.KvAtlas(
+            self._engine_label, max_batch=max_batch, page_size=page_size,
+            pages_per_slot=self._pages_per_slot,
+            bytes_per_token=_kvatlas.kv_bytes_per_token(cfg),
+            paged=not self._latent_mode,
+            preflight_bytes=_preflight_kv_bytes(cfg, max_batch, max_len))
+        self.sentinel = _sentinel.CorrectnessSentinel(self._engine_label,
+                                                      self)
+        # the reference replay reproduces this engine's decode
+        self.sentinel.auditable = True
         # overload estimators: the best admission -> first token ever seen
         # (the provably-unmeetable floor) and the EWMA gap between
         # finishes (the drain rate behind Retry-After)
@@ -538,7 +610,8 @@ class ContinuousBatchEngine:
                     temperature=None, top_k=None, top_p=None,
                     stop_token_ids=None, logprobs=False,
                     on_token=None, priority=None, slo_ms=None,
-                    on_shed=None, request_id=None) -> int:
+                    on_shed=None, request_id=None, trace_ctx=None,
+                    audit=None) -> int:
         """Queue one request (admitted at once when a slot is free).
         Sampling knobs default to the engine's; any override routes decoding
         through the per-row program. ``stop_token_ids`` retires the request
@@ -552,18 +625,26 @@ class ContinuousBatchEngine:
         (``on_shed(rid, info)``), and ``slo_ms <= 0`` raises
         :class:`DeadlineExceeded`. With ``max_queue`` a request that would
         wait behind a full queue raises :class:`QueueFull`, unless a less
-        important queued request can be shed for it. The keywords are the
-        JAX engine's."""
+        important queued request can be shed for it. ``trace_ctx``, an
+        inbound ``(trace_id, parent_span_id)`` (the HTTP layer's W3C
+        ``traceparent``), parents the request's root span. ``audit``
+        drives the correctness sentinel: True forces an on-demand audit
+        (its verdict waitable through ``sentinel.wait_verdict``), False
+        opts out, None leaves it to the sentinel's sampling rate. The
+        keywords are the JAX engine's."""
         self._gate(priority, slo_ms)
         ids = np.asarray(ids.cpu() if isinstance(ids, torch.Tensor)
                          else ids).reshape(-1)
         self._require_fit(ids.size, int(max_new_tokens))
         sampling = self._request_sampling(do_sample, temperature, top_k,
                                           top_p)
-        return self._enqueue(_Request(
+        rid = self._enqueue(_Request(
             -1, ids, max_new_tokens, sampling, on_token,
             stop_token_ids, logprobs, priority=priority, slo_ms=slo_ms,
-            request_id=request_id), on_shed)
+            request_id=request_id), on_shed, trace_ctx=trace_ctx,
+            audit=audit)
+        self._admit()
+        return rid
 
     def finish_reason(self, rid: int):
         """"stop" | "length" | "cancelled" | "shed" | "migrated" once
@@ -580,7 +661,12 @@ class ContinuousBatchEngine:
         return sum(r is not None for r in self._slots)
 
     def stats(self) -> dict:
+        """Lifetime counters and current occupancy (the front-end's
+        /health payload), host values only. Reading it also refreshes the
+        occupancy gauges, so /health and /metrics see one snapshot."""
         active = self.num_active
+        self._m_active.set(active)
+        self._m_depth.set(len(self._queue))
         return {
             "requests_admitted": self._n_requests,
             "requests_finished": self._n_finished,
@@ -611,27 +697,87 @@ class ContinuousBatchEngine:
             "accepted_tokens_per_dispatch": (
                 self._n_spec_emitted / self._n_spec_slot_rounds
                 if self._n_spec_slot_rounds else 0.0),
+            # the step-anatomy, KV-atlas and sentinel scalars (zeros until
+            # enabled and fed)
+            **self.profiler.federated(),
+            **self.kvatlas.federated(),
+            **self.sentinel.federated(),
         }
+
+    def debug_state(self) -> dict:
+        """Host-side engine state for incident bundles and /debug/dump:
+        the slot table, the queue, the chunked admissions and the
+        ``stats()`` snapshot."""
+        slots = []
+        for s, r in enumerate(self._slots):
+            if r is None:
+                slots.append(None)
+                continue
+            row = {"rid": r.rid, "prompt_tokens": int(r.ids.size),
+                   "generated": len(r.tokens),
+                   "max_new_tokens": r.max_new_tokens, "slot": s,
+                   "priority": r.priority}
+            row.update(self.kvatlas.slot_info(
+                s, int(r.ids.size) + len(r.tokens)))
+            slots.append(row)
+        return {
+            "engine": self._engine_label,
+            "max_batch": self.max_batch,
+            "max_active_slots": self.max_active_slots,
+            "slots": slots,
+            "queue": [r.rid for r in self._queue],
+            "prefilling": {
+                s: {"rid": st.req.rid, "pos": st.pos,
+                    "prompt_tokens": int(st.req.ids.size)}
+                for s, st in self._chunking.items()},
+            "poisoned": bool(self._poisoned),
+            "prefix_pages_reused": self.prefix_pages_reused,
+            "stats": self.stats(),
+        }
+
+    def request_usage(self, rid: int) -> Optional[dict]:
+        """The usage block of a finished request (token counts, queue and
+        compute ms, dispatches ridden); None while in flight or once out
+        of the retention window."""
+        return self._finished_usage.get(rid)
 
     def cancel(self, rid: int) -> bool:
         """Drop a queued request, free an active one's slot, or release a
         slot reserved mid chunked prefill; True if it was live."""
+        rec = _frec.RECORDER
         for i, req in enumerate(self._queue):
             if req.rid == rid:
                 del self._queue[i]
+                if self.kvatlas.enabled:
+                    self.kvatlas.unpark(rid)   # a preempted request dies
+                if rec.enabled:
+                    rec.record(_frec.EV_CANCEL, rid=rid,
+                               engine=self._engine_label, where="queued")
                 self._record_reason(rid, "cancelled")
+                self._trace_end(req, "cancelled")
                 return True
         for s, req in enumerate(self._slots):
             if req is not None and req.rid == rid:
                 self._release_slot(s)
+                if rec.enabled:
+                    rec.record(_frec.EV_CANCEL, rid=rid,
+                               engine=self._engine_label, where="active")
                 self._record_reason(rid, "cancelled")
+                self._trace_end(req, "cancelled")
                 self._admit()
                 return True
         for s, st in list(self._chunking.items()):
             if st.req.rid == rid:
                 del self._chunking[s]
                 self._release_slot(s)
+                if st.span is not None:
+                    st.span.end("cancelled")
+                if rec.enabled:
+                    rec.record(_frec.EV_CANCEL, rid=rid,
+                               engine=self._engine_label,
+                               where="prefilling")
                 self._record_reason(rid, "cancelled")
+                self._trace_end(st.req, "cancelled")
                 self._admit()
                 return True
         return False
@@ -640,10 +786,24 @@ class ContinuousBatchEngine:
         """Admit, advance at most one prefill chunk, then decode one token
         for every active slot; returns the requests that finished {rid:
         generated ids}. The final chunk's logits row is consumed by the
-        same step's decode."""
+        same step's decode. Holds ``DEVICE_LOCK`` throughout."""
+        with DEVICE_LOCK:
+            return self._step()
+
+    def _step(self) -> Dict[int, np.ndarray]:
         self._check_poisoned()
+        # the step-anatomy clock: one attribute read while profiling is
+        # off; its laps read the host clock and never wait on the card
+        prof = self.profiler
+        clk = prof.clock if prof.enabled else None
+        if clk is not None:
+            clk.begin()
         self._admit()
+        if clk is not None:
+            clk.lap("admit")
         self._advance_chunk()
+        if clk is not None:
+            clk.lap("prefill")
         if self.num_active == 0:
             return self._drain_finished()
         # reserved (mid-chunk) slots hold their length at the chunk
@@ -652,41 +812,59 @@ class ContinuousBatchEngine:
         # it inside the prefix that chunk gathers)
         self._lengths_dev.copy_(torch.from_numpy(self._lengths))
         if self.speculative_k is not None and self._spec_eligible():
-            return self._step_speculative()
+            return self._step_speculative(clk)
+        t_dispatch = time.perf_counter()
         try:
-            if any(r is not None and r.sampling is not None
-                   for r in self._slots):
-                rows = [(r.sampling or self._sample_cfg) if r is not None
-                        else self._sample_cfg for r in self._slots]
-                dev = self.device
-                step = _get_select_decode_rows(self.model, self.max_len)
-                nxt, logps, last, _ = step(
-                    self._last, self._generator,
-                    torch.tensor([r[0] for r in rows], dtype=torch.bool,
-                                 device=dev),
-                    torch.tensor([r[1] for r in rows], dtype=torch.float32,
-                                 device=dev),
-                    torch.tensor([r[2] for r in rows], dtype=torch.int32,
-                                 device=dev),
-                    torch.tensor([r[3] for r in rows], dtype=torch.float32,
-                                 device=dev),
-                    self._caches)
-            else:
-                step = _get_select_decode(self.model, self.max_len,
-                                          *self._sample_cfg)
-                nxt, logps, last, _ = step(self._last, self._generator,
-                                           self._caches)
+            with _frec.incident_scope("engine.step"):
+                if any(r is not None and r.sampling is not None
+                       for r in self._slots):
+                    rows = [(r.sampling or self._sample_cfg)
+                            if r is not None else self._sample_cfg
+                            for r in self._slots]
+                    dev = self.device
+                    step = _get_select_decode_rows(self.model, self.max_len)
+                    nxt, logps, last, _ = step(
+                        self._last, self._generator,
+                        torch.tensor([r[0] for r in rows], dtype=torch.bool,
+                                     device=dev),
+                        torch.tensor([r[1] for r in rows],
+                                     dtype=torch.float32, device=dev),
+                        torch.tensor([r[2] for r in rows], dtype=torch.int32,
+                                     device=dev),
+                        torch.tensor([r[3] for r in rows],
+                                     dtype=torch.float32, device=dev),
+                        self._caches)
+                else:
+                    step = _get_select_decode(self.model, self.max_len,
+                                              *self._sample_cfg)
+                    nxt, logps, last, _ = step(self._last, self._generator,
+                                               self._caches)
         except torch.cuda.OutOfMemoryError as e:
             # shed the most recently admitted slot and shrink the budget;
             # its throwaway KV writes sit above every frontier
             self._degrade_on_oom(None, where="step", exc=e)
             return self._drain_finished()
         self._keep_last(last)
+        if clk is not None:
+            clk.lap("dispatch")
         # the one device -> host sync of the step
         toks = nxt.cpu().numpy()[:, None]
         lps = logps.cpu().numpy()[:, None]
+        if clk is not None:
+            clk.lap("sync")
+        toks = self._perturb_drill(toks)
+        now = time.perf_counter()
+        self._m_step.observe(now - t_dispatch)
         self._n_steps += 1
-        return self._commit(toks, np.ones(self.max_batch, np.int64), lps)
+        fr_seq = 0
+        rec = _frec.RECORDER
+        if rec.enabled:
+            # one event per dispatch, not per token
+            fr_seq = rec.record(_frec.EV_STEP, engine=self._engine_label,
+                                active=self.num_active,
+                                seconds=now - t_dispatch)
+        return self._commit(toks, np.ones(self.max_batch, np.int64), lps,
+                            t_dispatch, now, clk, fr_seq)
 
     def run_until_done(self, max_steps: Optional[int] = None
                        ) -> Dict[int, np.ndarray]:
@@ -718,9 +896,11 @@ class ContinuousBatchEngine:
                 f"prompt ({ids.size}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds engine max_len {self.max_len}")
         req = _Request(-1, ids, max_new_tokens)
-        last, caches, S0, bucket = self._bucketed_prefill(req)
-        layers = [(_host_leaf(c["k"][0]), _host_leaf(c["v"][0]))
-                  for c in caches]
+        with DEVICE_LOCK:
+            last, caches, S0, bucket = self._bucketed_prefill(req)
+            layers = [(_host_leaf(c["k"][0]), _host_leaf(c["v"][0]))
+                      for c in caches]
+            last = _host_leaf(last[0].float())
         return seal_bundle({
             "kind": "prefill",
             "ids": np.asarray(ids, np.int64),
@@ -728,14 +908,15 @@ class ContinuousBatchEngine:
             "bucket": int(bucket),
             "page_size": int(self.page_size),
             "layers": layers,
-            "last": _host_leaf(last[0].float()),
+            "last": last,
         })
 
     def admit_prefilled(self, handoff: dict, max_new_tokens: int = 64,
                         do_sample=None, temperature=None, top_k=None,
                         top_p=None, on_token=None, stop_token_ids=None,
                         logprobs=False, priority=None, slo_ms=None,
-                        on_shed=None, request_id=None) -> int:
+                        on_shed=None, request_id=None,
+                        trace_ctx=None) -> int:
         """Queue a request whose prefill ran on a peer engine
         (``export_prefill`` over the same weights): admission copies the
         bundle's K / V into the slot's pages and decoding starts from the
@@ -763,13 +944,16 @@ class ContinuousBatchEngine:
                        on_token, stop_token_ids, logprobs, priority=priority,
                        slo_ms=slo_ms, request_id=request_id)
         req.handoff = handoff
-        return self._enqueue(req, on_shed)
+        rid = self._enqueue(req, on_shed, trace_ctx=trace_ctx, audit=False)
+        self._admit()
+        return rid
 
     def _admit_handoff(self, slot: int, req: _Request):
         """Admission from a handoff bundle: the shipped buffers go to the
         card, then through the same page write as a local prefill; no
         model forward runs."""
         h, req.handoff = req.handoff, None
+        self._m_bundle["handoff"].observe(float(_bundle_nbytes(h)))
         self._write_bundle(slot, h, "handoff admission")
         self._lengths[slot] = int(h["prompt_tokens"])
 
@@ -794,7 +978,8 @@ class ContinuousBatchEngine:
                 "prefilling, finished or unknown) — only active slots "
                 "migrate; re-place queued requests from scratch")
         req = self._slots[slot]
-        kv = self._slot_kv_bundle(slot, req)
+        with DEVICE_LOCK:
+            kv = self._slot_kv_bundle(slot, req)
         now = time.perf_counter()
         bundle = seal_bundle({
             "kind": "migrate",
@@ -817,15 +1002,25 @@ class ContinuousBatchEngine:
             "layers": kv["layers"],
             "last": kv["last"],
         })
+        nbytes = _bundle_nbytes(kv)
         self._release_slot(slot)
+        self._m_bundle["migrate"].observe(float(nbytes))
         self._n_migrated_out += 1
+        self._m_sched["migrate_out"].inc()
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_SCHED_MIGRATE_OUT, rid=rid,
+                       engine=self._engine_label, slot=slot,
+                       kv_len=int(kv["kv_len"]),
+                       generated=len(req.tokens), bytes=nbytes)
         self._record_reason(rid, "migrated")
+        self._trace_end(req, "migrated")
         req.slot = -1
         self._admit()     # the freed slot can refill at once
         return bundle
 
     def admit_migrated(self, handoff: dict, on_token=None,
-                       on_shed=None) -> int:
+                       on_shed=None, trace_ctx=None) -> int:
         """Admit a mid-stream request exported by a peer's
         :meth:`export_slot`: the KV restores through the preemption-restore
         path and decoding resumes where the source stopped. The decode-side
@@ -872,14 +1067,26 @@ class ContinuousBatchEngine:
                                else None))
         req.tokens = tokens
         req.logprobs = [float(x) for x in handoff.get("logprobs") or []]
-        if handoff.get("audit") in ("shadow", "ondemand"):
-            req.audit = handoff["audit"]
         # the restore path takes it: no model forward runs
         req.resume = seal_bundle({
             "bucket": bucket, "kv_len": kv_len,
             "layers": handoff["layers"], "last": handoff["last"]})
+        # the sentinel's mark rides the bundle: a migrated-in stream
+        # finishes here, so the audit obligation lands on this engine
+        rid = self._enqueue(req, on_shed, trace_ctx=trace_ctx,
+                            carried_audit=handoff.get("audit"))
+        if self.kvatlas.enabled:
+            # parked host-side until the restore consumes it
+            self.kvatlas.park(rid, _bundle_nbytes(handoff))
         self._n_migrated_in += 1
-        return self._enqueue(req, on_shed)
+        self._m_sched["migrate_in"].inc()
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_SCHED_MIGRATE_IN, rid=rid,
+                       engine=self._engine_label, generated=len(tokens),
+                       kv_len=kv_len, prompt_tokens=int(ids.size))
+        self._admit()
+        return rid
 
     # ---- speculative decoding -------------------------------------------
     def _spec_eligible(self) -> bool:
@@ -894,13 +1101,15 @@ class ContinuousBatchEngine:
                 return False
         return True
 
-    def _step_speculative(self) -> Dict[int, np.ndarray]:
+    def _step_speculative(self, clk=None) -> Dict[int, np.ndarray]:
         """One multi-token step: drafts from each slot's history, one verify
         call, and each slot's accepted run committed (``_commit``).
         Reserved slots hold their length, so the k throwaway tokens written
         for them park where the next chunk lands."""
         k = self.speculative_k
+        t_dispatch = time.perf_counter()
         drafts = np.zeros((self.max_batch, k - 1), np.int32)
+        n_drafted = 0
         for s, r in enumerate(self._slots):
             if r is None or k == 1:
                 continue
@@ -911,45 +1120,90 @@ class ContinuousBatchEngine:
             prop = ngram_propose(hist, k, self.speculative_ngram)
             if prop.size > 1:
                 drafts[s, :prop.size - 1] = prop[1:]
+                n_drafted += int(prop.size - 1)
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_SPEC_PROPOSE, engine=self._engine_label,
+                       active=self.num_active, k=k, drafted=n_drafted)
+        if clk is not None:
+            clk.lap("draft")
         try:
-            step = _get_spec_decode(self.model, self.max_len, k)
-            emitted, n_emit, logps, last, _ = step(
-                self._last, torch.from_numpy(drafts).to(self.device),
-                self._caches)
+            with _frec.incident_scope("engine.step"):
+                step = _get_spec_decode(self.model, self.max_len, k)
+                emitted, n_emit, logps, last, _ = step(
+                    self._last, torch.from_numpy(drafts).to(self.device),
+                    self._caches)
         except torch.cuda.OutOfMemoryError as e:
             self._degrade_on_oom(None, where="step", exc=e)
             return self._drain_finished()
         self._keep_last(last)
+        if clk is not None:
+            clk.lap("dispatch")
         # the one device -> host sync of the step
         toks = emitted.cpu().numpy()
         n_row = n_emit.cpu().numpy()
         lps = logps.cpu().numpy()
+        if clk is not None:
+            clk.lap("sync")
+        toks = self._perturb_drill(toks)
+        now = time.perf_counter()
+        self._m_step.observe(now - t_dispatch)
         self._n_steps += 1
         self._n_spec_steps += 1
-        before = [(r, len(r.tokens)) for r in self._slots if r is not None]
-        out = self._commit(toks, n_row, lps)
-        for req, n0 in before:
-            got = len(req.tokens) - n0
-            req.spec_rounds += 1
-            req.spec_accepted += got - 1
-            self._n_spec_accepted += got - 1
-            self._n_spec_emitted += got
-            self._n_spec_slot_rounds += 1
-        return out
+        fr_seq = 0
+        if rec.enabled:
+            fr_seq = rec.record(_frec.EV_STEP, engine=self._engine_label,
+                                active=self.num_active,
+                                seconds=now - t_dispatch)
+            rec.record(_frec.EV_SPEC_VERIFY, engine=self._engine_label,
+                       active=self.num_active, k=k,
+                       seconds=now - t_dispatch)
+        return self._commit(toks, n_row, lps, t_dispatch, now, clk, fr_seq,
+                            spec_k=k)
 
-    def _commit(self, toks, n_emit, lps) -> Dict[int, np.ndarray]:
+    def _perturb_drill(self, toks):
+        """``FLAGS_perturb_decode_token`` (the sentinel's drill, as this
+        thread sees it): the first active slot's first emitted token
+        becomes (token + 1) mod vocab, skipping eos, after the host copy.
+        The device state keeps the model's own token, so only the
+        reported stream leaves the reference."""
+        if not _flags.flag("FLAGS_perturb_decode_token"):
+            return toks
+        s0 = next((s for s, r in enumerate(self._slots) if r is not None),
+                  None)
+        if s0 is None:
+            return toks
+        vocab = int(self.model.config.vocab_size)
+        t_new = (int(toks[s0, 0]) + 1) % vocab
+        if self.eos_token_id is not None and t_new == int(self.eos_token_id):
+            t_new = (t_new + 1) % vocab
+        toks = toks.copy()
+        toks[s0, 0] = t_new
+        return toks
+
+    def _commit(self, toks, n_emit, lps, t_dispatch: float, now: float,
+                clk=None, fr_seq: int = 0,
+                spec_k: Optional[int] = None) -> Dict[int, np.ndarray]:
         """Hand each active slot s its emitted run toks[s, :n_emit[s]]
         (logprobs lps[s, j]), cut at the request's stop condition (eos,
         stop set, token budget); retire finished requests, advance the
         others' lengths by what they took (reserved slots hold theirs),
-        stream, then refill the slots. Returns the requests that finished
-        {rid: generated ids}."""
+        stream, then refill the slots. ``spec_k``: a speculative
+        dispatch's width (its acceptance accounting). Returns the requests
+        that finished {rid: generated ids}."""
         retiring, events = [], []
         adv = np.zeros(self.max_batch, np.int32)
-        now = time.perf_counter()
+        # span bounds from the timestamps the step metric already took
+        trace_on = _tracing.get_tracer().enabled
+        t0_ns, t1_ns = ((int(t_dispatch * 1e9), int(now * 1e9))
+                        if trace_on else (0, 0))
+        at = self.kvatlas
+        at_on = at.enabled
+        accepted_total = emitted_total = slot_rounds = 0
         for s, req in enumerate(self._slots):
             if req is None:
                 continue
+            req.dispatches += 1
             deliver, stopped = [], False
             for j in range(int(n_emit[s])):
                 t = int(toks[s, j])
@@ -966,6 +1220,19 @@ class ContinuousBatchEngine:
                 if req.want_logprobs:
                     req.logprobs.append(float(lps[s, j]))
                 self._observe_token(req, now)
+            if at_on and deliver:
+                # the ledger's frontier: delivered tokens only
+                at.advance(s, len(deliver))
+            if spec_k is not None:
+                got = len(deliver) - 1
+                req.spec_rounds += 1
+                req.spec_accepted += got
+                accepted_total += got
+                emitted_total += len(deliver)
+                slot_rounds += 1
+                self._m_spec_accept.observe(got)
+            if trace_on:
+                self._trace_decode_step(req, t0_ns, t1_ns)
             finished = stopped or len(req.tokens) >= req.max_new_tokens
             if finished:
                 self._record_reason(
@@ -979,12 +1246,24 @@ class ContinuousBatchEngine:
                     events.append((req.on_token, req.on_token_arity, req.rid,
                                    t, float(lps[s, j]),
                                    finished and j == len(deliver) - 1))
+        if spec_k is not None:
+            self._n_spec_emitted += emitted_total
+            self._n_spec_accepted += accepted_total
+            self._n_spec_slot_rounds += slot_rounds
+            rec = _frec.RECORDER
+            if rec.enabled:
+                proposed = max(slot_rounds * (spec_k - 1), 1)
+                rec.record(_frec.EV_SPEC_ACCEPT, engine=self._engine_label,
+                           accepted=accepted_total, emitted=emitted_total,
+                           rate=accepted_total / proposed)
+        active = int(sum(r is not None for r in self._slots))
         self._lengths = (self._lengths + adv).astype(np.int32)
         for s in retiring:
             req = self._slots[s]
             self._finished[req.rid] = np.asarray(req.tokens, np.int64)
             self._count_finished(req)
             self._release_slot(s)
+            self._trace_end(req, "ok")
         # stream after the state is consistent: every callback fires, the
         # first exception then propagates
         first_exc = None
@@ -999,7 +1278,17 @@ class ContinuousBatchEngine:
                     first_exc = e
         if first_exc is not None:
             raise first_exc
+        if clk is not None:
+            clk.lap("retire")
         self._admit()
+        if clk is not None:
+            clk.lap("admit")   # the trailing refill adds to admit
+            self.profiler.commit(
+                active=active,
+                kv_len=max((int(r.ids.size) + len(r.tokens)
+                            for r in self._slots if r is not None),
+                           default=0),
+                fr_seq=fr_seq)
         return self._drain_finished()
 
     # ---- bookkeeping ----------------------------------------------------
@@ -1008,22 +1297,64 @@ class ContinuousBatchEngine:
         raises :class:`DeadlineExceeded` (counted as a shed), a full queue
         :class:`QueueFull` (``_check_queue_bound``)."""
         if slo_ms is not None and float(slo_ms) <= 0:
-            self._count_deadline_reject()
+            self._count_deadline_reject(float(slo_ms))
             raise DeadlineExceeded(self._engine_label,
                                    miss_ms=-float(slo_ms))
         self._check_queue_bound(
             priority=PRIORITY_DEFAULT if priority is None else int(priority))
 
-    def _enqueue(self, req: _Request, on_shed) -> int:
-        """Give a built request the next rid, count it, queue it, and admit
-        what fits."""
+    def _enqueue(self, req: _Request, on_shed, trace_ctx=None, audit=None,
+                 carried_audit=None) -> int:
+        """Give a built request the next rid, count it, mark its audit
+        (``audit`` as ``add_request`` takes it, or the mark a migration
+        bundle carried), open its spans and queue it; the caller admits."""
         req.rid = self._next_rid
         self._next_rid += 1
         self._n_requests += 1
+        self._m_req_admitted.inc()
         req.on_shed = on_shed
+        if carried_audit is not None:
+            self._carry_audit(req, carried_audit)
+        else:
+            self._mark_audit(req, audit)
+        self._trace_submit(req, trace_ctx)
         self._queue.append(req)
-        self._admit()
+        self._fr_submit(req)
         return req.rid
+
+    def _mark_audit(self, req: _Request, audit):
+        """Admission-time sentinel decision (``serving.py:1267``): mark
+        the request for a shadow (rate-sampled) or on-demand (forced)
+        audit. Only effectively greedy requests are auditable (the
+        reference replay is greedy); a forced audit of a sampled one
+        records a typed ``skipped`` verdict. Audited requests keep their
+        logprobs, so the verdict carries the drift."""
+        sn = self.sentinel
+        if audit is False or not sn.enabled:
+            return
+        forced = bool(audit)
+        if not forced and not sn.should_sample():
+            return
+        if not sn.auditable or (req.sampling or self._sample_cfg)[0]:
+            if forced:
+                sn.register_forced(req.rid)
+                sn.skip(req.rid, "unsupported" if not sn.auditable
+                        else "sampling", "ondemand", req.ext_id)
+            return
+        req.audit = "ondemand" if forced else "shadow"
+        req.want_logprobs = True
+        if forced:
+            sn.register_forced(req.rid)
+
+    def _carry_audit(self, req: _Request, mark):
+        """A migration bundle's sentinel mark, taken when this engine's
+        sentinel is on."""
+        sn = self.sentinel
+        if mark in ("shadow", "ondemand") and sn.enabled and sn.auditable:
+            req.audit = mark
+            req.want_logprobs = True
+            if mark == "ondemand":
+                sn.register_forced(req.rid)
 
     def _request_sampling(self, do_sample, temperature, top_k, top_p):
         """A submission's sampling overrides, checked, over the engine's."""
@@ -1084,29 +1415,203 @@ class ContinuousBatchEngine:
         return req
 
     def _count_finished(self, req: _Request):
-        """Retirement accounting: the counter plus, for a request that
+        """Retirement accounting: the counter, the usage block, the
+        sentinel's hand-off of an audited request and, for a request that
         carried an ``slo_ms``, whether it retired inside it."""
         self._n_finished += 1
+        self._m_req_finished.inc()
+        self._record_usage(req)
+        sn = self.sentinel
+        if sn.enabled and req.audit is not None:
+            # a snapshot and an enqueue; the replay runs on the worker
+            sn.on_finish(req, self._finished_reason.get(req.rid))
         if req.deadline != math.inf:
             if time.perf_counter() <= req.deadline:
                 self._n_slo_good += 1
+                self._m_slo_good.inc()
             else:
                 self._n_slo_late += 1
+                self._m_slo_late.inc()
+
+    def _record_usage(self, req: _Request):
+        """The usage block at retirement: token counts, queue and compute
+        milliseconds, dispatches ridden."""
+        now = time.perf_counter()
+        t_admit = req.t_admit if req.t_admit is not None else now
+        done = req.t_last if req.t_last is not None else now
+        n_disp, n_tok = req.dispatches, len(req.tokens)
+        self._finished_usage[req.rid] = {
+            "prompt_tokens": int(req.ids.size),
+            "completion_tokens": n_tok,
+            "queue_ms": max(0.0, (t_admit - req.t_enqueue) * 1e3),
+            "compute_ms": max(0.0, (done - t_admit) * 1e3),
+            "dispatches": n_disp,
+            "accepted_tokens_per_dispatch": (n_tok / n_disp
+                                             if n_disp else 0.0),
+        }
+
+    def _observe_admission(self, req: _Request, now: float):
+        """Queue-wait accounting as a request takes a slot, under its root
+        span (the histogram's exemplar)."""
+        with _tracing.get_tracer().use(req.span):
+            self._m_queue_wait.observe(now - req.t_enqueue)
+        req.t_admit = now
 
     def _observe_token(self, req: _Request, now: float):
-        """Per-token accounting (after the append): the first token's
-        admission -> token time lowers the service floor."""
-        if len(req.tokens) == 1 and req.t_admit is not None:
-            x = now - req.t_admit
-            f = self._ttft_admit_floor
-            self._ttft_admit_floor = x if f is None else min(f, x)
-            self._ttft_admit_n += 1
+        """Per-token accounting (after the append), under the request's
+        root span: the first token is TTFT and lowers the service floor
+        (admission -> first token), later ones the inter-token gap."""
+        with _tracing.get_tracer().use(req.span):
+            if len(req.tokens) == 1:
+                self._m_ttft.observe(now - req.t_enqueue)
+                if req.t_admit is not None:
+                    x = now - req.t_admit
+                    f = self._ttft_admit_floor
+                    self._ttft_admit_floor = x if f is None else min(f, x)
+                    self._ttft_admit_n += 1
+            elif req.t_last is not None:
+                self._m_inter.observe(now - req.t_last)
         req.t_last = now
         self._n_tokens += 1
+        self._m_tokens.inc()
+
+    # ---- metrics, flight recorder and spans (``serving.py:334-679``) -----
+    def _bind_metrics(self, engine: str):
+        """The catalog's children, bound once (no label lookups on the
+        decode path)."""
+        M = _metrics
+        self._m_queue_wait = M.SERVING_QUEUE_WAIT.labels(engine=engine)
+        self._m_ttft = M.SERVING_TTFT.labels(engine=engine)
+        self._m_inter = M.SERVING_INTER_TOKEN.labels(engine=engine)
+        self._m_prefill = M.SERVING_PREFILL.labels(engine=engine)
+        self._m_step = M.SERVING_DECODE_STEP.labels(engine=engine)
+        self._m_tokens = M.SERVING_TOKENS.labels(engine=engine)
+        req = {ev: M.SERVING_REQUESTS.labels(engine=engine, event=ev)
+               for ev in ("admitted", "finished", "cancelled", "rejected",
+                          "shed")}
+        self._m_req_admitted = req["admitted"]
+        self._m_req_finished = req["finished"]
+        self._m_req_cancelled = req["cancelled"]
+        self._m_req_rejected = req["rejected"]
+        self._m_req_shed = req["shed"]
+        self._m_slo_good = M.SERVING_SLO_OUTCOMES.labels(engine=engine,
+                                                         outcome="good")
+        self._m_slo_late = M.SERVING_SLO_OUTCOMES.labels(engine=engine,
+                                                         outcome="late")
+        self._m_deadline = M.SERVING_DEADLINE_MISSES.labels(engine=engine)
+        self._m_sched_shed = M.SERVING_SCHED.labels(engine=engine,
+                                                    decision="shed")
+        self._m_active = M.SERVING_ACTIVE_SLOTS.labels(engine=engine)
+        self._m_depth = M.SERVING_QUEUE_DEPTH.labels(engine=engine)
+        self._m_bundle = {
+            k: M.SERVING_BUNDLE_BYTES.labels(engine=engine, kind=k)
+            for k in ("preempt", "migrate", "handoff")}
+        self._m_sched = {
+            d: M.SERVING_SCHED.labels(engine=engine, decision=d)
+            for d in ("chunk", "preempt", "restore", "migrate_out",
+                      "migrate_in", "degrade")}
+        self._m_spec_accept = M.SERVING_SPEC_ACCEPTED.labels(engine=engine)
+        self._m_prefix_hit = M.SERVING_PREFIX_LOOKUPS.labels(engine=engine,
+                                                             result="hit")
+        self._m_prefix_miss = M.SERVING_PREFIX_LOOKUPS.labels(engine=engine,
+                                                              result="miss")
+        self._m_prefix_pages = M.SERVING_PREFIX_PAGES.labels(engine=engine)
+
+    def _fr_submit(self, req: _Request):
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_SUBMIT, rid=req.rid,
+                       engine=self._engine_label,
+                       prompt_tokens=int(req.ids.size),
+                       max_new_tokens=req.max_new_tokens,
+                       queue_depth=len(self._queue))
+
+    def _fr_page_pressure(self):
+        """Page-pool pressure after an admission, from the host lengths
+        (never a device array)."""
+        rec = _frec.RECORDER
+        if not rec.enabled:
+            return
+        ps = self.page_size
+        used = sum(-(-(int(r.ids.size) + len(r.tokens)) // ps)
+                   for r in self._slots if r is not None)
+        rec.record(_frec.EV_PAGE_PRESSURE, engine=self._engine_label,
+                   pages_used=used,
+                   pages_total=self.max_batch * self._pages_per_slot,
+                   free_slots=self._slots.count(None))
+
+    def _trace_submit(self, req: _Request, trace_ctx=None):
+        """The request's root span and its queue-wait child, continuing an
+        inbound ``(trace_id, parent_span_id)``; nothing while tracing is
+        off."""
+        tracer = _tracing.get_tracer()
+        if not tracer.enabled:
+            return
+        trace_id, parent_id = trace_ctx if trace_ctx else (None, None)
+        req.span = tracer.start_span(
+            _tracing.SPAN_REQUEST, trace_id=trace_id, parent_id=parent_id,
+            attrs={"rid": req.rid, "engine": self._engine_label,
+                   "prompt_tokens": int(req.ids.size),
+                   "max_new_tokens": req.max_new_tokens})
+        req.queue_span = tracer.start_span(_tracing.SPAN_QUEUE_WAIT,
+                                           parent=req.span)
+
+    def _trace_admit(self, req: _Request, slot: int):
+        """The admit event; the queue-wait child ends as the request takes
+        a slot, and the slot lands on the root span."""
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_ADMIT, rid=req.rid,
+                       engine=self._engine_label, slot=slot,
+                       queue_wait_s=(req.t_admit - req.t_enqueue
+                                     if req.t_admit is not None else None),
+                       free_slots=(self._slots.count(None)
+                                   - len(self._chunking)))
+        if req.queue_span is not None:
+            req.queue_span.end()
+            req.queue_span = None
+        if req.span is not None:
+            req.span.set_attr("slot", slot)
+
+    def _trace_decode_step(self, req: _Request, start_ns: int, end_ns: int):
+        """The dispatch as a sampled child span of the request."""
+        n = len(req.tokens)
+        if req.span is not None and (n == 1
+                                     or n % self.trace_decode_every == 0):
+            _tracing.get_tracer().add_span(
+                _tracing.SPAN_DECODE_STEP, start_ns, end_ns,
+                parent=req.span, attrs={"token_index": n})
+
+    def _trace_end(self, req: _Request, status: str):
+        """The slot-free event, an open queue-wait child ended, an instant
+        slot-free span when it held a slot, then the root."""
+        rec = _frec.RECORDER
+        if rec.enabled and req.slot >= 0:
+            rec.record(_frec.EV_SLOT_FREE, rid=req.rid,
+                       engine=self._engine_label, slot=req.slot,
+                       status=status, generated=len(req.tokens))
+        if req.queue_span is not None:
+            req.queue_span.end(status)
+            req.queue_span = None
+        span = req.span
+        if span is None:
+            return
+        req.span = None
+        if req.slot >= 0:
+            now = time.perf_counter_ns()
+            _tracing.get_tracer().add_span(
+                _tracing.SPAN_SLOT_FREE, now, now, parent=span,
+                attrs={"slot": req.slot})
+        span.set_attr("generated_tokens", len(req.tokens))
+        if req.spec_rounds:
+            span.set_attr("spec_rounds", req.spec_rounds)
+            span.set_attr("spec_accepted_tokens", req.spec_accepted)
+        span.end(status)
 
     def _record_reason(self, rid, reason, logprobs=None):
         if reason == "cancelled":
             self._n_cancelled += 1
+            self._m_req_cancelled.inc()
         elif reason in ("stop", "length"):
             # drain rate: EWMA of the gap between finishes
             now = time.perf_counter()
@@ -1124,6 +1629,7 @@ class ContinuousBatchEngine:
             old = self._reason_order.popleft()
             self._finished_reason.pop(old, None)
             self._finished_logprobs.pop(old, None)
+            self._finished_usage.pop(old, None)
 
     def _drain_finished(self):
         done, self._finished = self._finished, {}
@@ -1137,8 +1643,12 @@ class ContinuousBatchEngine:
         return -1
 
     def _release_slot(self, s: int) -> None:
+        """Slot teardown in one place: the request binding, the length,
+        and the slot's pages back to the KV atlas."""
         self._slots[s] = None
         self._lengths[s] = 0
+        if self.kvatlas.enabled:
+            self.kvatlas.free_slot(s)
 
     def _bucket(self, n: int) -> int:
         """Prompt-length bucket: next power of two times the page size,
@@ -1180,6 +1690,7 @@ class ContinuousBatchEngine:
                 self._shed_request(victim, where="capacity")
                 return
         self._n_rejected += 1
+        self._m_req_rejected.inc()
         raise QueueFull(self._engine_label, len(self._queue),
                         self.max_queue,
                         retry_after_s=self._retry_after_estimate())
@@ -1188,10 +1699,15 @@ class ContinuousBatchEngine:
         """Drop one queued request, typed: ``where`` is "expired",
         "unmeetable" or "capacity"; ``req.on_shed`` hears of it."""
         self._queue.remove(req)
+        if self.kvatlas.enabled:
+            # a preempted request shed from the queue abandons its bundle
+            self.kvatlas.unpark(req.rid)
         now = time.perf_counter()
         miss_ms = ((now - req.deadline) * 1000.0
                    if req.deadline != math.inf else None)
         self._n_shed += 1
+        self._m_req_shed.inc()
+        self._m_sched_shed.inc()
         if where == "expired":
             msg = (f"request {req.rid} deadline expired "
                    f"{miss_ms:.0f}ms before admission")
@@ -1205,9 +1721,17 @@ class ContinuousBatchEngine:
         info = {"where": where, "miss_ms": miss_ms, "error": msg}
         if where != "capacity":
             self._n_deadline_misses += 1
+            self._m_deadline.inc()
         else:
             info["retry_after"] = self._retry_after_estimate()
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_SCHED_SHED, rid=req.rid,
+                       engine=self._engine_label, priority=req.priority,
+                       where=where, miss_ms=miss_ms,
+                       queue_depth=len(self._queue))
         self._record_reason(req.rid, "shed")
+        self._trace_end(req, "shed")
         if req.on_shed is not None:
             req.on_shed(req.rid, info)
 
@@ -1225,17 +1749,28 @@ class ContinuousBatchEngine:
             elif est and now + est > req.deadline:
                 self._shed_request(req, where="unmeetable")
 
-    def _count_deadline_reject(self):
+    def _count_deadline_reject(self, slo_ms: float):
         """A request submitted with its budget spent: counted as a shed."""
         self._n_shed += 1
+        self._m_req_shed.inc()
+        self._m_sched_shed.inc()
         self._n_deadline_misses += 1
+        self._m_deadline.inc()
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_SCHED_SHED, rid=None,
+                       engine=self._engine_label, priority=None,
+                       where="expired", miss_ms=-float(slo_ms),
+                       queue_depth=len(self._queue))
 
     def _degrade_on_oom(self, req: Optional[_Request], where: str, exc):
         """A ``torch.cuda.OutOfMemoryError`` caught before any pool write
         (``where`` "admit" or "step", ``serving.py:2219``): shed the
         triggering request (the admitting one, or the most recently
         admitted slot), and shrink ``max_active_slots`` to one below the
-        occupancy that ran out (floor 1)."""
+        occupancy that ran out (floor 1); ``sched.degrade`` and the shed's
+        ``sched.shed`` go to the flight recorder. The dispatch's
+        ``incident_scope`` already wrote the incident bundle."""
         occupancy = (self.num_active + len(self._chunking)
                      + (1 if req is not None else 0))
         prev = self.max_active_slots
@@ -1245,18 +1780,36 @@ class ContinuousBatchEngine:
             cands = [r for r in self._slots if r is not None]
             victim = max(cands, key=lambda r: (r.t_admit or 0.0, r.rid)) \
                 if cands else None
+        if self.kvatlas.enabled:
+            self.kvatlas.set_budget(self.max_active_slots)
         if (victim is not None and victim.slot >= 0
                 and self._slots[victim.slot] is victim):
             self._release_slot(victim.slot)
             victim.slot = -1
         self._n_degraded += 1
+        self._m_sched["degrade"].inc()
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_SCHED_DEGRADE, engine=self._engine_label,
+                       rid=(victim.rid if victim is not None else None),
+                       where=where,
+                       max_active_slots=self.max_active_slots,
+                       previous=prev)
         if victim is None:
             return
         self._n_shed += 1
+        self._m_req_shed.inc()
+        self._m_sched_shed.inc()
         msg = (f"request {victim.rid} shed: device out of memory during "
                f"{where}; engine degraded max_active_slots "
                f"{prev} -> {self.max_active_slots} ({exc})")
+        if rec.enabled:
+            rec.record(_frec.EV_SCHED_SHED, rid=victim.rid,
+                       engine=self._engine_label,
+                       priority=victim.priority, where="oom",
+                       miss_ms=None, queue_depth=len(self._queue))
         self._record_reason(victim.rid, "shed")
+        self._trace_end(victim, "shed")
         if victim.on_shed is not None:
             victim.on_shed(victim.rid, {
                 "where": "oom", "error": msg, "miss_ms": None,
@@ -1267,7 +1820,11 @@ class ContinuousBatchEngine:
         """Fill free slots from the queue (``serving.py:2273``): shed what
         expired, respect a degraded budget, preempt under a full pool,
         then restore, start a chunked prefill, or prefill (an OOM there
-        sheds the request)."""
+        sheds the request). Holds ``DEVICE_LOCK``."""
+        with DEVICE_LOCK:
+            self._admit_locked()
+
+    def _admit_locked(self):
         if self._poisoned and self._queue:
             self._check_poisoned()
         while self._queue:
@@ -1287,21 +1844,43 @@ class ContinuousBatchEngine:
                 if slot < 0:
                     return
             req = self._pop_next(now)
-            req.t_admit = time.perf_counter()
+            t_adm = time.perf_counter()
+            self._observe_admission(req, t_adm)
+            self._trace_admit(req, slot)
+            tracer = _tracing.get_tracer()
             if req.resume is not None:
-                self._restore_into(slot, req)
+                with tracer.span(_tracing.SPAN_PREFILL, parent=req.span,
+                                 attrs={"slot": slot, "restore": True}):
+                    self._restore_into(slot, req)
+                with tracer.use(req.span):
+                    self._m_prefill.observe(time.perf_counter() - t_adm)
                 self._slots[slot] = req
                 req.slot = slot
+                if self.kvatlas.enabled:
+                    self.kvatlas.set_slot(
+                        slot, int(req.ids.size) + len(req.tokens))
+                self._fr_page_pressure()
                 continue
-            if self._start_chunked(slot, req):
+            if self._start_chunked(slot, req, t_adm):
                 continue
             try:
-                self._prefill_into(slot, req)
+                with _frec.incident_scope("engine.admit"):
+                    with tracer.span(
+                            _tracing.SPAN_PREFILL, parent=req.span,
+                            attrs={"slot": slot,
+                                   "prompt_tokens": int(req.ids.size)}):
+                        self._prefill_into(slot, req)
             except torch.cuda.OutOfMemoryError as e:
                 self._degrade_on_oom(req, where="admit", exc=e)
                 continue
+            with tracer.use(req.span):
+                self._m_prefill.observe(time.perf_counter() - t_adm)
             self._slots[slot] = req
             req.slot = slot
+            if self.kvatlas.enabled:
+                self.kvatlas.set_slot(
+                    slot, int(req.ids.size) + len(req.tokens))
+            self._fr_page_pressure()
 
     def _bucketed_prefill(self, req: _Request):
         """One prompt through the bucketed prefill. Returns (last [1, V],
@@ -1392,7 +1971,7 @@ class ContinuousBatchEngine:
                 victim_slot, victim_key = s, key
         if victim_slot < 0:
             return False
-        self._preempt_slot(victim_slot)
+        self._preempt_slot(victim_slot, by=cand)
         return True
 
     @torch.inference_mode()
@@ -1419,16 +1998,31 @@ class ContinuousBatchEngine:
                             "layers": layers,
                             "last": _host_leaf(self._last[s].float())})
 
-    def _preempt_slot(self, s: int):
+    def _preempt_slot(self, s: int, by: Optional[_Request] = None):
         """Evict slot ``s`` to a host bundle, free it, and requeue its
         request with its tokens; ``_restore_into`` brings it back."""
         req = self._slots[s]
         req.resume = self._slot_kv_bundle(s, req)
+        nbytes = _bundle_nbytes(req.resume)
         req.n_preempted += 1
         self._n_preempted += 1
         self._release_slot(s)
         req.slot = -1
         self._queue.append(req)
+        self._m_bundle["preempt"].observe(float(nbytes))
+        if self.kvatlas.enabled:
+            # device pages freed above; the host bundle parks until restore
+            self.kvatlas.park(req.rid, nbytes)
+        self._m_sched["preempt"].inc()
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_SCHED_PREEMPT, rid=req.rid,
+                       engine=self._engine_label, slot=s,
+                       kv_len=int(req.resume["kv_len"]),
+                       generated=len(req.tokens), bytes=nbytes,
+                       priority=req.priority,
+                       by_priority=(by.priority if by is not None
+                                    else None))
 
     def _restore_into(self, slot: int, req: _Request):
         """Re-admission of a preempted or migrated-in request: its bundle
@@ -1438,6 +2032,15 @@ class ContinuousBatchEngine:
         verify_bundle(r)
         self._write_bundle(slot, r, "preemption restore")
         self._lengths[slot] = int(r["kv_len"])
+        if self.kvatlas.enabled:
+            # the bundle is consumed; the slot publishes at _admit
+            self.kvatlas.unpark(req.rid)
+        self._m_sched["restore"].inc()
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_SCHED_RESTORE, rid=req.rid,
+                       engine=self._engine_label, slot=slot,
+                       kv_len=int(r["kv_len"]), generated=len(req.tokens))
 
     def _write_bundle(self, slot: int, bundle: dict, what: str):
         """A bundle's layers and last row onto the card (before any pool
@@ -1451,14 +2054,22 @@ class ContinuousBatchEngine:
                               what=what)
 
     # ---- chunked prefill: admission interleaved with decode -------------
-    def _start_chunked(self, slot: int, req: _Request) -> bool:
+    def _start_chunked(self, slot: int, req: _Request, t_adm: float) -> bool:
         """Reserve ``slot`` for a chunked admission when the prompt is
-        longer than one chunk (handoff admissions run no prefill)."""
+        longer than one chunk (handoff admissions run no prefill); its
+        prefill span stays open across the chunks."""
         ct = self.prefill_chunk_tokens
         if (ct is None or req.handoff is not None
                 or int(req.ids.size) <= ct):
             return False
-        self._chunking[slot] = _ChunkState(req, slot)
+        span = None
+        tracer = _tracing.get_tracer()
+        if tracer.enabled:
+            span = tracer.start_span(
+                _tracing.SPAN_PREFILL, parent=req.span,
+                attrs={"slot": slot, "chunked": True,
+                       "prompt_tokens": int(req.ids.size)})
+        self._chunking[slot] = _ChunkState(req, slot, t_adm, span)
         req.slot = slot
         return True
 
@@ -1475,16 +2086,21 @@ class ContinuousBatchEngine:
         ps = self.page_size
         S0 = int(req.ids.size)
         ct = self.prefill_chunk_tokens
+        t0 = time.perf_counter()
         if st.pos == 0:
             src, n_pref = (-1, 0)
             if self.enable_prefix_cache:
-                src, n_pref = self._find_shared_prefix(req)
+                with _tracing.get_tracer().use(st.span):
+                    src, n_pref = self._find_shared_prefix(req)
             if n_pref > 0:
                 pref_len = n_pref * ps
                 take = min(ct, S0 - pref_len)
                 self._run_suffix_chunk(slot, src, n_pref,
                                        req.ids[pref_len:pref_len + take])
                 self.prefix_pages_reused += n_pref
+                self._m_prefix_pages.inc(n_pref)
+                if self.kvatlas.enabled:
+                    self.kvatlas.note_prefix_hit(slot, req.ids, n_pref)
                 st.pos = pref_len + take
             else:
                 take = min(ct, S0)
@@ -1497,36 +2113,61 @@ class ContinuousBatchEngine:
             self._run_suffix_chunk(slot, slot, st.pos // ps,
                                    req.ids[st.pos:st.pos + take])
             st.pos += take
-        if st.pos < S0:
+        done = st.pos >= S0
+        if not done:
             # park the reserved slot's length at the chunk frontier
             self._lengths[slot] = st.pos
-            return True
-        del self._chunking[slot]
-        self._lengths[slot] = S0
-        self._slots[slot] = req
+            if self.kvatlas.enabled:
+                # the ledger counts the landed chunks only
+                self.kvatlas.set_slot(slot, st.pos, chunk=True)
+        self._m_sched["chunk"].inc()
+        rec = _frec.RECORDER
+        if rec.enabled:
+            rec.record(_frec.EV_SCHED_CHUNK, rid=req.rid,
+                       engine=self._engine_label, slot=slot, pos=st.pos,
+                       tokens=int(take), final=done,
+                       seconds=time.perf_counter() - t0)
+        if done:
+            del self._chunking[slot]
+            self._lengths[slot] = S0
+            self._slots[slot] = req
+            if self.kvatlas.enabled:
+                self.kvatlas.set_slot(slot, S0)  # the chunk flag clears
+            if st.span is not None:
+                st.span.end()
+            with _tracing.get_tracer().use(req.span):
+                self._m_prefill.observe(time.perf_counter() - st.t_admit)
+            self._fr_page_pressure()
         return True
 
     # ---- prefix caching -------------------------------------------------
     def _find_shared_prefix(self, req: _Request):
         """Longest page-aligned token prefix shared with an active slot's
         prompt, capped one token short of the whole prompt (the suffix
-        prefill needs a token to give the slot its logits). Returns (source
+        prefill needs a token to give the slot its logits). Traced as a
+        child of the span current on the engine thread. Returns (source
         slot, pages)."""
-        ps = self.page_size
-        cap = (int(req.ids.size) - 1) // ps
-        best_slot, best_n = -1, 0
-        for s, r in enumerate(self._slots):
-            if r is None or cap <= 0:
-                continue
-            c = min(cap * ps, (int(r.ids.size) // ps) * ps)
-            if c <= 0:
-                continue
-            neq = req.ids[:c] != r.ids[:c]
-            common = c if not neq.any() else int(np.argmax(neq))
-            n = common // ps
-            if n > best_n:
-                best_slot, best_n = s, n
-        return best_slot, best_n
+        with _tracing.get_tracer().span(_tracing.SPAN_PREFIX_LOOKUP) as sp:
+            ps = self.page_size
+            cap = (int(req.ids.size) - 1) // ps
+            best_slot, best_n = -1, 0
+            for s, r in enumerate(self._slots):
+                if r is None or cap <= 0:
+                    continue
+                c = min(cap * ps, (int(r.ids.size) // ps) * ps)
+                if c <= 0:
+                    continue
+                neq = req.ids[:c] != r.ids[:c]
+                common = c if not neq.any() else int(np.argmax(neq))
+                n = common // ps
+                if n > best_n:
+                    best_slot, best_n = s, n
+            (self._m_prefix_hit if best_n > 0 else self._m_prefix_miss).inc()
+            if best_n <= 0 and self.kvatlas.enabled:
+                # hits index at the slot-aware admission sites
+                self.kvatlas.note_prefix_miss()
+            sp.set_attr("pages", best_n)
+            return best_slot, best_n
 
     @torch.inference_mode()
     def _suffix_forward(self, src: int, n_pref: int, ids, suffix_len: int):
@@ -1603,3 +2244,7 @@ class ContinuousBatchEngine:
                                req.ids[n_pref * self.page_size:])
         self._lengths[slot] = S0
         self.prefix_pages_reused += n_pref
+        self._m_prefix_pages.inc(n_pref)
+        if self.kvatlas.enabled:
+            # the reuse depth rides to the slot's publish in _admit
+            self.kvatlas.note_prefix_hit(slot, req.ids, n_pref)

@@ -114,3 +114,12 @@ define_flag("use_autotune", False,
             "shape and device and persists the winner; a call inside a "
             "step unit's capture reads the cost table only; off = every "
             "kernel's fixed geometry")
+define_flag("perturb_decode_token", False,
+            "drill for the correctness sentinel: each serving step replaces "
+            "the first active slot's first emitted token with (token + 1) "
+            "mod vocab (skipping eos) after the host copy, so the reported "
+            "stream leaves the model's own; the JAX package drills the "
+            "same fault through its chaos point engine.logits")
+define_flag("log_memory_stats", False,
+            "log live / peak device bytes at each StepTimer step "
+            "(observability/timer.py)")

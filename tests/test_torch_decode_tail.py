@@ -153,7 +153,9 @@ def test_set_flags_and_thread_local_overrides():
             t.join()
         assert seen == [True] and decode_tail.enabled()
         assert flags.get_flags() == {"FLAGS_use_fused_decode_tail": True,
-                                     "FLAGS_use_autotune": False}
+                                     "FLAGS_use_autotune": False,
+                                     "FLAGS_perturb_decode_token": False,
+                                     "FLAGS_log_memory_stats": False}
         for bad in (lambda: flags.set_flags({"nope": 1}),
                     lambda: flags.get_flags("nope"),
                     lambda: flags.flag_overrides({"nope": 1}).__enter__()):

@@ -211,7 +211,16 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.ops.hopper.decode_tail, "
             "paddle_tpu_torch.models.deepseek, "
             "paddle_tpu_torch.distributed.moe, "
-            "paddle_tpu_torch.ops.hopper.mla_decode\n"
+            "paddle_tpu_torch.ops.hopper.mla_decode, "
+            "paddle_tpu_torch.serving_http\n"
+            "import importlib, pkgutil, paddle_tpu_torch.observability as o\n"
+            "mods = [m.name for m in pkgutil.iter_modules(o.__path__)]\n"
+            "assert {'metrics', 'catalog', 'tracing', 'flightrecorder', "
+            "'timer', 'snapshot', 'perf', 'kvatlas', 'timeseries', "
+            "'alerts', 'sentinel'} <= set(mods), mods\n"
+            "for m in mods:\n"
+            "    importlib.import_module('paddle_tpu_torch.observability.' "
+            "+ m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'paddle_tpu' "
             "or m.startswith('paddle_tpu.') or m == 'ml_dtypes')\n"
