@@ -13,6 +13,7 @@ NVIDIA H100.
     python3 chip_smoke.py --autotune-only         # phase 23 alone
     python3 chip_smoke.py --http-only             # phase 24 alone
     python3 chip_smoke.py --engine-step-only      # the engine's step wall
+    python3 chip_smoke.py --gemma-only            # width-256 rows, phase 25
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -331,7 +332,36 @@ Phases (any failure raises, so the script exits non-zero):
    = the card's ``generate``; an ``X-Audit: 1`` request passes; with
    ``FLAGS_perturb_decode_token`` on an audited request diverges, its
    bundle is sealed, and ``replay_bundle`` blames the drill.
-25. The kernels line, then the card line, then the result line
+25. Gemma and Gemma2 (last, after phase 24's model is freed; the memory
+   still allocated is printed first): Gemma-7B at its published shape,
+   no cut (28 layers, hidden 3072, 16 | 16 heads x 256, GeGLU 24576,
+   vocab 256000, tied head, (1 + w) norms with w drawn N(0, 0.1)), bf16:
+   phase 3's ten requests through the engine (8 slots, ``max_len`` 2048,
+   graphed) with the fused tail off, on and off again, launch counts
+   exact (a forward: ``rms_norm`` L + 1, ``add_rms_norm`` L; an exact
+   prefill ``flash_attention_256`` L, a padded one
+   ``append_attention_256`` L, a decode step ``paged_attention_256`` L,
+   with the tail ``fused_qkv_rope`` / ``fused_epilogue`` L each and the
+   norms L fewer), each prefill's ms (the time to first token) and the
+   decode ms a step; ``generate`` dense and paged (B 4 x 512, 32 new;
+   dense decode on ``append_attention_256``), counts exact; the engine
+   against solo ``generate``. Gemma2-9B at full width, depth 42 -> 8 (16
+   | 8 heads x 256, hidden 3584, caps 50 and 30, window 4096 on even
+   layers): three requests and ``generate`` dense and paged with no
+   attention kernel (the capped routes: the dense einsum, the paged
+   gather reference) and ``rms_norm`` 4 L + 1 a forward. Then the f32
+   wiring at two layers of each: ``generate`` card = CPU = paged, the
+   engine = solo ``generate``. Phase 2 holds the kernels at Gemma's
+   widths (``check_width256_rows``): the causal flash forward at [1,
+   4096, 16 | 16, 256] beside SDPA, append attention at the engine's
+   padded prefill (S = T = 1024, 700 valid columns) and at one query a
+   row (B 4, pos 1040 of 1056, 16 | 16 x 256, cold, with no column mask
+   and with the padded prompts' mask), paged decode at D 256,
+   groups 1 and 8 (and the edge lengths, f32; cold), the decode tail at 8
+   and 32 rows of hidden 3072, 16 | 16 x 256, and ``rms_norm`` /
+   ``add_rms_norm`` at 3072 and 3584; phase 1 prints each width-256
+   instance's registers, spills and HMMA count.
+26. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -367,6 +397,10 @@ REPLACES = {
     "append_attention": "paddle_tpu/ops/pallas/append_attention.py:135",
     "flash_attention_bshd": "paddle_tpu/ops/pallas/flash_attention.py:122",
     "paged_attention": "paddle_tpu/generation.py:289",
+    # Gemma's heads of 256: the same kernels' (256, 256) / D 256 instances
+    "append_attention_256": "paddle_tpu/ops/pallas/append_attention.py:135",
+    "flash_attention_256": "paddle_tpu/ops/pallas/flash_attention.py:122",
+    "paged_attention_256": "paddle_tpu/generation.py:289",
     "fused_rope": "paddle_tpu/ops/pallas/fused_norm.py:289",
     "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:122",
     # the entry's heads of 64: the same splash backward (JAX trains them
@@ -393,6 +427,9 @@ SOURCES = {
     "append_attention": "paddle_tpu_torch/csrc/append_attention.cu",
     "flash_attention_bshd": "paddle_tpu_torch/csrc/append_attention.cu",
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
+    "append_attention_256": "paddle_tpu_torch/csrc/append_attention.cu",
+    "flash_attention_256": "paddle_tpu_torch/csrc/append_attention.cu",
+    "paged_attention_256": "paddle_tpu_torch/csrc/paged_attention.cu",
     "fused_rope": "paddle_tpu_torch/csrc/fused_norm.cu",
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_64": "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -498,27 +535,48 @@ def profiled_ms(fn, calls=10):
     call are taken, up to five tried, and the larger figure stands. A
     spin kernel of about 10 ms (``torch.cuda._sleep``, not counted) runs
     before the timed calls and another after them, so that none of them
-    sits at an edge of the trace's window: late in a run, sessions have
-    come back with 9 of 10 launches each, the same kernel timed in full
-    in a fresh process."""
-    totals, seen = profile_sessions(fn, calls)
-    if not totals:
-        raise AssertionError(f"torch.profiler recorded no device time "
-                             f"(device records a session: {seen})")
-    return max(totals) / 1e3 / calls
+    sits at an edge of the trace's window. Late in a run, sessions have
+    still come back with 9 of 10 launches each, five in a row, the same
+    kernel timed in full in a fresh process: where no session recorded a
+    kernel a call, a session's mean record stands for one launch a call,
+    the larger of those sessions' (logged). Where no session recorded
+    anything, CUDA events around ``calls`` calls in a row give the figure
+    (logged)."""
+    import torch
+
+    totals, seen, partial = profile_sessions(fn, calls)
+    if totals:
+        return max(totals) / 1e3 / calls
+    if partial:
+        log(f"  profiler: no session recorded a kernel a call (device "
+            f"records a session: {seen}); a session's mean record stands "
+            f"for one launch a call, the larger of {len(partial)}")
+        return max(total / count for total, count in partial) / 1e3
+    log(f"  profiler: no device records in {len(seen)} sessions; CUDA "
+        f"events around {calls} calls in a row instead")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def profile_sessions(fn, calls=10):
     """``profiled_ms``'s sessions: (the device µs of each session that
     recorded at least one kernel a call, at most two; the device records
-    of each session tried)."""
+    of each session tried; (µs, records) of each session that recorded
+    fewer, but some)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    totals, seen = [], []
+    totals, seen, partial = [], [], []
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -531,11 +589,14 @@ def profile_sessions(fn, calls=10):
                    if e.device_type == DeviceType.CUDA
                    and "spin" not in e.key]
         seen.append(sum(e.count for e in kernels))
+        total = sum(e.device_time_total for e in kernels)
         if seen[-1] >= calls:
-            totals.append(sum(e.device_time_total for e in kernels))
+            totals.append(total)
             if len(totals) == 2:
                 break
-    return totals, seen
+        elif seen[-1] > 0:
+            partial.append((total, seen[-1]))
+    return totals, seen, partial
 
 
 def kernel_times(fn, reps=20, warmup=3):
@@ -628,12 +689,60 @@ def make_record(results):
     return record
 
 
+def check_append_prefill_rows(record, randn, cases, H=32, hk=8, D=128,
+                              name="append_attention", main=None):
+    """``append_attention`` at prefill shapes, ``cases`` of (S, T, pos,
+    valid prompt length or None; a length gives the column mask
+    ``allowed`` over its first columns), ``H`` | ``hk`` heads of ``D``,
+    each held against its plain version at the attention tolerance and
+    recorded as ``name`` (the case (S, T, length) ``main`` as the kernels
+    line's row), with its bound and SDPA's time beside it."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import append_attention
+
+    dev = torch.device("cuda")
+    group = "" if (H, hk, D) == (32, 8, 128) else f" {H} | {hk} x {D}"
+    for S, T, pos, n_valid in cases:
+        q, k, v = randn(1, S, H, D), randn(1, T, hk, D), randn(1, T, hk, D)
+        allowed = None
+        if n_valid is not None:
+            allowed = torch.zeros(1, T, dtype=torch.bool, device=dev)
+            allowed[0, :n_valid] = True
+        out = append_attention.append_attention(q, k, v, pos, allowed)
+        ref = append_attention.append_attention_plain(q, k, v, pos, allowed)
+        err, ok = close_bf16(out, ref)
+        check_device_pos(q, k, v, pos, allowed, out,
+                         f"S={S} T={T} pos={pos} allowed={n_valid}{group}")
+        cols = torch.arange(T, device=dev)
+        vis = cols[None, :] <= (pos + torch.arange(S, device=dev))[:, None]
+        if allowed is not None:
+            vis = vis & allowed[0][None, :]
+        # only the K/V columns some query sees must be read (the kernel
+        # skips the tiles past pos + S); the mask over the reachable ones
+        pairs = int(vis.sum()) * H
+        n_cols = int(vis.any(0).sum())
+        reach = min(T, pos + S)
+        nbytes = 2 * S * H * D * 2 + 2 * n_cols * hk * D * 2 + (
+            reach if allowed is not None else 0)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = vis[None, None]
+        record(name, f"S={S} T={T} pos={pos} allowed={n_valid}{group}", err,
+               ok, kernel_times(lambda: append_attention.append_attention(
+                   q, k, v, pos, allowed)),
+               time_ms(lambda: append_attention.append_attention_plain(
+                   q, k, v, pos, allowed)),
+               kernel_times(lambda: sdpa_gqa(qt, kt, vt, mask=mask)),
+               bound(nbytes, 4 * D * pairs, "bfloat16"),
+               (S, T, n_valid) == main)
+        del q, k, v, qt, kt, vt, out, ref
+
+
 def check_kernels(results):
     import torch
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.ops.hopper import (append_attention, flash_attention,
-                                             fused_norm)
+    from paddle_tpu_torch.ops.hopper import flash_attention, fused_norm
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
@@ -683,52 +792,18 @@ def check_kernels(results):
                time_ms(lambda: fused_norm.add_rms_norm_plain(x, r, w, 1e-5)),
                None, bound(nbytes, 5 * rows * d, "bfloat16"), rows == 8)
 
-    H, hk, D = 32, 8, 128
     # (S, T, pos, valid prompt length or None): prefill buckets of the
     # serving path (padded ones carry `allowed`) and one chunk at pos > 0
-    cases = [(128, 128, 0, 100), (512, 512, 0, 300), (1024, 1024, 0, 700),
-             (128, 1024, 500, None),
-             # the engine's prefix-cached suffix prefill (phase 22): a
-             # 200-token suffix in its 256 bucket at pos 1024, the column
-             # mask over 1224 of the 1280 columns
-             (256, 1280, 1024, 1224)]
-    for S, T, pos, n_valid in cases:
-        q, k, v = randn(1, S, H, D), randn(1, T, hk, D), randn(1, T, hk, D)
-        allowed = None
-        if n_valid is not None:
-            allowed = torch.zeros(1, T, dtype=torch.bool, device=dev)
-            allowed[0, :n_valid] = True
-        out = append_attention.append_attention(q, k, v, pos, allowed)
-        ref = append_attention.append_attention_plain(q, k, v, pos, allowed)
-        err, ok = close_bf16(out, ref)
-        check_device_pos(q, k, v, pos, allowed, out,
-                         f"S={S} T={T} pos={pos} allowed={n_valid}")
-        cols = torch.arange(T, device=dev)
-        vis = cols[None, :] <= (pos + torch.arange(S, device=dev))[:, None]
-        if allowed is not None:
-            vis = vis & allowed[0][None, :]
-        # only the K/V columns some query sees must be read (the kernel
-        # skips the tiles past pos + S); the mask over the reachable ones
-        pairs = int(vis.sum()) * H
-        n_cols = int(vis.any(0).sum())
-        reach = min(T, pos + S)
-        nbytes = 2 * S * H * D * 2 + 2 * n_cols * hk * D * 2 + (
-            reach if allowed is not None else 0)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        mask = vis[None, None]
-        record("append_attention",
-               f"S={S} T={T} pos={pos} allowed={n_valid}", err, ok,
-               kernel_times(lambda: append_attention.append_attention(
-                   q, k, v, pos, allowed)),
-               time_ms(lambda: append_attention.append_attention_plain(
-                   q, k, v, pos, allowed)),
-               kernel_times(lambda: sdpa_gqa(qt, kt, vt, mask=mask)),
-               bound(nbytes, 4 * D * pairs, "bfloat16"),
-               (S, T, n_valid) == (1024, 1024, 700))
-
+    check_append_prefill_rows(record, randn, [
+        (128, 128, 0, 100), (512, 512, 0, 300), (1024, 1024, 0, 700),
+        (128, 1024, 500, None),
+        # the engine's prefix-cached suffix prefill (phase 22): a 200-token
+        # suffix in its 256 bucket at pos 1024, the column mask over 1224
+        # of the 1280 columns
+        (256, 1280, 1024, 1224)], main=(1024, 1024, 700))
     check_append_decode_rows(record)
 
-    S = 512
+    H, hk, D, S = 32, 8, 128, 512
     q, k, v = randn(1, S, H, D), randn(1, S, hk, D), randn(1, S, hk, D)
     out = flash_attention.flash_attention_bshd(q, k, v, causal=True)
     ref = flash_attention.flash_attention_plain(q, k, v, causal=True)
@@ -748,6 +823,7 @@ def check_kernels(results):
     check_paged_groups()
     check_group5_rows(record, randn)
     torch.cuda.empty_cache()
+    check_width256_rows(record, randn)
     check_decode_tail_kernels(record)
     check_training_kernels(record, randn)
     torch.cuda.empty_cache()
@@ -802,12 +878,14 @@ def check_device_pos(q, k, v, pos, allowed, out, label):
                              "disagrees")
 
 
-def check_append_decode_rows(record, H=32, hk=8, masked=True):
+def check_append_decode_rows(record, H=32, hk=8, masked=True, D=128,
+                             name="append_attention", main=False):
     """``append_attention`` at the dense decode shape of ``generate`` (S 1,
-    B 4, ``H`` | ``hk`` heads of 128, pos 1040 of T 1056), with no column
+    B 4, ``H`` | ``hk`` heads of ``D``, pos 1040 of T 1056), with no column
     mask and, where ``masked``, with run c's ``allowed`` (each row's
     prompt, then the decode columns from 1024), held against its plain
-    version at the attention tolerance.
+    version at the attention tolerance; recorded as ``name`` (the
+    unmasked row as the kernels line's where ``main``).
     Timed cold, as on the main path, where each of 32 layers has its own
     buffer and a decode step finds it out of L2: the kernel and its
     yardstick (SDPA with the visibility as a boolean mask, over K / V laid
@@ -822,8 +900,10 @@ def check_append_decode_rows(record, H=32, hk=8, masked=True):
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
-    B, D, T, pos = DECODE_B, 128, DECODE_T, DECODE_POS
+    B, T, pos = DECODE_B, DECODE_T, DECODE_POS
     group = "" if (H, hk) == (32, 8) else f" G={H // hk} ({H} | {hk})"
+    if D != 128:
+        group += f" D={D}"
     gen = torch.Generator(dev).manual_seed(4242)
     cols = torch.arange(T, device=dev)
     padded = torch.stack([(cols < n) | (cols >= 1024)
@@ -869,12 +949,13 @@ def check_append_decode_rows(record, H=32, hk=8, masked=True):
             else "prompts " + "/".join(map(str, DECODE_PROMPTS)))
         log(f"  append_attention {label}: {copies} copies, {n_vis} visible "
             "columns")
-        record("append_attention", label + group + " cold", err, ok,
+        record(name, label + group + " cold", err, ok,
                kernel_times(kernel),
                time_ms(lambda: append_attention.append_attention_plain(
                    q, k, v, pos, allowed)),
                kernel_times(library), bound(nbytes, 4 * D * H * n_vis,
-                                            "bfloat16"), False, warm=warm)
+                                            "bfloat16"),
+               main and allowed is None, warm=warm)
         del q, bufs, lib_bufs, k, v, out, ref
     torch.cuda.empty_cache()
 
@@ -937,9 +1018,11 @@ ODD_GROUPS = (3, 5, 6, 7)
 PAGED_COLD_BYTES = 120e6
 
 
-def check_paged_rows(record, cases=PAGED_CASES):
+def check_paged_rows(record, cases=PAGED_CASES, D=128,
+                     name="paged_attention", main="main"):
     """Paged decode attention at ``PAGED_CASES`` (H 32 unless the case
-    names another, D 128), each held
+    names another; head width ``D``, recorded as ``name``, the case
+    labelled ``main`` as the kernels line's row), each held
     against its plain version at the attention tolerance (a dead row must
     be exactly 0 and finite; the plain version, whose dead row is NaN, is
     compared on the live rows). Timed cold, as on the main path, where
@@ -957,7 +1040,6 @@ def check_paged_rows(record, cases=PAGED_CASES):
     from paddle_tpu_torch.ops.hopper import paged_attention
 
     dev = torch.device("cuda")
-    D = 128
     gen = torch.Generator(dev).manual_seed(77)
     rng = np.random.RandomState(7)
     rng.permutation(8 * 2048 // 16)
@@ -1025,13 +1107,13 @@ def check_paged_rows(record, cases=PAGED_CASES):
         warm = (profiled_ms(lambda: kernel(0)), profiled_ms(
             lambda: library(0)))
         shape = (f"B={B} max_len={max_len} ps={ps} G={H // hk} {dt} "
-                 f"sum_len={n_tok}")
-        record("paged_attention", f"{label}: {shape} cold", err, ok,
+                 f"sum_len={n_tok}" + ("" if D == 128 else f" D={D}"))
+        record(name, f"{label}: {shape} cold", err, ok,
                kernel_times(kernel),
                time_ms(lambda: paged_attention.paged_attention_plain(
                    q, kps[0], vps[0], lengths, page_indices)),
                kernel_times(library),
-               bound(nbytes, 4 * H * D * n_tok, dt), label == "main",
+               bound(nbytes, 4 * H * D * n_tok, dt), label == main,
                warm=warm)
         del q, kps, vps, kgs, vgs, out, ref
     torch.cuda.empty_cache()
@@ -1123,6 +1205,91 @@ def check_group5_rows(record, randn):
            bound(2 * rows * d * 2 + d * 2, 4 * rows * d, "bfloat16"), False)
     torch.cuda.empty_cache()
 
+
+# paged decode at Gemma's head width 256 (label, B, max_len, page size, KV
+# heads, dtype, lengths, H): Gemma-7B's 16 | 16 (group 1) and Gemma-2B's
+# 8 | 1 (group 8) at the main row's lengths, the edge lengths at group 1
+GEMMA_PAGED_CASES = (
+    ("Gemma-7B G=1", 8, 2048, 16, 16, "bfloat16", None, 16),
+    ("Gemma-2B G=8", 8, 2048, 16, 1, "bfloat16", None, 8),
+    ("Gemma edges", 7, 2048, 16, 16, "bfloat16",
+     [1, 15, 16, 17, 0, 2048, 2100], 16),
+    ("Gemma f32", 8, 2048, 16, 16, "float32", None, 16),
+)
+
+
+def check_width256_rows(record, randn):
+    """The kernels at Gemma's widths, each against its plain version at the
+    tolerances of the width-128 rows: the causal flash forward at [1, 4096,
+    16 | 16, 256] beside SDPA causal (``flash_attention_256``); append
+    attention at the engine's padded prefill (S = T = 1024 with a column
+    mask over 700 valid columns) and at one query a row (S 1, B 4, pos 1040
+    of T 1056, 16 | 16 x 256, cold, unmasked and with the padded prompts'
+    mask; ``append_attention_256``); paged decode at D 256, groups 1
+    and 8 at the main lengths, the edge lengths and f32 (cold;
+    ``paged_attention_256``); the fused decode tail at 8 and 32 rows of
+    Gemma-7B's widths (hidden 3072, 16 | 16 x 256, cold); ``rms_norm`` and
+    ``add_rms_norm`` at Gemma-7B's hidden 3072 and Gemma2-9B's 3584 by 8
+    and 4096 rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.hopper import flash_attention, fused_norm
+
+    t0 = time.perf_counter()
+    H, hk, D, S = 16, 16, 256, 4096
+    q, k, v = randn(1, S, H, D), randn(1, S, hk, D), randn(1, S, hk, D)
+    out = flash_attention.flash_attention_bshd(q, k, v, causal=True)
+    ref = flash_attention.flash_attention_plain(q, k, v, causal=True)
+    err, ok = close_bf16(out, ref)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    record("flash_attention_256", f"S={S} causal {H} | {hk} x {D}", err, ok,
+           kernel_times(lambda: flash_attention.flash_attention_bshd(
+               q, k, v, causal=True), 5, 2),
+           time_ms(lambda: flash_attention.flash_attention_plain(
+               q, k, v, causal=True), 3, 1),
+           kernel_times(lambda: sdpa_gqa(qt, kt, vt, causal=True), 5, 2),
+           bound(2 * S * (H + hk) * D * 2, 4 * D * H * S * (S + 1) // 2,
+                 "bfloat16"), True)
+    del q, k, v, qt, kt, vt, out, ref
+    torch.cuda.empty_cache()
+    # the engine's padded prefill: a 700-token prompt in its 1024 bucket
+    check_append_prefill_rows(record, randn, [(1024, 1024, 0, 700)], H=H,
+                              hk=hk, D=D, name="append_attention_256")
+    check_append_decode_rows(record, H=H, hk=hk, D=D,
+                             name="append_attention_256", main=True)
+    check_paged_rows(record, GEMMA_PAGED_CASES, D=D,
+                     name="paged_attention_256", main="Gemma-7B G=1")
+    check_decode_tail_kernels(record, hidden=3072, H=H, hk=hk, d=D,
+                              main=False, edges=False)
+    for d in (3072, 3584):
+        for rows in (8, 4096):
+            x, r = randn(rows, d), randn(rows, d)
+            w = randn(d, scale=0.5) + 1
+            out = fused_norm.rms_norm(x, w, 1e-6)
+            ref = fused_norm.rms_norm_plain(x, w, 1e-6)
+            err, ok = close_bf16(out, ref, atol=1e-6, rtol=2.0 ** -6)
+            record("rms_norm", f"rows={rows} d={d}", err, ok,
+                   kernel_times(lambda: fused_norm.rms_norm(x, w, 1e-6),
+                                100, 20),
+                   time_ms(lambda: fused_norm.rms_norm_plain(x, w, 1e-6)),
+                   kernel_times(lambda: F.rms_norm(x, (d,), w, 1e-6), 100,
+                                20),
+                   bound(2 * rows * d * 2 + d * 2, 4 * rows * d, "bfloat16"),
+                   False)
+            o, h = fused_norm.add_rms_norm(x, r, w, 1e-6)
+            ro, rh = fused_norm.add_rms_norm_plain(x, r, w, 1e-6)
+            err, ok = close_bf16(o, ro, atol=1e-6, rtol=2.0 ** -6)
+            record("add_rms_norm", f"rows={rows} d={d}", err,
+                   ok and torch.equal(h, rh),
+                   kernel_times(lambda: fused_norm.add_rms_norm(
+                       x, r, w, 1e-6), 100, 20),
+                   time_ms(lambda: fused_norm.add_rms_norm_plain(
+                       x, r, w, 1e-6)),
+                   None, bound(4 * rows * d * 2 + d * 2, 5 * rows * d,
+                               "bfloat16"), False)
+    torch.cuda.empty_cache()
+    log(f"  the width-256 rows took {time.perf_counter() - t0:.1f}s")
 
 def check_full_edges():
     """The full-mask kernels off the main path's shape, forward with lse and
@@ -1328,8 +1495,11 @@ def tail_inputs(R, hidden, H, hk, d, dtype, seed, copies=1):
                 attn=rnd(R, H * d), res=rnd(R, hidden))
 
 
-def check_decode_tail_kernels(record):
-    """The fused decode tail at Llama-3-8B widths, bf16: R = 8 rows (a decode
+def check_decode_tail_kernels(record, hidden=4096, H=32, hk=8, d=128,
+                              main=True, edges=True):
+    """The fused decode tail at Llama-3-8B widths (or the given ones, with
+    ``main`` False off the kernels line's row and ``edges`` False without
+    the edge shapes), bf16: R = 8 rows (a decode
     step at 8 slots) and R = 32 (a verify chunk of 8 slots x k = 4), timed
     cold: the kernel and both yardsticks rotate over copies of the weights
     (Wq | Wk | Wv, and Wo) that touch more than ``TAIL_COLD_BYTES``, as each
@@ -1347,9 +1517,9 @@ def check_decode_tail_kernels(record):
     from paddle_tpu_torch.generation import _rope_rows
     from paddle_tpu_torch.ops.hopper import decode_tail, fused_norm
 
-    hidden, H, hk, d, eps = 4096, 32, 8, 128, 1e-5
+    eps = 1e-5
     bf = torch.bfloat16
-    log("  decode tail: tolerance one bf16 ulp of the largest entry (f32: "
+    log(f"  decode tail at hidden {hidden}, {H} | {hk} x {d}: tolerance one bf16 ulp of the largest entry (f32: "
         "1e-5 of it); two launches on the same inputs must give the same "
         "bits; timed cold over weight copies touching more than "
         f"{TAIL_COLD_BYTES / 1e6:.0f} MB, warm beside")
@@ -1403,11 +1573,11 @@ def check_decode_tail_kernels(record):
              f"{(H + 2 * hk) * d}]", qkv_matmul),
             ("discrete rms_norm + 3 matmuls + 2 ropes", qkv_discrete)))
         record("fused_qkv_rope",
-               f"R={R} hidden={hidden} H={H} hk={hk} split={split} cold",
-               err, ok, kernel_times(qkv),
+               f"R={R} hidden={hidden} H={H} hk={hk} d={d} split={split} "
+               "cold", err, ok, kernel_times(qkv),
                time_ms(lambda: decode_tail.fused_qkv_rope_plain(*args)),
                None, bound(cost["bytes"], cost["flops"], "bfloat16"),
-               R == 8, warm=(profiled_ms(lambda: qkv(0)), None))
+               main and R == 8, warm=(profiled_ms(lambda: qkv(0)), None))
 
         def epilogue(i=None):
             return decode_tail.fused_epilogue(
@@ -1439,7 +1609,7 @@ def check_decode_tail_kernels(record):
                err, ok, kernel_times(epilogue),
                time_ms(lambda: decode_tail.fused_epilogue_plain(*eargs)),
                None, bound(cost["bytes"], cost["flops"], "bfloat16"),
-               R == 8, warm=(profiled_ms(lambda: epilogue(0)), None))
+               main and R == 8, warm=(profiled_ms(lambda: epilogue(0)), None))
         if R == 8:
             log(f"  decode tail R={R}: host us a call, {HOST_CALLS} calls in "
                 f"a row on the host clock: fused_qkv_rope "
@@ -1447,7 +1617,8 @@ def check_decode_tail_kernels(record):
                 f"{host_us(lambda: epilogue(0)):.2f}")
     del base, wqkv, wo, cat
     torch.cuda.empty_cache()
-    check_tail_edges()
+    if edges:
+        check_tail_edges()
 
 
 def tail_split(scratch, *shape):
@@ -3714,7 +3885,8 @@ def generate_run(model, card, label, ids, want, fused=False,
         if counts.get(name, 0) != n:
             raise AssertionError(f"{phase} {label}: {name} launched "
                                  f"{counts.get(name, 0)} times, expected {n}")
-    require_launched(counts, ("rms_norm", "add_rms_norm"), f"generate {label}")
+    require_launched(counts, [n for n in ("rms_norm", "add_rms_norm")
+                              if want.get(n, 1)], f"generate {label}")
     pre = sum(clock.ms)
     dec = total - pre
     log(f"  [{card}] {phase} {label}: B {B}, {n_new} new tokens: prefill "
@@ -5786,7 +5958,7 @@ def tuned_row(card, kernel, sig, call, launch, plain, close, default,
     torch.cuda.synchronize()
     ms = {}
     for what, choice in (("default", default), ("winner", winner)):
-        totals, seen = profile_sessions(lambda: launch(choice))
+        totals, _, _ = profile_sessions(lambda: launch(choice))
         ms[what] = (autotune._device_ms(lambda: launch(choice)),
                     max(totals) / 1e3 / 10 if totals else None)
     log(f"  [{card}] {kernel} {sig}: cost table "
@@ -6556,8 +6728,12 @@ def http_phase(model, card):
             f"thread captured {[(c[1], round(c[3] - c[2], 2)) for c in during]}"
             f" inside it")
         if not during:
-            raise AssertionError("phase 24 (d): no engine-thread capture "
-                                 "while the audit ran")
+            engine = [(c[1], round(c[2] - a0, 3), round(c[3] - a0, 3))
+                      for c in iv.captures if c[0] == "engine-loop"]
+            raise AssertionError(f"phase 24 (d): no engine-thread capture "
+                                 f"while the audit ran ({a1 - a0:.3f}s; the "
+                                 f"engine thread's captures, s from the "
+                                 f"audit's start: {engine})")
         # (f) padded prompts over HTTP: append attention in their prefill
         padded = [rng.randint(0, cfg.vocab_size, size=n)
                   for n in HTTP_PADDED]
@@ -6870,13 +7046,358 @@ def engine_only():
     engine_wiring_check()
 
 
-def tensor_core_sass(lib) -> tuple:
-    """(HMMA, HGMMA) instructions in a built library's SASS, from
-    ``cuobjdump -sass``: mma.sync and wgmma products on the tensor cores."""
+# --------------------------------------------------------------- phase 25 --
+
+# Gemma2-9B's depth in phase 25 (42 published): the capped attention takes
+# no kernel, so depth only repeats the trunk's kernels and the plain routes
+GEMMA2_DEPTH = 8
+# the counters of every attention kernel the Gemma families could reach
+ATTENTION_COUNTERS = ("append_attention", "flash_attention_bshd",
+                      "paged_attention", "append_attention_256",
+                      "flash_attention_256", "paged_attention_256")
+
+
+def gemma_model(name, seed, **kw):
+    """``name``'s model on the card (Gemma-7B: ``GemmaConfig``, Gemma2-9B:
+    ``Gemma2Config``; bf16, ``kw`` on top: depth and dtype cuts), weights
+    drawn from ``seed``, then the norms' w drawn N(0, 0.1) (a fresh model's
+    is 0), so that the (1 + w) add has a value to add. Returns (model,
+    seconds)."""
+    import torch
+
+    from paddle_tpu_torch import models
+
+    cls = {"Gemma-7B": models.GemmaConfig,
+           "Gemma2-9B": models.Gemma2Config}[name]
+    cfg = cls(**dict(dict(dtype="bfloat16"), **kw))
+    gen = torch.Generator("cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    model = (models.Gemma2ForCausalLM if name == "Gemma2-9B"
+             else models.GemmaForCausalLM)(cfg, device="cuda", generator=gen)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if pname.endswith("norm.weight"):
+                p.normal_(0.0, 0.1, generator=gen)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def gemma_counts_want(cfg, steps, prefills_exact, prefills_padded,
+                      fused=False):
+    """Exact launches of ``steps`` decode steps and the prefills, from the
+    code: Gemma (the Llama trunk at head width 256), a forward: ``rms_norm``
+    L + 1 (each layer's input norm, the final norm), ``add_rms_norm`` L;
+    a decode step ``paged_attention_256`` L (the engine) or
+    ``append_attention_256`` L (dense), an exact prefill
+    ``flash_attention_256`` L, a padded one ``append_attention_256`` L;
+    with the fused tail a decode step ``fused_qkv_rope`` and
+    ``fused_epilogue`` L each, ``rms_norm`` and ``add_rms_norm`` L fewer.
+    Gemma2 (four (1 + w) norms a layer, capped attention): ``rms_norm``
+    4 L + 1 a forward and no other kernel. ``steps`` counts decode steps
+    of the engine (``paged``) or of ``generate`` (``dense``)."""
+    L = cfg.num_hidden_layers
+    forwards = steps + prefills_exact + prefills_padded
+    want = dict.fromkeys(ATTENTION_COUNTERS + (
+        "fused_qkv_rope", "fused_epilogue", "add_rms_norm"), 0)
+    if cfg.attn_logit_softcapping:
+        want["rms_norm"] = (4 * L + 1) * forwards
+        return want
+    tail = L * steps if fused else 0
+    want.update(rms_norm=(L + 1) * forwards - tail,
+                add_rms_norm=L * forwards - tail,
+                flash_attention_256=L * prefills_exact,
+                append_attention_256=L * prefills_padded,
+                fused_qkv_rope=tail, fused_epilogue=tail)
+    return want
+
+
+def gemma_engine_run(model, card, label, prompts, news, fused):
+    """An engine run (8 slots, max_len 2048, page 16) with its exact
+    launch counts and the paged kernel's group (none for Gemma2's capped
+    attention); the prefills' ms (each returns the request's first token:
+    the time to first token on an idle engine) logged. Returns (counts,
+    stats, outputs)."""
+    cfg = model.config
+    with _GroupSpy() as spy:
+        counts, stats, _, _, outputs = serve_run(
+            model, card, label, prompts, news, fused, log_prefills=True)
+    steps = stats["decode_steps"]
+    n_exact = sum(exact_bucket(len(p)) for p in prompts)
+    want = gemma_counts_want(cfg, steps, n_exact, len(prompts) - n_exact,
+                             fused)
+    if not cfg.attn_logit_softcapping:
+        want["paged_attention_256"] = cfg.num_hidden_layers * steps
+    require_counts(label, counts, want)
+    # (a replayed graph makes no wrapper call: the spy sees the captures)
+    group = cfg.num_attention_heads // cfg.num_key_value_heads
+    groups = set() if cfg.attn_logit_softcapping else {group}
+    if set(spy.groups) - groups:
+        raise AssertionError(f"{label}: paged_attention ran at groups "
+                             f"{dict(spy.groups)}, expected {groups}")
+    log(f"  [{card}] {label}: launch counts exact for {steps} decode steps, "
+        f"{n_exact} exact and {len(prompts) - n_exact} padded prefills: "
+        f"{json.dumps({k: v for k, v in want.items() if v})}")
+    return counts, stats, outputs
+
+
+# phase 25's time to first token: prompt lengths (exact and padded buckets)
+TTFT_LENS = (64, 512, 1000, 1024)
+
+
+def gemma_ttft(model, card):
+    """The engine's time to first token with its bucket's graph and dense
+    buffers warm: each length of ``TTFT_LENS`` admitted twice into one
+    idle engine (8 slots, max_len 2048), one new token each; the first
+    admission of a bucket captures its prefill graph for the engine's
+    buffers (two eager warm-ups and the capture), the second replays it.
+    Both logged, the second the figure."""
+    eng = timed_engine(model, max_batch=8, max_len=2048, page_size=16)
+    rng = np.random.RandomState(29)
+    out = []
+    for n in TTFT_LENS:
+        for _ in range(2):
+            eng.add_request(rng.randint(0, model.config.vocab_size, size=n),
+                            max_new_tokens=1)
+            eng.run_until_done()
+        (_, cold), (_, warm) = eng.prefill_ms[-2:]
+        out.append(f"{n} (bucket {eng._bucket(n)}): {warm:.2f} ms (first "
+                   f"{cold:.2f})")
+    log(f"  [{card}] phase 25 Gemma-7B: time to first token, an idle "
+        f"engine's admission with its bucket warm: " + "; ".join(out))
+
+
+def gemma_generate_runs(model, card, label, n_new, seed):
+    """``generate`` dense and paged on B 4 x 512 prompts, launch counts
+    exact. Returns (counts, ids)."""
+    import torch
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (GEN_B, GEN_PROMPT))).to(model.device)
+    n = n_new - 1
+    total = Counter()
+    toks = {}
+    for run, kw in (("dense", {}), ("paged", {"paged": True,
+                                              "page_size": 16})):
+        want = gemma_counts_want(cfg, n, 1, 0)
+        if not cfg.attn_logit_softcapping:
+            want["paged_attention_256" if kw else "append_attention_256"] = \
+                L * n
+        toks[run], counts, _ = generate_run(
+            model, card, f"{label} {run}", ids, want, phase="phase 25",
+            max_new_tokens=n_new, **kw)
+        total.update(counts)
+    same = int((toks["dense"] == toks["paged"]).sum())
+    log(f"  [{card}] phase 25 {label}: generate dense and paged, {same}/"
+        f"{toks['dense'].size} tokens equal (bf16, reported)")
+    return total, ids
+
+
+def serve_gemma():
+    """Phase 25: Gemma-7B at its published shape, no cut (28 layers, hidden
+    3072, 16 | 16 heads x 256, GeGLU 24576, vocab 256000, tied), bf16,
+    random seeded weights: phase 3's ten requests through the paged engine
+    (8 slots, max_len 2048) with the fused tail off, on, off, launch counts
+    exact (the kernels at head width 256: ``flash_attention_256`` an exact
+    prefill, ``append_attention_256`` a padded one, ``paged_attention_256``
+    a decode step, L each); ``generate`` dense and paged (B 4 x 512, 32
+    new), counts exact; the engine against solo ``generate``. Then
+    Gemma2-9B at full width, depth 42 -> 8 (16 | 8 heads x 256, hidden
+    3584, caps 50 and 30, windows of 4096 on alternate layers): three
+    requests and ``generate`` dense and paged, no attention kernel (capped
+    attention takes the plain routes, as in JAX), ``rms_norm`` 4 L + 1 a
+    forward. Then the f32 wiring. Returns the launch counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    log(f"phase 25: memory allocated after releasing the earlier phases "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    total = Counter()
+    model, secs = gemma_model("Gemma-7B", 25)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 25: Gemma-7B, {cfg.num_hidden_layers} layers (no cut), "
+        f"bf16, {n_params / 1e9:.2f}B parameters drawn in {secs:.1f}s; "
+        f"hidden {cfg.hidden_size}, {cfg.num_attention_heads} | "
+        f"{cfg.num_key_value_heads} heads x {cfg.head_dim}, GeGLU "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}, tied; memory "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.RandomState(25)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in SERVE_LENS]
+    runs = {}
+    for label, fused in (("tail off", False), ("tail on", True),
+                         ("tail off again", False)):
+        runs[label] = gemma_engine_run(
+            model, card, f"phase 25 Gemma-7B engine, {label}", prompts,
+            SERVE_NEWS, fused)
+        total.update(runs[label][0])
+    if len({r[1]["decode_steps"] for r in runs.values()}) != 1:
+        raise AssertionError("phase 25: the engine runs took different "
+                             "numbers of decode steps")
+    for label in ("tail on", "tail off again"):
+        same = sum(int((a == b).sum()) for a, b in
+                   zip(runs["tail off"][2], runs[label][2]))
+        log(f"  [{card}] phase 25 Gemma-7B: {label} against tail off, "
+            f"{same}/{sum(SERVE_NEWS)} tokens equal (bf16, reported)")
+    gemma_ttft(model, card)
+    g_counts, ids = gemma_generate_runs(model, card, "Gemma-7B", GEN_NEW,
+                                        26)
+    total.update(g_counts)
+    prompts4 = list(ids.cpu().numpy())
+    engine_vs_solo(model, card, "phase 25 Gemma-7B", prompts4, GEN_NEW,
+                   engine_tokens(model, prompts4, GEN_NEW))
+    log_units(model, card, "Gemma-7B", ("_prefill_steps",
+                                        "_select_decode_steps"))
+    log(f"  [{card}] phase 25 Gemma-7B: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model, secs = gemma_model("Gemma2-9B", 27, num_hidden_layers=GEMMA2_DEPTH)
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 25: Gemma2-9B, depth cut 42 -> {cfg.num_hidden_layers}, "
+        f"bf16, {n_params / 1e9:.2f}B parameters drawn in {secs:.1f}s; "
+        f"hidden {cfg.hidden_size}, {cfg.num_attention_heads} | "
+        f"{cfg.num_key_value_heads} heads x {cfg.head_dim}, soft caps "
+        f"{cfg.attn_logit_softcapping} / {cfg.final_logit_softcapping}, "
+        f"window {cfg.sliding_window} on layers "
+        f"{[i for i, t in enumerate(cfg.layer_types) if t.startswith('sl')]}")
+    rng = np.random.RandomState(27)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in FAMILY_LENS]
+    counts, _, outputs = gemma_engine_run(
+        model, card, "phase 25 Gemma2-9B engine", prompts,
+        (FAMILY_NEW,) * len(FAMILY_LENS), False)
+    total.update(counts)
+    g_counts, _ = gemma_generate_runs(model, card, "Gemma2-9B", FAMILY_NEW,
+                                      28)
+    total.update(g_counts)
+    engine_vs_solo(model, card, "phase 25 Gemma2-9B", prompts, FAMILY_NEW,
+                   outputs)
+    log(f"  [{card}] phase 25 Gemma2-9B: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma_wiring_check()
+    log(f"phase 25 took {time.perf_counter() - t0:.1f}s")
+    return total
+
+
+def gemma_wiring_check():
+    """Phase 25's f32 wiring, ``allow_tf32`` off: two layers of each family
+    at full width, the same weights on the card (kernels; Gemma2 the
+    plain capped routes) and on the CPU (plain versions). A 64-token
+    prompt (exact: the flash route) and a 40-token one (padded) with 6
+    greedy tokens: ``generate`` card = CPU (dense), paged = dense on the
+    card, and the engine's tokens (2 slots) = solo ``generate``'s on the
+    card; the exact prompt's prefill logits card vs CPU within 1e-3 (one
+    slot); the attention kernels Gemma reaches launched, none for
+    Gemma2."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for i, name in enumerate(("Gemma-7B", "Gemma2-9B")):
+        m_gpu, _ = gemma_model(name, 70 + i, num_hidden_layers=2,
+                               dtype="float32")
+        m_cpu = cpu_copy(m_gpu)
+        rng = np.random.RandomState(70 + i)
+        prompts = [rng.randint(0, m_gpu.config.vocab_size, size=n)
+                   for n in (64, 40)]
+        reset_launches()
+        got = {}
+        for p in prompts:
+            ids = torch.from_numpy(p[None])
+            card = m_gpu.generate(ids.cuda(), max_new_tokens=6).cpu().numpy()
+            paged = m_gpu.generate(ids.cuda(), max_new_tokens=6, paged=True,
+                                   page_size=16).cpu().numpy()
+            cpu = m_cpu.generate(ids, max_new_tokens=6).numpy()
+            got[len(p)] = card[0].tolist()
+            if not (np.array_equal(card, cpu) and np.array_equal(card,
+                                                                 paged)):
+                raise AssertionError(
+                    f"phase 25 {name} wiring, prompt {len(p)}: card "
+                    f"{card.tolist()}, paged {paged.tolist()}, CPU "
+                    f"{cpu.tolist()}")
+        eng = engine_tokens(m_gpu, prompts, 6, max_len=128)
+        counts = dict(launches)
+        # the prefill's logits of the exact prompt, one slot, card vs CPU
+        # (f32 on both sides, sums in another order)
+        first = []
+        for m in (m_gpu, m_cpu):
+            one = ContinuousBatchEngine(m, max_batch=1, max_len=128)
+            one.add_request(prompts[0], max_new_tokens=1)
+            first.append(one._last[0].cpu().clone())
+        err = float((first[0] - first[1]).abs().max())
+        if not err <= 1e-3:
+            raise AssertionError(f"phase 25 {name} wiring: prefill logits "
+                                 f"card vs CPU differ by {err}")
+        for p, toks in zip(prompts, eng):
+            if toks.tolist() != got[len(p)]:
+                raise AssertionError(f"phase 25 {name} wiring: engine "
+                                     f"{toks.tolist()} != solo generate "
+                                     f"{got[len(p)]}")
+        if m_gpu.config.attn_logit_softcapping:
+            ran = {k: counts.get(k, 0) for k in ATTENTION_COUNTERS}
+            if any(ran.values()):
+                raise AssertionError(f"phase 25 {name} wiring: attention "
+                                     f"kernels launched {ran}")
+        else:
+            require_launched(counts, ("flash_attention_256",
+                                      "append_attention_256",
+                                      "paged_attention_256"),
+                             f"phase 25 {name} wiring")
+        log(f"phase 25: {name} wiring, 2 layers at full width, f32: tokens "
+            f"card = CPU = paged = engine {json.dumps(got)}; prefill logits "
+            f"card vs CPU max abs err {err:.3e} (tolerance 1e-3, |logits| <= "
+            f"{float(first[1].abs().max()):.3f}); card launches "
+            f"{json.dumps(counts)}")
+        del m_gpu, m_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def gemma_only():
+    """``--gemma-only``: phase 2's rows at Gemma's widths, then phase 25."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(1234)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    check_width256_rows(make_record({}), randn)
+    return serve_gemma()
+
+def tensor_core_sass(lib) -> dict:
+    """{kernel name: [HMMA, HGMMA]} of a built library, from one
+    ``cuobjdump -sass`` (one section a function): mma.sync and wgmma
+    products on the tensor cores."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    return sass.count("HMMA"), sass.count("HGMMA")
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split("Function :", 1)[1].strip())
+            out.setdefault(name, [0, 0])
+        elif name is not None and "HGMMA" in line:
+            out[name][1] += 1
+        elif name is not None and "HMMA" in line:
+            out[name][0] += 1
+    return out
 
 
 def kernel_name(mangled: str) -> str:
@@ -6960,6 +7481,13 @@ def main(argv=None) -> int:
                          "here (8 slots of 512-token prompts); prints no "
                          "result line. Run from another checkout's root, "
                          "it measures that checkout's engine")
+    ap.add_argument("--gemma-only", action="store_true",
+                    help="phase 1, phase 2's rows at Gemma's widths (the "
+                         "attention kernels at head width 256, the decode "
+                         "tail at Gemma-7B's widths, the norms at 3072 and "
+                         "3584), then phase 25: Gemma-7B whole and "
+                         "Gemma2-9B at depth 8 served on the card, then "
+                         "their f32 wiring; prints no result line")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -6995,14 +7523,27 @@ def main(argv=None) -> int:
     partial = (args.decode_tail_only or args.decode_profile_only
                or args.mla_only or args.optimizer_only or args.moe_only
                or args.engine_only or args.autotune_only or args.http_only
-               or args.engine_step_only)
+               or args.engine_step_only or args.gemma_only)
+    sass = {}
     for stem in ("append_attention", "flash_attention", "paged_attention",
                  "mla_decode", "decode_tail"):
-        hmma, hgmma = tensor_core_sass(_build.build()[stem])
+        sass[stem] = tensor_core_sass(_build.build()[stem])
+        hmma, hgmma = (sum(c[i] for c in sass[stem].values())
+                       for i in (0, 1))
         log(f"  sass {stem}: {hmma} HMMA (mma.sync), {hgmma} HGMMA (wgmma)")
         if hmma + hgmma == 0 and not partial:
             raise AssertionError(f"{stem}: no tensor-core instruction in its "
                                  "SASS")
+    # Gemma's width-256 instances of the bf16 bodies, one by one
+    if not partial or args.gemma_only:
+        for stem in ("append_attention", "paged_attention"):
+            for name, (n, _) in sass[stem].items():
+                if "_tc_kernel<256" not in name:
+                    continue
+                log(f"  sass {stem} {name}: {n} HMMA (mma.sync)")
+                if n == 0:
+                    raise AssertionError(f"{name}: no tensor-core "
+                                         "instruction in its SASS")
 
     if args.decode_tail_only:
         check_decode_tail_kernels(make_record({}))
@@ -7045,6 +7586,10 @@ def main(argv=None) -> int:
         return 0
     if args.engine_step_only:
         engine_step_walls(card_line())
+        return 0
+    if args.gemma_only:
+        gemma_only()
+        log(f"total {time.perf_counter() - t_start:.1f}s")
         return 0
     if args.decode_profile_only:
         from paddle_tpu_torch.models.llama import (LlamaConfig,
@@ -7094,6 +7639,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts.update(autotune_phase(then=http_phase))
+    counts.update(serve_gemma())
 
     kernels = []
     for name in SOURCES:

@@ -22,7 +22,9 @@
 // DeepSeek's MLA prefill (qk_nope 128 + qk_rope 64 against v 128, which
 // the TPU path zero-pads to 256 and 128 lanes; CUDA has no lane rule, so
 // the kernel takes the true widths and computes the same function), and
-// (64, 64), the entry model's heads (hidden 512 over 8 heads).
+// (64, 64), the entry model's heads (hidden 512 over 8 heads), and
+// (256, 256), Gemma's heads (Gemma-2B / 7B, Gemma2: head_dim 256, which
+// the TPU kernels take as any multiple of 128).
 //
 // Bound on the H100: at prefill (S = T = bucket) the work is the
 // 4 * D * (visible query/key pairs) operations of the two products, which
@@ -55,7 +57,11 @@
 // - A block is 4 warps of 16 query rows (BM = 64), two blocks an SM. Q is
 //   copied once into shared memory (bf16, rows padded by 8 elements:
 //   conflict-free ldmatrix) and held as A fragments in registers (48 of
-//   them at width 192; 245 registers a thread, no spill). K and V stream
+//   them at width 192; 245 registers a thread, no spill). At width 256
+//   the 64 registers of q's fragments do not fit beside the 128 of the
+//   output (NO = 32 C blocks of 4), so that instance reads q's fragment
+//   from shared memory at each k-step of every tile instead, and one
+//   block holds the SM (165 KB of shared memory). K and V stream
 //   through a ring of two bf16 stages filled by 16-byte cp.async copies:
 //   tile j + 1 loads while tile j computes, one __syncthreads() a tile.
 // - Softmax in registers: each thread holds two rows' running max and
@@ -109,7 +115,8 @@ constexpr int NT = 256;   // threads per block
 constexpr int PS = BN + 1;
 
 // shared memory of the (DQK, DV) instantiation: padded q and k tiles, the
-// v tile, scores and three per-row vectors (149 KB at (192, 128))
+// v tile, scores and three per-row vectors (149 KB at (192, 128), 209.5 KB
+// at (256, 256), under the 227 KB a block may opt in to)
 template <int DQK, int DV> constexpr size_t smem_bytes() {
   return (size_t)(BM * (DQK + 1) + BN * (DQK + 1) + BN * DV + BM * PS + 3 * BM) *
          sizeof(float);
@@ -322,7 +329,8 @@ constexpr int TC_BN = 64;               // key rows per tile
 constexpr int TC_NT = TC_WARPS * 32;    // threads per block
 
 // shared memory of the bf16 body: the Q tile and two stages of K and V,
-// rows padded by tc::PAD (85 KB at (128, 128), 109 KB at (192, 128))
+// rows padded by tc::PAD (85 KB at (128, 128), 109 KB at (192, 128), 165 KB
+// at (256, 256): one block an SM)
 template <int DQK, int DV> constexpr size_t tc_smem_bytes() {
   return (size_t)(TC_BM * (DQK + tc::PAD) + 2 * TC_BN * (DQK + tc::PAD) +
                   2 * TC_BN * (DV + tc::PAD)) *
@@ -435,10 +443,15 @@ append_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   tc::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[KQ][4];  // q's A fragments, held for the whole loop
+  // q's A fragments, held for the whole loop; at width 256 read from
+  // shared memory at each k-step instead (see the header)
+  constexpr bool QREG = DQK <= 192;
+  uint32_t qf[QREG ? KQ : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KQ; ++kk)
-    tc::ldsm_x4(qf[kk], Qs + tc::a_off(warp * 16, kk * 16, QS, lane));
+    for (int kk = 0; kk < KQ; ++kk)
+      tc::ldsm_x4(qf[kk], Qs + tc::a_off(warp * 16, kk * 16, QS, lane));
+  }
 
   const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
   float acc[NO][4];
@@ -465,14 +478,17 @@ append_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < NS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KQ; ++kk)
+    for (int kk = 0; kk < KQ; ++kk) {
+      if constexpr (!QREG) tc::ldsm_x4(qf[0], Qs + tc::a_off(warp * 16, kk * 16, QS, lane));
+      const uint32_t(&qa)[4] = qf[QREG ? kk : 0];
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t kb[4];
         tc::ldsm_x4(kb, ks + tc::b_off(np * 16, kk * 16, QS, lane));
-        tc::mma(sc[2 * np], qf[kk], kb[0], kb[1]);
-        tc::mma(sc[2 * np + 1], qf[kk], kb[2], kb[3]);
+        tc::mma(sc[2 * np], qa, kb[0], kb[1]);
+        tc::mma(sc[2 * np + 1], qa, kb[2], kb[3]);
       }
+    }
 
     // only tiles that cross an edge compare per element
     const bool whole = allowed == nullptr && kv0 + TC_BN <= T_ &&
@@ -607,7 +623,8 @@ int launch_dtype(const void* q, const void* k, const void* v, const uint8_t* a, 
 }  // namespace
 
 // q [B, S, H, dqk]; k [B, T, hk, dqk]; v [B, T, hk, dv]; out [B, S, H, dv];
-// (dqk, dv) is (128, 128), (192, 128) or (64, 64); allowed [B, T] bytes
+// (dqk, dv) is (128, 128), (192, 128), (64, 64) or (256, 256); allowed
+// [B, T] bytes
 // or null; lse [B, H, S] f32 or null; kind 0 = causal at pos (window 0), 1 = local
 // (window > 0: query s sees only columns pos + s - window < t <= pos + s),
 // 2 = full (window 0, pos not read). dtype: 0 = float32, 1 = bfloat16.
@@ -638,6 +655,9 @@ extern "C" int pt_append_attention(const void* q, const void* k, const void* v,
   if (dqk == 64 && dv == 64)
     return launch_dtype<64, 64>(q, k, v, a, out, l, B, S, T_, H, hk, pos, pd, window,
                                 full, scale, dtype, s);
+  if (dqk == 256 && dv == 256)
+    return launch_dtype<256, 256>(q, k, v, a, out, l, B, S, T_, H, hk, pos, pd, window,
+                                  full, scale, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

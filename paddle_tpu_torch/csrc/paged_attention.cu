@@ -51,6 +51,12 @@
 // 8 warps a block through a 2-stage ring of 32-token tiles, lane = token
 // for the scores, f32 FMAs throughout; templated on G (its per-head sums
 // live in registers), instantiated for every G from 1 to 16.
+// Head widths D: 128 (the Llama families) and 256 (Gemma), template
+// parameters of both bodies and the combine. At 256 the bf16 body's warp
+// would hold q's fragments (64 registers) beside its output (128), so it
+// stages the 16 query rows in shared memory once (8 KB more a block) and
+// reads each k-step's fragment there for every chunk; its ring is 50 KB.
+// The combine's groups of D threads are at most 1024 / D.
 // Later work: a last-block-done combine would save the second launch
 // (about 2 us of device time).
 
@@ -63,7 +69,6 @@
 
 namespace {
 
-constexpr int D = 128;            // head width, fixed
 constexpr int MAX_PAGES = 16384;  // page indices of a row held in shared memory
 constexpr int MAX_SPLIT = 4096;   // a combine block's weights in shared memory
 constexpr int MAX_G = 16;         // query heads a KV head: the 16 rows of an mma tile
@@ -100,32 +105,36 @@ __device__ __forceinline__ void run_of(int len, int ps, int split, int NS, int& 
   t_end = min(len, p_end * ps);
 }
 
-namespace tck {               // the bf16 body: one warp a block
-constexpr int NT = 32;
-constexpr int CH = 16;        // tokens of a chunk: the n of S, the k of P V
-constexpr int STAGES = 3;     // chunks in the warp's ring
-constexpr int R = D + tc::PAD;  // padded row, bf16 elements
-constexpr int CHUNK = 2 * CH * R;  // K then V
-constexpr size_t RING_BYTES = sizeof(__nv_bfloat16) * (size_t)STAGES * CHUNK;
-}  // namespace tck
+template <int D> struct tck {  // the bf16 body: one warp a block
+  static constexpr int NT = 32;
+  static constexpr int CH = 16;        // tokens of a chunk: the n of S, the k of P V
+  static constexpr int STAGES = 3;     // chunks in the warp's ring
+  static constexpr int R = D + tc::PAD;  // padded row, bf16 elements
+  static constexpr int CHUNK = 2 * CH * R;  // K then V
+  static constexpr size_t RING_BYTES = sizeof(__nv_bfloat16) * (size_t)STAGES * CHUNK;
+  // q's 16 rows in shared memory (width 256 only; see the header)
+  static constexpr bool QSMEM = D > 128;
+  static constexpr size_t Q_BYTES = QSMEM ? sizeof(__nv_bfloat16) * 16 * R : 0;
+};
 
-namespace f32k {              // the f32 body
-constexpr int NT = 256;       // threads per block (8 warps)
-constexpr int NW = NT / 32;
-constexpr int TOK = 32;       // tokens per tile: one per lane in the scores
-constexpr int QD = D / NW;    // columns of the scores each warp sums
-constexpr int NQ = NT / (D / 2);  // token quarters of the context: thread
-                                  // (q, c) owns columns 2c, 2c + 1
-constexpr int TQ = TOK / NQ;      // tokens of a tile per quarter
-constexpr int STAGES = 2;
-constexpr int RS = D + 4;         // padded row, floats
-constexpr size_t RING_BYTES = sizeof(float) * (size_t)STAGES * 2 * TOK * RS;
-static_assert(sizeof(float) * NQ * 16 * D <= RING_BYTES, "quarter sums fit the ring");
-}  // namespace f32k
+template <int D> struct f32k {  // the f32 body
+  static constexpr int NT = 256;       // threads per block (8 warps)
+  static constexpr int NW = NT / 32;
+  static constexpr int TOK = 32;       // tokens per tile: one per lane in the scores
+  static constexpr int QD = D / NW;    // columns of the scores each warp sums
+  static constexpr int NQ = NT / (D / 2);  // token quarters of the context: thread
+                                           // (q, c) owns columns 2c, 2c + 1
+  static constexpr int TQ = TOK / NQ;      // tokens of a tile per quarter
+  static constexpr int STAGES = 2;
+  static constexpr int RS = D + 4;         // padded row, floats
+  static constexpr size_t RING_BYTES = sizeof(float) * (size_t)STAGES * 2 * TOK * RS;
+  static_assert(sizeof(float) * NQ * 16 * D <= RING_BYTES, "quarter sums fit the ring");
+};
 
-template <int G> size_t f32_smem(int pps) {
-  using namespace f32k;
-  return RING_BYTES + sizeof(float) * ((size_t)G * D + (size_t)NW * G * TOK + (size_t)TOK * G + G) +
+template <int D, int G> size_t f32_smem(int pps) {
+  using K = f32k<D>;
+  return K::RING_BYTES +
+         sizeof(float) * ((size_t)G * D + (size_t)K::NW * G * K::TOK + (size_t)K::TOK * G + G) +
          sizeof(int) * (size_t)pps;
 }
 
@@ -134,16 +143,20 @@ template <int G> size_t f32_smem(int pps) {
 // each head to the partials [B, H, n_split] (acc [B, H, n_split, D]; not
 // written for an empty run, whose m = -inf the combine skips). Rows G to
 // 15 of the products are zeros and are never stored.
-__global__ void __launch_bounds__(tck::NT)
+template <int D>
+__global__ void __launch_bounds__(32)
 paged_split_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
                       const __nv_bfloat16* __restrict__ vp, const int* __restrict__ lengths,
                       const int* __restrict__ page_indices, float* __restrict__ part_m,
                       float* __restrict__ part_l, float* __restrict__ part_acc, int H, int G,
                       int n_pages, int ps, int pps, float scale) {
-  using namespace tck;
+  using K = tck<D>;
+  constexpr int NT = K::NT, CH = K::CH, STAGES = K::STAGES, R = K::R, CHUNK = K::CHUNK;
+  constexpr int CPR = D / 8;  // 16-byte copies a row
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][K, V][CH][R]
-  int* idx = reinterpret_cast<int*>(smem + RING_BYTES);          // the run's page indices
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + K::RING_BYTES);  // [16][R]
+  int* idx = reinterpret_cast<int*>(smem + K::RING_BYTES + K::Q_BYTES);  // the run's pages
 
   const int split = blockIdx.x, b = blockIdx.y, kh = blockIdx.z, NS = gridDim.x;
   const int lane = threadIdx.x, gid = lane >> 2, tig = lane & 3;
@@ -172,9 +185,9 @@ paged_split_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     __nv_bfloat16* ks = ring + stage * CHUNK;
     __nv_bfloat16* vs = ks + CH * R;
 #pragma unroll
-    for (int k = 0; k < CH * (D / 8) / NT; ++k) {
+    for (int k = 0; k < CH * CPR / NT; ++k) {
       const int u = lane + NT * k;
-      const int r = u >> 4, c = (u & 15) * 8;
+      const int r = u / CPR, c = (u % CPR) * 8;
       const int t = t0 + r;
       const bool ok = t < t_end;
       size_t off = 0;
@@ -186,6 +199,13 @@ paged_split_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
       tc::cp_async16(vs + r * R + c, vp + off, ok);
     }
   };
+  const __nv_bfloat16* qrow = q + h0 * D;
+  if constexpr (K::QSMEM) {  // the 16 query rows (zeros past G), with chunk 0
+    for (int u = lane; u < 16 * CPR; u += NT) {
+      const int r = u / CPR, c = (u % CPR) * 8;
+      tc::cp_async16(qs + r * R + c, qrow + (r < G ? r * D + c : 0), r < G);
+    }
+  }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_chunks) issue(s, s);
@@ -193,18 +213,20 @@ paged_split_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   }
 
   // the G query rows as A fragments of 16 rows (zeros past G), per k-step;
-  // read while the first chunks are on their way
-  uint32_t qa[D / 16][4];
-  const __nv_bfloat16* qrow = q + h0 * D;
+  // read while the first chunks are on their way (at width 256 from shared
+  // memory at each k-step instead)
+  uint32_t qa[K::QSMEM ? 1 : D / 16][4];
+  if constexpr (!K::QSMEM) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * tig;
-    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(qrow + gid * D + c);
-    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(qrow + (gid + 8) * D + c);
-    qa[kk][0] = gid < G ? __ldg(r0) : 0u;
-    qa[kk][1] = gid + 8 < G ? __ldg(r1) : 0u;
-    qa[kk][2] = gid < G ? __ldg(r0 + 4) : 0u;
-    qa[kk][3] = gid + 8 < G ? __ldg(r1 + 4) : 0u;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 + 2 * tig;
+      const uint32_t* r0 = reinterpret_cast<const uint32_t*>(qrow + gid * D + c);
+      const uint32_t* r1 = reinterpret_cast<const uint32_t*>(qrow + (gid + 8) * D + c);
+      qa[kk][0] = gid < G ? __ldg(r0) : 0u;
+      qa[kk][1] = gid + 8 < G ? __ldg(r1) : 0u;
+      qa[kk][2] = gid < G ? __ldg(r0 + 4) : 0u;
+      qa[kk][3] = gid + 8 < G ? __ldg(r1 + 4) : 0u;
+    }
   }
 
   // o: rows gid (o[.][0..1]) and gid + 8 (o[.][2..3]) of 16 column blocks
@@ -229,10 +251,12 @@ paged_split_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (K::QSMEM) tc::ldsm_x4(qa[0], qs + tc::a_off(0, kk * 16, R, lane));
+      const uint32_t(&a)[4] = qa[K::QSMEM ? 0 : kk];
       uint32_t kb[4];
       tc::ldsm_x4(kb, ks + tc::b_off(0, kk * 16, R, lane));
-      tc::mma(sc[0], qa[kk], kb[0], kb[1]);
-      tc::mma(sc[1], qa[kk], kb[2], kb[3]);
+      tc::mma(sc[0], a, kb[0], kb[1]);
+      tc::mma(sc[1], a, kb[2], kb[3]);
     }
     // online softmax of rows gid and gid + 8; a quad holds a row's 16 tokens
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -312,16 +336,18 @@ paged_split_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 // f32 body (CUDA cores). Block (split, b, kh): its run of row b's pages,
 // the G query heads of KV head kh; writes the run's (m, l, acc) of each
 // head to the partials [B, H, n_split] (acc [B, H, n_split, D]).
-template <int G>
-__global__ void __launch_bounds__(f32k::NT)
+template <int D, int G>
+__global__ void __launch_bounds__(256)
 paged_split_f32_kernel(const float* __restrict__ q, const float* __restrict__ kp,
                        const float* __restrict__ vp,
                        const int* __restrict__ lengths, const int* __restrict__ page_indices,
                        float* __restrict__ part_m, float* __restrict__ part_l,
                        float* __restrict__ part_acc, int H, int n_pages, int ps, int pps,
                        float scale) {
-  using namespace f32k;
-  constexpr int V = 4, R = RS, CPR = D / V;          // 16-byte chunks per row
+  using K = f32k<D>;
+  constexpr int NT = K::NT, NW = K::NW, TOK = K::TOK, QD = K::QD, NQ = K::NQ, TQ = K::TQ;
+  constexpr int STAGES = K::STAGES, RING_BYTES = (int)K::RING_BYTES;
+  constexpr int V = 4, R = K::RS, CPR = D / V;       // 16-byte chunks per row
   constexpr int MK = (G + NW - 1) / NW;              // softmax heads per warp
   extern __shared__ __align__(16) unsigned char smem[];
   float* kv = reinterpret_cast<float*>(smem);                  // [STAGES][K, V][TOK][R]
@@ -489,11 +515,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f(float v, __nv_bfloat16) {
   return __float2bfloat16(v);
 }
 
-constexpr int MAX_CG = 8;  // groups of D threads a combine block sums the splits in
+constexpr int MAX_NT = 1024;  // threads of a combine block: MAX_NT / D groups of D
 
 // the combine's groups: one while a thread's loop over the splits is short,
-// up to MAX_CG for many splits (a row of B 1 spread over the card)
-int combine_groups(int n_split) { return n_split <= 32 ? 1 : min(MAX_CG, n_split / 16); }
+// up to MAX_NT / D for many splits (a row of B 1 spread over the card)
+int combine_groups(int n_split, int D) {
+  return n_split <= 32 ? 1 : min(MAX_NT / D, n_split / 16);
+}
 
 // Block (h, b), CG = blockDim.x / D groups: out[b, h, :] = sum_s w_s acc_s
 // / sum_s w_s l_s with w_s = exp(m_s - max_s m_s) over the splits that saw
@@ -501,12 +529,12 @@ int combine_groups(int n_split) { return n_split <= 32 ? 1 : min(MAX_CG, n_split
 // none did. The block weighs the splits in parallel into shared memory;
 // thread (g, d) then sums column d of the splits s = g mod CG, eight loads
 // at a time in flight.
-template <typename T>
-__global__ void __launch_bounds__(MAX_CG * D)
+template <typename T, int D>
+__global__ void __launch_bounds__(MAX_NT)
 paged_combine_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                      const float* __restrict__ part_acc, T* __restrict__ out, int NS) {
   extern __shared__ float ws[];  // [NS]
-  __shared__ float red[MAX_CG * D / 32], sums[MAX_CG][D];
+  __shared__ float red[MAX_NT / 32], sums[MAX_NT / D][D];
   const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
   const int NT = blockDim.x, CG = NT / D, NWARP = NT / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -562,45 +590,88 @@ template <typename K> int allow_smem(K kernel, size_t bytes, size_t& allowed) {
   return (int)err;
 }
 
+template <int D>
 int launch_bf16(const void* q, const void* kp, const void* vp, const int* lengths,
                 const int* pidx, float* pm, float* pl, float* pa, void* out, int B, int H,
                 int hk, int n_pages, int ps, int pps, int n_split, float scale, cudaStream_t s) {
   static size_t allowed = 0;
-  const size_t smem = tck::RING_BYTES + sizeof(int) * (size_t)((pps + n_split - 1) / n_split);
+  const size_t smem = tck<D>::RING_BYTES + tck<D>::Q_BYTES +
+                      sizeof(int) * (size_t)((pps + n_split - 1) / n_split);
   int err;
-  if ((err = allow_smem(paged_split_tc_kernel, smem, allowed))) return err;
-  paged_split_tc_kernel<<<dim3(n_split, B, hk), tck::NT, smem, s>>>(
+  if ((err = allow_smem(paged_split_tc_kernel<D>, smem, allowed))) return err;
+  paged_split_tc_kernel<D><<<dim3(n_split, B, hk), tck<D>::NT, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
       static_cast<const __nv_bfloat16*>(vp), lengths, pidx, pm, pl, pa, H, H / hk, n_pages, ps,
       pps, scale);
   if ((err = (int)cudaGetLastError())) return err;
-  paged_combine_kernel<__nv_bfloat16><<<dim3(H, B), D * combine_groups(n_split),
-                                       sizeof(float) * n_split, s>>>(
+  paged_combine_kernel<__nv_bfloat16, D><<<dim3(H, B), D * combine_groups(n_split, D),
+                                          sizeof(float) * n_split, s>>>(
       pm, pl, pa, static_cast<__nv_bfloat16*>(out), n_split);
   return (int)cudaGetLastError();
 }
 
-template <int G>
+template <int D, int G>
 int launch_f32(const void* q, const void* kp, const void* vp, const int* lengths,
                const int* pidx, float* pm, float* pl, float* pa, void* out, int B, int H,
                int hk, int n_pages, int ps, int pps, int n_split, float scale, cudaStream_t s) {
   static size_t allowed = 0;
-  const size_t smem = f32_smem<G>(pps);
+  const size_t smem = f32_smem<D, G>(pps);
   int err;
-  if ((err = allow_smem(paged_split_f32_kernel<G>, smem, allowed))) return err;
-  paged_split_f32_kernel<G><<<dim3(n_split, B, hk), f32k::NT, smem, s>>>(
+  if ((err = allow_smem(paged_split_f32_kernel<D, G>, smem, allowed))) return err;
+  paged_split_f32_kernel<D, G><<<dim3(n_split, B, hk), f32k<D>::NT, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(kp),
       static_cast<const float*>(vp), lengths, pidx, pm, pl, pa, H, n_pages, ps, pps, scale);
   if ((err = (int)cudaGetLastError())) return err;
-  paged_combine_kernel<float><<<dim3(H, B), D * combine_groups(n_split),
-                               sizeof(float) * n_split, s>>>(
+  paged_combine_kernel<float, D><<<dim3(H, B), D * combine_groups(n_split, D),
+                                  sizeof(float) * n_split, s>>>(
       pm, pl, pa, static_cast<float*>(out), n_split);
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dtype(const void* q, const void* kp, const void* vp, const int* len,
+                 const int* pidx, float* pm, float* pl, float* pa, void* out, int B, int H,
+                 int hk, int n_pages, int ps, int pps, int n_split, float scale, int dtype,
+                 cudaStream_t s) {
+  if (dtype == 1)
+    return launch_bf16<D>(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps,
+                          n_split, scale, s);
+#define PT_F32_CASE(g)                                                                     \
+  case g:                                                                                  \
+    return launch_f32<D, g>(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps,  \
+                            pps, n_split, scale, s);
+  switch (H / hk) {
+    PT_F32_CASE(1) PT_F32_CASE(2) PT_F32_CASE(3) PT_F32_CASE(4)
+    PT_F32_CASE(5) PT_F32_CASE(6) PT_F32_CASE(7) PT_F32_CASE(8)
+    PT_F32_CASE(9) PT_F32_CASE(10) PT_F32_CASE(11) PT_F32_CASE(12)
+    PT_F32_CASE(13) PT_F32_CASE(14) PT_F32_CASE(15) PT_F32_CASE(16)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PT_F32_CASE
+}
+
+// the C entry points' body at head width D
+template <int D>
+int paged_attention(const void* q, const void* kp, const void* vp, const void* lengths,
+                    const void* page_indices, void* part_m, void* part_l, void* part_acc,
+                    void* out, int B, int H, int hk, int n_pages, int ps, int pps, int n_split,
+                    float scale, int dtype, void* stream) {
+  if (n_split < 1 || n_split > max(pps, 1) || n_split > MAX_SPLIT || pps > MAX_PAGES ||
+      ps < 1 || hk < 1 || H % hk != 0 || H / hk < 1 || H / hk > MAX_G)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  const int* pidx = static_cast<const int*>(page_indices);
+  float* pm = static_cast<float*>(part_m);
+  float* pl = static_cast<float*>(part_l);
+  float* pa = static_cast<float*>(part_acc);
+  return launch_dtype<D>(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps,
+                         n_split, scale, dtype, s);
+}
+
 }  // namespace
 
-// q, out [B, H, D], H a multiple of hk with 1 <= H / hk <= 16; k_pages,
+// q, out [B, H, D], D = 128, H a multiple of hk with 1 <= H / hk <= 16; k_pages,
 // v_pages [hk, n_pages, ps, D]; lengths [B] int32;
 // page_indices [B, pps] int32, pps <= 16384; partials part_m, part_l
 // [B, H, n_split] and part_acc [B, H, n_split, D] f32, scratch;
@@ -613,30 +684,18 @@ extern "C" int pt_paged_attention(const void* q, const void* kp, const void* vp,
                                   void* part_m, void* part_l, void* part_acc, void* out,
                                   int B, int H, int hk, int n_pages, int ps, int pps,
                                   int n_split, float scale, int dtype, void* stream) {
-  if (n_split < 1 || n_split > max(pps, 1) || n_split > MAX_SPLIT || pps > MAX_PAGES ||
-      ps < 1 || hk < 1 || H % hk != 0 || H / hk < 1 || H / hk > MAX_G)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(lengths);
-  const int* pidx = static_cast<const int*>(page_indices);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
-  if (dtype == 1)
-    return launch_bf16(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps,
-                       n_split, scale, s);
-#define PT_F32_CASE(g)                                                                     \
-  case g:                                                                                  \
-    return launch_f32<g>(q, kp, vp, len, pidx, pm, pl, pa, out, B, H, hk, n_pages, ps, pps, \
-                         n_split, scale, s);
-  switch (H / hk) {
-    PT_F32_CASE(1) PT_F32_CASE(2) PT_F32_CASE(3) PT_F32_CASE(4)
-    PT_F32_CASE(5) PT_F32_CASE(6) PT_F32_CASE(7) PT_F32_CASE(8)
-    PT_F32_CASE(9) PT_F32_CASE(10) PT_F32_CASE(11) PT_F32_CASE(12)
-    PT_F32_CASE(13) PT_F32_CASE(14) PT_F32_CASE(15) PT_F32_CASE(16)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef PT_F32_CASE
+  return paged_attention<128>(q, kp, vp, lengths, page_indices, part_m, part_l, part_acc, out,
+                              B, H, hk, n_pages, ps, pps, n_split, scale, dtype, stream);
+}
+
+// the same at head width 256 (Gemma's heads)
+extern "C" int pt_paged_attention_256(const void* q, const void* kp, const void* vp,
+                                      const void* lengths, const void* page_indices,
+                                      void* part_m, void* part_l, void* part_acc, void* out,
+                                      int B, int H, int hk, int n_pages, int ps, int pps,
+                                      int n_split, float scale, int dtype, void* stream) {
+  return paged_attention<256>(q, kp, vp, lengths, page_indices, part_m, part_l, part_acc, out,
+                              B, H, hk, n_pages, ps, pps, n_split, scale, dtype, stream);
 }
 
 extern "C" const char* pt_error_string(int code) {

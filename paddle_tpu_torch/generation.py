@@ -46,7 +46,8 @@ from .ops.hopper.append_attention import (append_attention,
                                           chunk_positions,
                                           grouped_attention_plain)
 from .ops.hopper.flash_attention import flash_attention_bshd
-from .ops.hopper.paged_attention import gather_pages, paged_attention
+from .ops.hopper.paged_attention import (gather_pages, paged_attention,
+                                         paged_attention_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -70,7 +71,7 @@ def _rope_rows_full(x, cos, sin, row_pos):
 
 def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
                      row_pos=None, use_flash=True, prefill=False, window=None,
-                     rope_applied=False):
+                     softcap=None, rope_applied=False):
     """RoPE + cache write + masked grouped-query attention against a dense
     buffer. q [B,S,H,D]; k/v [B,S,hk,D]; cos/sin [>= T, rope_dim];
     k_buf/v_buf [B,T,hk,D], written IN PLACE at ``pos`` (JAX returns new
@@ -92,7 +93,11 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
       CUDA it also takes single tokens and ``use_flash=False``;
     - any other windowed chunk (pos > 0, a padded prompt, a single token)
       the f32 einsum, ``append_attention_plain``, as the JAX package's
-      einsum branch (no kernel there either).
+      einsum branch (no kernel there either);
+    - any chunk with ``softcap`` (Gemma2's capped scores; the caller
+      passes ``use_flash`` False, as JAX does) the same einsum with the
+      cap applied before the masks (``generation.py:135-137``): no
+      kernel computes capped scores, in JAX or here.
 
     The wrappers run their plain versions on CPU tensors. The rope rows
     and the cache slots are taken by index at ``pos + arange(S)``.
@@ -113,15 +118,16 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
 
     if use_flash and S > 1 and allowed is None and row_pos is None and prefill:
         out = flash_attention_bshd(q, k, v, causal=True, window=window)
-    elif window is None:
+    elif window is None and softcap is None:
         out = append_attention(q, k_buf, v_buf, pos, allowed=allowed)
     else:
-        out = append_attention_plain(q, k_buf, v_buf, pos, allowed, window)
+        out = append_attention_plain(q, k_buf, v_buf, pos, allowed, window,
+                                     softcap=softcap)
     return out, k_buf, v_buf
 
 
 def paged_cached_attention(q, k, v, cos, sin, k_pages, v_pages, page_indices,
-                           lengths, page_size, window=None,
+                           lengths, page_size, window=None, softcap=None,
                            rope_applied=False):
     """S tokens per row over the paged pool: row b's token j is roped at
     position lengths[b] + j (unless ``rope_applied``: the fused decode tail
@@ -150,15 +156,17 @@ def paged_cached_attention(q, k, v, cos, sin, k_pages, v_pages, page_indices,
                        v.movedim(2, 0).to(v_pages.dtype))
     if S > 1:
         out = _paged_chunk_attention(q, k_pages, v_pages, lengths,
-                                     page_indices, window=window)
+                                     page_indices, window=window,
+                                     softcap=softcap)
         return out, k_pages, v_pages
     out = paged_decode_attention(q[:, 0].contiguous(), k_pages, v_pages,
-                                 lengths + 1, page_indices, window=window)
+                                 lengths + 1, page_indices, window=window,
+                                 softcap=softcap)
     return out[:, None], k_pages, v_pages
 
 
 def _paged_chunk_attention(q, k_pages, v_pages, lengths, page_indices,
-                           window=None):
+                           window=None, softcap=None):
     """Chunk attention over the paged pool: q [B,S,H,D] sits at positions
     lengths[b] + j; column t is visible from chunk position j iff
     t <= lengths[b] + j (and, windowed, t > lengths[b] + j - window). The
@@ -174,20 +182,23 @@ def _paged_chunk_attention(q, k_pages, v_pages, lengths, page_indices,
     valid = t_idx <= qpos[:, :, None]                          # [B, S, T]
     if window is not None:
         valid = valid & (t_idx > qpos[:, :, None] - window)
-    return _chunk_sdpa(q, k, v, valid)
+    return _chunk_sdpa(q, k, v, valid, softcap=softcap)
 
 
-def _chunk_sdpa(q, k, v, valid):
+def _chunk_sdpa(q, k, v, valid, softcap=None):
     """Decode / verify attention core: q [B,S,H,D] against gathered k / v
-    [B,hk,T,D] with a column mask valid [B,S,T]; f32 scores and softmax."""
+    [B,hk,T,D] with a column mask valid [B,S,T]; f32 scores and softmax;
+    ``softcap``: Gemma2's tanh cap on the scaled scores, before the mask."""
     return grouped_attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
-                                   valid, 1.0 / math.sqrt(q.shape[-1]))
+                                   valid, 1.0 / math.sqrt(q.shape[-1]),
+                                   softcap)
 
 
-def _banded_sdpa(q, k, v, valid):
+def _banded_sdpa(q, k, v, valid, softcap=None):
     """The S=1 view of :func:`_chunk_sdpa`: q [B,H,D] against gathered
     k / v [B,hk,T,D] with a column mask valid [B,T]."""
-    return _chunk_sdpa(q[:, None], k, v, valid[:, None])[:, 0]
+    return _chunk_sdpa(q[:, None], k, v, valid[:, None],
+                       softcap=softcap)[:, 0]
 
 
 def _pool_index(pages, rows, slot):
@@ -200,22 +211,29 @@ def _pool_index(pages, rows, slot):
 
 
 def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices,
-                           window=None):
+                           window=None, softcap=None):
     """Decode attention over the paged pool: the paged-attention kernel on
     CUDA (its plain version on the CPU). A sliding window narrower than the
     cache (``generation.py:260-266``) takes ``_paged_window_attention``,
     PyTorch on every device as it is XLA in the JAX package: the kernel has
     no lower edge, and the band gather reads O(window), not O(max_len). A
-    window as wide as the cache never excludes a column: the kernel."""
+    window as wide as the cache never excludes a column: the kernel, unless
+    the scores are capped (``softcap``, Gemma2): the kernel computes
+    uncapped scores, so capped rows take the exact gather reference
+    (``paged_attention_plain``, JAX's ``_paged_attention_ref``) on every
+    device, as in JAX (``generation.py:271-276``)."""
     if window is not None and window < page_indices.shape[1] * k_pages.shape[2]:
         return _paged_window_attention(q, k_pages, v_pages, lengths,
-                                       page_indices, window)
+                                       page_indices, window, softcap=softcap)
+    if softcap is not None:
+        return paged_attention_plain(q, k_pages, v_pages, lengths,
+                                     page_indices, softcap=softcap)
     return paged_attention(q, k_pages, v_pages, lengths.to(torch.int32),
                            page_indices)
 
 
 def _paged_window_attention(q, k_pages, v_pages, lengths, page_indices,
-                            window):
+                            window, softcap=None):
     """Sliding-window decode over the paged pool (``generation.py:
     295-322``): row b gathers only the ``min(ceil(window / ps) + 1, pages
     per row)`` pages the band [lengths[b] - window, lengths[b]) touches,
@@ -237,7 +255,7 @@ def _paged_window_attention(q, k_pages, v_pages, lengths, page_indices,
               + torch.arange(ps, device=q.device)[None, None]).reshape(B, -1)
     valid = ((colpos < lengths[:, None])
              & (colpos >= lengths[:, None] - window))
-    return _banded_sdpa(q, k, v, valid)
+    return _banded_sdpa(q, k, v, valid, softcap=softcap)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,14 @@ or a paged speculative-verify chunk), layer recompute
 ``distributed.recompute_layer.RecomputeLayer``, as ``llama.py:903-906``;
 the cached forward calls the bare layers), q/k/v projection biases
 (``attention_bias``, Qwen2) and q/k RMSNorm (``qk_norm``: per head, Qwen3,
-or over the projected width, OLMo2). Not ported: context parallelism (the
-port has no process group) and attention soft-capping.
+or over the projected width, OLMo2), and Gemma's options: (1 + w) norms
+(``rms_norm_offset``), embeddings scaled by sqrt(hidden)
+(``scale_embeddings``), the softmax scale folded into q
+(``query_pre_attn_scalar``), tanh caps on the attention scores
+(``attn_logit_softcapping``: the plain capped attention, which the JAX
+package routes them to) and on the logits (``final_logit_softcapping``).
+Not ported: context parallelism in the trunk (the port has no process
+group; JAX refuses capped attention there too).
 
 Parameter names equal the JAX package's (``llama.layers.0.self_attn.
 q_proj.weight``, ``lm_head.weight``, ...), and Linear weights keep Paddle's
@@ -92,15 +98,27 @@ class LlamaConfig:
     # head_dim per head after the split) or "full" (OLMo2, one norm over
     # the projected width before the split)
     qk_norm: bool | str = False
-    # not ported; raises NotImplementedError when asked for
+    # RMSNorm weight as (1 + w), w initialised to zeros (Gemma): every
+    # kernel call takes the effective weight
+    rms_norm_offset: bool = False
+    # embeddings times sqrt(hidden_size), the scalar rounded to the compute
+    # dtype first (Gemma)
+    scale_embeddings: bool = False
+    # softmax scale query_pre_attn_scalar ** -0.5 instead of head_dim **
+    # -0.5, folded into q after the projection (Gemma2)
+    query_pre_attn_scalar: Optional[float] = None
+    # tanh cap on the attention scores, cap * tanh(s / cap) (Gemma2): the
+    # plain capped attention on every route, as in the JAX package
     attn_logit_softcapping: Optional[float] = None
+    # tanh cap on the lm-head logits (Gemma2)
+    final_logit_softcapping: Optional[float] = None
 
     def __post_init__(self):
-        if self.attn_logit_softcapping:
+        if self.final_logit_softcapping and self.fuse_linear_cross_entropy:
             raise NotImplementedError(
-                "attn_logit_softcapping is not ported to paddle_tpu_torch "
-                "(JAX: paddle_tpu/models/llama.py:637, :708 (_sdpa_ref "
-                "softcap))")
+                "final_logit_softcapping cannot combine with "
+                "fuse_linear_cross_entropy (the chunked-CE scan computes "
+                "uncapped logits)")
         if self.qk_norm not in (False, True, "per_head", "full"):
             raise ValueError(
                 f"qk_norm must be False, True, 'per_head' or 'full', "
@@ -123,6 +141,10 @@ class LlamaConfig:
                 raise ValueError(
                     f"layer_types has {len(self.layer_types)} entries for "
                     f"{self.num_hidden_layers} layers")
+            bad = set(self.layer_types) - {"sliding_attention",
+                                           "full_attention"}
+            if bad:
+                raise ValueError(f"unknown layer_types entries: {bad}")
 
     @staticmethod
     def llama3_8b(**kw):
@@ -289,17 +311,20 @@ class LlamaRMSNorm(tnn.Module):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         self.variance_epsilon = config.rms_norm_eps
+        # Gemma: the weight is the delta from identity, (1 + w), w zeros
+        self.offset = 1.0 if getattr(config, "rms_norm_offset", False) else 0.0
         self.weight = tnn.Parameter(
-            torch.ones(config.hidden_size, device=device,
-                       dtype=torch_dtype(config.dtype)))
+            torch.full((config.hidden_size,), 1.0 - self.offset,
+                       device=device, dtype=torch_dtype(config.dtype)))
 
     def effective_weight(self):
-        """The scale every kernel call takes (the port has no offset norm,
-        so it is the weight itself)."""
-        return self.weight
+        """The scale every kernel call takes: the weight, or w + 1 added
+        in the weight's dtype (``llama.py:427-442``)."""
+        return self.weight + self.offset if self.offset else self.weight
 
     def forward(self, x):
-        return fused_norm.rms_norm(x, self.weight, self.variance_epsilon)
+        return fused_norm.rms_norm(x, self.effective_weight(),
+                                   self.variance_epsilon)
 
 
 def _width_norm(config, width, device=None):
@@ -307,6 +332,21 @@ def _width_norm(config, width, device=None):
     family config (``paddle_tpu/models/llama.py:195``)."""
     return LlamaRMSNorm(dataclasses.replace(config, hidden_size=width),
                         device=device)
+
+
+def _scale_embed(hidden, config):
+    """Gemma's input scaling: hidden * sqrt(hidden_size), the scalar first
+    rounded to the hidden's dtype (``llama.py:487-493``: 55.5 in bf16 for
+    hidden 3072, not 55.43)."""
+    if not getattr(config, "scale_embeddings", False):
+        return hidden
+    return hidden * _in_dtype(math.sqrt(config.hidden_size), hidden.dtype)
+
+
+def _in_dtype(x: float, dtype) -> float:
+    """``x`` rounded to ``dtype``, as JAX rounds a Python scalar that
+    multiplies an array of that dtype."""
+    return float(torch.tensor(x, dtype=dtype))
 
 
 class LlamaAttention(tnn.Module):
@@ -318,6 +358,11 @@ class LlamaAttention(tnn.Module):
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = head_dim_of(config)
         self.window = config.sliding_window
+        # Gemma2's softmax scale folded into q once after the projection:
+        # every path divides by sqrt(head_dim), and RoPE is linear
+        qpas = getattr(config, "query_pre_attn_scalar", None)
+        self.q_premul = math.sqrt(self.head_dim / qpas) if qpas else None
+        self.softcap = getattr(config, "attn_logit_softcapping", None)
         dt = torch_dtype(config.dtype)
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
         self.qk_norm_mode = ("per_head" if config.qk_norm is True
@@ -356,7 +401,7 @@ class LlamaAttention(tnn.Module):
                 q, k, v, cos, sin, kv_cache["k_pages"], kv_cache["v_pages"],
                 kv_cache["page_indices"], kv_cache["lengths"],
                 kv_cache["page_size"], window=self.window,
-                rope_applied=rope_applied)
+                softcap=self.softcap, rope_applied=rope_applied)
             new = dict(kv_cache)
             new.update(k_pages=kp, v_pages=vp,
                        lengths=kv_cache["lengths"] + s)
@@ -364,9 +409,10 @@ class LlamaAttention(tnn.Module):
         out, k_buf, v_buf = cached_attention(
             q, k, v, cos, sin, kv_cache["k"], kv_cache["v"], kv_cache["pos"],
             kv_cache.get("allowed"), kv_cache.get("row_pos"),
-            use_flash=self.config.use_flash_attention,
+            use_flash=(self.config.use_flash_attention
+                       and self.softcap is None),
             prefill=bool(kv_cache.get("prefill", False)), window=self.window,
-            rope_applied=rope_applied)
+            softcap=self.softcap, rope_applied=rope_applied)
         new = {"k": k_buf, "v": v_buf, "pos": kv_cache["pos"] + s}
         if "allowed" in kv_cache:
             new["allowed"] = kv_cache["allowed"]
@@ -395,8 +441,11 @@ class LlamaAttention(tnn.Module):
         Without: RoPE on q and k (fused kernel), then causal flash attention
         over the sequence, within the layer's sliding window if it has one
         (``llama.py:644-710``), returns out. On a CPU tensor the plain flash
-        version runs, the same math as the JAX ``_sdpa_ref`` fallback. The
-        q/k norms run first on both paths (``llama.py:614-632``)."""
+        version runs, the same math as the JAX ``_sdpa_ref`` fallback.
+        Capped scores (``attn_logit_softcapping``) never reach the flash
+        kernel: the plain capped attention runs, as in JAX
+        (``llama.py:692-709``). The q/k norms, then the q pre-multiplier,
+        run first on both paths (``llama.py:614-634``)."""
         b, s = hidden_states.shape[0], hidden_states.shape[1]
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(hidden_states)
@@ -408,6 +457,8 @@ class LlamaAttention(tnn.Module):
         v = self.v_proj(hidden_states).reshape(b, s, hk, d)
         if self.qk_norm_mode == "per_head":
             q, k = self.q_norm(q), self.k_norm(k)
+        if self.q_premul is not None:
+            q = q * _in_dtype(self.q_premul, q.dtype)
         if isinstance(kv_cache, dict):
             out, new = self.cached_attn_core(q, k, v, cos, sin, kv_cache)
             return self.o_proj(out), new
@@ -417,8 +468,30 @@ class LlamaAttention(tnn.Module):
                 "(paddle_tpu/models/llama.py:712-716) is not ported")
         q = fused_norm.apply_rope(q, cos, sin)
         k = fused_norm.apply_rope(k, cos, sin)
-        out = flash_attention_bshd(q, k, v, causal=True, window=self.window)
+        if self.softcap is None:
+            out = flash_attention_bshd(q, k, v, causal=True,
+                                       window=self.window)
+        else:
+            out = _capped_attention(q, k, v, self.window, self.softcap)
         return self.o_proj(out.reshape(b, s, h * d))
+
+
+def _capped_attention(q, k, v, window, softcap):
+    """Causal attention with tanh-capped scores (optionally within a
+    sliding window): the JAX package's ``_sdpa_ref(..., softcap=)`` over
+    k / v expanded to every query head (``llama.py:697-709``)."""
+    from ..nn.functional.attention import _sdpa_ref
+
+    g = q.shape[2] // k.shape[2]
+    ke, ve = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    band = None
+    if window is not None:
+        sq, sk = q.shape[1], k.shape[1]
+        rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        cols = torch.arange(sk, device=q.device)[None, :]
+        band = ((cols <= rows) & (cols > rows - window))[None, None]
+    return _sdpa_ref(q, ke, ve, causal=band is None, mask=band,
+                     softcap=softcap)
 
 
 class LlamaMLP(tnn.Module):
@@ -470,12 +543,12 @@ def fused_decode_structural(layer, dtype) -> bool:
     """The weight-structure half of the fused decode-tail gate
     (``llama.py:773``): Llama attention with no q/k norm, whose
     projections are the port's ``nn.Linear`` without a bias, and weights
-    and RMSNorm scales all of ``dtype``. (The port builds no q
-    pre-multiplier.)"""
+    and RMSNorm scales all of ``dtype``; no q pre-multiplier
+    (``query_pre_attn_scalar``)."""
     attn = getattr(layer, "self_attn", None)
     if not isinstance(attn, LlamaAttention):
         return False
-    if attn.qk_norm_mode is not None:
+    if attn.qk_norm_mode is not None or attn.q_premul is not None:
         return False
     lins = (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj)
     if any(type(lin) is not nn.Linear
@@ -556,7 +629,8 @@ class LlamaDecoderLayer(tnn.Module):
         # once and normed in the same pass; h is the next residual
         norm = self.post_attention_layernorm
         hidden_states, residual = fused_norm.add_rms_norm(
-            hidden_states, residual, norm.weight, norm.variance_epsilon)
+            hidden_states, residual, norm.effective_weight(),
+            norm.variance_epsilon)
         hidden_states = residual + self.mlp(hidden_states)
         if kv_cache is not None:
             return hidden_states, kv_cache
@@ -609,7 +683,8 @@ class LlamaModel(tnn.Module):
     def forward(self, input_ids):
         """Non-cached forward over [B, S] ids; returns the normed hidden."""
         cos, sin = self._rope(input_ids.shape[1])
-        hidden = self.embed_tokens(input_ids).to(torch_dtype(self.config.dtype))
+        hidden = _scale_embed(self.embed_tokens(input_ids).to(
+            torch_dtype(self.config.dtype)), self.config)
         for layer in self.layers:
             hidden = layer(hidden, cos, sin)
         return self.norm(hidden)
@@ -619,7 +694,8 @@ class LlamaModel(tnn.Module):
         ``generation.cached_attention``). Returns (normed hidden,
         new caches)."""
         cos, sin = self._rope(rope_len)
-        hidden = self.embed_tokens(input_ids).to(torch_dtype(self.config.dtype))
+        hidden = _scale_embed(self.embed_tokens(input_ids).to(
+            torch_dtype(self.config.dtype)), self.config)
         new_caches = []
         for layer, cache in zip(self.layers, kv_caches):
             inner = getattr(layer, "inner", layer)   # unwrap RecomputeLayer
@@ -633,7 +709,8 @@ class LlamaForCausalLM(tnn.Module):
     and raises where there is none (pass ``device="cpu"`` for the plain
     versions). Weights are drawn from ``generator`` (default: the port's
     generator on ``device``): Normal(0, initializer_range) for embeddings
-    and projections, ones for norms, zeros for projection biases."""
+    and projections, ones for norms (zeros for (1 + w) norms), zeros for
+    projection biases."""
 
     model_cls = LlamaModel  # trunk hook (the MoE and MLA families swap it)
 
@@ -656,18 +733,27 @@ class LlamaForCausalLM(tnn.Module):
     def reset_parameters(self, generator=None):
         gen = generator or default_generator(self.device)
         std = self.config.initializer_range
+        norm_init = 0.0 if getattr(self.config, "rms_norm_offset",
+                                   False) else 1.0
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
-                p.fill_(1.0)
+                p.fill_(norm_init)
             elif name.endswith("_proj.bias"):
                 p.zero_()
             else:
                 p.normal_(0.0, std, generator=gen)
 
     def lm_head_logits(self, hidden):
+        """Logits of the head (tied or not), tanh-capped with
+        ``final_logit_softcapping`` (``llama.py:1003-1009``)."""
         if self.lm_head is None:
-            return torch.matmul(hidden, self.llama.embed_tokens.weight.t())
-        return self.lm_head(hidden)
+            logits = torch.matmul(hidden, self.llama.embed_tokens.weight.t())
+        else:
+            logits = self.lm_head(hidden)
+        cap = getattr(self.config, "final_logit_softcapping", None)
+        if cap:
+            logits = cap * torch.tanh(logits / cap)
+        return logits
 
     def generate(self, input_ids, max_new_tokens=20, do_sample=False,
                  temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,

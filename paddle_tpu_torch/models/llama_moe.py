@@ -226,7 +226,8 @@ class LlamaMoEDecoderLayer(tnn.Module):
             hidden_states = self.self_attn(hidden_states, cos, sin)
         norm = self.post_attention_layernorm
         hidden_states, residual = fused_norm.add_rms_norm(
-            hidden_states, residual, norm.weight, norm.variance_epsilon)
+            hidden_states, residual, norm.effective_weight(),
+            norm.variance_epsilon)
         hidden_states = residual + self.mlp(hidden_states)
         if kv_cache is not None:
             return hidden_states, kv_cache

@@ -65,8 +65,10 @@ across each ``step()`` and each admission, and :func:`reference_decode`
 holds it across its prefill and across each decode token, taking its
 own copies of what a unit returned before it lets go. So an audit's
 device work never overlaps a capture or an engine step, the engine
-decodes between an audit's tokens, and the worker's cache buffers are
-its own (``owner``), never a unit's outputs.
+decodes between an audit's tokens (the worker sleeps ``YIELD_S`` before
+each token: a lock released and taken back at once would keep a
+waiting engine thread out), and the worker's cache buffers are its own
+(``owner``), never a unit's outputs.
 
 See docs/SERVING.md "Correctness sentinel".
 """
@@ -100,6 +102,10 @@ DIVERGENCE_SCHEMA = "paddle_tpu.divergence/1"
 
 #: recent-verdict ring kept for GET /audit and wait_verdict
 _VERDICT_KEEP = 64
+
+#: seconds the reference replay sleeps before each token, outside
+#: ``DEVICE_LOCK``, so that a waiting engine thread takes the lock
+YIELD_S = 0.001
 
 #: sealed divergence bundles kept in memory (each also hits
 #: divergence_dir when configured)
@@ -173,6 +179,9 @@ def reference_decode(model, ids, max_new_tokens: int,
             sel = _gen._get_select_decode(model, max_len, False, 1.0, 0,
                                           1.0)
         for i in range(max_new):
+            # the lock is not fair: re-taken at once, it would hold a
+            # waiting engine thread off for the whole audit
+            time.sleep(YIELD_S)
             with DEVICE_LOCK:
                 # cache positions as this call's own tensors: the dense
                 # write offset and, for RoPE, the row's true length

@@ -12,7 +12,8 @@ The kernel also runs the causal, sliding-window and full-mask forward of
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
 kernel or raises. The kernel takes float32 / bfloat16 and head widths
-(q/k, v) of (128, 128), or (192, 128) for DeepSeek's MLA prefill and
+(q/k, v) of (128, 128), (256, 256) for Gemma (counted as
+``append_attention_256``), or (192, 128) for DeepSeek's MLA prefill and
 (64, 64) for the entry model (``entry.py``) through the flash forward.
 """
 from __future__ import annotations
@@ -26,21 +27,27 @@ from . import _build
 _STEM = "append_attention"
 HEAD_DIM = 128
 # (q/k width, v width) pairs the kernel is instantiated at
-WIDTHS = ((128, 128), (192, 128), (64, 64))
+WIDTHS = ((128, 128), (192, 128), (64, 64), (256, 256))
 MLA_WIDTH = 192
+# Gemma's heads: the (256, 256) instance, counted apart
+WIDE = 256
 # the splash masks the kernel takes, by their code in the C interface
 KINDS = {"causal": 0, "local": 1, "full": 2}
 
 
-def grouped_attention_plain(q, k, v, mask, scale):
+def grouped_attention_plain(q, k, v, mask, scale, softcap=None):
     """f32 ``softmax(q k^T * scale) v`` with grouped-query heads: q
     [B, S, H, D], k [B, T, hk, D], v [B, T, hk, Dv], ``mask`` None or
     [B or 1, S, T] bool (True = visible). Returns [B, S, H, Dv]. The plain
-    attention every kernel here is held to."""
+    attention every kernel here is held to. ``softcap``: Gemma2's tanh
+    cap on the scaled scores, ``softcap * tanh(s / softcap)``, before the
+    mask (HF's order, ``generation.py:135-137``); no kernel takes it."""
     B, S, H, D = q.shape
     hk = k.shape[2]
     qg = q.reshape(B, S, hk, H // hk, D).float()
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
@@ -57,12 +64,14 @@ def chunk_positions(pos, S, device):
     return torch.arange(int(pos), int(pos) + S, device=device)
 
 
-def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None):
-    """The einsum branch of ``generation.cached_attention`` (no softcap):
-    f32 scores over the whole buffer with the causal, column and sliding
-    window masks, f32 softmax. A window with a column mask counts true
-    positions (right-padded rows); the kernel takes a window only without
-    one, where it counts buffer slots, and only on the flash route.
+def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None,
+                           softcap=None):
+    """The einsum branch of ``generation.cached_attention``: f32 scores
+    over the whole buffer (tanh-capped with ``softcap``, before the masks)
+    with the causal, column and sliding window masks, f32 softmax. A window
+    with a column mask counts true positions (right-padded rows); the
+    kernel takes a window only without one, where it counts buffer slots,
+    and only on the flash route, and no softcap.
     ``pos``: an int or a one-element int32 tensor on q's device."""
     S, T = q.shape[1], k_buf.shape[1]
     t_idx = torch.arange(T, device=q.device)
@@ -79,7 +88,7 @@ def append_attention_plain(q, k_buf, v_buf, pos, allowed=None, window=None):
             curpos = colpos.index_select(1, qpos)                # [B, S]
             mask = mask & (colpos[:, None, :] > curpos[:, :, None] - window)
     return grouped_attention_plain(q, k_buf, v_buf, mask,
-                                   1.0 / math.sqrt(q.shape[-1]))
+                                   1.0 / math.sqrt(q.shape[-1]), softcap)
 
 
 def launch(q, k_buf, v_buf, pos, allowed, scale, counter, with_lse=False,
@@ -154,9 +163,11 @@ def append_attention(q, k_buf, v_buf, pos, allowed=None):
     or a one-element int32 tensor on q's device, as the Pallas kernel takes
     it by scalar prefetch) with an optional [B,T] column mask. Returns
     [B,S,H,D] in q's dtype. On CUDA it has no backward and refuses inputs
-    that need a gradient."""
+    that need a gradient. Counted as ``append_attention``, or
+    ``append_attention_256`` at Gemma's head width."""
     if q.device.type == "cpu":
         return append_attention_plain(q, k_buf, v_buf, pos, allowed)
     _build.require_no_grad("append_attention", q, k_buf, v_buf)
-    return launch(q, k_buf, v_buf, pos, allowed,
-                  1.0 / math.sqrt(q.shape[-1]), "append_attention")
+    d = q.shape[-1]
+    return launch(q, k_buf, v_buf, pos, allowed, 1.0 / math.sqrt(d),
+                  "append_attention_256" if d == WIDE else "append_attention")

@@ -30,11 +30,13 @@ counted as ``flash_attention_mla_bwd`` (DeepSeek training). JAX zero-pads
 those to 256 / 128 lanes for the TPU (``deepseek.py:125-143``); the
 function is the same. The entry model's heads of 64 (``entry.py``, a
 forward only) take the causal forward kernel at its (64, 64)
-instantiation, counted as ``flash_attention_bshd``; an input that needs a
-gradient at that width raises, as there is no backward kernel for it. A
-window or the full mask at a width other than 128 raises, and so does any
-other width (256, 384, ... pass ``supported`` but have no kernel): no
-model needs them.
+instantiation, counted as ``flash_attention_bshd``. Gemma's heads of 256
+take the causal forward kernel at its (256, 256) instantiation, counted
+as ``flash_attention_256`` (Gemma's exact prefill); an input that needs a
+gradient at 64 or 256 raises, as there is no backward kernel for them yet
+(Gemma training is later work). A window or the full mask at a width other
+than 128 raises, and so does any other width (384, ... pass ``supported``
+but have no kernel): no model needs them.
 
 When an input needs a gradient the forward also writes the f32
 logsumexp, and the backward runs the dq / dk / dv kernels, as splash's
@@ -139,6 +141,8 @@ def _counters(window, d_qk=_append.HEAD_DIM, full=False):
         return "flash_attention_mla", "flash_attention_mla_bwd"
     if d_qk == ENTRY_WIDTH:
         return "flash_attention_bshd", "flash_attention_bwd_64"
+    if d_qk == _append.WIDE:      # forward only: no backward kernel yet
+        return "flash_attention_256", None
     if window is None:
         return "flash_attention_bshd", "flash_attention_bwd"
     return "flash_attention_local", "flash_attention_local_bwd"

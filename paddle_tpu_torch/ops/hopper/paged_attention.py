@@ -9,7 +9,9 @@ D], lengths [B] (columns t < lengths[b] are visible), page_indices
 [B, pages_per_seq]; scores scaled by 1/sqrt(D).
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
-kernel or raises. The kernel takes head width 128, float32 / bfloat16, and
+kernel or raises. The kernel takes head width 128, or 256 (Gemma; its own
+entry point ``pt_paged_attention_256``, counted as ``paged_attention_256``),
+float32 / bfloat16, and
 any group of 1 to ``MAX_GROUP`` (16) query heads per KV head (the bf16
 body takes the group at run time as the first rows of a 16-row
 tensor-core tile; the f32 body is instantiated for each), any page size,
@@ -29,9 +31,16 @@ from .append_attention import grouped_attention_plain
 
 _STEM = "paged_attention"
 HEAD_DIM = 128
+# head width -> (C entry point, launch counter)
+ENTRIES = {128: ("pt_paged_attention", "paged_attention"),
+           256: ("pt_paged_attention_256", "paged_attention_256")}
 MAX_GROUP = 16          # query heads a KV head: the rows of an mma tile
 # blocks a split count aims at per SM: the bf16 body's one-warp blocks
-# (8 fit an SM's shared memory), the f32 body's 8-warp blocks
+# (8 fit an SM's shared memory at width 128), the f32 body's 8-warp blocks.
+# Width 256 keeps these: its bf16 block holds a 50.7 KB ring and 8.4 KB of
+# q rows, so 3 fit an SM, but a grid aimed at 3 (4 splits at Gemma-7B's 8
+# slots, 1.3 waves) ran 27% slower on the H100 at group 1 than this one's
+# 2.9 waves of smaller blocks (``chip_smoke.py --gemma-only``)
 WARPS_PER_SM, F32_BLOCKS_PER_SM = 8, 2
 MAX_PAGES = 16384       # page indices of a row the f32 body holds on chip
 MAX_SPLIT = 4096        # splits a combine block weighs in shared memory
@@ -57,16 +66,19 @@ def gather_pages(pages, page_indices):
     return g.reshape(B, hk, -1, D)
 
 
-def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices):
+def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices,
+                          softcap=None):
     """``generation._paged_attention_ref``: gather every page of each row,
-    mask columns t >= lengths[b]."""
+    mask columns t >= lengths[b]; ``softcap``: Gemma2's tanh cap on the
+    scaled scores, which no kernel takes (capped rows come here on every
+    device, as in the JAX package)."""
     k = gather_pages(k_pages, page_indices).transpose(1, 2)   # [B, T, hk, D]
     v = gather_pages(v_pages, page_indices).transpose(1, 2)
     T = k.shape[1]
     t_idx = torch.arange(T, device=q.device)[None, :]
     valid = t_idx < lengths.to(q.device).long()[:, None]
     out = grouped_attention_plain(q[:, None], k, v, valid[:, None],
-                                  1.0 / math.sqrt(q.shape[-1]))
+                                  1.0 / math.sqrt(q.shape[-1]), softcap)
     return out[:, 0]
 
 
@@ -84,8 +96,8 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices):
     hk, n_pages, ps, Dk = k_pages.shape
     _build.require(v_pages.shape == k_pages.shape and Dk == D,
                    "paged_attention: q, k_pages and v_pages disagree")
-    _build.require(D == HEAD_DIM, f"paged_attention: the kernel takes "
-                                  f"head_dim {HEAD_DIM}, got {D}")
+    _build.require(D in ENTRIES, f"paged_attention: the kernel takes "
+                                 f"head_dim {tuple(ENTRIES)}, got {D}")
     _build.require(hk > 0 and H % hk == 0 and 1 <= H // hk <= MAX_GROUP,
                    f"paged_attention: {H} heads over {hk} KV heads (the "
                    f"kernel takes whole groups of 1 to {MAX_GROUP})")
@@ -111,12 +123,13 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices):
                        device=q.device)
     acc = part.data_ptr()
     m = acc + B * H * n_split * D * 4
-    fn = _build.function(_STEM, "pt_paged_attention", _ARGTYPES)
+    entry, counter = ENTRIES[D]
+    fn = _build.function(_STEM, entry, _ARGTYPES)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              lengths.data_ptr(), page_indices.data_ptr(), m,
              m + B * H * n_split * 4, acc, out.data_ptr(), B, H, hk, n_pages,
              ps, pps, n_split, 1.0 / math.sqrt(D), code,
              _build.stream(q.device))
-    _build.launches["paged_attention"] += 1
-    _build.check(err, _STEM, "paged_attention")
+    _build.launches[counter] += 1
+    _build.check(err, _STEM, counter)
     return out

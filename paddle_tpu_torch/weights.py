@@ -20,6 +20,8 @@ import torch
 
 from .models.deepseek import DeepseekV2Config, DeepseekV2ForCausalLM
 from .models.ernie45 import Ernie45Config, Ernie45ForCausalLM
+from .models.gemma import GemmaConfig, GemmaForCausalLM
+from .models.gemma2 import Gemma2Config, Gemma2ForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM, torch_dtype
 from .models.llama_moe import LlamaMoEConfig, LlamaMoEForCausalLM
 from .models.mistral import MistralConfig, MistralForCausalLM
@@ -40,8 +42,10 @@ def _to_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 def model_class(config: LlamaConfig):
     """The causal-LM class of a config's family (each MoE family before
-    ``LlamaMoEConfig``, which they all extend)."""
+    ``LlamaMoEConfig``, which they all extend; Gemma2 before Gemma)."""
     for cfg_cls, model_cls in ((DeepseekV2Config, DeepseekV2ForCausalLM),
+                               (Gemma2Config, Gemma2ForCausalLM),
+                               (GemmaConfig, GemmaForCausalLM),
                                (Ernie45Config, Ernie45ForCausalLM),
                                (Qwen2MoeConfig, Qwen2MoeForCausalLM),
                                (Qwen3MoeConfig, Qwen3MoeForCausalLM),

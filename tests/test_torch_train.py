@@ -231,15 +231,18 @@ def test_serving_builds_no_graph():
     assert all(p.grad is None for p in port_model.parameters())
 
 
-@pytest.mark.parametrize("option", [dict(attn_logit_softcapping=50.0),
-                                    dict(qk_norm="rms")])
+@pytest.mark.parametrize("option", [
+    dict(rope_scaling={"rope_type": "longrope", "factor": 4.0}),
+    dict(qk_norm="rms")])
 def test_unported_options_raise(option):
-    """Soft-capping is not ported and names its JAX lines; qk_norm is, and
-    refuses a mode the JAX config refuses, with its message."""
+    """longrope, the one rope scaling not ported, raises and names the
+    supported ones; qk_norm is ported, and refuses a mode the JAX config
+    refuses, with its message."""
     if "qk_norm" in option:
         with pytest.raises(ValueError, match="qk_norm must be False, True, "
                                              "'per_head' or 'full'"):
             PortConfig.tiny(**option)
         return
-    with pytest.raises(NotImplementedError, match="paddle_tpu/models/llama"):
+    with pytest.raises(NotImplementedError, match="'longrope' is not ported "
+                                                  r"\(supported: default"):
         PortConfig.tiny(**option)
