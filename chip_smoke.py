@@ -14,6 +14,7 @@ NVIDIA H100.
     python3 chip_smoke.py --http-only             # phase 24 alone
     python3 chip_smoke.py --engine-step-only      # the engine's step wall
     python3 chip_smoke.py --gemma-only            # width-256 rows, phase 25
+    python3 chip_smoke.py --gemma-train-only      # their training, phase 26
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -361,7 +362,33 @@ Phases (any failure raises, so the script exits non-zero):
    and 32 rows of hidden 3072, 16 | 16 x 256, and ``rms_norm`` /
    ``add_rms_norm`` at 3072 and 3584; phase 1 prints each width-256
    instance's registers, spills and HMMA count.
-26. The kernels line, then the card line, then the result line
+26. Gemma training at head width 256 (last, after phase 25's models are
+   freed): (a) Gemma-2B at its published shape, no cut (google/gemma-2b:
+   18 layers, hidden 2048, 8 | 1 heads x 256, GeGLU 16384, vocab 256000,
+   tied head; 2.51B parameters), bf16 with phase 5's recipe (f32 masters,
+   bf16 moments through ``adam_update``, the chunked fused lm-head + CE),
+   one sequence of 4096 tokens: 3 steps of ``train_step``, launch counts
+   exact (a step: ``rms_norm`` L + 1, ``add_rms_norm`` L, ``fused_rope``
+   2 L, ``flash_attention_256`` and ``flash_attention_bwd_256`` L,
+   ``adam_update`` 1), losses finite and falling from the first, step
+   ms, tokens/s, peak memory and one profiled step's busy share; (b) the
+   f32 wiring, two steps card = CPU at two layers of Gemma-7B's widths
+   (the (256, 256) kernels; gradients within 3e-4 of each tensor's
+   largest, and within 1e-4 of the card's own plain route,
+   ``gemma_train_wiring`` says why) and Gemma2-9B's (no attention
+   kernel, as in JAX); (c) ``FLAGS_check_nan_inf`` at Gemma-2B's widths,
+   depth 4: a step with a NaN weight, and one with an Inf in a moment,
+   raises and leaves every parameter and optimizer state bit alone, a
+   clean step passes, and a step's wall with the flag off and on in
+   turns. Phase 2 holds the (256, 256) backward
+   (``check_width256_training_rows``): causal at [1, 4096, 16 | 16, 256]
+   and [1, 4096, 8 | 1, 256] (the kernels line's row), local at W 1024
+   and full at 16 | 16, each beside SDPA's backward, with its bound; its
+   edge shapes in bf16 and f32 (S 1000, s_q 200 < s_kv 700, [1, 130 |
+   300, 4]); the local and full forward and ``splash_hop`` at 256;
+   ``fused_rope`` at [1, 4096, 8, 256]. Phase 1 prints the backward's
+   width-256 instances' registers, spills and HMMA count.
+27. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -371,6 +398,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import functools
 import gc
 import json
@@ -406,6 +434,8 @@ REPLACES = {
     # the entry's heads of 64: the same splash backward (JAX trains them
     # through its einsum reference, llama.py:692-709)
     "flash_attention_bwd_64": "paddle_tpu/ops/pallas/flash_attention.py:122",
+    # Gemma's heads of 256: the splash backward's (256, 256) instance
+    "flash_attention_bwd_256": "paddle_tpu/ops/pallas/flash_attention.py:122",
     "fused_qkv_rope": "paddle_tpu/ops/pallas/decode_tail.py:260",
     "fused_epilogue": "paddle_tpu/ops/pallas/decode_tail.py:347",
     "flash_attention_local": "paddle_tpu/ops/pallas/flash_attention.py:97",
@@ -433,6 +463,7 @@ SOURCES = {
     "fused_rope": "paddle_tpu_torch/csrc/fused_norm.cu",
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_64": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_256": "paddle_tpu_torch/csrc/flash_attention.cu",
     "fused_qkv_rope": "paddle_tpu_torch/csrc/decode_tail.cu",
     "fused_epilogue": "paddle_tpu_torch/csrc/decode_tail.cu",
     "flash_attention_local": "paddle_tpu_torch/csrc/append_attention.cu",
@@ -824,6 +855,8 @@ def check_kernels(results):
     check_group5_rows(record, randn)
     torch.cuda.empty_cache()
     check_width256_rows(record, randn)
+    check_width256_training_rows(record, randn)
+    torch.cuda.empty_cache()
     check_decode_tail_kernels(record)
     check_training_kernels(record, randn)
     torch.cuda.empty_cache()
@@ -1291,6 +1324,121 @@ def check_width256_rows(record, randn):
     torch.cuda.empty_cache()
     log(f"  the width-256 rows took {time.perf_counter() - t0:.1f}s")
 
+def check_width256_training_rows(record, randn):
+    """The kernels Gemma's training step adds at head width 256, each
+    against its plain version at the tolerances of the width-128 rows:
+    the flash backward at (256, 256) (``flash_attention_bwd_256``, held
+    per element against ``flash_attention_bwd_plain`` on the same out
+    through ``close_grads``) causal at [1, 4096, 16 | 16, 256] (Gemma-7B)
+    and at [1, 4096, 8 | 1, 256] (Gemma-2B, phase 26's shape: the kernels
+    line's row), beside SDPA's backward; then the LocalMask (W 1024) and
+    the FullMask, forward with lse and backward, at [1, 4096, 16 | 16,
+    256] (their kind's counters); the backward's edge shapes
+    (``check_width256_edges``); ``splash_hop`` at [1, 16 | 16, 4096, 256]
+    for each kind; and ``fused_rope`` at Gemma-2B's q, [1, 4096, 8, 256]."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.hopper import fused_norm
+
+    t0 = time.perf_counter()
+    D, S = 256, TRAIN_SEQ
+    check_flash_rows(record, randn, S, None, H=16, hk=16, D=D,
+                     fwd_main=False, bwd_main=False)
+    torch.cuda.empty_cache()
+    check_flash_rows(record, randn, S, None, H=8, hk=1, D=D, fwd_main=False)
+    torch.cuda.empty_cache()
+    check_flash_rows(record, randn, S, GEMMA_TRAIN_WINDOW, H=16, hk=16, D=D,
+                     fwd_main=False, bwd_main=False)
+    torch.cuda.empty_cache()
+    check_flash_rows(record, randn, S, None, full=True, H=16, hk=16, D=D,
+                     fwd_main=False, bwd_main=False)
+    torch.cuda.empty_cache()
+    check_width256_edges()
+    check_hop_rows(record, randn, H=16, hk=16, D=D, main=False)
+    torch.cuda.empty_cache()
+    cos, sin = _rope_tables(S, D, 10000.0, device="cuda")
+    x = randn(1, S, 8, D)
+    out = fused_norm.fused_rope(x, cos, sin)
+    ref = fused_norm._rope_ref_full(x, cos, sin)
+    err, ok = close_bf16(out, ref, atol=0.0, rtol=2.0 ** -7)
+    record("fused_rope", f"x=[1,{S},8,{D}]", err, ok,
+           kernel_times(lambda: fused_norm.fused_rope(x, cos, sin)),
+           time_ms(lambda: fused_norm._rope_ref_full(x, cos, sin)),
+           None, bound(2 * x.numel() * 2 + 2 * S * D * 4, 3 * x.numel(),
+                       "bfloat16"), False)
+    log(f"  the width-256 training rows took {time.perf_counter() - t0:.1f}s")
+
+
+# the (256, 256) backward's edge shapes (s_q, s_kv, H, hk, dtype, kind,
+# window): a sequence of 1000 (a partial last q tile and key tile) at
+# Gemma-2B's 8 | 1 heads, causal and local; a rectangular s_q 200 < s_kv
+# 700 at 16 | 16, causal (pos 500) and full; f32 (the CUDA-core body, tiles
+# of 32 rows) at [1, 130 | 300, 4], causal and full, and local at 300
+WIDE_EDGE_CASES = (
+    (1000, 1000, 8, 1, "bfloat16", "causal", None),
+    (1000, 1000, 8, 1, "bfloat16", "local", 300),
+    (200, 700, 16, 16, "bfloat16", "causal", None),
+    (200, 700, 16, 16, "bfloat16", "full", None),
+    (130, 300, 4, 4, "float32", "causal", None),
+    (130, 300, 4, 4, "float32", "full", None),
+    (300, 300, 4, 2, "float32", "local", 100),
+)
+
+
+def check_width256_edges():
+    """The (256, 256) flash backward at ``WIDE_EDGE_CASES`` through the
+    autograd Function (``flash_attention_bshd`` on inputs that need a
+    gradient), as ``check_mla_backward``'s edges: the out against the
+    plain forward and the gradients per element against
+    ``flash_attention_bwd_plain`` on the same q, k, v, out and dout; bf16
+    as ``close_grads`` (the out as the forward rows), f32 out within 2e-5
+    and each gradient within 1e-5 of max(1, its largest entry)."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import flash_attention
+
+    D = 256
+    gen = torch.Generator("cuda").manual_seed(256)
+    for s_q, s_kv, H, hk, dtype, kind, window in WIDE_EDGE_CASES:
+        dtype = getattr(torch, dtype)
+        q, k, v, dout = (torch.randn(1, n, h, D, generator=gen,
+                                     device="cuda").to(dtype)
+                         for n, h in ((s_q, H), (s_kv, hk), (s_kv, hk),
+                                      (s_q, H)))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        causal = kind != "full"
+        out = flash_attention.flash_attention_bshd(*leaves, causal=causal,
+                                                   window=window)
+        grads = torch.autograd.grad(out, leaves, dout)
+        out = out.detach()
+        ref = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                    window=window)
+        ref_grads = flash_attention.flash_attention_bwd_plain(
+            q, k, v, out, dout, 1.0 / math.sqrt(D), window=window,
+            full=not causal)
+        edge = (f"flash_attention_bwd (256, 256) edge {str(dtype)[6:]} "
+                f"{kind}{'' if window is None else f' W={window}'} "
+                f"s_q={s_q} s_kv={s_kv} {H} | {hk}")
+        if dtype == torch.float32:
+            errs = [float((a - b).abs().max())
+                    for a, b in zip((out,) + tuple(grads),
+                                    (ref,) + tuple(ref_grads))]
+            ok = errs[0] <= 2e-5 and all(
+                e <= 1e-5 * max(float(b.abs().max()), 1.0)
+                for e, b in zip(errs[1:], ref_grads))
+            log(f"  {edge}: max abs err out {errs[0]:.2e} dq/dk/dv "
+                f"{errs[1]:.2e}/{errs[2]:.2e}/{errs[3]:.2e} ok={ok}")
+        else:
+            e_out, ok = close_bf16(out, ref)
+            log(f"  {edge}: max abs err out {e_out:.2e} ok={ok}")
+            ok = close_grads(edge, grads, ref_grads)[1] and ok
+        if not ok:
+            raise AssertionError(f"the (256, 256) flash backward disagrees "
+                                 f"with its plain version: {edge}")
+    del q, k, v, dout, leaves, out, ref, grads, ref_grads
+
+
 def check_full_edges():
     """The full-mask kernels off the main path's shape, forward with lse and
     backward against the plain versions (the backward's on the kernel
@@ -1382,11 +1530,13 @@ def hop_cells(kind, S, T, offset, window):
     return int(seen.sum())
 
 
-def check_hop_rows(record, randn):
+def check_hop_rows(record, randn, H=32, hk=8, D=128, main=True):
     """``splash_hop`` at [1, 32 | 8, 4096, 128] (JAX's [B, H, S, D], q
-    pre-scaled), bf16, for each kind of the ring's hops: full, causal at
+    pre-scaled; or at ``H`` | ``hk``, ``D``: Gemma's 16 | 16 x 256), bf16,
+    for each kind of the ring's hops: full, causal at
     offset 0, and local at offset 4096 with window 4096 (a Mistral ring's
-    hop 1 at local 4096, whose row 4095 sees no column). Each against
+    hop 1 at local 4096, whose row 4095 sees no column). ``main``: the
+    full hop's row is the kernels line's. Each against
     ``splash_hop_plain`` per element on the live rows (out as the
     attention rows, lse within 1e-3); a dead row must be out 0, lse -inf.
     Kernel ms is the launch on the ring's [B, S, H, D] layout
@@ -1398,7 +1548,7 @@ def check_hop_rows(record, randn):
 
     from paddle_tpu_torch.ops.hopper import flash_attention
 
-    S, H, hk, D = TRAIN_SEQ, 32, 8, 128
+    S = TRAIN_SEQ
     q = randn(1, H, S, D, scale=1.0 / math.sqrt(D))
     k, v = randn(1, hk, S, D), randn(1, hk, S, D)
     qb, kb, vb = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1445,7 +1595,8 @@ def check_hop_rows(record, randn):
                                              causal=causal, scale=1.0),
                             reps=5, warmup=1),
                bound(2 * S * (H + hk) * D * 2 + H * S * 4,
-                     4 * D * H * cells, "bfloat16"), kind == "full")
+                     4 * D * H * cells, "bfloat16"), main and kind == "full")
+    del q, k, v, qb, kb, vb
 
 
 # weights the decode-tail rows rotate over, as on the main path, where each
@@ -1795,12 +1946,12 @@ def check_local_edges():
 
 
 def check_flash_rows(record, randn, S, window, full=False, H=32, hk=8, D=128,
-                     fwd_main=True):
+                     fwd_main=True, bwd_main=True):
     """The flash forward with lse and its backward at [1, S, H | hk, D]
-    (32 | 8, 128 by default; the entry's 8 | 4, 64 too), bf16, causal
-    (``window`` None), under the LocalMask of ``window``, or under the
-    FullMask (``full``); ``fwd_main``: the forward's row is its kernel's
-    main one:
+    (32 | 8, 128 by default; the entry's 8 | 4, 64 and Gemma's widths of
+    256 too), bf16, causal (``window`` None), under the LocalMask of
+    ``window``, or under the FullMask (``full``); ``fwd_main`` /
+    ``bwd_main``: the forward's / backward's row is its kernel's main one:
     each against its plain version, which runs one KV head (its g query
     heads) at a time, the same function in 1/8 of the memory (its f32
     scores take 1.1 GB per KV head at S = 8192); the backward against
@@ -1873,8 +2024,8 @@ def check_flash_rows(record, randn, S, window, full=False, H=32, hk=8, D=128,
            bound(nbytes + H * S * 4, 4 * D * H * cells, "bfloat16"),
            fwd_main)
     if window is not None:
-        causal_ms = time_ms(lambda: fwd("flash_attention_bshd", None, None),
-                            reps=5, warmup=1)
+        causal_ms = time_ms(lambda: fwd(flash_attention._counters(None, D)[0],
+                                        None, None), reps=5, warmup=1)
         log(f"  causal kernel at S={S} (with lse) {causal_ms:.4f} ms, local "
             f"kernel W={window} {kernel_ms[0]:.4f} ms: ratio "
             f"{kernel_ms[0] / causal_ms:.3f} (visible cells {cells} vs "
@@ -1932,7 +2083,7 @@ def check_flash_rows(record, randn, S, window, full=False, H=32, hk=8, D=128,
     # S, dP, dV, dK and dQ: five products of 2 * D operations per pair
     record(bwd_name, label, err, ok, kernel_times(bwd, reps=5, warmup=1),
            plain_ms, lib_ms, bound(nbytes, 10 * D * H * cells, "bfloat16"),
-           True)
+           bwd_main)
 
 
 # bytes each timed call of an MLA row's rotation must touch in all, so that
@@ -2950,9 +3101,10 @@ RECOMPUTED = {"rms_norm": 1, "add_rms_norm": 1, "fused_rope": 2,
               "flash_attention_bshd": 1}
 
 
-def train_run(phase, cfg, seq, kernels, seed, recipe=dict, keep=False):
+def train_run(phase, cfg, seq, kernels, seed, recipe=dict, keep=False,
+              steps=TRAIN_STEPS):
     """The training main path of one configuration: ``train_step`` once to
-    warm up, then TRAIN_STEPS timed steps on one fixed random batch, launch
+    warm up, then ``steps`` timed steps on one fixed random batch, launch
     counts zeroed just before the first step and read just after the last;
     then one profiled step. ``recipe()`` gives the AdamW keywords beyond
     phase 5's (a schedule is stepped after each step). The update runs one
@@ -2982,7 +3134,7 @@ def train_run(phase, cfg, seq, kernels, seed, recipe=dict, keep=False):
     # the main path's run: counts zeroed just before, read just after
     reset_launches()
     losses, step_ms = [], []
-    for _ in range(1 + TRAIN_STEPS):
+    for _ in range(1 + steps):
         t0 = time.perf_counter()
         losses.append(float(step(x, y)))
         torch.cuda.synchronize()
@@ -2996,18 +3148,18 @@ def train_run(phase, cfg, seq, kernels, seed, recipe=dict, keep=False):
         f"{[round(v, 1) for v in step_ms[1:]]}; median {med:.1f} ms, "
         f"{seq / (med / 1e3):.1f} tokens/s; peak memory "
         f"{peak / 2**30:.2f} GiB")
-    log(f"  launches ({1 + TRAIN_STEPS} steps): {json.dumps(counts)}")
+    log(f"  launches ({1 + steps} steps): {json.dumps(counts)}")
     require_launched(counts, kernels, "training")
     groups = {(p.dtype, "master" in opt._state[name],
                opt._state[name]["moment1"].dtype)
               for name, p in model.named_parameters()}
-    want_norm = 1 + TRAIN_STEPS if opt_kw.get("grad_clip") else 0
+    want_norm = 1 + steps if opt_kw.get("grad_clip") else 0
     log(f"  the update: {len(groups)} group(s) of tensors "
         f"{sorted(str(g) for g in groups)}; adam_update "
         f"{counts.get('adam_update', 0)} launches (required "
-        f"{1 + TRAIN_STEPS}), grad_norm {counts.get('grad_norm', 0)} "
+        f"{1 + steps}), grad_norm {counts.get('grad_norm', 0)} "
         f"(required {want_norm})")
-    if (counts.get("adam_update", 0) != 1 + TRAIN_STEPS
+    if (counts.get("adam_update", 0) != 1 + steps
             or counts.get("grad_norm", 0) != want_norm):
         raise AssertionError("the update's launches are not one a step")
     # logits at init: normed hidden (rms 1) times the output embedding
@@ -3144,14 +3296,21 @@ def profile_train_step(step, x, y, card, step_ms):
 # ---------------------------------------------------------------- phase 6 --
 
 def train_wiring_check(phase="phase 6: training wiring", cfg=None, seq=128,
-                       seed=3, recipe=dict, steps=1):
+                       seed=3, recipe=dict, steps=1, grad_tol=1e-4):
     """``steps`` train steps of f32 weights on the card and on the CPU,
     AdamW keywords from ``recipe()`` (its schedule stepped after each
     step), a fresh random batch each step, as training takes one. Before
     each step the CPU model and optimizer take the card's weights and
     optimizer state, so both sides start every step from the same state:
     each step's loss, every gradient and every parameter after it must
-    agree. Returns the card steps' launch counts.
+    agree (the gradients within ``grad_tol`` of each tensor's largest).
+    A ``grad_tol`` above 1e-4 is held up by the card's own plain route:
+    the card's gradients at the first step's state and batch are also
+    taken with every port kernel replaced by its plain version on the
+    card (``plain_kernels``, no update), the kernels' gradients must agree
+    with those within 1e-4 of each tensor's largest, and the plain route's
+    distance from the CPU's (PyTorch's own ops on the two devices) is
+    logged beside. Returns the card steps' launch counts.
 
     On one repeated batch two updates take a V2-Lite pair's loss from
     11.87 to 0.0064, and at that loss softmax cross-entropy's p - 1 is
@@ -3169,7 +3328,10 @@ def train_wiring_check(phase="phase 6: training wiring", cfg=None, seq=128,
     cls = model_class(cfg)
     m_gpu = cls(cfg, device="cuda",
                 generator=torch.Generator("cuda").manual_seed(seed))
-    m_cpu = cls(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    # a copy of the card's model, which takes the card's weights again
+    # before each step (drawing its own on the CPU took 11 s at Gemma-7B's
+    # widths)
+    m_cpu = cpu_copy(m_gpu)
     sides = []
     for model in (m_gpu, m_cpu):
         opt_kw = recipe()
@@ -3180,9 +3342,17 @@ def train_wiring_check(phase="phase 6: training wiring", cfg=None, seq=128,
         f"{recipe_text(sides[0][1])}, a fresh batch each; the CPU side takes "
         f"the card's weights and optimizer state before each step. "
         f"Tolerances: loss 1e-5 "
-        f"relative, gradients 1e-4 of each tensor's largest, parameters "
+        f"relative, gradients {grad_tol:g} of each tensor's largest, "
+        f"parameters "
         f"2 x the step's rate, share of a tensor off by > 1e-6 1e-3")
     ok = True
+    plain = None
+    if grad_tol > 1e-4:
+        with plain_kernels():
+            m_gpu(*token_batch(cfg.vocab_size, seq, 4, "cuda"))[0].backward()
+        plain = {name: p.grad.detach().clone()
+                 for name, p in m_gpu.named_parameters()}
+        m_gpu.zero_grad(set_to_none=True)
     reset_launches()
     for i in range(steps):
         m_cpu.load_state_dict(m_gpu.state_dict())
@@ -3203,18 +3373,43 @@ def train_wiring_check(phase="phase 6: training wiring", cfg=None, seq=128,
         # no more than 2 x the step's rate
         p_tol = 2 * rates[0]
         loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+        # the CPU side's gradients and parameters are compared on the card
+        # (a copy each; the same differences, in a fraction of the time)
         g_err, g_name, p_err, p_share = 0.0, "", 0.0, 0.0
+        cpu_grads = {}
         cpu_params = dict(m_cpu.named_parameters())
         for name, p in m_gpu.named_parameters():
             q = cpu_params[name]
-            e = float((p.grad.cpu() - q.grad).abs().max() / q.grad.abs().max())
+            q_grad = q.grad.to(p.device)
+            if plain is not None:
+                cpu_grads[name] = q_grad
+            e = float((p.grad - q_grad).abs().max() / q_grad.abs().max())
             if e > g_err:
                 g_err, g_name = e, name
-            d = (p.detach().cpu() - q.detach()).abs()
+            d = (p.detach() - q.detach().to(p.device)).abs()
             p_err = max(p_err, float(d.max()))
             p_share = max(p_share, float((d > 1e-6).float().mean()))
-        step_ok = (loss_err <= 1e-5 and g_err <= 1e-4 and p_err <= p_tol
+        step_ok = (loss_err <= 1e-5 and g_err <= grad_tol and p_err <= p_tol
                    and p_share <= 1e-3 and rates[0] == rates[1])
+        if plain is not None and i == 0:
+            k_err, k_name, c_err, c_name = 0.0, "", 0.0, ""
+            for name, p in m_gpu.named_parameters():
+                ref = plain[name]
+                e = float((p.grad - ref).abs().max() / ref.abs().max())
+                if e > k_err:
+                    k_err, k_name = e, name
+                q = cpu_grads[name]
+                e = float((ref - q).abs().max() / q.abs().max())
+                if e > c_err:
+                    c_err, c_name = e, name
+            log(f"  step 1 on the card with every port kernel replaced by "
+                f"its plain version: the kernels' gradients against it, max "
+                f"rel err {k_err:.2e} ({k_name}; tolerance 1e-4); it "
+                f"against the CPU's {c_err:.2e} ({c_name}: PyTorch's own "
+                f"ops on the two devices)")
+            step_ok = step_ok and k_err <= 1e-4
+            plain = None
+        del cpu_grads
         log(f"  step {i + 1} at rate {rates[0]:g}: loss card {losses[0]} cpu "
             f"{losses[1]} (rel err {loss_err:.2e}); gradients max rel err "
             f"{g_err:.2e} ({g_name}); parameters after it max abs err "
@@ -4019,8 +4214,6 @@ def generate_deepseek(model, card):
 def cpu_copy(model):
     """The model with the same weights on the CPU (its rope tables, kept
     by length, are made again there)."""
-    import copy
-
     m = copy.deepcopy(model).cpu()
     m.llama._rope_cache.clear()
     return m
@@ -4224,6 +4417,29 @@ def eager_units():
         yield
     finally:
         GraphedStep.__call__ = real
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block the trunk's training forward runs every port kernel
+    it reaches as its plain version, on whatever device the tensors lie:
+    the flash attention (and so its backward), RoPE and both norms. Phase
+    26 (b) takes a card's gradients through it to tell the kernels' share
+    of a card-to-CPU difference from PyTorch's own ops' share."""
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops.hopper import flash_attention, fused_norm
+
+    real = (llama.flash_attention_bshd, fused_norm.apply_rope,
+            fused_norm.rms_norm, fused_norm.add_rms_norm)
+    llama.flash_attention_bshd = flash_attention.flash_attention_plain
+    fused_norm.apply_rope = fused_norm.rope_ref
+    fused_norm.rms_norm = fused_norm.rms_norm_plain
+    fused_norm.add_rms_norm = fused_norm.add_rms_norm_plain
+    try:
+        yield
+    finally:
+        (llama.flash_attention_bshd, fused_norm.apply_rope,
+         fused_norm.rms_norm, fused_norm.add_rms_norm) = real
 
 
 def log_units(model, card, label, want):
@@ -4711,7 +4927,6 @@ def moe_layer_on_card():
     same way at a smaller size; ``forward_ragged`` against
     ``forward_expert_batch`` on the card; ``global_scatter`` then
     ``global_gather`` the identity."""
-    import copy
 
     import torch
 
@@ -4803,7 +5018,6 @@ def check_ragged(card, experts, gen):
     ``forward_expert_batch`` on the same rows laid out [E, C, M], f32
     within 1e-4 of the largest entry, bf16 within 2^-6 of it; both timed
     (host clock around synchronised calls, median of 3)."""
-    import copy
 
     import torch
 
@@ -7381,6 +7595,237 @@ def gemma_only():
     check_width256_rows(make_record({}), randn)
     return serve_gemma()
 
+# --------------------------------------------------------------- phase 26 --
+
+# Gemma-2B's training run: a warm-up step and 2 timed ones (3 steps in
+# all); the LocalMask row's window at 256 in phase 2; the depth of the
+# FLAGS_check_nan_inf run (which keeps a copy of the parameters and the
+# optimizer state a step); the weight it poisons
+GEMMA_TRAIN_STEPS = 2
+GEMMA_TRAIN_WINDOW = 1024
+GEMMA_NAN_DEPTH = 4
+GEMMA_POISONED = "llama.layers.0.mlp.up_proj.weight"
+GEMMA_TRAINING_KERNELS = ("rms_norm", "add_rms_norm", "fused_rope",
+                          "flash_attention_256", "flash_attention_bwd_256",
+                          "adam_update")
+
+
+def gemma_train_config(**kw):
+    """Gemma-2B's published config (google/gemma-2b: 18 layers, hidden 2048,
+    8 | 1 heads x 256, GeGLU 16384, vocab 256000, tied) with phase 5's
+    recipe: bf16, the chunked fused lm-head + CE; ``kw`` on top."""
+    from paddle_tpu_torch.models import GemmaConfig
+
+    return GemmaConfig.gemma_2b(**dict(dict(
+        dtype="bfloat16", fuse_linear_cross_entropy=True), **kw))
+
+
+def gemma_train_counts_want(L, steps):
+    """Exact launches of ``steps`` Gemma training steps at depth ``L``, from
+    the code: a forward ``rms_norm`` L + 1, ``add_rms_norm`` L,
+    ``fused_rope`` 2 L (q and k), ``flash_attention_256`` L; the backward
+    ``flash_attention_bwd_256`` L (the norms' and RoPE's backward are the
+    plain versions under autograd, as in phase 5); ``adam_update`` once (one
+    group of tensors)."""
+    return {"rms_norm": (L + 1) * steps, "add_rms_norm": L * steps,
+            "fused_rope": 2 * L * steps, "flash_attention_256": L * steps,
+            "flash_attention_bwd_256": L * steps, "adam_update": steps}
+
+
+def train_gemma():
+    """Phase 26: Gemma training at head width 256. (a) Gemma-2B whole (18
+    layers, bf16, phase 5's recipe, sequence 4096, batch 1): 3 steps of
+    ``train_step`` with exact launch counts, finite losses that fall from
+    the first, step ms, tokens/s, peak memory and a profiled step's busy
+    share; (b) the f32 wiring, card = CPU, at two layers of Gemma-7B's and
+    Gemma2-9B's published widths (``gemma_train_wiring``); (c)
+    ``FLAGS_check_nan_inf`` on the card (``nan_check_on_card``). Returns
+    the launch counts of (a) and (b)."""
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 26: memory allocated after releasing the earlier phases "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    cfg = gemma_train_config()
+    run = train_run("phase 26 (a): training, Gemma-2B whole", cfg, TRAIN_SEQ,
+                    GEMMA_TRAINING_KERNELS, 26, steps=GEMMA_TRAIN_STEPS)
+    steps = 1 + GEMMA_TRAIN_STEPS
+    want = gemma_train_counts_want(cfg.num_hidden_layers, steps)
+    got = {k: v for k, v in run["counts"].items() if v}
+    losses = run["losses"]
+    log(f"  [{card_line()}] phase 26 (a): Gemma-2B, {steps} steps: losses "
+        f"{losses}, {TRAIN_SEQ / (run['step_ms'] / 1e3):.1f} tokens/s; "
+        f"launches {json.dumps(got)} (required exactly {json.dumps(want)})")
+    if got != want:
+        raise AssertionError("phase 26 (a): Gemma-2B's training launches "
+                             "are not the ones the code makes")
+    if not all(v < losses[0] for v in losses[1:]):
+        raise AssertionError(f"phase 26 (a): the loss did not fall from the "
+                             f"first: {losses}")
+    counts = Counter(run["counts"])
+    t1 = time.perf_counter()
+    counts.update(gemma_train_wiring())
+    t2 = time.perf_counter()
+    nan_check_on_card()
+    log(f"phase 26 took {time.perf_counter() - t0:.1f}s: (a) {t1 - t0:.1f}, "
+        f"(b) {t2 - t1:.1f}, (c) {time.perf_counter() - t2:.1f}")
+    return counts
+
+
+def gemma_train_wiring():
+    """Phase 26 (b): two ``train_step``s of f32 weights on the card and on
+    the CPU (``train_wiring_check``: the CPU side takes the card's weights
+    and optimizer state before each step; loss, every gradient and every
+    parameter held), two layers at the published widths of Gemma-7B (the
+    fused loss through the tied head; the (256, 256) kernels: the causal
+    forward and backward L a step) and Gemma2-9B (the capped logits; capped
+    attention, which takes no attention kernel, as in JAX). Returns the
+    card's launch counts.
+
+    Gemma-7B's gradients are held to the CPU's within 3e-4 of each
+    tensor's largest, not phase 6's 1e-4, and to the card's own plain
+    route within 1e-4 (the kernels' share). At two layers its
+    residual is the input embedding times sqrt(3072), so the tied head
+    gives each token's own logit about 61 and the softmax sits on it; an
+    f32 logit of 61 summed in another order moves by about 2e-4, and the
+    off-peak probabilities with it. So PyTorch's own ops part this pair's
+    card and CPU gradients by about 1e-4 with no port kernel in the way,
+    which the run logs. The loss and parameter tolerances are phase 6's."""
+    from paddle_tpu_torch import models
+
+    total = Counter()
+    steps, L = 2, 2
+    for name, cfg, grad_tol, want in (
+            ("Gemma-7B", models.GemmaConfig(
+                num_hidden_layers=L, dtype="float32",
+                fuse_linear_cross_entropy=True), 3e-4,
+             {"flash_attention_256": L * steps,
+              "flash_attention_bwd_256": L * steps}),
+            ("Gemma2-9B", models.Gemma2Config(num_hidden_layers=L,
+                                              dtype="float32"), 1e-4, {})):
+        counts = train_wiring_check(f"phase 26 (b): {name} training wiring",
+                                    cfg=cfg, seed=26, steps=steps,
+                                    grad_tol=grad_tol)
+        attention = {k: v for k, v in counts.items()
+                     if v and ("attention" in k or k == "splash_hop")}
+        log(f"  phase 26 (b) {name}: attention launches "
+            f"{json.dumps(attention)} (required {json.dumps(want)})")
+        if attention != want:
+            raise AssertionError(f"phase 26 (b): {name}'s attention launches "
+                                 "are not the ones the code makes")
+        total.update(counts)
+    return total
+
+
+def nan_check_on_card():
+    """Phase 26 (c): ``FLAGS_check_nan_inf`` on the card, Gemma-2B's widths
+    at depth ``GEMMA_NAN_DEPTH``, bf16, phase 5's recipe, sequence 4096: a
+    clean step under the flag passes; with one weight poisoned (NaN), and
+    then with an Inf in one entry of its first moment (the loss and the
+    gradients finite, the update's output not), the step raises
+    ``FloatingPointError`` and every parameter and every tensor of the
+    optimizer state keeps its bits, and the step count its value; with
+    the weight cleaned the next step passes. Then one step's wall ms with
+    the flag off and on, in turns (3 pairs), on one model and one
+    optimizer."""
+    import torch
+
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.utils.flags import flag_overrides
+    from paddle_tpu_torch.weights import model_class
+
+    card = card_line()
+    cfg = gemma_train_config(num_hidden_layers=GEMMA_NAN_DEPTH)
+    model = model_class(cfg)(cfg, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(
+                                 27))
+    x, y = token_batch(cfg.vocab_size, TRAIN_SEQ, 1, "cuda")
+    with flag_overrides({"check_nan_inf": True}):
+        step_on, opt = make_train_step(model)
+    step_off = train_step(model, lambda m, a, b: m(a, labels=b)[0], opt)
+    log(f"phase 26 (c): FLAGS_check_nan_inf, Gemma-2B widths at depth "
+        f"{cfg.num_hidden_layers}, bf16, seq {TRAIN_SEQ}; "
+        f"{recipe_text({})}")
+    first = float(step_on(x, y))
+    w = dict(model.named_parameters())[GEMMA_POISONED]
+    moment = opt._state[GEMMA_POISONED]["moment1"]
+    for what, poisoned in (("a NaN weight", w),
+                           ("an Inf in its first moment", moment)):
+        clean = poisoned.detach().clone()
+        with torch.no_grad():
+            poisoned[0, 0] = float("nan" if poisoned is w else "inf")
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        state = {n: {k: t.clone() for k, t in st.items()}
+                 for n, st in opt._state.items()}
+        n_step = opt._step
+        try:
+            step_on(x, y)
+        except FloatingPointError as e:
+            log(f"  [{card}] the step with {what} raised FloatingPointError: "
+                f"{e}")
+        else:
+            raise AssertionError(f"phase 26 (c): the step with {what} did "
+                                 "not raise")
+        p_differ = sum(bits_differ(p.detach(), params[n])
+                       for n, p in model.named_parameters())
+        s_differ = sum(bits_differ(opt._state[n][k], t)
+                       for n, st in state.items() for k, t in st.items())
+        same_keys = (set(opt._state) == set(state)
+                     and all(set(opt._state[n]) == set(st)
+                             for n, st in state.items()))
+        log(f"  [{card}] after it: parameter elements whose bits differ "
+            f"{p_differ}, optimizer-state elements {s_differ} (of "
+            f"{sum(t.numel() for st in state.values() for t in st.values())}"
+            f"), state keys the same {same_keys}, step count {opt._step} "
+            f"(before {n_step})")
+        if p_differ or s_differ or not same_keys or opt._step != n_step:
+            raise AssertionError("phase 26 (c): the raised step committed "
+                                 "something")
+        del params, state
+        with torch.no_grad():
+            poisoned.copy_(clean)
+    after = float(step_on(x, y))
+    log(f"  [{card}] clean steps under the flag: loss {first:.4f} before the "
+        f"poisoned one, {after:.4f} after it")
+    if not (np.isfinite(first) and np.isfinite(after)):
+        raise AssertionError("phase 26 (c): a clean step's loss is not "
+                             "finite")
+    walls = {"off": [], "on": []}
+    for _ in range(3):
+        for label, step in (("off", step_off), ("on", step_on)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(x, y)
+            torch.cuda.synchronize()
+            walls[label].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"  [{card}] one step's wall ms, flag off / on in turns: off "
+        f"{[round(v, 2) for v in walls['off']]}, on "
+        f"{[round(v, 2) for v in walls['on']]}; median {med['off']:.2f} / "
+        f"{med['on']:.2f} ms (the check's cost {med['on'] - med['off']:.2f} "
+        f"ms: the copy, the check and one host sync)")
+    del model, opt, step_on, step_off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gemma_train_only():
+    """``--gemma-train-only``: phase 2's width-256 training rows, then phase
+    26."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(1234)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    check_width256_training_rows(make_record({}), randn)
+    return train_gemma()
+
+
 def tensor_core_sass(lib) -> dict:
     """{kernel name: [HMMA, HGMMA]} of a built library, from one
     ``cuobjdump -sass`` (one section a function): mma.sync and wgmma
@@ -7488,6 +7933,15 @@ def main(argv=None) -> int:
                          "3584), then phase 25: Gemma-7B whole and "
                          "Gemma2-9B at depth 8 served on the card, then "
                          "their f32 wiring; prints no result line")
+    ap.add_argument("--gemma-train-only", action="store_true",
+                    help="phase 1, phase 2's rows of Gemma training at "
+                         "head width 256 (the flash backward at (256, 256) "
+                         "causal, local and full, its edge shapes, the "
+                         "local and full forward, splash_hop, fused_rope "
+                         "at 256), then phase 26: Gemma-2B trained whole, "
+                         "the f32 wiring of Gemma and Gemma2 training, "
+                         "FLAGS_check_nan_inf on the card; prints no "
+                         "result line")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -7523,7 +7977,8 @@ def main(argv=None) -> int:
     partial = (args.decode_tail_only or args.decode_profile_only
                or args.mla_only or args.optimizer_only or args.moe_only
                or args.engine_only or args.autotune_only or args.http_only
-               or args.engine_step_only or args.gemma_only)
+               or args.engine_step_only or args.gemma_only
+               or args.gemma_train_only)
     sass = {}
     for stem in ("append_attention", "flash_attention", "paged_attention",
                  "mla_decode", "decode_tail"):
@@ -7535,8 +7990,9 @@ def main(argv=None) -> int:
             raise AssertionError(f"{stem}: no tensor-core instruction in its "
                                  "SASS")
     # Gemma's width-256 instances of the bf16 bodies, one by one
-    if not partial or args.gemma_only:
-        for stem in ("append_attention", "paged_attention"):
+    if not partial or args.gemma_only or args.gemma_train_only:
+        for stem in ("append_attention", "paged_attention",
+                     "flash_attention"):
             for name, (n, _) in sass[stem].items():
                 if "_tc_kernel<256" not in name:
                     continue
@@ -7591,6 +8047,10 @@ def main(argv=None) -> int:
         gemma_only()
         log(f"total {time.perf_counter() - t_start:.1f}s")
         return 0
+    if args.gemma_train_only:
+        gemma_train_only()
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        return 0
     if args.decode_profile_only:
         from paddle_tpu_torch.models.llama import (LlamaConfig,
                                                    LlamaForCausalLM)
@@ -7640,6 +8100,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     counts.update(autotune_phase(then=http_phase))
     counts.update(serve_gemma())
+    counts.update(train_gemma())
 
     kernels = []
     for name in SOURCES:

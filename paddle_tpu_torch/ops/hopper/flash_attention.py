@@ -8,35 +8,40 @@ CUDA:
 
 - causal (``causal=True``, no window), splash's bottom-aligned CausalMask
   (q row i sees kv columns j <= i + s_kv - s_q): the append-attention
-  kernel (csrc/append_attention.cu) at ``pos = s_kv - s_q``, counted as
-  ``flash_attention_bshd``; its backward, csrc/flash_attention.cu,
-  counted as ``flash_attention_bwd``;
+  kernel (csrc/append_attention.cu) at ``pos = s_kv - s_q``; its backward,
+  csrc/flash_attention.cu;
 - sliding window (``causal=True, window=W``), splash's
   ``LocalMask(window_size=(W - 1, 0), offset=s_kv - s_q)`` (also
-  j > i + s_kv - s_q - W): the same two kernels with ``window``, counted as
-  ``flash_attention_local`` and ``flash_attention_local_bwd``;
+  j > i + s_kv - s_q - W): the same two kernels with ``window``;
 - full (``causal=False``), splash's FullMask, any s_q and s_kv: the same
-  two kernels under their full mask kind, counted as
-  ``flash_attention_full`` and ``flash_attention_full_bwd``;
+  two kernels under their full mask kind;
 - a ring hop (``splash_hop``: the full mask, the CausalMask at an offset,
   or the LocalMask at an offset), forward with lse only: the forward
-  kernel, counted as ``splash_hop``.
+  kernel.
 
-Head widths: q/k and v of 128 (the Llama families), and DeepSeek's MLA
-at q/k width 192 and v width 128, causal without a window, with its
-``sm_scale``: the same forward kernel at its (192, 128) instantiation,
-counted as ``flash_attention_mla``, and the backward kernels at theirs,
-counted as ``flash_attention_mla_bwd`` (DeepSeek training). JAX zero-pads
-those to 256 / 128 lanes for the TPU (``deepseek.py:125-143``); the
-function is the same. The entry model's heads of 64 (``entry.py``, a
-forward only) take the causal forward kernel at its (64, 64)
-instantiation, counted as ``flash_attention_bshd``. Gemma's heads of 256
-take the causal forward kernel at its (256, 256) instantiation, counted
-as ``flash_attention_256`` (Gemma's exact prefill); an input that needs a
-gradient at 64 or 256 raises, as there is no backward kernel for them yet
-(Gemma training is later work). A window or the full mask at a width other
-than 128 raises, and so does any other width (384, ... pass ``supported``
-but have no kernel): no model needs them.
+Head widths (q/k, v) and what runs at each; ``_counters`` names the
+launches:
+
+- (128, 128), the Llama families: every mask, forward and backward, and
+  the ring hop. Causal ``flash_attention_bshd`` / ``flash_attention_bwd``;
+  a window ``flash_attention_local`` / ``flash_attention_local_bwd``; the
+  full mask ``flash_attention_full`` / ``flash_attention_full_bwd``; a hop
+  ``splash_hop``.
+- (256, 256), Gemma's heads, which splash takes as any multiple of 128:
+  the same masks and the hop. Causal ``flash_attention_256`` /
+  ``flash_attention_bwd_256`` (Gemma's exact prefill and its training
+  step); a window and the full mask keep their kind's counters, as does
+  the hop.
+- (192, 128), DeepSeek's MLA, causal without a window, with its
+  ``sm_scale``: ``flash_attention_mla`` / ``flash_attention_mla_bwd``. JAX
+  zero-pads those to 256 / 128 lanes for the TPU (``deepseek.py:125-143``);
+  the function is the same.
+- (64, 64), the entry model's heads, causal: ``flash_attention_bshd`` /
+  ``flash_attention_bwd_64``.
+
+Any other width, or a window or the full mask at (192, 128) or (64, 64),
+raises on a CUDA tensor before any launch: 384, ... pass ``supported`` but
+no kernel is instantiated there, and no model needs them.
 
 When an input needs a gradient the forward also writes the f32
 logsumexp, and the backward runs the dq / dk / dv kernels, as splash's
@@ -61,7 +66,9 @@ _STEM = "flash_attention"
 HOP_KINDS = ("full", "causal", "local")
 # (q/k width, v width) pairs the backward kernels are instantiated at; (64,
 # 64) causal only (the entry model's heads)
-BWD_WIDTHS = ((128, 128), (192, 128), (64, 64))
+BWD_WIDTHS = ((128, 128), (192, 128), (64, 64), (256, 256))
+# the pairs that take a window, the full mask and the ring hop
+MASK_WIDTHS = ((128, 128), (256, 256))
 ENTRY_WIDTH = 64
 
 
@@ -134,18 +141,20 @@ def flash_attention_bwd_plain(q, k, v, out, dout, scale, window=None,
 
 
 def _counters(window, d_qk=_append.HEAD_DIM, full=False):
-    """(forward, backward) launch counters of a mask (and head width)."""
+    """(forward, backward) launch counters of a mask (and head width): the
+    full mask and a window by their kind at any width, then causal by
+    width."""
     if full:
         return "flash_attention_full", "flash_attention_full_bwd"
+    if window is not None:
+        return "flash_attention_local", "flash_attention_local_bwd"
     if d_qk == _append.MLA_WIDTH:
         return "flash_attention_mla", "flash_attention_mla_bwd"
     if d_qk == ENTRY_WIDTH:
         return "flash_attention_bshd", "flash_attention_bwd_64"
-    if d_qk == _append.WIDE:      # forward only: no backward kernel yet
-        return "flash_attention_256", None
-    if window is None:
-        return "flash_attention_bshd", "flash_attention_bwd"
-    return "flash_attention_local", "flash_attention_local_bwd"
+    if d_qk == _append.WIDE:
+        return "flash_attention_256", "flash_attention_bwd_256"
+    return "flash_attention_bshd", "flash_attention_bwd"
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, scale, window=None,
@@ -154,8 +163,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale, window=None,
     ``window`` of its sliding-window band, or with ``full`` of the full
     mask (any s_q and s_kv), from the forward's ``out`` and f32 ``lse``
     [B, H, S]: three CUDA launches (delta = rowsum(dout * out), then
-    dk/dv, then dq), counted once. q/k width and v width (128, 128), or
-    (192, 128) or (64, 64) causal without a window."""
+    dk/dv, then dq), counted once. q/k width and v width (128, 128) or
+    (256, 256) under any mask, (192, 128) or (64, 64) causal without a
+    window."""
     _build.require_cuda(q, k, v, out, lse, dout)
     code = _build.dtype_code(q)
     B, S, H, D = q.shape
@@ -163,9 +173,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale, window=None,
     _build.require((D, Dv) in BWD_WIDTHS,
                    f"flash_attention_bwd: the kernel takes (q/k, v) head "
                    f"widths {BWD_WIDTHS}, got ({D}, {Dv})")
-    _build.require((window is None and not full) or D == _append.HEAD_DIM,
+    _build.require((window is None and not full) or (D, Dv) in MASK_WIDTHS,
                    f"flash_attention_bwd: a window or the full mask at head "
-                   f"width {_append.HEAD_DIM} only")
+                   f"widths {MASK_WIDTHS} only")
     _build.require(not (full and window is not None),
                    "flash_attention_bwd: the full mask takes no window")
     _build.require(k.dim() == 4 and v.dim() == 4 and v.shape[:3] == k.shape[:3]
@@ -260,7 +270,7 @@ def flash_attention_bshd(q, k, v, causal: bool = False,
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if not causal:
         _require_width("the full-mask flash_attention_bshd", q, v,
-                       ((_append.HEAD_DIM, _append.HEAD_DIM),))
+                       MASK_WIDTHS)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if _build.needs_grad(q, k, v):
             return _FlashFull.apply(q, k, v, scale)
@@ -273,11 +283,10 @@ def flash_attention_bshd(q, k, v, causal: bool = False,
                          f"{s_kv} < {s_q}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     d_qk = q.shape[-1]
-    if window is not None and (d_qk != _append.HEAD_DIM
-                               or v.shape[-1] != _append.HEAD_DIM):
+    if window is not None and (d_qk, v.shape[-1]) not in MASK_WIDTHS:
         raise NotImplementedError(
-            "flash_attention_bshd on CUDA takes a window at head width "
-            f"{_append.HEAD_DIM} only, got q/k {d_qk}, v {v.shape[-1]}")
+            "flash_attention_bshd on CUDA takes a window at (q/k, v) head "
+            f"widths {MASK_WIDTHS} only, got ({d_qk}, {v.shape[-1]})")
     if _build.needs_grad(q, k, v):
         _require_width("flash_attention_bshd under autograd", q, v,
                        BWD_WIDTHS)
@@ -328,7 +337,7 @@ def hop_bshd(q, k, v, kind, offset=0, window=None, scale=1.0):
     if q.device.type == "cpu":
         return hop_bshd_plain(q, k, v, kind, offset, window, scale)
     _build.require_no_grad("splash_hop", q, k, v)
-    _require_width("splash_hop", q, v, ((_append.HEAD_DIM, _append.HEAD_DIM),))
+    _require_width("splash_hop", q, v, MASK_WIDTHS)
     return _append.launch(
         q.contiguous(), k.contiguous(), v.contiguous(), offset, None, scale,
         "splash_hop", with_lse=True,

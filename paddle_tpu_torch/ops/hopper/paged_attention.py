@@ -30,7 +30,6 @@ from . import _build
 from .append_attention import grouped_attention_plain
 
 _STEM = "paged_attention"
-HEAD_DIM = 128
 # head width -> (C entry point, launch counter)
 ENTRIES = {128: ("pt_paged_attention", "paged_attention"),
            256: ("pt_paged_attention_256", "paged_attention_256")}

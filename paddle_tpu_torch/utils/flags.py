@@ -103,6 +103,8 @@ def flag(name: str) -> Any:
     return _REGISTRY[key].value
 
 
+define_flag("check_nan_inf", False,
+            "check every op output for NaN/Inf (paddle/fluid/eager/nan_inf_utils.cc)")
 define_flag("use_fused_decode_tail", False,
             "fuse the decode tail (norm->qkv->rope and o_proj->residual->"
             "norm) into the two kernels of ops/hopper/decode_tail for S=1 "

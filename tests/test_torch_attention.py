@@ -272,11 +272,11 @@ def _as_cuda(t):
 
 @pytest.mark.parametrize("kwargs", [dict(causal=False)])
 def test_flash_refuses_unported_masks_on_cuda(kwargs, monkeypatch):
-    """On a CUDA tensor the full mask at a head width its kernel lacks (256,
+    """On a CUDA tensor the full mask at a head width its kernel lacks (384,
     which the JAX ``supported`` takes; q/k 192 with v 128) raises instead of
     running plain code; the checks run before any launch, so a CPU tensor
     posing as CUDA exercises the refusal without a card."""
-    for d_qk, d_v in ((256, 256), (192, 128)):
+    for d_qk, d_v in ((384, 384), (192, 128)):
         fq = _as_cuda(torch.zeros(1, 16, 4, d_qk))
         fv = _as_cuda(torch.zeros(1, 16, 4, d_v))
         with pytest.raises(NotImplementedError, match="head widths"):

@@ -152,7 +152,8 @@ def test_set_flags_and_thread_local_overrides():
             t.start()
             t.join()
         assert seen == [True] and decode_tail.enabled()
-        assert flags.get_flags() == {"FLAGS_use_fused_decode_tail": True,
+        assert flags.get_flags() == {"FLAGS_check_nan_inf": False,
+                                     "FLAGS_use_fused_decode_tail": True,
                                      "FLAGS_use_autotune": False,
                                      "FLAGS_perturb_decode_token": False,
                                      "FLAGS_log_memory_stats": False}

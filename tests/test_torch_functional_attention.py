@@ -350,20 +350,20 @@ def test_dropout_shape_and_statistics(api):
 @pytest.mark.parametrize("case,route", [
     ("supported", "kernel"), ("gqa_causal", "kernel"),
     ("short_seq", "plain"), ("width_64", "plain"), ("uneven_gqa", "plain"),
-    ("dropout", "plain"), ("width_256", "raises")])
+    ("dropout", "plain"), ("width_256", "kernel"), ("width_384", "raises")])
 def test_functional_routes_on_cuda(case, route, fake_kernels, monkeypatch):
     """``flash_attention`` on a CUDA tensor: the kernel exactly where the
     JAX ``supported`` holds (sequence and width multiples of 128, whole GQA
-    groups, no dropout); the plain composite (a stand-in here, recording
-    the call) where it does not; a width ``supported`` takes but the kernel
-    lacks (256) raises."""
+    groups, no dropout), Gemma's width 256 included; the plain composite (a
+    stand-in here, recording the call) where it does not; a width
+    ``supported`` takes but the kernel lacks (384) raises."""
     plain = []
     monkeypatch.setattr(
         port_attn, "_sdpa_ref",
         lambda q, k, v, **kw: (plain.append(kw["dropout"]),
                                torch.zeros(q.shape[:3] + v.shape[3:]))[1])
     S = 100 if case == "short_seq" else 128
-    D = {"width_64": 64, "width_256": 256}.get(case, 128)
+    D = {"width_64": 64, "width_256": 256, "width_384": 384}.get(case, 128)
     H, hk = (6, 4) if case == "uneven_gqa" else (8, 2)
     q = posing_as_cuda(torch.randn(1, S, H, D))
     k, v = (posing_as_cuda(torch.randn(1, S, hk, D)) for _ in range(2))

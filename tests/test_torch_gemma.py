@@ -24,7 +24,8 @@ N(0, 1) as every other family's).
 - The CUDA routes with stand-in launches: width 256 takes its own
   counters (``append_attention_256``, ``flash_attention_256``,
   ``paged_attention_256``), capped attention launches no attention
-  kernel, a width or a gradient no kernel takes raises.
+  kernel, a width no kernel takes raises (Gemma training at 256 is
+  ``tests/test_torch_gemma_train.py``).
 
 The JAX side's rope tables are built eagerly at the lengths ``generate``
 computes (``test_torch_pair.jax_generate``)."""
@@ -461,12 +462,13 @@ def test_capped_paged_decode_launches_no_kernel(fake_kernels):
     assert not fake_kernels and not _build.launches
 
 
-@pytest.mark.parametrize("case", ["width_384", "paged_192", "grad_256",
-                                  "window_256"])
+@pytest.mark.parametrize("case", ["width_384", "paged_192", "grad_384",
+                                  "window_192"])
 def test_refusals_on_cuda(case, fake_kernels):
     """A width no kernel takes raises before any launch: append attention
-    at 384, paged decode at 192, the flash forward at 256 with a gradient
-    (no backward kernel at 256) or with a window."""
+    at 384, paged decode at 192, the flash forward at 384 with a gradient
+    (which JAX's gate passes) and a window at (192, 128) (a window is
+    taken at (128, 128) and (256, 256) only)."""
     if case == "paged_192":
         q = posing_as_cuda(torch.zeros(2, 4, 192))
         pages = posing_as_cuda(torch.zeros(2, 8, 16, 192))
@@ -479,11 +481,16 @@ def test_refusals_on_cuda(case, fake_kernels):
         q = posing_as_cuda(torch.zeros(1, 64, 4, 384))
         with pytest.raises(ValueError, match="head widths"):
             port_append.append_attention(q, q[:, :, :2], q[:, :, :2], 0)
+    elif case == "grad_384":
+        q = posing_as_cuda(torch.zeros(1, 128, 4, 384), True)
+        k = posing_as_cuda(torch.zeros(1, 128, 2, 384), True)
+        assert port_flash.supported(q, k, k)
+        with pytest.raises(NotImplementedError, match="head widths"):
+            port_flash.flash_attention_bshd(q, k, k, causal=True)
     else:
-        grad = case == "grad_256"
-        q = posing_as_cuda(torch.zeros(1, 64, 4, 256), grad)
-        k = posing_as_cuda(torch.zeros(1, 64, 2, 256), grad)
-        with pytest.raises(NotImplementedError):
-            port_flash.flash_attention_bshd(
-                q, k, k, causal=True, window=None if grad else 32)
+        q = posing_as_cuda(torch.zeros(1, 64, 4, 192))
+        k = posing_as_cuda(torch.zeros(1, 64, 2, 192))
+        v = posing_as_cuda(torch.zeros(1, 64, 2, 128))
+        with pytest.raises(NotImplementedError, match="window"):
+            port_flash.flash_attention_bshd(q, k, v, causal=True, window=32)
     assert not fake_kernels and not _build.launches

@@ -210,9 +210,11 @@ def test_error_paths(served):
 def test_priority_and_slo_params(served):
     model, srv = served
     prompt = _prompt(3, 7)
+    # a deadline of ten minutes: the request carries one, and no loaded
+    # run spends it before the engine answers
     status, data = _post(srv, "/v1/completions",
                          {"prompt_token_ids": prompt, "max_tokens": 5,
-                          "priority": 0, "slo_ms": 250.0})
+                          "priority": 0, "slo_ms": 600000.0})
     assert status == 200
     assert json.loads(data)["choices"][0]["token_ids"] == solo(model,
                                                                prompt, 5)
