@@ -3,7 +3,7 @@
 NVIDIA H100.
 
     python3 chip_smoke.py            # the full run; needs one CUDA card
-    python3 chip_smoke.py --profile  # and traces decode (phases 3, 7, 10)
+    python3 chip_smoke.py --profile  # and traces decode (3, 7, 10, 19, 27)
     python3 chip_smoke.py --decode-profile-only   # phase 3's trace alone
     python3 chip_smoke.py --decode-tail-only      # phase 2's tail rows alone
     python3 chip_smoke.py --mla-only              # phase 2's MLA rows alone
@@ -15,6 +15,7 @@ NVIDIA H100.
     python3 chip_smoke.py --engine-step-only      # the engine's step wall
     python3 chip_smoke.py --gemma-only            # width-256 rows, phase 25
     python3 chip_smoke.py --gemma-train-only      # their training, phase 26
+    python3 chip_smoke.py --families-only         # widths 64 / 96, phase 27
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -193,9 +194,10 @@ Phases (any failure raises, so the script exits non-zero):
    ``ContinuousBatchEngine`` on the same prompts is reported. Then (after
    phase 15) the f32 wiring check, ``allow_tf32`` off: two layers at full
    width of Llama-3-8B, Mistral-7B (window cut to 32, narrower than the
-   run) and DeepSeek-V2-Lite, greedy tokens card = CPU for dense, ragged,
-   paged, chunked, no-cache and 4-beam runs, and the engine's tokens =
-   solo ``generate`` on the card; and ``entry.py``'s forward on the card
+   run) and DeepSeek-V2-Lite, greedy tokens of the card's dense, ragged,
+   paged, chunked, no-cache and 4-beam runs = the CPU's (its dense, ragged,
+   chunked and 4-beam runs; paged and no-cache against its dense), and the
+   engine's tokens = solo ``generate`` on the card; and ``entry.py``'s forward on the card
    (the flash kernel at width 64 once per layer, logits against the CPU's).
 17. Graphs (run inside phases 3 and 10, before each model is freed).
    Every step unit the main paths call is a CUDA graph: captured at its
@@ -276,10 +278,11 @@ Phases (any failure raises, so the script exits non-zero):
    cache with chunks of 512. Launch counts exact: append attention L a
    suffix chunk or padded prefill, the flash kernel L an exact one,
    ``paged_attention`` / ``mla_decode`` L a decode step. Then the f32
-   wiring at two layers of Llama-3-8B and DeepSeek-V2-Lite, card = CPU and
-   on each, token for token: prefix-cached = uncached, chunked =
-   monolithic (both layouts), preempted and restored = never preempted,
-   migrated = stayed, handed off = prefilled locally (paged). Phase 2 holds
+   wiring at two layers of Llama-3-8B and DeepSeek-V2-Lite, on the card
+   token for token: prefix-cached = uncached, chunked = monolithic (both
+   layouts), preempted and restored = never preempted, migrated = stayed,
+   handed off = prefilled locally (paged), each = the CPU's run without
+   the feature. Phase 2 holds
    append attention at the suffix shape (S 256, pos 1024, T 1280, 1224
    columns allowed) against its plain version, SDPA with the mask beside.
 23. The autotune search and ``speculative_generate`` (last, on a fresh
@@ -372,12 +375,15 @@ Phases (any failure raises, so the script exits non-zero):
    2 L, ``flash_attention_256`` and ``flash_attention_bwd_256`` L,
    ``adam_update`` 1), losses finite and falling from the first, step
    ms, tokens/s, peak memory and one profiled step's busy share; (b) the
-   f32 wiring, two steps card = CPU at two layers of Gemma-7B's widths
-   (the (256, 256) kernels; gradients within 3e-4 of each tensor's
-   largest, and within 1e-4 of the card's own plain route,
-   ``gemma_train_wiring`` says why) and Gemma2-9B's (no attention
-   kernel, as in JAX); (c) ``FLAGS_check_nan_inf`` at Gemma-2B's widths,
-   depth 4: a step with a NaN weight, and one with an Inf in a moment,
+   f32 wiring at two layers: Gemma-7B's widths card = CPU, one step (the
+   (256, 256) kernels; gradients within 3e-4 of each tensor's largest,
+   and within 1e-4 of the card's own plain route, ``gemma_train_wiring``
+   says why), and Gemma2-9B's widths, two steps against the card's own
+   plain route (``train_plain_check``: the capped scores' plain backward,
+   the sandwich norms, the soft-capped loss, and the second step's update
+   from non-zero moments; a CPU side would take about 35 s a step, so
+   the full run keeps to its time); (c) ``FLAGS_check_nan_inf`` at
+   Gemma-2B's widths, depth 4: a step with a NaN weight, and one with an Inf in a moment,
    raises and leaves every parameter and optimizer state bit alone, a
    clean step passes, and a step's wall with the flag off and on in
    turns. Phase 2 holds the (256, 256) backward
@@ -388,7 +394,49 @@ Phases (any failure raises, so the script exits non-zero):
    300, 4]); the local and full forward and ``splash_hop`` at 256;
    ``fused_rope`` at [1, 4096, 8, 256]. Phase 1 prints the backward's
    width-256 instances' registers, spills and HMMA count.
-27. The kernels line, then the card line, then the result line
+27. The dense Llama-trunk families and GPT-2 (last, after phase 26's
+   models are freed; ``--families-only`` runs phase 1, the phase 2 rows
+   below and this phase), bf16, random seeded weights, each sub-phase
+   timed and its model freed, launch counts worked out from the code and
+   required exactly (``dense_counts_want``): (a) Phi-3-mini-128k at its
+   published shape, no cut (32 layers, hidden 3072, 32 | 32 heads x 96,
+   SwiGLU 8192, vocab 32064, untied; longrope over 4096 of 131072
+   positions, its 48 + 48 factors drawn from a seed: the published lists
+   are not in the repository): phase 3's ten requests through the engine
+   (8 slots, ``max_len`` 2048: the short factors), graphed, a forward
+   ``rms_norm`` L + 1 and ``add_rms_norm`` L, no attention kernel in a
+   prefill (width 96 takes the plain route, as JAX's gates), a decode step
+   ``paged_attention_96`` L; each prefill's ms (the time to first token)
+   and the decode ms a step; ``generate_paged`` at B 1 over 4200 prompt
+   tokens (the long factors; the tables checked against their factor
+   lists); ``generate`` dense (no attention kernel) and paged, B 4 x 512;
+   the engine against solo ``generate``. (b) GPT-2 XL whole (48 layers,
+   hidden 1600, 25 heads x 64, vocab 50257, 1024 positions): the engine at
+   ``max_len`` 1024 on phase 3's requests that fit it (``paged_attention_64``
+   L a step, the (64, 64) flash forward L an exact prefill, append
+   attention L a padded one; no norm kernel: LayerNorm is plain PyTorch),
+   ``generate`` dense (the (64, 64) append attention at S 1) and paged,
+   the engine against solo ``generate``. (c) Qwen2.5-0.5B whole (24
+   layers, hidden 896, 14 | 2 heads x 64, tied): the same on phase 3's
+   requests, ``paged_attention_64`` at group 7. (d) Qwen2.5-7B, Qwen3-8B,
+   GLM-4-9B on the GLM trunk and on the GLM-4 trunk (sandwich norms) and
+   OLMo2-7B at full width, depth cut to 4: phase 20's three requests,
+   ``generate`` dense and paged, the engine against solo ``generate``.
+   (e) The f32 wiring at two layers of each of the eight: ``generate``
+   card = paged and the engine (2 slots) = solo ``generate`` on the card;
+   for six of them also card = CPU, with the prefill logits card vs CPU
+   within 1e-3 (the two GLM trunks run the same kernels at the same
+   widths as Qwen2.5-7B and OLMo2-7B, so their CPU sides are left out for
+   time, ``DENSE_CARD_ONLY``). With ``--profile``, (b) and (c) trace 10
+   decode steps at 8 slots of 512-token prompts (``profile_decode``). Phase 2 holds paged decode at
+   D 96 (32 | 32; the kernels line's row) and D 64 (25 | 25, the kernels
+   line's row, and 14 | 2) at the main lengths, cold, with the edge shapes
+   at both widths (f32, the edge lengths with a dead row, page sizes 8
+   and 32, B 1), and append attention at (64, 64), one query a row (B 4,
+   25 | 25, pos 1040 of 1056, cold), each beside SDPA with its bound;
+   phase 1 prints the D 64 and D 96 instances' registers, spills and HMMA
+   count (their own source, ``paged_attention_narrow.cu``).
+28. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -429,6 +477,10 @@ REPLACES = {
     "append_attention_256": "paddle_tpu/ops/pallas/append_attention.py:135",
     "flash_attention_256": "paddle_tpu/ops/pallas/flash_attention.py:122",
     "paged_attention_256": "paddle_tpu/generation.py:289",
+    # GPT-2's and Qwen2.5-0.5B's heads of 64, Phi-3's of 96: the paged
+    # kernel's D 64 and D 96 instances
+    "paged_attention_64": "paddle_tpu/generation.py:289",
+    "paged_attention_96": "paddle_tpu/generation.py:289",
     "fused_rope": "paddle_tpu/ops/pallas/fused_norm.py:289",
     "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:122",
     # the entry's heads of 64: the same splash backward (JAX trains them
@@ -460,6 +512,8 @@ SOURCES = {
     "append_attention_256": "paddle_tpu_torch/csrc/append_attention.cu",
     "flash_attention_256": "paddle_tpu_torch/csrc/append_attention.cu",
     "paged_attention_256": "paddle_tpu_torch/csrc/paged_attention.cu",
+    "paged_attention_64": "paddle_tpu_torch/csrc/paged_attention_narrow.cu",
+    "paged_attention_96": "paddle_tpu_torch/csrc/paged_attention_narrow.cu",
     "fused_rope": "paddle_tpu_torch/csrc/fused_norm.cu",
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_64": "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -504,8 +558,13 @@ V2_LITE_YARN = {"type": "yarn", "factor": 40, "beta_fast": 32,
                 "original_max_position_embeddings": 4096}
 
 
+# each log line starts with the seconds since the import, so a run's log
+# shows where its time went (the CPU-bound phases vary most between hosts)
+_START = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    print(f"[{time.perf_counter() - _START:6.1f}s]", *a, flush=True)
 
 
 def card_line() -> str:
@@ -856,6 +915,8 @@ def check_kernels(results):
     torch.cuda.empty_cache()
     check_width256_rows(record, randn)
     check_width256_training_rows(record, randn)
+    torch.cuda.empty_cache()
+    check_dense_family_rows(record)
     torch.cuda.empty_cache()
     check_decode_tail_kernels(record)
     check_training_kernels(record, randn)
@@ -1323,6 +1384,49 @@ def check_width256_rows(record, randn):
                                "bfloat16"), False)
     torch.cuda.empty_cache()
     log(f"  the width-256 rows took {time.perf_counter() - t0:.1f}s")
+
+
+# paged decode at the dense families' head widths (label, B, max_len, page
+# size, KV heads, dtype, lengths, H): Phi-3-mini's 32 | 32 x 96, GPT-2 XL's
+# 25 | 25 x 64 and Qwen2.5-0.5B's 14 | 2 x 64 (group 7) at the main row's
+# lengths, then the edge shapes at each width: f32, the edge lengths with
+# a dead row, page sizes 8 and 32, B 1
+DENSE_PAGED_CASES = {
+    96: (("Phi-3-mini G=1", 8, 2048, 16, 32, "bfloat16", None, 32),
+         ("D=96 edges", 7, 2048, 16, 32, "bfloat16",
+          [1, 15, 16, 17, 0, 2048, 2100], 32),
+         ("D=96 f32", 8, 2048, 16, 32, "float32", None, 32),
+         ("D=96 ps=8", 8, 2048, 8, 32, "bfloat16", None, 32),
+         ("D=96 ps=32", 8, 2048, 32, 32, "bfloat16", None, 32),
+         ("D=96 B=1", 1, 2048, 16, 32, "bfloat16", [2047], 32)),
+    64: (("GPT-2 XL G=1", 8, 2048, 16, 25, "bfloat16", None, 25),
+         ("Qwen2.5-0.5B G=7", 8, 2048, 16, 2, "bfloat16", None, 14),
+         ("D=64 edges", 7, 2048, 16, 25, "bfloat16",
+          [1, 15, 16, 17, 0, 2048, 2100], 25),
+         ("D=64 f32 G=7", 8, 2048, 16, 2, "float32", None, 14),
+         ("D=64 ps=8", 8, 2048, 8, 25, "bfloat16", None, 25),
+         ("D=64 ps=32", 8, 2048, 32, 25, "bfloat16", None, 25),
+         ("D=64 B=1", 1, 2048, 16, 25, "bfloat16", [2047], 25)),
+}
+
+
+def check_dense_family_rows(record):
+    """The kernels at the dense families' head widths, each against its
+    plain version at the attention tolerance, with its bound (bytes) and
+    SDPA over the gathered pages beside it: paged decode at D 96 and D 64
+    (``DENSE_PAGED_CASES``, cold, warm beside; ``paged_attention_96`` and
+    ``paged_attention_64``, Phi-3-mini's and GPT-2 XL's rows the kernels
+    line's), and append attention at (64, 64), one query a row (S 1, B 4,
+    GPT-2 XL's 25 | 25 heads, pos 1040 of 1056, cold; the path of GPT-2's
+    and Qwen2.5-0.5B's dense decode)."""
+    t0 = time.perf_counter()
+    check_paged_rows(record, DENSE_PAGED_CASES[96], D=96,
+                     name="paged_attention_96", main="Phi-3-mini G=1")
+    check_paged_rows(record, DENSE_PAGED_CASES[64], D=64,
+                     name="paged_attention_64", main="GPT-2 XL G=1")
+    check_append_decode_rows(record, H=25, hk=25, D=64, masked=False)
+    log(f"  the dense families' rows took {time.perf_counter() - t0:.1f}s")
+
 
 def check_width256_training_rows(record, randn):
     """The kernels Gemma's training step adds at head width 256, each
@@ -2901,8 +3005,10 @@ def profile_decode(model, card, n_steps=10, slots=8, max_len=2048,
     from paddle_tpu_torch.serving import ContinuousBatchEngine
     from paddle_tpu_torch.utils.flags import flag_overrides
 
-    layer = model.llama.layers[0]
-    tail = fused_decode_structural(layer, layer.input_layernorm.weight.dtype)
+    trunk = model.llama
+    # GPT-2's blocks are ``h``; they take no fused tail
+    layer = (trunk.layers if hasattr(trunk, "layers") else trunk.h)[0]
+    tail = fused_decode_structural(layer, next(layer.parameters()).dtype)
     for fused in (False, True) if tail else (False,):
         with flag_overrides({"use_fused_decode_tail": fused}):
             eng = ContinuousBatchEngine(model, max_batch=slots,
@@ -4230,16 +4336,23 @@ WIRING_ROUTES = (
     ("no cache", {"use_cache": False}),
     ("beam 4", {"num_beams": 4}),
 )
+# the routes whose tokens the CPU computes: those that may differ from the
+# dense route's (a ragged row, beams, and chunks, where an MoE's expert
+# capacity is counted per chunk); the card's paged and uncached routes
+# must give the CPU's dense tokens, which the CPU's own paged and
+# uncached runs gave in every full run before they were left out for time
+WIRING_CPU_ROUTES = ("dense", "ragged", "chunked", "beam 4")
 
 
 def generate_wiring_check():
     """Phase 16 wiring, f32, ``allow_tf32`` off: two layers at full width of
     Llama-3-8B, Mistral-7B (window cut to 32, narrower than the 40 + 6
     tokens) and DeepSeek-V2-Lite, the same weights on the card and the CPU.
-    Greedy tokens must be equal card vs CPU for each route (DeepSeek's
-    paged one raises on both); and on the card ``ContinuousBatchEngine``
-    (latent mode for DeepSeek) must give each request the tokens of solo
-    ``generate``."""
+    Greedy tokens of each route on the card must equal the CPU's (those of
+    the same route for ``WIRING_CPU_ROUTES``, the dense ones for the rest;
+    DeepSeek's paged route raises); and on the card
+    ``ContinuousBatchEngine`` (latent mode for DeepSeek) must give each
+    request the tokens of solo ``generate``."""
     import torch
 
     from paddle_tpu_torch.models import (DeepseekV2ForCausalLM,
@@ -4268,31 +4381,29 @@ def generate_wiring_check():
         ragged = np.ones((2, WIRING_PROMPT), np.int32)
         ragged[1, WIRING_SHORT:] = 0
         mla = cls is DeepseekV2ForCausalLM
-        got = {}
+        got, cpu = {}, {}
         for label, kw in WIRING_ROUTES:
             kw = dict(kw, max_new_tokens=WIRING_NEW)
             if "attention_mask" in kw:
                 kw["attention_mask"] = ragged
-            pair = []
-            for m in (m_gpu, m_cpu):
-                t = torch.from_numpy(ids).to(m.device)
-                if mla and kw.get("paged"):
-                    try:
-                        m.generate(t, **kw)
-                    except NotImplementedError:
-                        pair.append("refused")
-                        continue
-                    raise AssertionError(f"phase 16 wiring {name}: paged "
-                                         "generate on MLA ran")
-                pair.append(m.generate(t, **kw).cpu().numpy())
-            if isinstance(pair[0], str):
-                got[label] = "refused on both"
-                continue
-            if not np.array_equal(pair[0], pair[1]):
+            t = torch.from_numpy(ids)
+            if mla and kw.get("paged"):
+                try:
+                    m_gpu.generate(t.cuda(), **kw)
+                except NotImplementedError:
+                    got[label] = "refused"
+                    continue
+                raise AssertionError(f"phase 16 wiring {name}: paged "
+                                     "generate on MLA ran")
+            card = m_gpu.generate(t.cuda(), **kw).cpu().numpy()
+            if label in WIRING_CPU_ROUTES:
+                cpu[label] = m_cpu.generate(t, **kw).numpy()
+            ref = cpu[label if label in WIRING_CPU_ROUTES else "dense"]
+            if not np.array_equal(card, ref):
                 raise AssertionError(f"phase 16 wiring {name} {label}: card "
-                                     f"tokens {pair[0].tolist()} != CPU "
-                                     f"{pair[1].tolist()}")
-            got[label] = pair[0].tolist()
+                                     f"tokens {card.tolist()} != CPU "
+                                     f"{ref.tolist()}")
+            got[label] = card.tolist()
         prompts = [ids[0], ids[1, :WIRING_SHORT]]
         eng = engine_tokens(m_gpu, prompts, WIRING_NEW, max_len=128)
         for b, p in enumerate(prompts):
@@ -4302,8 +4413,9 @@ def generate_wiring_check():
                 raise AssertionError(f"phase 16 wiring {name}: engine tokens "
                                      f"{eng[b].tolist()} != solo generate "
                                      f"{solo[0].tolist()} (request {b})")
-        log(f"phase 16 wiring, {name}, 2 layers at full width, f32: card = "
-            f"CPU tokens for every route {json.dumps(got)}; engine = solo "
+        log(f"phase 16 wiring, {name}, 2 layers at full width, f32: card "
+            f"tokens of every route = the CPU's (its "
+            f"{', '.join(WIRING_CPU_ROUTES)}) {json.dumps(got)}; engine = solo "
             f"generate for both requests {eng.tolist()}")
         del m_gpu, m_cpu
         gc.collect()
@@ -4425,21 +4537,30 @@ def plain_kernels():
     it reaches as its plain version, on whatever device the tensors lie:
     the flash attention (and so its backward), RoPE and both norms. Phase
     26 (b) takes a card's gradients through it to tell the kernels' share
-    of a card-to-CPU difference from PyTorch's own ops' share."""
+    of a card-to-CPU difference from PyTorch's own ops' share. The
+    optimizers' Adam update runs as ``adam_update_plain`` too, so
+    ``train_plain_check`` holds a whole step, update included, to its
+    plain route on the card."""
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops.hopper import flash_attention, fused_norm
+    from paddle_tpu_torch.ops.hopper.adam_update import adam_update_plain
+    from paddle_tpu_torch.optimizer import optimizer
 
     real = (llama.flash_attention_bshd, fused_norm.apply_rope,
-            fused_norm.rms_norm, fused_norm.add_rms_norm)
+            fused_norm.rms_norm, fused_norm.add_rms_norm,
+            optimizer.adam_update)
     llama.flash_attention_bshd = flash_attention.flash_attention_plain
     fused_norm.apply_rope = fused_norm.rope_ref
     fused_norm.rms_norm = fused_norm.rms_norm_plain
     fused_norm.add_rms_norm = fused_norm.add_rms_norm_plain
+    optimizer.adam_update = (
+        lambda items, hp, scale, tables: adam_update_plain(items, hp, scale))
     try:
         yield
     finally:
         (llama.flash_attention_bshd, fused_norm.apply_rope,
-         fused_norm.rms_norm, fused_norm.add_rms_norm) = real
+         fused_norm.rms_norm, fused_norm.add_rms_norm,
+         optimizer.adam_update) = real
 
 
 def log_units(model, card, label, want):
@@ -5967,10 +6088,14 @@ def engine_latent(model, card):
 def engine_wiring_check():
     """Phase 22 wiring, f32, ``allow_tf32`` off: two layers at full width of
     Llama-3-8B and DeepSeek-V2-Lite, the same weights on the card and the
-    CPU. On each device, token for token: prefix-cached = uncached and
+    CPU. On the card, token for token: prefix-cached = uncached and
     chunked = monolithic (both layouts); preempted and restored = never
     preempted, migrated = stayed, handed off = prefilled locally (paged:
-    the JAX engine refuses them in latent mode); and card = CPU."""
+    the JAX engine refuses them in latent mode); and each = the CPU's run
+    without the feature (uncached, monolithic, never preempted, stayed,
+    prefilled locally). The CPU's runs with each feature are left out:
+    they equal its runs without it in the CPU tests, and doubled the CPU
+    side's time."""
     import torch
 
     from paddle_tpu_torch.models import DeepseekV2ForCausalLM, LlamaForCausalLM
@@ -6060,24 +6185,22 @@ def engine_wiring_check():
         for label, fn, paged_only in checks:
             if latent and paged_only:
                 continue
-            pair = []
-            for m in (m_gpu, m_cpu):
-                a = fn(m, ps, {"chunked = monolithic": 16}.get(label, True))
-                b = fn(m, ps, None if label == "chunked = monolithic"
-                       else False)
-                if not all(np.array_equal(x, y) for x, y in zip(a, b)):
-                    raise AssertionError(
-                        f"phase 22 wiring {name} on {m.device}: {label} "
-                        f"fails: {[x.tolist() for x in a]} against "
-                        f"{[y.tolist() for y in b]}")
-                pair.append(a)
-            if not all(np.array_equal(x, y) for x, y in zip(*pair)):
+            off = None if label == "chunked = monolithic" else False
+            a = fn(m_gpu, ps, {"chunked = monolithic": 16}.get(label, True))
+            b = fn(m_gpu, ps, off)
+            if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(
+                    f"phase 22 wiring {name} on the card: {label} fails: "
+                    f"{[x.tolist() for x in a]} against "
+                    f"{[y.tolist() for y in b]}")
+            c = fn(m_cpu, ps, off)
+            if not all(np.array_equal(x, y) for x, y in zip(a, c)):
                 raise AssertionError(f"phase 22 wiring {name}: {label}: "
                                      "card tokens differ from the CPU's")
-            got[label] = [x.tolist() for x in pair[0]]
-        log(f"phase 22 wiring, {name}, 2 layers at full width, f32: card = "
-            f"CPU, and on both {'; '.join(got)} token for token: "
-            f"{json.dumps(got)}")
+            got[label] = [x.tolist() for x in a]
+        log(f"phase 22 wiring, {name}, 2 layers at full width, f32: on the "
+            f"card {'; '.join(got)}, each = the CPU's run without it, token "
+            f"for token: {json.dumps(got)}")
         del m_gpu, m_cpu
         gc.collect()
         torch.cuda.empty_cache()
@@ -7358,17 +7481,17 @@ def gemma_engine_run(model, card, label, prompts, news, fused):
 TTFT_LENS = (64, 512, 1000, 1024)
 
 
-def gemma_ttft(model, card):
+def warm_ttft(model, card, label, lens=TTFT_LENS, max_len=2048):
     """The engine's time to first token with its bucket's graph and dense
-    buffers warm: each length of ``TTFT_LENS`` admitted twice into one
-    idle engine (8 slots, max_len 2048), one new token each; the first
-    admission of a bucket captures its prefill graph for the engine's
-    buffers (two eager warm-ups and the capture), the second replays it.
-    Both logged, the second the figure."""
-    eng = timed_engine(model, max_batch=8, max_len=2048, page_size=16)
+    buffers warm: each length of ``lens`` admitted twice into one idle
+    engine (8 slots, ``max_len``), one new token each; the first admission
+    of a bucket captures its prefill graph for the engine's buffers (two
+    eager warm-ups and the capture), the second replays it. Both logged,
+    the second the figure."""
+    eng = timed_engine(model, max_batch=8, max_len=max_len, page_size=16)
     rng = np.random.RandomState(29)
     out = []
-    for n in TTFT_LENS:
+    for n in lens:
         for _ in range(2):
             eng.add_request(rng.randint(0, model.config.vocab_size, size=n),
                             max_new_tokens=1)
@@ -7376,8 +7499,8 @@ def gemma_ttft(model, card):
         (_, cold), (_, warm) = eng.prefill_ms[-2:]
         out.append(f"{n} (bucket {eng._bucket(n)}): {warm:.2f} ms (first "
                    f"{cold:.2f})")
-    log(f"  [{card}] phase 25 Gemma-7B: time to first token, an idle "
-        f"engine's admission with its bucket warm: " + "; ".join(out))
+    log(f"  [{card}] {label}: time to first token, an idle engine's "
+        f"admission with its bucket warm: " + "; ".join(out))
 
 
 def gemma_generate_runs(model, card, label, n_new, seed):
@@ -7458,7 +7581,7 @@ def serve_gemma():
                    zip(runs["tail off"][2], runs[label][2]))
         log(f"  [{card}] phase 25 Gemma-7B: {label} against tail off, "
             f"{same}/{sum(SERVE_NEWS)} tokens equal (bf16, reported)")
-    gemma_ttft(model, card)
+    warm_ttft(model, card, "phase 25 Gemma-7B")
     g_counts, ids = gemma_generate_runs(model, card, "Gemma-7B", GEN_NEW,
                                         26)
     total.update(g_counts)
@@ -7637,8 +7760,8 @@ def train_gemma():
     layers, bf16, phase 5's recipe, sequence 4096, batch 1): 3 steps of
     ``train_step`` with exact launch counts, finite losses that fall from
     the first, step ms, tokens/s, peak memory and a profiled step's busy
-    share; (b) the f32 wiring, card = CPU, at two layers of Gemma-7B's and
-    Gemma2-9B's published widths (``gemma_train_wiring``); (c)
+    share; (b) the f32 wiring, card = CPU, at two layers of Gemma-7B's
+    published widths (``gemma_train_wiring``); (c)
     ``FLAGS_check_nan_inf`` on the card (``nan_check_on_card``). Returns
     the launch counts of (a) and (b)."""
     import torch
@@ -7675,47 +7798,142 @@ def train_gemma():
 
 
 def gemma_train_wiring():
-    """Phase 26 (b): two ``train_step``s of f32 weights on the card and on
-    the CPU (``train_wiring_check``: the CPU side takes the card's weights
-    and optimizer state before each step; loss, every gradient and every
-    parameter held), two layers at the published widths of Gemma-7B (the
-    fused loss through the tied head; the (256, 256) kernels: the causal
-    forward and backward L a step) and Gemma2-9B (the capped logits; capped
-    attention, which takes no attention kernel, as in JAX). Returns the
-    card's launch counts.
+    """Phase 26 (b): the f32 training wiring at two layers of Gemma-7B's and
+    Gemma2-9B's published widths. Returns the card's launch counts.
 
-    Gemma-7B's gradients are held to the CPU's within 3e-4 of each
+    Gemma-7B: one ``train_step`` on the card and on the CPU
+    (``train_wiring_check``: the CPU side takes the card's weights and
+    optimizer state; loss, every gradient and every parameter held), the
+    fused loss through the tied head and the (256, 256) kernels, the
+    causal forward and backward L a step. One CPU step: each syncs and
+    updates a 256000-row vocabulary on the host (about 15 s on the card's
+    host). Its gradients are held to the CPU's within 3e-4 of each
     tensor's largest, not phase 6's 1e-4, and to the card's own plain
-    route within 1e-4 (the kernels' share). At two layers its
-    residual is the input embedding times sqrt(3072), so the tied head
-    gives each token's own logit about 61 and the softmax sits on it; an
-    f32 logit of 61 summed in another order moves by about 2e-4, and the
-    off-peak probabilities with it. So PyTorch's own ops part this pair's
-    card and CPU gradients by about 1e-4 with no port kernel in the way,
-    which the run logs. The loss and parameter tolerances are phase 6's."""
+    route within 1e-4 (the kernels' share). At two layers its residual is
+    the input embedding times sqrt(3072), so the tied head gives each
+    token's own logit about 61 and the softmax sits on it; an f32 logit of
+    61 summed in another order moves by about 2e-4, and the off-peak
+    probabilities with it. So PyTorch's own ops part this pair's card and
+    CPU gradients by about 1e-4 with no port kernel in the way, which the
+    run logs. The loss and parameter tolerances are phase 6's.
+
+    Gemma2-9B: two steps held to the card's own plain route
+    (``train_plain_check``), so the second step's update from non-zero
+    moments is compared too: the capped scores' plain backward (no
+    attention kernel, as in JAX), the sandwich norms (4 L + 1
+    ``rms_norm`` a step), ``fused_rope`` 2 L and ``adam_update`` once a
+    step, and the soft-capped loss. Its CPU side (about 35 s a step on
+    the card's host, for the same 256000-row vocabulary at 3584) is
+    replaced by the plain route on the card; its train step is held to
+    JAX's on the CPU (``tests/test_torch_gemma_train.py``)."""
     from paddle_tpu_torch import models
 
+    L = 2
+    cfg = models.GemmaConfig(num_hidden_layers=L, dtype="float32",
+                             fuse_linear_cross_entropy=True)
+    want = {"flash_attention_256": L, "flash_attention_bwd_256": L}
+    counts = train_wiring_check("phase 26 (b): Gemma-7B training wiring",
+                                cfg=cfg, seed=26, steps=1, grad_tol=3e-4)
+    attention = {k: v for k, v in counts.items()
+                 if v and ("attention" in k or k == "splash_hop")}
+    log(f"  phase 26 (b) Gemma-7B: attention launches "
+        f"{json.dumps(attention)} (required {json.dumps(want)})")
+    if attention != want:
+        raise AssertionError("phase 26 (b): Gemma-7B's attention launches "
+                             "are not the ones the code makes")
+    total = Counter(counts)
+    steps = 2
+    cfg = models.Gemma2Config(num_hidden_layers=L, dtype="float32")
+    want = {"rms_norm": (4 * L + 1) * steps, "fused_rope": 2 * L * steps,
+            "adam_update": steps}
+    counts = train_plain_check("phase 26 (b): Gemma2-9B training against "
+                               "the card's plain route", cfg, seed=26,
+                               steps=steps)
+    got = {k: v for k, v in counts.items() if v}
+    log(f"  phase 26 (b) Gemma2-9B: launches {json.dumps(got)} (required "
+        f"exactly {json.dumps(want)})")
+    if got != want:
+        raise AssertionError("phase 26 (b): Gemma2-9B's training launches "
+                             "are not the ones the code makes")
+    total.update(counts)
+    return total
+
+
+def train_plain_check(phase, cfg, seed, steps=2, seq=128):
+    """``steps`` train steps of f32 weights on the card, twice: with the
+    port's kernels, and on a copy with every kernel the step reaches
+    replaced by its plain version (``plain_kernels``, the Adam update
+    included), which must launch nothing. Before each step the copy takes
+    the kernels' side's weights and optimizer state; both take the same
+    fresh batch. Each step's loss, every gradient and every parameter
+    after it must agree, with phase 6's tolerances (loss 1e-5 relative,
+    gradients 1e-4 of each tensor's largest, parameters 2 x the step's
+    rate with at most 0.1% of a tensor off by > 1e-6). From the second
+    step on the update starts from non-zero moments. Returns the kernels'
+    launch counts."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.weights import model_class
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m_k = model_class(cfg)(cfg, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(
+                               seed))
+    m_p = copy.deepcopy(m_k)
+    (step_k, opt_k), (step_p, opt_p) = (make_train_step(m)
+                                        for m in (m_k, m_p))
+    rate = step_schedule({})
+    log(f"{phase}, {cfg.num_hidden_layers} layers at full width, f32, seq "
+        f"{seq}, {steps} step(s) of {recipe_text({})}, a fresh batch each; "
+        f"the plain side takes the kernels' side's weights and optimizer "
+        f"state before each step. Tolerances: loss 1e-5 relative, "
+        f"gradients 1e-4 of each tensor's largest, parameters "
+        f"{2 * rate:.1e}, share of a tensor off by > 1e-6 1e-3")
     total = Counter()
-    steps, L = 2, 2
-    for name, cfg, grad_tol, want in (
-            ("Gemma-7B", models.GemmaConfig(
-                num_hidden_layers=L, dtype="float32",
-                fuse_linear_cross_entropy=True), 3e-4,
-             {"flash_attention_256": L * steps,
-              "flash_attention_bwd_256": L * steps}),
-            ("Gemma2-9B", models.Gemma2Config(num_hidden_layers=L,
-                                              dtype="float32"), 1e-4, {})):
-        counts = train_wiring_check(f"phase 26 (b): {name} training wiring",
-                                    cfg=cfg, seed=26, steps=steps,
-                                    grad_tol=grad_tol)
-        attention = {k: v for k, v in counts.items()
-                     if v and ("attention" in k or k == "splash_hop")}
-        log(f"  phase 26 (b) {name}: attention launches "
-            f"{json.dumps(attention)} (required {json.dumps(want)})")
-        if attention != want:
-            raise AssertionError(f"phase 26 (b): {name}'s attention launches "
-                                 "are not the ones the code makes")
-        total.update(counts)
+    ok = True
+    for i in range(steps):
+        m_p.load_state_dict(m_k.state_dict())
+        sd = opt_k.state_dict()
+        sd["state"] = {name: {k: t.clone() for k, t in st.items()}
+                       for name, st in sd["state"].items()}
+        opt_p.set_state_dict(sd)
+        batch = token_batch(cfg.vocab_size, seq, 4 + i, "cuda")
+        reset_launches()
+        loss_k = float(step_k(*batch))
+        total.update(launches)
+        reset_launches()
+        with plain_kernels():
+            loss_p = float(step_p(*batch))
+        stray = {k: v for k, v in launches.items() if v}
+        if stray:
+            raise AssertionError(f"{phase}: the plain route launched "
+                                 f"{json.dumps(stray)}")
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        g_err, g_name, p_err, p_share = 0.0, "", 0.0, 0.0
+        plain = dict(m_p.named_parameters())
+        for name, p in m_k.named_parameters():
+            q = plain[name]
+            e = float((p.grad - q.grad).abs().max() / q.grad.abs().max())
+            if e > g_err:
+                g_err, g_name = e, name
+            d = (p.detach() - q.detach()).abs()
+            p_err = max(p_err, float(d.max()))
+            p_share = max(p_share, float((d > 1e-6).float().mean()))
+        step_ok = (loss_err <= 1e-5 and g_err <= 1e-4 and p_err <= 2 * rate
+                   and p_share <= 1e-3)
+        log(f"  step {i + 1}: loss kernels {loss_k} plain {loss_p} (rel err "
+            f"{loss_err:.2e}); gradients max rel err {g_err:.2e} "
+            f"({g_name}); parameters after it max abs err {p_err:.2e}, "
+            f"largest share off by > 1e-6 {p_share:.2e}; ok={step_ok}")
+        ok = ok and step_ok
+    log(f"  kernels' launches {json.dumps(dict(total))}")
+    if not ok:
+        raise AssertionError(f"{phase}: the kernels' and the plain route's "
+                             "training steps differ")
+    del m_k, m_p, step_k, step_p, opt_k, opt_p
+    release()
     return total
 
 
@@ -7826,6 +8044,452 @@ def gemma_train_only():
     return train_gemma()
 
 
+# --------------------------------------------------------------- phase 27 --
+
+# Phi-3-mini-128k (microsoft/Phi-3-mini-128k-instruct's config.json):
+# original_max_position_embeddings 4096, max_position_embeddings 131072,
+# longrope. Its 48 short and 48 long factors are not in the repository: they
+# are drawn from PHI3_FACTOR_SEED, sorted, short in [1, 3) and long in
+# [1, 64), the published lists' shape
+PHI3_ORIG, PHI3_MAX_POS, PHI3_FACTOR_SEED = 4096, 131072, 2722
+# its long-context run: generate_paged, B 1, 4200 prompt tokens (past
+# original_max_position_embeddings: the long factors), 16 new
+PHI3_LONG_PROMPT, PHI3_LONG_NEW = 4200, 16
+# GPT-2 XL (openai-community/gpt2-xl's config.json: n_layer 48, n_embd 1600,
+# n_head 25, n_positions 1024, vocab 50257); its engine serves phase 3's
+# prompts that fit 1024 positions with their new tokens
+GPT2_XL = dict(vocab_size=50257, hidden_size=1600, num_hidden_layers=48,
+               num_attention_heads=25, max_position_embeddings=1024)
+GPT2_LENS = (100, 128, 256, 300, 512, 700, 64, 33)
+GPT2_MAX_LEN = 1024
+# the 7-9B families of phase 27 (d), at full width, depth cut to
+# DENSE_DEPTH; the two GLM-4-9B trunks share glm-4-9b's widths
+DENSE_DEPTH = 4
+DENSE_CUT = ("Qwen2.5-7B", "Qwen3-8B", "GLM-4-9B (GLM trunk)",
+             "GLM-4-9B-0414 (GLM-4 trunk)", "OLMo2-7B")
+DENSE_WIRING = ("Phi-3-mini-128k", "GPT-2 XL", "Qwen2.5-0.5B") + DENSE_CUT
+# phase 27 (e) families with no CPU side: their kernels, widths and layer
+# routes are Qwen2.5-7B's (Llama layers with biases, 128) and OLMo2-7B's
+# (norms after attention and MLP only, 128), which keep theirs
+DENSE_CARD_ONLY = ("GLM-4-9B (GLM trunk)", "GLM-4-9B-0414 (GLM-4 trunk)")
+# every attention and decode-tail counter a dense family's run must account
+# for (the ones it does not launch held at 0)
+DENSE_COUNTERS = ATTENTION_COUNTERS + (
+    "paged_attention_64", "paged_attention_96", "fused_qkv_rope",
+    "fused_epilogue", "mla_decode", "flash_attention_mla",
+    "flash_attention_local")
+# head width -> the (exact prefill, padded prefill or dense decode, paged
+# decode) counters; None where the width takes the plain route
+# (``append_attention.plain_width``: Phi-3's 96, as JAX's gates)
+DENSE_ROUTES = {128: ("flash_attention_bshd", "append_attention",
+                      "paged_attention"),
+                64: ("flash_attention_bshd", "append_attention",
+                     "paged_attention_64"),
+                96: (None, None, "paged_attention_96")}
+
+
+def dense_config(name, **kw):
+    """The published shape of each dense family (bf16), ``kw`` on top: the
+    depth and dtype cuts."""
+    from paddle_tpu_torch import models
+
+    kw = dict(dict(dtype="bfloat16"), **kw)
+    if name == "Phi-3-mini-128k":
+        rng = np.random.RandomState(PHI3_FACTOR_SEED)
+        half = 96 // 2
+        scaling = {"rope_type": "longrope",
+                   "short_factor": np.sort(1 + 2 * rng.rand(half)).tolist(),
+                   "long_factor": np.sort(1 + 63 * rng.rand(half)).tolist(),
+                   "original_max_position_embeddings": PHI3_ORIG}
+        return models.Phi3Config(**dict(dict(
+            rope_scaling=scaling, max_position_embeddings=PHI3_MAX_POS),
+            **kw))
+    if name == "GPT-2 XL":
+        return models.GPT2Config(**dict(GPT2_XL, **kw))
+    return {"Qwen2.5-0.5B": models.Qwen2Config.qwen25_0_5b,
+            "Qwen2.5-7B": models.Qwen2Config.qwen25_7b,
+            "Qwen3-8B": models.Qwen3Config.qwen3_8b,
+            "GLM-4-9B (GLM trunk)": models.GlmConfig,
+            "GLM-4-9B-0414 (GLM-4 trunk)": models.Glm4Config,
+            "OLMo2-7B": models.Olmo2Config}[name](**kw)
+
+
+def dense_model(name, seed, **kw):
+    """The family's model on the card, weights drawn from ``seed``, then the
+    biases a fresh model leaves at 0 drawn N(0, 0.02) (q/k/v; GPT-2's
+    projections and LayerNorms), so that every path runs with a value.
+    Returns (model, seconds)."""
+    import torch
+
+    from paddle_tpu_torch.weights import model_class
+
+    cfg = dense_config(name, **kw)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    model = model_class(cfg)(cfg, device="cuda", generator=gen)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if pname.endswith("bias"):
+                p.normal_(0.0, 0.02, generator=gen)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def dense_layers(model):
+    return model.llama.h if hasattr(model.llama, "h") else model.llama.layers
+
+
+def dense_counts_want(model, steps, exact, padded, paged):
+    """Exact launches of ``steps`` decode steps (over the paged pool where
+    ``paged``, else the dense buffer), ``exact`` unpadded prefills and
+    ``padded`` ones, worked out from the code. A forward's ``rms_norm``: a
+    layer's own norms (the Llama block's input norm; OLMo2's two post
+    norms; GLM-4's four sandwich norms; none in GPT-2's LayerNorm block),
+    two more a layer with q/k norms (Qwen3 per head, OLMo2 over the
+    width), and the final norm (none in GPT-2); ``add_rms_norm`` one a
+    layer in the Llama block only. Attention by head width
+    (``DENSE_ROUTES``): at 128 and 64 the flash forward a layer an exact
+    prefill, append attention a padded prefill or dense decode step, the
+    paged kernel of the width a paged step; at 96 only the paged kernel
+    (``paged_attention_96``): its prefills and dense decode take the plain
+    route, as JAX. No fused tail (each family fails its gate)."""
+    from paddle_tpu_torch.models.gemma2 import Gemma2DecoderLayer
+    from paddle_tpu_torch.models.gpt2 import GPT2Block
+    from paddle_tpu_torch.models.llama import head_dim_of
+    from paddle_tpu_torch.models.olmo2 import Olmo2DecoderLayer
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    norms, adds = {Gemma2DecoderLayer: (4, 0), Olmo2DecoderLayer: (2, 0),
+                   GPT2Block: (0, 0)}.get(type(dense_layers(model)[0]),
+                                          (1, 1))
+    if getattr(cfg, "qk_norm", False):
+        norms += 2
+    final = 0 if isinstance(dense_layers(model)[0], GPT2Block) else 1
+    forwards = steps + exact + padded
+    want = dict.fromkeys(DENSE_COUNTERS, 0)
+    want.update(rms_norm=(norms * L + final) * forwards,
+                add_rms_norm=adds * L * forwards)
+    flash, append, paged_c = DENSE_ROUTES[head_dim_of(cfg)]
+    decode = paged_c if paged else append
+    for name, n in ((flash, exact), (append, padded), (decode, steps)):
+        if name is not None:
+            want[name] += L * n
+    return want
+
+
+def dense_engine_run(model, card, label, lens, news, seed, max_len=2048,
+                     log_prefills=False):
+    """An engine run (8 slots, page 16) with its exact launch counts and the
+    paged kernel's group. Returns (counts, outputs, prompts, stats)."""
+    cfg = model.config
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in lens]
+    with _GroupSpy() as spy:
+        counts, stats, _, _, outputs = serve_run(
+            model, card, label, prompts, news, False, max_len=max_len,
+            log_prefills=log_prefills)
+    steps = stats["decode_steps"]
+    n_exact = sum(exact_bucket(n) for n in lens)
+    want = dense_counts_want(model, steps, n_exact, len(lens) - n_exact,
+                             True)
+    require_counts(label, counts, want)
+    group = cfg.num_attention_heads // cfg.num_key_value_heads
+    if set(spy.groups) != {group}:
+        raise AssertionError(f"{label}: paged_attention ran at groups "
+                             f"{dict(spy.groups)}, expected {group}")
+    log(f"  [{card}] {label}: launch counts exact for {steps} decode steps, "
+        f"{n_exact} exact and {len(lens) - n_exact} padded prefills, the "
+        f"paged kernel at group {group}: "
+        f"{json.dumps({k: v for k, v in want.items() if v})}")
+    return counts, outputs, prompts, stats
+
+
+def dense_generate_runs(model, card, label, n_new, seed):
+    """``generate`` dense and paged on B 4 x 512 prompts, launch counts
+    exact. Returns (counts, prompts)."""
+    import torch
+
+    cfg = model.config
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (GEN_B, GEN_PROMPT))).to(model.device)
+    total = Counter()
+    toks = {}
+    for run, kw in (("dense", {}), ("paged", {"paged": True,
+                                              "page_size": 16})):
+        want = dense_counts_want(model, n_new - 1, 1, 0, bool(kw))
+        toks[run], counts, _ = generate_run(
+            model, card, f"{label} {run}", ids, want, phase="phase 27",
+            max_new_tokens=n_new, **kw)
+        total.update(counts)
+    same = int((toks["dense"] == toks["paged"]).sum())
+    log(f"  [{card}] phase 27 {label}: generate dense and paged, {same}/"
+        f"{toks['dense'].size} tokens equal (bf16, reported)")
+    return total, list(ids.cpu().numpy())
+
+
+def dense_family_header(label, model, secs, cut):
+    import torch
+
+    from paddle_tpu_torch.models.llama import head_dim_of
+
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 27: {label}, {cfg.num_hidden_layers} layers ({cut}), bf16, "
+        f"{n_params / 1e9:.3f}B parameters drawn in {secs:.1f}s; hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} | "
+        f"{cfg.num_key_value_heads} heads x {head_dim_of(cfg)}, vocab "
+        f"{cfg.vocab_size}, layer {type(dense_layers(model)[0]).__name__}; "
+        f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
+def release():
+    """Collects what the caller let go and returns the card's cached
+    blocks."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_phi3(card):
+    """Phase 27 (a): Phi-3-mini-128k at its published shape, no cut (32
+    layers, hidden 3072, 32 | 32 heads x 96, SwiGLU 8192, vocab 32064,
+    untied; longrope over 4096 of 131072 positions, the factors drawn):
+    phase 3's ten requests through the engine (8 slots, max_len 2048: the
+    short factors), graphed, launch counts exact (a forward ``rms_norm``
+    L + 1 and ``add_rms_norm`` L, no attention kernel in a prefill, a
+    decode step ``paged_attention_96`` L), each prefill's ms (a bucket's
+    first admission) and the decode ms a step; the time to first token
+    with the bucket warm (``warm_ttft``); ``generate_paged`` at B 1 over
+    a 4200-token prompt (the long factors), its table's factor list
+    checked; ``generate`` dense (no attention kernel) and paged, B 4 x
+    512; the engine against solo ``generate``. Returns the counts."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import _longrope_params
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    label = "Phi-3-mini-128k"
+    model, secs = dense_model(label, 271)
+    cfg = model.config
+    dense_family_header(label, model, secs, "no cut")
+    total = Counter()
+    counts, _, _, _ = dense_engine_run(
+        model, card, f"phase 27 (a) {label} engine", SERVE_LENS, SERVE_NEWS,
+        272, log_prefills=True)
+    total.update(counts)
+    warm_ttft(model, card, f"phase 27 (a) {label}")
+    ids = torch.from_numpy(np.random.RandomState(273).randint(
+        0, cfg.vocab_size, (1, PHI3_LONG_PROMPT))).cuda()
+    want = dense_counts_want(model, PHI3_LONG_NEW - 1, 1, 0, True)
+    _, counts, _ = generate_run(
+        model, card, f"{label} generate_paged B 1, prompt "
+        f"{PHI3_LONG_PROMPT}", ids, want, phase="phase 27 (a)",
+        max_new_tokens=PHI3_LONG_NEW, paged=True, page_size=16)
+    total.update(counts)
+    # the tables each run built: the engine's at its max_len (short
+    # factors), generate_paged's past 4096 (long), with the magnitude
+    tables = sorted(model.llama._rope_cache)
+    long_len = max(tables)
+    scaling = cfg.rope_scaling
+    for n in (2048, long_len):
+        inv, att = _longrope_params(scaling, 96, cfg.rope_theta, n,
+                                    max_position=cfg.max_position_embeddings,
+                                    device="cuda")
+        want_cos = torch.cos(torch.cat([inv, inv])) * att
+        got = model.llama._rope_cache[n][0][1]
+        if not torch.allclose(got, want_cos, rtol=0, atol=1e-6):
+            raise AssertionError(f"phase 27 (a): the table at {n} is not "
+                                 "built from its factor list")
+    if not long_len > PHI3_ORIG:
+        raise AssertionError(f"phase 27 (a): no table past {PHI3_ORIG}")
+    log(f"  [{card}] phase 27 (a) {label}: rope tables built at {tables} "
+        f"(short factors up to {PHI3_ORIG}, long past it), magnitude "
+        f"{att:.6f}")
+    g_counts, prompts4 = dense_generate_runs(model, card, label, GEN_NEW, 274)
+    total.update(g_counts)
+    engine_vs_solo(model, card, f"phase 27 (a) {label}", prompts4, GEN_NEW,
+                   engine_tokens(model, prompts4, GEN_NEW))
+    log_units(model, card, label, ("_prefill_steps", "_select_decode_steps"))
+    log(f"  [{card}] phase 27 (a) {label}: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; took "
+        f"{time.perf_counter() - t0:.1f}s")
+    del model
+    release()
+    return total
+
+
+def dense_whole(card, label, seed, lens, news, max_len, profile=False):
+    """Phase 27 (b) and (c): ``label`` whole, the engine (8 slots,
+    ``max_len``) on ``lens`` with exact counts and its prefills' ms, the
+    time to first token with the bucket warm, then ``generate`` dense and
+    paged and the engine against solo ``generate``; with ``profile``, a
+    traced decode at 8 slots of 512-token prompts (``profile_decode``).
+    Returns the counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, secs = dense_model(label, seed)
+    dense_family_header(label, model, secs, "no cut")
+    total = Counter()
+    counts, _, _, _ = dense_engine_run(
+        model, card, f"phase 27 {label} engine", lens, news, seed + 1,
+        max_len=max_len, log_prefills=True)
+    total.update(counts)
+    warm_ttft(model, card, f"phase 27 {label}",
+              tuple(n for n in TTFT_LENS if n < max_len), max_len)
+    g_counts, prompts4 = dense_generate_runs(model, card, label, GEN_NEW,
+                                             seed + 2)
+    total.update(g_counts)
+    engine_vs_solo(model, card, f"phase 27 {label}", prompts4, GEN_NEW,
+                   engine_tokens(model, prompts4, GEN_NEW, max_len=max_len))
+    if profile:
+        profile_decode(model, card, max_len=max_len)
+    log(f"  [{card}] phase 27 {label}: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; took "
+        f"{time.perf_counter() - t0:.1f}s")
+    del model
+    release()
+    return total
+
+
+def dense_cut(card):
+    """Phase 27 (d): ``DENSE_CUT`` at full width, depth cut to
+    ``DENSE_DEPTH``: phase 20's three requests through the engine,
+    ``generate`` dense and paged, counts exact, the engine against solo
+    ``generate``. Returns the counts."""
+    import torch
+
+    total = Counter()
+    for i, label in enumerate(DENSE_CUT):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model, secs = dense_model(label, 280 + i,
+                                  num_hidden_layers=DENSE_DEPTH)
+        dense_family_header(label, model, secs,
+                            f"depth cut to {DENSE_DEPTH}")
+        counts, outputs, prompts, _ = dense_engine_run(
+            model, card, f"phase 27 (d) {label} engine", FAMILY_LENS,
+            (FAMILY_NEW,) * len(FAMILY_LENS), 290 + i)
+        total.update(counts)
+        g_counts, _ = dense_generate_runs(model, card, label, FAMILY_NEW,
+                                          300 + i)
+        total.update(g_counts)
+        engine_vs_solo(model, card, f"phase 27 (d) {label}", prompts,
+                       FAMILY_NEW, outputs)
+        log(f"  [{card}] phase 27 (d) {label}: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; took "
+            f"{time.perf_counter() - t0:.1f}s")
+        del model
+        release()
+    return total
+
+
+def dense_wiring():
+    """Phase 27 (e), ``allow_tf32`` off: two layers of each family of
+    ``DENSE_WIRING`` at full width in f32, the same weights on the card
+    (kernels) and, but for ``DENSE_CARD_ONLY``, the CPU (plain versions).
+    A 64-token prompt (exact) and a 40-token one (padded), 6 greedy
+    tokens: ``generate`` card = CPU (dense), paged = dense on the card,
+    the engine's tokens (2 slots) = solo ``generate``'s on the card; the
+    exact prompt's prefill logits card vs CPU within 1e-3 (one slot); the
+    family's attention kernels launched (``DENSE_ROUTES``)."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import head_dim_of
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.serving import ContinuousBatchEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    for i, name in enumerate(DENSE_WIRING):
+        m_gpu, _ = dense_model(name, 310 + i, num_hidden_layers=2,
+                               dtype="float32")
+        m_cpu = None if name in DENSE_CARD_ONLY else cpu_copy(m_gpu)
+        rng = np.random.RandomState(310 + i)
+        prompts = [rng.randint(0, m_gpu.config.vocab_size, size=n)
+                   for n in (64, 40)]
+        reset_launches()
+        got = {}
+        for p in prompts:
+            ids = torch.from_numpy(p[None])
+            card = m_gpu.generate(ids.cuda(), max_new_tokens=6).cpu().numpy()
+            paged = m_gpu.generate(ids.cuda(), max_new_tokens=6, paged=True,
+                                   page_size=16).cpu().numpy()
+            cpu = (card if m_cpu is None else
+                   m_cpu.generate(ids, max_new_tokens=6).numpy())
+            got[len(p)] = card[0].tolist()
+            if not (np.array_equal(card, cpu) and np.array_equal(card,
+                                                                 paged)):
+                raise AssertionError(
+                    f"phase 27 (e) {name} wiring, prompt {len(p)}: card "
+                    f"{card.tolist()}, paged {paged.tolist()}, CPU "
+                    f"{cpu.tolist()}")
+        eng = engine_tokens(m_gpu, prompts, 6, max_len=128)
+        counts = dict(launches)
+        checked = "tokens card = paged = engine, no CPU side"
+        if m_cpu is not None:
+            first = []
+            for m in (m_gpu, m_cpu):
+                one = ContinuousBatchEngine(m, max_batch=1, max_len=128)
+                one.add_request(prompts[0], max_new_tokens=1)
+                first.append(one._last[0].cpu().clone())
+            err = float((first[0] - first[1]).abs().max())
+            if not err <= 1e-3:
+                raise AssertionError(f"phase 27 (e) {name} wiring: prefill "
+                                     f"logits card vs CPU differ by {err}")
+            checked = (f"tokens card = CPU = paged = engine; prefill logits "
+                       f"card vs CPU max abs err {err:.3e} (tolerance 1e-3, "
+                       f"|logits| <= {float(first[1].abs().max()):.3f})")
+        for p, toks in zip(prompts, eng):
+            if toks.tolist() != got[len(p)]:
+                raise AssertionError(f"phase 27 (e) {name} wiring: engine "
+                                     f"{toks.tolist()} != solo generate "
+                                     f"{got[len(p)]}")
+        require_launched(counts, [k for k in DENSE_ROUTES[head_dim_of(
+            m_gpu.config)] if k], f"phase 27 (e) {name} wiring")
+        log(f"phase 27 (e): {name} wiring, 2 layers at full width, f32: "
+            f"{checked}; tokens {json.dumps(got)}; card launches "
+            f"{json.dumps(counts)}")
+        del m_gpu, m_cpu
+        release()
+    log(f"  phase 27 (e) took {time.perf_counter() - t0:.1f}s")
+
+
+def serve_dense_families(profile=False):
+    """Phase 27: the dense Llama-trunk families and GPT-2 on the card,
+    (a)-(e), each sub-phase timed and its model freed; with ``profile``,
+    (b) and (c) trace their decode. Returns the launch counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    release()
+    card = card_line()
+    log(f"phase 27: memory allocated after releasing the earlier phases "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    total = Counter(dense_phi3(card))
+    news = tuple(16 if i % 2 == 0 else 64 for i in range(len(GPT2_LENS)))
+    total.update(dense_whole(card, "GPT-2 XL", 275, GPT2_LENS, news,
+                             GPT2_MAX_LEN, profile))
+    total.update(dense_whole(card, "Qwen2.5-0.5B", 278, SERVE_LENS,
+                             SERVE_NEWS, 2048, profile))
+    total.update(dense_cut(card))
+    dense_wiring()
+    log(f"phase 27 took {time.perf_counter() - t0:.1f}s")
+    return total
+
+
+def families_only(profile=False):
+    """``--families-only``: phase 2's rows at the dense families' widths,
+    then phase 27."""
+    check_dense_family_rows(make_record({}))
+    return serve_dense_families(profile)
+
+
 def tensor_core_sass(lib) -> dict:
     """{kernel name: [HMMA, HGMMA]} of a built library, from one
     ``cuobjdump -sass`` (one section a function): mma.sync and wgmma
@@ -7877,13 +8541,16 @@ def kernel_name(mangled: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after phases 3, 7, 10 and 19, trace 10 decode "
-                         "steps with torch.profiler, fused tail off and on "
+                    help="after phases 3, 7, 10, 19 and 27 (b)-(c), trace "
+                         "10 decode steps with torch.profiler, fused tail "
+                         "off and on "
                          "(Llama-3-8B at 8 slots, Mistral-7B at 4 slots of "
                          "8192-token prompts; DeepSeek-V2-Lite at 8 slots of "
                          "1024-token prompts, no fused tail; "
                          "ERNIE-4.5-21B-A3B at 8 slots of 512-token "
-                         "prompts, its MoE layers discrete)")
+                         "prompts, its MoE layers discrete; GPT-2 XL and "
+                         "Qwen2.5-0.5B at 8 slots of 512-token prompts); "
+                         "with --families-only, phase 27's alone")
     ap.add_argument("--decode-tail-only", action="store_true",
                     help="phase 1, then phase 2's decode-tail rows alone "
                          "(cold and warm, yardsticks, host us, edges); prints "
@@ -7939,9 +8606,18 @@ def main(argv=None) -> int:
                          "causal, local and full, its edge shapes, the "
                          "local and full forward, splash_hop, fused_rope "
                          "at 256), then phase 26: Gemma-2B trained whole, "
-                         "the f32 wiring of Gemma and Gemma2 training, "
+                         "the f32 wiring of Gemma-7B's training, "
                          "FLAGS_check_nan_inf on the card; prints no "
                          "result line")
+    ap.add_argument("--families-only", action="store_true",
+                    help="phase 1, phase 2's rows at the dense families' "
+                         "head widths (paged decode at D 96 and D 64, "
+                         "their edge shapes, append attention at (64, 64) "
+                         "one query a row), then phase 27: Phi-3-mini-128k, "
+                         "GPT-2 XL and Qwen2.5-0.5B whole, Qwen2.5-7B, "
+                         "Qwen3-8B, GLM-4-9B (both trunks) and OLMo2-7B at "
+                         "depth 4, then their f32 wiring; prints no result "
+                         "line")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -7978,10 +8654,10 @@ def main(argv=None) -> int:
                or args.mla_only or args.optimizer_only or args.moe_only
                or args.engine_only or args.autotune_only or args.http_only
                or args.engine_step_only or args.gemma_only
-               or args.gemma_train_only)
+               or args.gemma_train_only or args.families_only)
     sass = {}
     for stem in ("append_attention", "flash_attention", "paged_attention",
-                 "mla_decode", "decode_tail"):
+                 "paged_attention_narrow", "mla_decode", "decode_tail"):
         sass[stem] = tensor_core_sass(_build.build()[stem])
         hmma, hgmma = (sum(c[i] for c in sass[stem].values())
                        for i in (0, 1))
@@ -7989,12 +8665,15 @@ def main(argv=None) -> int:
         if hmma + hgmma == 0 and not partial:
             raise AssertionError(f"{stem}: no tensor-core instruction in its "
                                  "SASS")
-    # Gemma's width-256 instances of the bf16 bodies, one by one
-    if not partial or args.gemma_only or args.gemma_train_only:
+    # the bf16 bodies' instances at Gemma's width 256, and the paged
+    # kernel's at 64 and 96 (the dense families), one by one
+    if (not partial or args.gemma_only or args.gemma_train_only
+            or args.families_only):
         for stem in ("append_attention", "paged_attention",
-                     "flash_attention"):
+                     "paged_attention_narrow", "flash_attention"):
+            widths = ("64>", "96>") if stem.endswith("narrow") else ("256",)
             for name, (n, _) in sass[stem].items():
-                if "_tc_kernel<256" not in name:
+                if not any(f"_tc_kernel<{w}" in name for w in widths):
                     continue
                 log(f"  sass {stem} {name}: {n} HMMA (mma.sync)")
                 if n == 0:
@@ -8051,6 +8730,10 @@ def main(argv=None) -> int:
         gemma_train_only()
         log(f"total {time.perf_counter() - t_start:.1f}s")
         return 0
+    if args.families_only:
+        families_only(args.profile)
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        return 0
     if args.decode_profile_only:
         from paddle_tpu_torch.models.llama import (LlamaConfig,
                                                    LlamaForCausalLM)
@@ -8101,6 +8784,7 @@ def main(argv=None) -> int:
     counts.update(autotune_phase(then=http_phase))
     counts.update(serve_gemma())
     counts.update(train_gemma())
+    counts.update(serve_dense_families(args.profile))
 
     kernels = []
     for name in SOURCES:

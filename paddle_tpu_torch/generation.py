@@ -44,7 +44,8 @@ from .jit.cuda_graph import GraphedStep
 from .ops.hopper.append_attention import (append_attention,
                                           append_attention_plain,
                                           chunk_positions,
-                                          grouped_attention_plain)
+                                          grouped_attention_plain,
+                                          plain_width)
 from .ops.hopper.flash_attention import flash_attention_bshd
 from .ops.hopper.paged_attention import (gather_pages, paged_attention,
                                          paged_attention_plain)
@@ -97,7 +98,12 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
     - any chunk with ``softcap`` (Gemma2's capped scores; the caller
       passes ``use_flash`` False, as JAX does) the same einsum with the
       cap applied before the masks (``generation.py:135-137``): no
-      kernel computes capped scores, in JAX or here.
+      kernel computes capped scores, in JAX or here;
+    - any chunk at a head width with no kernel instance that JAX's gates
+      refuse too (``append_attention.plain_width``: not in ``WIDTHS`` and
+      D % 128 != 0, Phi-3's 96) the same einsum, as JAX's flash and
+      append gates send it there. At (64, 64) the port keeps its kernels
+      (the flash forward, append attention) where JAX runs the einsum.
 
     The wrappers run their plain versions on CPU tensors. The rope rows
     and the cache slots are taken by index at ``pos + arange(S)``.
@@ -116,9 +122,11 @@ def cached_attention(q, k, v, cos, sin, k_buf, v_buf, pos, allowed=None,
     k_buf.index_copy_(1, idx, k.to(k_buf.dtype))
     v_buf.index_copy_(1, idx, v.to(v_buf.dtype))
 
-    if use_flash and S > 1 and allowed is None and row_pos is None and prefill:
+    kernel = not plain_width(q.shape[-1], v_buf.shape[-1])
+    if (kernel and use_flash and S > 1 and allowed is None
+            and row_pos is None and prefill):
         out = flash_attention_bshd(q, k, v, causal=True, window=window)
-    elif window is None and softcap is None:
+    elif kernel and window is None and softcap is None:
         out = append_attention(q, k_buf, v_buf, pos, allowed=allowed)
     else:
         out = append_attention_plain(q, k_buf, v_buf, pos, allowed, window,

@@ -1,10 +1,11 @@
 """Llama-3 decoder — counterpart of ``paddle_tpu/models/llama.py``.
 
 Ported: the config and its presets, rope tables (default, ``llama3``,
-``linear`` and ``yarn`` scaling), RMSNorm (also over another width,
-``_width_norm``), attention over the static KV caches (dense
-prefill cache and paged pool) and without a cache (the training forward:
-fused RoPE, then causal or sliding-window flash attention), the gated MLP,
+``linear``, ``yarn`` and ``longrope`` scaling; ``validate_rope_scaling``),
+RMSNorm (also over another width, ``_width_norm``), attention over the
+static KV caches (dense prefill cache and paged pool) and without a cache
+(the training forward: fused RoPE, then causal or sliding-window flash
+attention), the gated MLP,
 the decoder layer on the discrete path, ``LlamaModel.forward`` /
 ``forward_cached``, the causal-LM head, ``LlamaForCausalLM.forward`` with
 labels (the chunked fused lm-head + cross-entropy, or the logits and
@@ -46,6 +47,7 @@ from ..distributed.recompute_layer import RecomputeLayer
 from ..framework.random import default_device, default_generator
 from ..ops.fused_loss import fused_linear_cross_entropy
 from ..ops.hopper import decode_tail, fused_norm
+from ..ops.hopper.append_attention import plain_width
 from ..ops.hopper.flash_attention import flash_attention_bshd
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -72,7 +74,9 @@ class LlamaConfig:
     # HF-style rope_scaling dict: {"rope_type": "llama3", "factor": 8.0,
     # "low_freq_factor": 1.0, "high_freq_factor": 4.0,
     # "original_max_position_embeddings": 8192}, {"rope_type": "linear",
-    # "factor": N} or {"rope_type": "yarn", ...}; longrope is not ported
+    # "factor": N}, {"rope_type": "yarn", ...} or {"rope_type": "longrope",
+    # "short_factor": [...], "long_factor": [...],
+    # "original_max_position_embeddings": N} (Phi-3)
     rope_scaling: Optional[dict] = None
     # attention head width decoupled from hidden_size / num_heads
     head_dim: Optional[int] = None
@@ -191,7 +195,8 @@ def rope_dim_of(config) -> int:
     return r - (r % 2)
 
 
-SUPPORTED_ROPE_SCALING = ("default", "none", "llama3", "linear", "yarn")
+SUPPORTED_ROPE_SCALING = ("default", "none", "llama3", "linear", "yarn",
+                          "longrope")
 
 
 def _rope_type(scaling: Optional[dict]):
@@ -227,6 +232,72 @@ def _scale_inv_freq(inv_freq, scaling: Optional[dict]):
         in_band = (wavelen <= low_wavelen) & (wavelen >= high_wavelen)
         return torch.where(in_band, interp * inv_freq, scaled)
     raise NotImplementedError(f"rope_scaling type {rope_type!r} is not ported")
+
+
+def validate_rope_scaling(scaling: Optional[dict],
+                          max_position: Optional[int] = None) -> None:
+    """The checkpoint loader's gate (``paddle_tpu/models/llama.py:
+    233-262``), with its messages: a type no table builder takes raises
+    NotImplementedError; a malformed yarn or longrope scaling ValueError
+    (longrope: two factor lists of one non-zero length, and
+    original_max_position_embeddings or ``max_position`` to choose
+    between them)."""
+    rope_type = _rope_type(scaling)
+    if rope_type in ("default", "none"):
+        return
+    if rope_type not in SUPPORTED_ROPE_SCALING:
+        scaled = sorted(t for t in SUPPORTED_ROPE_SCALING
+                        if t not in ("default", "none"))
+        raise NotImplementedError(
+            f"rope_scaling type {rope_type!r} is not implemented "
+            f"(supported: {', '.join(scaled)})")
+    if rope_type == "yarn":
+        # dummy dims: only the parameter handling can raise
+        _yarn_params(scaling, 64, 10000.0, fallback_orig=max_position)
+    if rope_type == "longrope":
+        n_short = len(scaling.get("short_factor") or ())
+        n_long = len(scaling.get("long_factor") or ())
+        if not n_short or not n_long or n_short != n_long:
+            raise ValueError(
+                "longrope rope_scaling needs short_factor and long_factor "
+                f"lists of equal length (got {n_short}/{n_long})")
+        if not (scaling.get("original_max_position_embeddings")
+                or max_position):
+            raise ValueError(
+                "longrope rope_scaling needs "
+                "original_max_position_embeddings (or a max_position "
+                "fallback) to pick between the factor lists")
+
+
+def _longrope_params(scaling: dict, dim: int, base: float, seq_len: int,
+                     max_position: Optional[int] = None, device=None):
+    """(inv_freq [dim // 2] f32, attention factor) of Phi-3's LongRoPE
+    (``paddle_tpu/models/llama.py:264-300``): each frequency divided by
+    its entry of ``short_factor``, or of ``long_factor`` where the table is
+    built for more than original_max_position_embeddings positions, and the
+    magnitude factor sqrt(1 + ln f / ln orig), f = max_position / orig.
+    The list is chosen by the length the table is built for, so every
+    unit of a request builds its table at the request's ``max_len``
+    (``rope_len``): one request never mixes the two lists."""
+    orig = int(scaling.get("original_max_position_embeddings")
+               or max_position)
+    factor = scaling.get("factor")
+    if max_position and orig:
+        factor = max_position / orig
+    att = scaling.get("attention_factor")
+    if att is None:
+        att = (1.0 if not factor or factor <= 1.0
+               else math.sqrt(1 + math.log(factor) / math.log(orig)))
+    ext = (scaling["long_factor"] if seq_len > orig
+           else scaling["short_factor"])
+    ext = torch.tensor(ext, dtype=torch.float32, device=device)
+    if ext.shape[0] != dim // 2:
+        raise ValueError(
+            f"longrope factor lists must have head_dim/2 = {dim // 2} "
+            f"entries, got {ext.shape[0]}")
+    inv_freq = 1.0 / (ext * base ** (
+        torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+    return inv_freq, float(att)
 
 
 def _yarn_get_mscale(scale: float, m: float = 1.0) -> float:
@@ -288,12 +359,16 @@ def _yarn_params(scaling: dict, dim: int, base: float,
 def _rope_tables(seq_len, head_dim, theta, scaling=None, device=None,
                  max_position=None):
     """(cos, sin) [seq_len, head_dim] f32, rotate-half layout; under yarn
-    both are multiplied by its attention factor."""
+    and longrope both are multiplied by the attention factor."""
     att = 1.0
     if _rope_type(scaling) == "yarn":
         inv_freq, att = _yarn_params(scaling, head_dim, theta,
                                      fallback_orig=max_position,
                                      device=device)
+    elif _rope_type(scaling) == "longrope":
+        inv_freq, att = _longrope_params(scaling, head_dim, theta, seq_len,
+                                         max_position=max_position,
+                                         device=device)
     else:
         inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
                                                  dtype=torch.float32,
@@ -444,8 +519,14 @@ class LlamaAttention(tnn.Module):
         version runs, the same math as the JAX ``_sdpa_ref`` fallback.
         Capped scores (``attn_logit_softcapping``) never reach the flash
         kernel: the plain capped attention runs, as in JAX
-        (``llama.py:692-709``). The q/k norms, then the q pre-multiplier,
-        run first on both paths (``llama.py:614-634``)."""
+        (``llama.py:692-709``); nor does a head width with no kernel
+        instance that JAX's gate refuses too
+        (``append_attention.plain_width``: not in ``WIDTHS`` and D % 128
+        != 0, Phi-3's 96): the plain attention, JAX's ``_sdpa_ref``,
+        decided from the shape before any launch. At (64, 64) the port
+        keeps its kernel where JAX runs ``_sdpa_ref``. The q/k norms, then
+        the q pre-multiplier, run first on both paths
+        (``llama.py:614-634``)."""
         b, s = hidden_states.shape[0], hidden_states.shape[1]
         h, hk, d = self.num_heads, self.num_kv_heads, self.head_dim
         q = self.q_proj(hidden_states)
@@ -468,18 +549,18 @@ class LlamaAttention(tnn.Module):
                 "(paddle_tpu/models/llama.py:712-716) is not ported")
         q = fused_norm.apply_rope(q, cos, sin)
         k = fused_norm.apply_rope(k, cos, sin)
-        if self.softcap is None:
+        if self.softcap is None and not plain_width(d, d):
             out = flash_attention_bshd(q, k, v, causal=True,
                                        window=self.window)
         else:
-            out = _capped_attention(q, k, v, self.window, self.softcap)
+            out = _plain_attention(q, k, v, self.window, self.softcap)
         return self.o_proj(out.reshape(b, s, h * d))
 
 
-def _capped_attention(q, k, v, window, softcap):
-    """Causal attention with tanh-capped scores (optionally within a
-    sliding window): the JAX package's ``_sdpa_ref(..., softcap=)`` over
-    k / v expanded to every query head (``llama.py:697-709``)."""
+def _plain_attention(q, k, v, window, softcap):
+    """Causal attention (optionally within a sliding window, with
+    tanh-capped scores): the JAX package's ``_sdpa_ref(..., softcap=)``
+    over k / v expanded to every query head (``llama.py:697-709``)."""
     from ..nn.functional.attention import _sdpa_ref
 
     g = q.shape[2] // k.shape[2]

@@ -35,6 +35,18 @@ WIDE = 256
 KINDS = {"causal": 0, "local": 1, "full": 2}
 
 
+def plain_width(d_qk: int, d_v: int) -> bool:
+    """Whether attention at head widths (``d_qk``, ``d_v``) takes the plain
+    route JAX takes there: the kernel has no instance at the pair
+    (``WIDTHS``) and JAX's gates refuse the width too (``d_qk % 128 != 0``,
+    ``ops/pallas/flash_attention.py:43``, ``append_attention.py:56``), as
+    Phi-3's heads of 96. Decided on the host from the shape, before any
+    launch, on every device; not a fallback: a width with an instance
+    launches the kernel or raises, (64, 64) included, where JAX runs its
+    einsum and the port keeps its kernel."""
+    return (d_qk, d_v) not in WIDTHS and d_qk % 128 != 0
+
+
 def grouped_attention_plain(q, k, v, mask, scale, softcap=None):
     """f32 ``softmax(q k^T * scale) v`` with grouped-query heads: q
     [B, S, H, D], k [B, T, hk, D], v [B, T, hk, Dv], ``mask`` None or

@@ -1,4 +1,6 @@
-"""Paged decode attention (CUDA kernel in csrc/paged_attention.cu).
+"""Paged decode attention (CUDA kernel in csrc/paged_attention.cuh, entry
+points in csrc/paged_attention.cu and, at widths 64 and 96,
+csrc/paged_attention_narrow.cu).
 
 Counterpart of the bundled Pallas kernel
 ``jax.experimental.pallas.ops.tpu.paged_attention.paged_attention`` that
@@ -9,9 +11,10 @@ D], lengths [B] (columns t < lengths[b] are visible), page_indices
 [B, pages_per_seq]; scores scaled by 1/sqrt(D).
 
 On a CPU tensor it runs the plain version; on a CUDA tensor it launches the
-kernel or raises. The kernel takes head width 128, or 256 (Gemma; its own
-entry point ``pt_paged_attention_256``, counted as ``paged_attention_256``),
-float32 / bfloat16, and
+kernel or raises. The kernel takes head width 128, or 256 (Gemma), 64
+(GPT-2, Qwen2.5-0.5B) and 96 (Phi-3), each of those through its own entry
+point (``pt_paged_attention_256``, ``_64``, ``_96``) and counted as its own
+(``paged_attention_256``, ``_64``, ``_96``), float32 / bfloat16, and
 any group of 1 to ``MAX_GROUP`` (16) query heads per KV head (the bf16
 body takes the group at run time as the first rows of a 16-row
 tensor-core tile; the f32 body is instantiated for each), any page size,
@@ -29,10 +32,13 @@ import torch
 from . import _build
 from .append_attention import grouped_attention_plain
 
-_STEM = "paged_attention"
-# head width -> (C entry point, launch counter)
-ENTRIES = {128: ("pt_paged_attention", "paged_attention"),
-           256: ("pt_paged_attention_256", "paged_attention_256")}
+_STEM, _NARROW = "paged_attention", "paged_attention_narrow"
+# head width -> (source stem, C entry point, launch counter); the widths of
+# 64 and 96 build from a source of their own, in parallel with the other
+ENTRIES = {128: (_STEM, "pt_paged_attention", "paged_attention"),
+           256: (_STEM, "pt_paged_attention_256", "paged_attention_256"),
+           64: (_NARROW, "pt_paged_attention_64", "paged_attention_64"),
+           96: (_NARROW, "pt_paged_attention_96", "paged_attention_96")}
 MAX_GROUP = 16          # query heads a KV head: the rows of an mma tile
 # blocks a split count aims at per SM: the bf16 body's one-warp blocks
 # (8 fit an SM's shared memory at width 128), the f32 body's 8-warp blocks.
@@ -122,13 +128,13 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices):
                        device=q.device)
     acc = part.data_ptr()
     m = acc + B * H * n_split * D * 4
-    entry, counter = ENTRIES[D]
-    fn = _build.function(_STEM, entry, _ARGTYPES)
+    stem, entry, counter = ENTRIES[D]
+    fn = _build.function(stem, entry, _ARGTYPES)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              lengths.data_ptr(), page_indices.data_ptr(), m,
              m + B * H * n_split * 4, acc, out.data_ptr(), B, H, hk, n_pages,
              ps, pps, n_split, 1.0 / math.sqrt(D), code,
              _build.stream(q.device))
     _build.launches[counter] += 1
-    _build.check(err, _STEM, counter)
+    _build.check(err, stem, counter)
     return out

@@ -22,10 +22,17 @@ from .models.deepseek import DeepseekV2Config, DeepseekV2ForCausalLM
 from .models.ernie45 import Ernie45Config, Ernie45ForCausalLM
 from .models.gemma import GemmaConfig, GemmaForCausalLM
 from .models.gemma2 import Gemma2Config, Gemma2ForCausalLM
+from .models.glm import (Glm4Config, Glm4ForCausalLM, GlmConfig,
+                         GlmForCausalLM)
+from .models.gpt2 import GPT2Config, GPT2LMHeadModel
 from .models.llama import LlamaConfig, LlamaForCausalLM, torch_dtype
 from .models.llama_moe import LlamaMoEConfig, LlamaMoEForCausalLM
 from .models.mistral import MistralConfig, MistralForCausalLM
 from .models.mixtral import MixtralConfig, MixtralForCausalLM
+from .models.olmo2 import Olmo2Config, Olmo2ForCausalLM
+from .models.phi3 import Phi3Config, Phi3ForCausalLM
+from .models.qwen2 import Qwen2Config, Qwen2ForCausalLM
+from .models.qwen3 import Qwen3Config, Qwen3ForCausalLM
 from .models.qwen2_moe import Qwen2MoeConfig, Qwen2MoeForCausalLM
 from .models.qwen3_moe import Qwen3MoeConfig, Qwen3MoeForCausalLM
 
@@ -42,8 +49,10 @@ def _to_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 def model_class(config: LlamaConfig):
     """The causal-LM class of a config's family (each MoE family before
-    ``LlamaMoEConfig``, which they all extend; Gemma2 before Gemma)."""
-    for cfg_cls, model_cls in ((DeepseekV2Config, DeepseekV2ForCausalLM),
+    ``LlamaMoEConfig``, which they all extend; Gemma2 before Gemma, GLM-4
+    before GLM; GPT-2's config is no ``LlamaConfig``)."""
+    for cfg_cls, model_cls in ((GPT2Config, GPT2LMHeadModel),
+                               (DeepseekV2Config, DeepseekV2ForCausalLM),
                                (Gemma2Config, Gemma2ForCausalLM),
                                (GemmaConfig, GemmaForCausalLM),
                                (Ernie45Config, Ernie45ForCausalLM),
@@ -51,7 +60,13 @@ def model_class(config: LlamaConfig):
                                (Qwen3MoeConfig, Qwen3MoeForCausalLM),
                                (MixtralConfig, MixtralForCausalLM),
                                (LlamaMoEConfig, LlamaMoEForCausalLM),
-                               (MistralConfig, MistralForCausalLM)):
+                               (MistralConfig, MistralForCausalLM),
+                               (Qwen2Config, Qwen2ForCausalLM),
+                               (Qwen3Config, Qwen3ForCausalLM),
+                               (Phi3Config, Phi3ForCausalLM),
+                               (Olmo2Config, Olmo2ForCausalLM),
+                               (Glm4Config, Glm4ForCausalLM),
+                               (GlmConfig, GlmForCausalLM)):
         if isinstance(config, cfg_cls):
             return model_cls
     return LlamaForCausalLM

@@ -22,6 +22,7 @@ from paddle_tpu.serving import ContinuousBatchEngine as JaxEngine
 from paddle_tpu_torch.generation import _PrefillStep
 from paddle_tpu_torch.models import deepseek as port_ds
 from paddle_tpu_torch.models.llama import _rope_tables as port_rope_tables
+from paddle_tpu_torch.models.llama import validate_rope_scaling
 from paddle_tpu_torch.ops.hopper import mla_decode as port_mla
 from paddle_tpu_torch.serving import ContinuousBatchEngine as PortEngine
 from paddle_tpu_torch.weights import from_jax_state, to_numpy_state
@@ -389,13 +390,18 @@ def test_latent_mode_refuses_speculation(engine_pair):
 
 
 def test_unported_options_raise():
-    """Multi-token prediction and longrope stay unported. Training is
-    ported: labels give a finite (loss, logits) pair."""
+    """Multi-token prediction stays unported. LongRoPE is ported on the
+    trunk's tables: a longrope scaling builds the config, as in JAX, and
+    the loader's gate (``validate_rope_scaling``) refuses this one, which
+    has no factor lists, with JAX's message. Training is ported: labels
+    give a finite (loss, logits) pair."""
     with pytest.raises(NotImplementedError, match="deepseek.py:508-615"):
         port_ds.DeepseekV2Config.tiny_mla(num_nextn_predict_layers=1)
-    with pytest.raises(NotImplementedError, match="longrope"):
-        port_ds.DeepseekV2Config.tiny_mla(rope_scaling={
-            "rope_type": "longrope", "factor": 2.0})
+    cfg = port_ds.DeepseekV2Config.tiny_mla(rope_scaling={
+        "rope_type": "longrope", "factor": 2.0})
+    with pytest.raises(ValueError, match="short_factor and long_factor"):
+        validate_rope_scaling(cfg.rope_scaling,
+                              max_position=cfg.max_position_embeddings)
     _, port_model, _ = _pair(max_len=32)
     ids = torch.zeros(1, 4, dtype=torch.long)
     loss, logits = port_model(ids, labels=ids)

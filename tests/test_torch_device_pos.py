@@ -28,7 +28,9 @@ from paddle_tpu_torch.ops.hopper import _build
 from paddle_tpu_torch.ops.hopper import append_attention as port_append
 from paddle_tpu_torch.utils.flags import flag_overrides
 
-T, D = 24, 32
+# a head width the kernels take: at one with no instance (32) the plain
+# route takes every chunk (``append_attention.plain_width``)
+T, D = 24, 64
 
 
 def _dev(pos):

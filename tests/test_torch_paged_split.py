@@ -1,6 +1,6 @@
 """The split paged decode attention and the one-pass RMSNorm, on the CPU.
 
-``csrc/paged_attention.cu`` cuts each row's visible prefix into
+``csrc/paged_attention.cuh`` cuts each row's visible prefix into
 ``split_count`` runs of whole pages, one block per (run, row, KV head).
 Its bf16 body (a warp a block) walks the run in chunks of 16 tokens with
 an f32 online softmax (m, l, acc), P entering P V as two bf16 terms
@@ -277,7 +277,8 @@ def test_paged_cuda_route_f32_dtype_code(fake_kernels, monkeypatch):
                                  "lengths_dtype", "index_shape", "dtype_mix",
                                  "grad", "pages"])
 def test_paged_cuda_route_refusals_unchanged(bad, fake_kernels, monkeypatch):
-    """The wrapper's refusals: head width 128, whole groups of 1-16 query
+    """The wrapper's refusals: head widths 64, 96, 128 and 256 (80 is
+    refused), whole groups of 1-16 query
     heads a KV head (17 over 1 is refused, and so are 7 heads over 2),
     int32 lengths [B], int32 page indices [B, pages], one dtype, no input
     that needs a gradient (as before), and at most ``MAX_PAGES`` pages a
@@ -287,8 +288,8 @@ def test_paged_cuda_route_refusals_unchanged(bad, fake_kernels, monkeypatch):
     q, kv, lengths, idx = _paged_cuda()
     err = ValueError
     if bad == "head_dim":
-        q = posing_as_cuda(torch.zeros(3, 8, 64, dtype=torch.bfloat16))
-        kv = posing_as_cuda(torch.zeros(2, 18, 16, 64, dtype=torch.bfloat16))
+        q = posing_as_cuda(torch.zeros(3, 8, 80, dtype=torch.bfloat16))
+        kv = posing_as_cuda(torch.zeros(2, 18, 16, 80, dtype=torch.bfloat16))
     elif bad == "groups":        # G 17: past the 16 rows of an mma tile
         q = posing_as_cuda(torch.zeros(3, 34, 128, dtype=torch.bfloat16))
     elif bad == "groups_ragged":  # H % hk != 0

@@ -20,6 +20,7 @@ from paddle_tpu_torch import optimizer as port_opt
 from paddle_tpu_torch.jit import train_step as port_train_step
 from paddle_tpu_torch.models.llama import LlamaConfig as PortConfig
 from paddle_tpu_torch.models.llama import causal_lm_loss as port_causal_lm_loss
+from paddle_tpu_torch.models.llama import validate_rope_scaling
 from paddle_tpu_torch.ops.fused_loss import fused_linear_cross_entropy
 from paddle_tpu_torch.weights import from_jax_state
 
@@ -235,14 +236,20 @@ def test_serving_builds_no_graph():
     dict(rope_scaling={"rope_type": "longrope", "factor": 4.0}),
     dict(qk_norm="rms")])
 def test_unported_options_raise(option):
-    """longrope, the one rope scaling not ported, raises and names the
-    supported ones; qk_norm is ported, and refuses a mode the JAX config
-    refuses, with its message."""
+    """longrope is ported: the config takes it, and the loader's gate
+    (``validate_rope_scaling``) refuses this scaling, which has no factor
+    lists, with JAX's message; a scaling type no table builder takes
+    raises and names the supported ones. qk_norm is ported, and refuses a
+    mode the JAX config refuses, with its message."""
     if "qk_norm" in option:
         with pytest.raises(ValueError, match="qk_norm must be False, True, "
                                              "'per_head' or 'full'"):
             PortConfig.tiny(**option)
         return
-    with pytest.raises(NotImplementedError, match="'longrope' is not ported "
+    cfg = PortConfig.tiny(**option)
+    with pytest.raises(ValueError, match="short_factor and long_factor"):
+        validate_rope_scaling(cfg.rope_scaling,
+                              max_position=cfg.max_position_embeddings)
+    with pytest.raises(NotImplementedError, match="'dynamic' is not ported "
                                                   r"\(supported: default"):
-        PortConfig.tiny(**option)
+        PortConfig.tiny(rope_scaling={"rope_type": "dynamic", "factor": 4.0})
