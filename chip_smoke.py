@@ -16,6 +16,7 @@ NVIDIA H100.
     python3 chip_smoke.py --gemma-only            # width-256 rows, phase 25
     python3 chip_smoke.py --gemma-train-only      # their training, phase 26
     python3 chip_smoke.py --families-only         # widths 64 / 96, phase 27
+    python3 chip_smoke.py --deepseek-v3-only      # 128 MLA heads, phase 28
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -161,12 +162,14 @@ Phases (any failure raises, so the script exits non-zero):
    and ``grad_norm`` once a step; every parameter
    gets a gradient, the first loss is within 5% of ln V + std^2 / 2 and
    the loss falls. One more step is profiled.
-13. DeepSeek training wiring, f32, card against CPU: two V2-Lite layers at
-   full width, sequence 128, three steps of phase 12's recipe (clip and
-   schedule included, the warm-up starting at 1e-4 so that every step
-   updates, a fresh batch each step), the CPU side taking the card's
-   weights and optimizer state before each step; each step's loss,
-   gradients and parameters held as phase 6 holds them.
+13. DeepSeek training wiring, f32, card against the card's own plain
+   route: two V2-Lite layers at full width, sequence 128, three steps of
+   phase 12's recipe (clip and schedule included, the warm-up starting at
+   1e-4 so that every step updates, a fresh batch each step), the plain
+   side (every kernel, the update and the clip's norm as their plain
+   versions, launching nothing) taking the kernels' side's weights and
+   optimizer state before each step; each step's loss, gradients and
+   parameters held as phase 6 holds them.
 14. The Paddle flash-attention functional API at Llama-3-8B's attention
    width, bf16: ``nn.functional.flash_attention(causal=False)`` forward and
    backward at sequence 4096, ``flash_attn_unpadded`` over segments 2048,
@@ -436,7 +439,50 @@ Phases (any failure raises, so the script exits non-zero):
    25 | 25, pos 1040 of 1056, cold), each beside SDPA with its bound;
    phase 1 prints the D 64 and D 96 instances' registers, spills and HMMA
    count (their own source, ``paged_attention_narrow.cu``).
-28. The kernels line, then the card line, then the result line
+28. DeepSeek-V3 (last, after phase 27's models are freed;
+   ``--deepseek-v3-only`` runs phase 1, phase 2's MLA rows at 128 and 24
+   heads and this phase) at its published widths (deepseek-ai/DeepSeek-V3
+   config.json, ``deepseek_v3_config``: vocab 129280, hidden 7168, 128
+   heads, q LoRA 1536 with ``q_a_layernorm``, kv LoRA 512, qk 128 + 64, v
+   128, 256 routed experts of 2048 and 1 shared, 8 a token in 8 groups of
+   which 4, sigmoid scores with the correction bias, scaling 2.5, yarn
+   factor 40 with mscale and mscale_all_dim 1.0, untied, one MTP depth),
+   bf16, random weights drawn on the card. Cuts, logged: depth 61 -> 4
+   (the three dense layers and one MoE layer) plus the MTP depth (an MoE
+   block), 26.7 B parameters, the count worked out from the code and
+   checked (``v3_parameters``); ``moe_capacity_factor`` 256 / 8 = 32, the
+   capacity the token count (the published model drops no route; at 2.0
+   one decode row gets capacity 1 and MTP's 2-token verify would drop
+   routes one-token decode keeps). (a) The latent engine, 8 slots of
+   ``max_len`` 1024, eight prompts of 64-512 tokens (five exact buckets),
+   32 new tokens each, graphed: a forward ``rms_norm`` 3 L + 1 and
+   ``add_rms_norm`` L, ``flash_attention_mla`` L an exact prefill (128
+   heads at (192, 128)), ``mla_decode`` L a decode step (128 heads), no
+   other attention kernel, all exact (``v3_counts_want``); each prefill's
+   ms, decode ms a step, the time to first token at 64 and 512 tokens
+   with the bucket warm and at its first admission; the engine against
+   solo ``generate`` (each exact bucket's first token equal). (b)
+   ``mtp_speculative_generate``, batch 1, a 512-token prompt, 64 new
+   tokens: rounds, hits, acceptance (random weights: no measure of a
+   trained draft), ms a round beside the prefill's, peak memory, launches
+   exact (``mtp_run``: ``mla_decode`` once for each round that starts from
+   one pair, none in the 2-token verify); its tokens against greedy
+   ``generate``'s on the card, the first divergent position and the top-2
+   logit gap there reported (bf16: the verify's einsums against the decode
+   kernel). (c) The f32 wiring at V3's widths, experts cut to 32 (n_group
+   8 kept) and depth to one dense layer, one MoE layer and the MTP depth:
+   the kernel route against the card's own plain route (``plain_kernels``
+   with the units eager, launching nothing): logits within 1e-3, and
+   ``generate`` and ``mtp_speculative_generate`` greedy tokens identical
+   on both routes. Phase 2 holds the MLA decode at 128 heads
+   (``check_mla_head_rows``: B 8, r 512, dr 64, T 4096, the main row's
+   lengths, bf16 and f32, cold and warm, the dead-row rule, SDPA as MQA
+   beside; the bound by the bytes against the products with q and P as
+   hi + lo terms) and at 24 heads (a half-full head tile) in bf16 the
+   same way and among its edges in bf16 and f32,
+   and the width-192 flash forward at 128 heads (``check_flash_mla_128_row``:
+   q [1, 512, 128, 192], v 128, causal, V3's softmax scale, SDPA beside).
+29. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -2195,21 +2241,31 @@ def check_flash_rows(record, randn, S, window, full=False, H=32, hk=8, D=128,
 MLA_COLD_BYTES = 120e6
 MLA_TOL = (1e-4, 1e-4)     # f32 on both sides, sums in another order
 # untimed MLA rows (label, B, H, r, dr, T, dtype, pos): 8 heads (the JAX
-# gate's smallest, a padded head tile), lengths 31 / 32 / 33 / 127 / 128 /
-# 129 / 257 (tile and split edges) and T, B 1 at T and at one column, a
-# buffer of no whole number of tiles, small widths (tiny_mla's), widths of
-# no whole k-step, f32 buffers (the CUDA-core body)
+# gate's smallest, a padded head tile), 24 heads (two head tiles, the last
+# half full) in bf16 and f32, lengths 31 / 32 / 33 / 127 / 128 / 129 / 257
+# (tile and split edges) and T, B 1 at T and at one column, a buffer of no
+# whole number of tiles, small widths (tiny_mla's at 8 heads, the fewest
+# the gate takes), widths of no whole k-step, f32 buffers (the CUDA-core
+# body)
 MLA_EDGE_CASES = (
     ("H=8", 8, 8, 512, 64, 4096, "bfloat16", None),
+    ("H=24", 8, 24, 512, 64, 4096, "bfloat16", None),
+    ("H=24 f32", 8, 24, 512, 64, 4096, "float32", None),
     ("tile edges", 8, 16, 512, 64, 4096, "bfloat16",
      [30, 31, 32, 126, 127, 128, 256, 4095]),
     ("B=1 full", 1, 16, 512, 64, 4096, "bfloat16", [4095]),
     ("B=1 one column", 1, 16, 512, 64, 4096, "bfloat16", [0]),
     ("T=1000", 3, 16, 512, 64, 1000, "bfloat16", [999, 500, 31]),
-    ("tiny widths", 2, 4, 32, 16, 256, "bfloat16", [255, 40]),
-    ("r=136 dr=24", 4, 12, 136, 24, 300, "bfloat16", [299, 0, 150, 64]),
+    ("tiny widths", 2, 8, 32, 16, 256, "bfloat16", [255, 40]),
+    ("r=136 dr=24", 4, 16, 136, 24, 300, "bfloat16", [299, 0, 150, 64]),
     ("f32", 8, 16, 512, 64, 4096, "float32", None),
 )
+# DeepSeek-V2 / V3's heads, phase 2's rows at 128 (``check_mla_head_rows``)
+MLA_V3_HEADS = 128
+# those rows' (heads, buffer dtype): V3's in bf16 and f32, and 24 heads (a
+# half-full last head tile) in bf16
+MLA_HEAD_ROWS = ((MLA_V3_HEADS, "bfloat16"), (MLA_V3_HEADS, "float32"),
+                 (24, "bfloat16"))
 
 
 def mla_inputs(B, H, r, dr, T, dtype, gen, copies=1):
@@ -2364,6 +2420,135 @@ def check_mla_edges():
         "same bits each")
 
 
+def check_mla_head_rows(record):
+    """The MLA decode at ``MLA_HEAD_ROWS``: DeepSeek-V2 / V3's 128 heads in
+    bf16 and f32 buffers, and 24 heads (a half-full last head tile) in
+    bf16, at B 8, r 512, dr 64, T 4096 and the ragged lengths of the main
+    row (pos 0, T - 1, 1000, 2047, 3071, 17, 4000, 2500, Σ(pos + 1)
+    16,738), each held against its plain version at the MLA tolerance, two
+    launches the same bits, and once more with an allowed mask holding an
+    interior hole and a row that sees no column, which must come out
+    exactly 0. Timed
+    cold, as a decode step finds each layer's latent cache (kernel and SDPA
+    as MQA rotate over copies touching more than ``MLA_COLD_BYTES``), the
+    warm figure beside. The bound: the bytes (each visible column's latent
+    and rope key, the queries, the limits and the output once) against the
+    products, at 128 heads no longer small beside them: with q and P as
+    hi + lo bf16 terms, 2 (4 r + 2 dr) operations a head and visible column
+    at the bf16 tensor rate; the f32 body's 4 r + 2 dr at the f32 rate.
+    The larger stands, and both are logged."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import mla_decode
+
+    dev = torch.device("cuda")
+    B, r, dr, T = 8, 512, 64, 4096
+    gen = torch.Generator(dev).manual_seed(4128)
+    rows = torch.tensor([0, T - 1, 1000, 2047, 3071, 17, 4000, 2500],
+                        dtype=torch.int32, device=dev)
+    holed = torch.ones(B, T, dtype=torch.bool, device=dev)
+    holed[2, 100:300] = False
+    holed[5] = False
+    n_cols = int((rows.long() + 1).sum())
+    vis = torch.arange(T, device=dev)[None, :] <= rows[:, None].long()
+    mask = vis[:, None, None, :]
+    for H, name in MLA_HEAD_ROWS:
+        dt = getattr(torch, name)
+        es = dt.itemsize
+        copies = max(4, math.ceil(MLA_COLD_BYTES / (n_cols * (r + dr) * es)))
+        q_lat, q_pe, bufs = mla_inputs(B, H, r, dr, T, dt, gen, copies)
+        ckv, kpe = bufs[0]
+        out = mla_decode.mla_decode(q_lat, q_pe, ckv, kpe, rows)
+        ref = mla_decode.mla_decode_plain(q_lat, q_pe, ckv, kpe, rows)
+        err, ok = mla_close(out, ref)
+        same = torch.equal(out, mla_decode.mla_decode(q_lat, q_pe, ckv, kpe,
+                                                      rows))
+        out_h = mla_decode.mla_decode(q_lat, q_pe, ckv, kpe, rows, holed)
+        err_h, ok_h = mla_close(out_h, mla_decode.mla_decode_plain(
+            q_lat, q_pe, ckv, kpe, rows, holed))
+        dead = bool((out_h[5] == 0).all())
+        label = f"B={B} H={H} r={r} dr={dr} T={T} ragged pos {name}"
+        log(f"  mla_decode {label}: two launches the same bits {same}; with "
+            f"allowed max abs err {err_h:.3e} ok={ok_h}, the fully masked "
+            f"row exactly 0: {dead}")
+        ok = ok and same and ok_h and dead
+        q_sdpa = torch.cat([q_lat, q_pe], -1).to(dt)[:, :, None]
+        k_sdpa = [torch.cat([c, k], -1)[:, None] for c, k in bufs]  # MQA
+        turn = iter(range(1 << 62))
+
+        def kernel(i=None):
+            c, k = bufs[next(turn) % copies if i is None else i]
+            return mla_decode.mla_decode(q_lat, q_pe, c, k, rows)
+
+        def library(i=None):
+            j = next(turn) % copies if i is None else i
+            return sdpa_gqa(q_sdpa, k_sdpa[j], bufs[j][0][:, None],
+                            mask=mask, scale=1.0)
+
+        nbytes = (n_cols * (r + dr) * es + B * H * (r + dr) * 4 + B * 4
+                  + B * H * r * 4)
+        flops = n_cols * H * (4 * r + 2 * dr)
+        rate = "bfloat16" if dt == torch.bfloat16 else "float32"
+        ops = 2 * flops if dt == torch.bfloat16 else flops
+        bnd = bound(nbytes, ops, rate)
+        how = ("hi + lo terms at the bf16 tensor rate"
+               if dt == torch.bfloat16 else "at the f32 rate")
+        warm = (profiled_ms(lambda: kernel(0)),
+                profiled_ms(lambda: library(0)))
+        times = kernel_times(kernel)
+        log(f"  mla_decode {label}: {copies} copies; bound by the bytes "
+            f"{nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, by the products "
+            f"{ops / PEAK_OPS_PER_S[rate] * 1e3:.5f} ms ({how}): the "
+            f"{bnd[1]} bound it")
+        # SDPA takes over 20 ms a call here: 5 timed calls
+        record("mla_decode", label + " cold", max(err, err_h), ok, times,
+               time_ms(lambda: mla_decode.mla_decode_plain(
+                   q_lat, q_pe, ckv, kpe, rows)),
+               kernel_times(library, reps=5, warmup=1), bnd, False,
+               warm=warm)
+        del q_lat, q_pe, bufs, ckv, kpe, k_sdpa, out, ref, out_h
+        torch.cuda.empty_cache()
+
+
+def check_flash_mla_128_row(record):
+    """The width-192 flash forward at DeepSeek-V3's 128 heads and its
+    longest exact bucket in phase 28 (q [1, 512, 128, 192], v width 128,
+    causal, V3's yarn softmax scale), bf16, against its plain version at
+    the attention tolerance, SDPA causal beside, with its bound (the
+    products of the visible cells)."""
+    import torch
+
+    from paddle_tpu_torch.models.deepseek import mla_softmax_scale
+    from paddle_tpu_torch.ops.hopper import flash_attention
+
+    gen = torch.Generator("cuda").manual_seed(4129)
+    S, H, dqk, dv = V3_MTP_PROMPT, MLA_V3_HEADS, 192, 128
+    scale = mla_softmax_scale(deepseek_v3_config())
+    q, k = (torch.randn(1, S, H, dqk, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    v = torch.randn(1, S, H, dv, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    out = flash_attention.flash_attention_bshd(q, k, v, causal=True,
+                                               sm_scale=scale)
+    ref = flash_attention.flash_attention_plain(q, k, v, causal=True,
+                                                sm_scale=scale)
+    err, ok = close_bf16(out, ref)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    cells = S * (S + 1) // 2
+    record("flash_attention_mla", f"[1,{S},{H},{dqk}|{dv}] causal "
+           f"scale={scale:.4f}", err, ok,
+           kernel_times(lambda: flash_attention.flash_attention_bshd(
+               q, k, v, causal=True, sm_scale=scale)),
+           time_ms(lambda: flash_attention.flash_attention_plain(
+               q, k, v, causal=True, sm_scale=scale), reps=3, warmup=1),
+           kernel_times(lambda: sdpa_gqa(qt, kt, vt, causal=True,
+                                         scale=scale)),
+           bound(2 * S * H * (2 * dqk + 2 * dv), 2 * (dqk + dv) * H * cells,
+                 "bfloat16"), False)
+
+
 def check_deepseek_kernels(record, randn):
     """DeepSeek-V2-Lite's kernels at its serving shapes: the MLA decode
     (``check_mla_rows``), the causal flash forward at q/k width 192, v
@@ -2377,6 +2562,8 @@ def check_deepseek_kernels(record, randn):
     from paddle_tpu_torch.ops.hopper import flash_attention, fused_norm
 
     check_mla_rows(record)
+    check_mla_head_rows(record)
+    check_flash_mla_128_row(record)
     H = 16
     scale = mla_softmax_scale(DeepseekV2Config(rope_scaling=V2_LITE_YARN))
     S, dqk, dv = 2048, 192, 128
@@ -3867,19 +4054,24 @@ def deepseek_train_wiring_check():
     """Phase 13: two V2-Lite layers (one dense, one MoE) at full width in
     f32, sequence 128, three steps of phase 12's recipe with the warm-up
     starting at 1e-4 (rates 1e-4, 2e-4, 3e-4: three real updates, clipped,
-    each on a fresh batch) on the card and on the CPU, each step from the
-    same state, held as phase 6 holds its step; the card runs the f32
-    instantiation of the width-192 kernels at the weights of each step."""
+    each on a fresh batch), held to the card's own plain route
+    (``train_plain_check``: the width-192 flash forward and backward, the
+    norms, the Adam update and the clip's norm as their plain versions,
+    each step from the same state). Its CPU side took about 60 s of the
+    full run, which phase 28 needs; phase 11 holds V2-Lite's layers card
+    against CPU. The kernels' side runs the f32 instantiation of the
+    width-192 kernels at the weights of each step, once a layer and step,
+    and ``grad_norm`` once a step."""
     cfg = deepseek_config(num_hidden_layers=2, dtype="float32",
                           fuse_linear_cross_entropy=True)
     steps = 3
-    counts = train_wiring_check("phase 13: DeepSeek training wiring", cfg,
-                                128, seed=14, steps=steps,
-                                recipe=lambda: deepseek_recipe(1e-4))
-    for name in ("flash_attention_mla", "flash_attention_mla_bwd"):
-        if counts.get(name, 0) != steps * cfg.num_hidden_layers:
-            raise AssertionError(f"DeepSeek training steps: {name} launched "
-                                 f"{counts.get(name, 0)} times")
+    counts = train_plain_check("phase 13: DeepSeek training wiring", cfg,
+                               seed=14, steps=steps,
+                               recipe=lambda: deepseek_recipe(1e-4))
+    want = {"flash_attention_mla": steps * cfg.num_hidden_layers,
+            "flash_attention_mla_bwd": steps * cfg.num_hidden_layers,
+            "grad_norm": steps, "adam_update": steps}
+    require_counts("phase 13: DeepSeek training steps", counts, want)
 
 
 # --------------------------------------------------------------- phase 14 --
@@ -4533,34 +4725,42 @@ def eager_units():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside the block the trunk's training forward runs every port kernel
-    it reaches as its plain version, on whatever device the tensors lie:
-    the flash attention (and so its backward), RoPE and both norms. Phase
-    26 (b) takes a card's gradients through it to tell the kernels' share
-    of a card-to-CPU difference from PyTorch's own ops' share. The
-    optimizers' Adam update runs as ``adam_update_plain`` too, so
-    ``train_plain_check`` holds a whole step, update included, to its
-    plain route on the card."""
-    from paddle_tpu_torch.models import llama
-    from paddle_tpu_torch.ops.hopper import flash_attention, fused_norm
+    """Inside the block the trunks run every port kernel they reach as its
+    plain version, on whatever device the tensors lie: the flash attention
+    (and so its backward; DeepSeek's at width 192 too), the MLA decode,
+    RoPE and both norms. Phase 26 (b) takes a card's gradients through it
+    to tell the kernels' share of a card-to-CPU difference from PyTorch's
+    own ops' share. The optimizers' Adam update runs as
+    ``adam_update_plain`` and the global-norm clip's norm as
+    ``grad_norm_plain`` too, so ``train_plain_check`` holds a whole step,
+    update included, to its plain route on the card; phase 28 (c) holds
+    serving to it (the units eager, ``eager_units``)."""
+    from paddle_tpu_torch.models import deepseek, llama
+    from paddle_tpu_torch.ops.hopper import (flash_attention, fused_norm,
+                                             mla_decode)
     from paddle_tpu_torch.ops.hopper.adam_update import adam_update_plain
-    from paddle_tpu_torch.optimizer import optimizer
+    from paddle_tpu_torch.ops.hopper.grad_norm import grad_norm_plain
+    from paddle_tpu_torch.optimizer import clip, optimizer
 
-    real = (llama.flash_attention_bshd, fused_norm.apply_rope,
-            fused_norm.rms_norm, fused_norm.add_rms_norm,
-            optimizer.adam_update)
+    real = (llama.flash_attention_bshd, deepseek.flash_attention_bshd,
+            deepseek.mla_decode, fused_norm.apply_rope, fused_norm.rms_norm,
+            fused_norm.add_rms_norm, optimizer.adam_update, clip.grad_norm)
     llama.flash_attention_bshd = flash_attention.flash_attention_plain
+    deepseek.flash_attention_bshd = flash_attention.flash_attention_plain
+    deepseek.mla_decode = mla_decode.mla_decode_plain
     fused_norm.apply_rope = fused_norm.rope_ref
     fused_norm.rms_norm = fused_norm.rms_norm_plain
     fused_norm.add_rms_norm = fused_norm.add_rms_norm_plain
     optimizer.adam_update = (
         lambda items, hp, scale, tables: adam_update_plain(items, hp, scale))
+    clip.grad_norm = grad_norm_plain
     try:
         yield
     finally:
-        (llama.flash_attention_bshd, fused_norm.apply_rope,
-         fused_norm.rms_norm, fused_norm.add_rms_norm,
-         optimizer.adam_update) = real
+        (llama.flash_attention_bshd, deepseek.flash_attention_bshd,
+         deepseek.mla_decode, fused_norm.apply_rope, fused_norm.rms_norm,
+         fused_norm.add_rms_norm, optimizer.adam_update,
+         clip.grad_norm) = real
 
 
 def log_units(model, card, label, want):
@@ -7859,18 +8059,19 @@ def gemma_train_wiring():
     return total
 
 
-def train_plain_check(phase, cfg, seed, steps=2, seq=128):
+def train_plain_check(phase, cfg, seed, steps=2, seq=128, recipe=dict):
     """``steps`` train steps of f32 weights on the card, twice: with the
     port's kernels, and on a copy with every kernel the step reaches
-    replaced by its plain version (``plain_kernels``, the Adam update
-    included), which must launch nothing. Before each step the copy takes
-    the kernels' side's weights and optimizer state; both take the same
-    fresh batch. Each step's loss, every gradient and every parameter
-    after it must agree, with phase 6's tolerances (loss 1e-5 relative,
-    gradients 1e-4 of each tensor's largest, parameters 2 x the step's
-    rate with at most 0.1% of a tensor off by > 1e-6). From the second
-    step on the update starts from non-zero moments. Returns the kernels'
-    launch counts."""
+    replaced by its plain version (``plain_kernels``, the Adam update and
+    the clip's norm included), which must launch nothing. AdamW keywords
+    from ``recipe()``, one call a side (a schedule is stateful; both are
+    stepped after each step). Before each step the copy takes the kernels'
+    side's weights and optimizer state; both take the same fresh batch.
+    Each step's loss, every gradient and every parameter after it must
+    agree, with phase 6's tolerances (loss 1e-5 relative, gradients 1e-4
+    of each tensor's largest, parameters 2 x the step's rate with at most
+    0.1% of a tensor off by > 1e-6). From the second step on the update
+    starts from non-zero moments. Returns the kernels' launch counts."""
     import torch
 
     from paddle_tpu_torch.ops.hopper import launches, reset_launches
@@ -7882,15 +8083,16 @@ def train_plain_check(phase, cfg, seed, steps=2, seq=128):
                            generator=torch.Generator("cuda").manual_seed(
                                seed))
     m_p = copy.deepcopy(m_k)
-    (step_k, opt_k), (step_p, opt_p) = (make_train_step(m)
-                                        for m in (m_k, m_p))
-    rate = step_schedule({})
+    kw_k, kw_p = recipe(), recipe()
+    (step_k, opt_k), (step_p, opt_p) = (make_train_step(m, **kw)
+                                        for m, kw in ((m_k, kw_k),
+                                                      (m_p, kw_p)))
     log(f"{phase}, {cfg.num_hidden_layers} layers at full width, f32, seq "
-        f"{seq}, {steps} step(s) of {recipe_text({})}, a fresh batch each; "
-        f"the plain side takes the kernels' side's weights and optimizer "
-        f"state before each step. Tolerances: loss 1e-5 relative, "
-        f"gradients 1e-4 of each tensor's largest, parameters "
-        f"{2 * rate:.1e}, share of a tensor off by > 1e-6 1e-3")
+        f"{seq}, {steps} step(s) of {recipe_text(kw_k)}, a fresh batch "
+        f"each; the plain side takes the kernels' side's weights and "
+        f"optimizer state before each step. Tolerances: loss 1e-5 relative, "
+        f"gradients 1e-4 of each tensor's largest, parameters 2 x the "
+        f"step's rate, share of a tensor off by > 1e-6 1e-3")
     total = Counter()
     ok = True
     for i in range(steps):
@@ -7906,6 +8108,8 @@ def train_plain_check(phase, cfg, seed, steps=2, seq=128):
         reset_launches()
         with plain_kernels():
             loss_p = float(step_p(*batch))
+        rate = step_schedule(kw_k)
+        step_schedule(kw_p)
         stray = {k: v for k, v in launches.items() if v}
         if stray:
             raise AssertionError(f"{phase}: the plain route launched "
@@ -8490,6 +8694,398 @@ def families_only(profile=False):
     return serve_dense_families(profile)
 
 
+# --------------------------------------------------------------- phase 28 --
+
+# deepseek-ai/DeepSeek-V3 config.json rope_scaling
+V3_YARN = {"type": "yarn", "factor": 40, "beta_fast": 32, "beta_slow": 1,
+           "mscale": 1.0, "mscale_all_dim": 1.0,
+           "original_max_position_embeddings": 4096}
+# the cut: the three published dense layers and one MoE layer of 61, and
+# the published MTP depth (an MoE block)
+V3_DEPTH = 4
+# (a): eight prompts of up to 512 tokens (exact buckets 512, 256, 128, 512
+# and 64 through the width-192 flash kernel, the rest padded: the absorbed
+# einsums), 32 new tokens each, 8 slots of max_len 1024
+V3_LENS, V3_NEW, V3_MAX_LEN = (512, 256, 300, 128, 512, 64, 100, 448), 32, 1024
+# (b): mtp_speculative_generate, batch 1
+V3_MTP_PROMPT, V3_MTP_NEW = 512, 64
+# (c): the f32 wiring, experts cut to 32 (n_group 8 kept), one dense and
+# one MoE layer and the MTP depth; the logits' tolerance, f32 on both
+# routes, sums in another order
+V3_WIRING_EXPERTS, V3_WIRING_PROMPT, V3_WIRING_NEW = 32, 64, 16
+V3_WIRING_TOL = 1e-3
+# the draft-friendly weights of (b) and (c)'s second runs: every residual
+# write (``o_proj``, the MLPs' and experts' down projections) and
+# ``eh_proj``'s hidden half scaled by this, its embedding half the identity
+V3_DRAFT_SCALE = 1e-3
+RESIDUAL_WRITES = ("o_proj.weight", "down_proj.weight", "experts.w2",
+                   "experts.b2")
+
+
+def deepseek_v3_config(**kw):
+    """DeepSeek-V3 as published (deepseek-ai/DeepSeek-V3 config.json): no
+    preset in the JAX package, so built from its fields. The router's
+    capacity factor is the experts over the experts a token (256 / 8 =
+    32), where the capacity is the token count: the published model drops
+    no route, and at the JAX default of 2.0 the capacity at one decode row
+    is 1, so MTP's 2-token verify would drop routes that one-token decode
+    keeps."""
+    from paddle_tpu_torch.models import DeepseekV2Config
+
+    base = dict(vocab_size=129280, hidden_size=7168, intermediate_size=18432,
+                num_hidden_layers=61, num_attention_heads=128,
+                num_key_value_heads=128, max_position_embeddings=163840,
+                rms_norm_eps=1e-6, rope_theta=10000.0, rope_scaling=V3_YARN,
+                tie_word_embeddings=False, n_routed_experts=256,
+                n_shared_experts=1, num_experts_per_tok=8,
+                moe_intermediate_size=2048, first_k_dense_replace=3,
+                norm_topk_prob=True, routed_scaling_factor=2.5,
+                moe_scoring_func="sigmoid", moe_correction_bias=True,
+                n_group=8, topk_group=4, router_aux_loss_coef=0.001,
+                q_lora_rank=1536, kv_lora_rank=512, qk_nope_head_dim=128,
+                qk_rope_head_dim=64, v_head_dim=128,
+                num_nextn_predict_layers=1, dtype="bfloat16")
+    base.update(kw)
+    base.setdefault("moe_capacity_factor",
+                    base["n_routed_experts"] / base["num_experts_per_tok"])
+    return DeepseekV2Config(**base)
+
+
+def v3_parameters(cfg) -> dict:
+    """The parameter count of a V3 config, by part, from the modules' code
+    (``DeepseekV2Attention``, ``LlamaMLP``, ``MoEMLP`` with its grouped
+    experts' biases and the correction bias, ``DeepseekMTPLayer``)."""
+    h, H, V = cfg.hidden_size, cfg.num_attention_heads, cfg.vocab_size
+    ql, r = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    E, Im = cfg.n_routed_experts, cfg.moe_intermediate_size
+    attn = (h * ql + ql + ql * H * (dn + dr) + h * (r + dr) + r
+            + r * H * (dn + dv) + H * dv * h + 2 * h)
+    dense = attn + 3 * h * cfg.intermediate_size
+    moe = (attn + h * E + E + E * (h * 2 * Im + 2 * Im + Im * h + h)
+           + 3 * h * Im * cfg.n_shared_experts)
+    L, k = cfg.num_hidden_layers, cfg.first_k_dense_replace
+    D = cfg.num_nextn_predict_layers
+    return {"embedding and head": 2 * V * h + h,
+            "dense layers": min(k, L) * dense,
+            "MoE layers": max(L - k, 0) * moe,
+            "MTP depths": D * (moe + 2 * h * h + 3 * h)}
+
+
+def v3_model(cfg, seed, phase):
+    """The V3 model of ``cfg`` on the card, its weights drawn there from
+    ``seed``; its parameter count must equal ``v3_parameters``' (logged by
+    part, with the time and the memory)."""
+    import torch
+
+    from paddle_tpu_torch.models import DeepseekV2ForCausalLM
+
+    parts = v3_parameters(cfg)
+    t0 = time.perf_counter()
+    model = DeepseekV2ForCausalLM(
+        cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(
+            seed))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"{phase}: {n / 1e9:.3f}B parameters ({cfg.dtype}) drawn in "
+        f"{time.perf_counter() - t0:.1f}s, worked out from the code before "
+        f"the run: " + ", ".join(f"{k} {v / 1e9:.3f}B"
+                                 for k, v in parts.items())
+        + f"; memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} "
+        "GiB")
+    if n != sum(parts.values()):
+        raise AssertionError(f"{phase}: {n} parameters, the code gives "
+                             f"{sum(parts.values())}")
+    return model
+
+
+def v3_counts_want(L, forwards, exact, steps):
+    """A V3 trunk's launches, from the code: a forward's ``rms_norm`` 3 L + 1
+    (each layer's input norm, ``q_a_layernorm`` at 1536, ``kv_a_layernorm``
+    at 512, then the final norm) and ``add_rms_norm`` L (each post-attention
+    norm); ``flash_attention_mla`` L an exact prefill, ``mla_decode`` L a
+    decode step; no other attention kernel."""
+    return {"rms_norm": (3 * L + 1) * forwards, "add_rms_norm": L * forwards,
+            "flash_attention_mla": L * exact, "mla_decode": L * steps,
+            "flash_attention_bshd": 0, "append_attention": 0,
+            "paged_attention": 0, "fused_qkv_rope": 0, "fused_epilogue": 0}
+
+
+def v3_engine(model, card):
+    """Phase 28 (a): the latent engine (8 slots, ``max_len`` 1024) on
+    ``V3_LENS`` x ``V3_NEW``, graphed, launches exact; each prefill's ms
+    and the decode ms a step; the time to first token with a bucket warm
+    and at its first admission; the engine against solo ``generate``
+    (the first token of every exact-bucket prompt equal). Returns the
+    counts."""
+    import torch
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(28)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in V3_LENS]
+    news = [V3_NEW] * len(prompts)
+    label = "phase 28 (a) DeepSeek-V3"
+    counts, stats, _, _, outputs = serve_run(
+        model, card, label, prompts, news, False, log_prefills=True,
+        max_batch=8, max_len=V3_MAX_LEN)
+    steps = stats["decode_steps"]
+    n_exact = sum(1 for n in V3_LENS if exact_bucket(n))
+    require_counts(label, counts,
+                   v3_counts_want(L, len(prompts) + steps, n_exact, steps))
+    log(f"  [{card}] {label}: launches exact ({steps} decode steps, "
+        f"{len(prompts)} prefills, {n_exact} of them exact)")
+    warm_ttft(model, card, label, lens=(64, 512), max_len=V3_MAX_LEN)
+    engine_vs_solo(model, card, label, prompts, V3_NEW, outputs)
+    log(f"  [{card}] {label}: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return Counter(counts)
+
+
+def mtp_rounds(model, n):
+    """Replays so far of ``model``'s MTP round units of ``n`` pairs."""
+    return sum(u.replays for key, u in model.__dict__.get(
+        "_mtp_round_steps", {}).items() if key[0][1] == n)
+
+
+def mtp_run(model, ids, n_new, want_counts=True):
+    """One ``mtp_speculative_generate`` call of the main path: launches
+    zeroed just before and read just after, each round's units counted.
+    With ``want_counts`` its launches must be, from the code: the main
+    prefill ``flash_attention_mla`` L, the MTP seed 1 more; ``mla_decode``
+    1 for each round that starts from one pair (the MTP block at S = 1)
+    and none in the 2-token verify or a round of two pairs (the absorbed
+    einsums); ``rms_norm`` 3 L + 1 + 5 for the prefill (the seed: ``hnorm``,
+    ``enorm`` and the block's three) and 3 L + 1 + 6 a round (and
+    ``norm``); ``add_rms_norm`` L + 1 each. Returns (tokens [1, n] numpy,
+    stats, counts, wall ms, rounds of one pair)."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.speculative import mtp_speculative_generate
+
+    L = model.config.num_hidden_layers
+    one = mtp_rounds(model, 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, stats = mtp_speculative_generate(model, ids, max_new_tokens=n_new,
+                                          return_stats=True)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = dict(launches)
+    one = mtp_rounds(model, 1) - one
+    R = stats["rounds"]
+    want = {"flash_attention_mla": L + 1, "mla_decode": one,
+            "rms_norm": 3 * L + 6 + (3 * L + 7) * R,
+            "add_rms_norm": (L + 1) * (R + 1), "flash_attention_bshd": 0,
+            "append_attention": 0, "paged_attention": 0}
+    if want_counts:
+        require_counts("mtp_speculative_generate", counts, want)
+    return out.cpu().numpy(), stats, counts, wall, one
+
+
+def draft_friendly_(model):
+    """Rewrite ``model``'s weights in place so that its MTP draft names the
+    main model's next token: every residual write scaled by
+    ``V3_DRAFT_SCALE`` (each hidden state stays near its token's
+    embedding), ``eh_proj``'s hidden half scaled alike and its embedding
+    half the identity (the draft reads the next embedding). Random weights
+    give a draft that almost never hits, so a round of two pairs (a hit's
+    successor: the MTP block's absorbed einsums at S = 2) would not run;
+    these weights make hits the rule, misses still possible."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(RESIDUAL_WRITES):
+                p.mul_(V3_DRAFT_SCALE)
+        for layer in model.mtp_layers:
+            w = layer.eh_proj.weight
+            h = w.shape[1]
+            w[:h].mul_(V3_DRAFT_SCALE)
+            w[h:].copy_(torch.eye(h, dtype=w.dtype, device=w.device))
+
+
+def v3_mtp(model, card):
+    """Phase 28 (b): ``mtp_speculative_generate`` at batch 1 on a
+    ``V3_MTP_PROMPT``-token prompt, ``V3_MTP_NEW`` new tokens: a first call
+    captures its units, the second is timed and counted (``mtp_run``);
+    its ms a round beside the prefill's (a call of one new token, no
+    round); its tokens against greedy ``generate``'s on the card. In bf16
+    the 2-token verify runs the absorbed einsums where one-token decode
+    runs the kernel, so the first divergent position and the top-2 logit
+    gap there are reported, not required; (c) holds the identity in f32.
+    Returns the timed call's counts."""
+    import torch
+
+    label = "phase 28 (b) DeepSeek-V3 mtp_speculative_generate"
+    ids = torch.from_numpy(np.random.RandomState(281).randint(
+        0, model.config.vocab_size, (1, V3_MTP_PROMPT))).to(model.device)
+    mtp_run(model, ids, 1)                  # the prefill's unit, captured
+    _, _, _, pre_ms, _ = mtp_run(model, ids, 1)
+    mtp_run(model, ids, V3_MTP_NEW)         # the rounds' units, captured
+    torch.cuda.reset_peak_memory_stats()
+    got, stats, counts, wall, one = mtp_run(model, ids, V3_MTP_NEW)
+    R = stats["rounds"]
+    log(f"  [{card}] {label}: {V3_MTP_NEW} new tokens in {R} rounds, "
+        f"{stats['hits']} hits, acceptance {stats['acceptance']:.4f} (random "
+        f"weights: this says nothing of a trained draft's quality); the call "
+        f"{wall:.2f} ms, its prefill {pre_ms:.2f} ms, "
+        f"{(wall - pre_ms) / R:.3f} ms a round; mla_decode {one} (= the "
+        f"rounds from one pair); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  launches ({label}): {json.dumps(counts)}")
+    want = model.generate(ids, max_new_tokens=V3_MTP_NEW).cpu().numpy()
+    diff = np.nonzero(got[0] != want[0])[0]
+    if diff.size == 0:
+        log(f"  [{card}] {label}: tokens = greedy generate's, all "
+            f"{V3_MTP_NEW}")
+    else:
+        k = int(diff[0])
+        ctx = torch.cat([ids, torch.from_numpy(want[:, :k]).to(ids)], 1)
+        with torch.no_grad():
+            top = torch.topk(model(ctx)[0, -1].float(), 2).values
+        log(f"  [{card}] {label}: tokens = greedy generate's up to position "
+            f"{k} of {V3_MTP_NEW} (bf16: the verify's einsums against the "
+            f"decode kernel); there the top-2 logits of generate's context "
+            f"are {float(top[0]):.4f} and {float(top[1]):.4f}, gap "
+            f"{float(top[0] - top[1]):.4f}")
+    # the draft-friendly weights (``draft_friendly_``): hit rounds, and the
+    # rounds of two pairs after them, at full width
+    draft_friendly_(model)
+    mtp_run(model, ids, V3_MTP_NEW)         # a new path's units, captured
+    got, stats, counts_h, wall, one = mtp_run(model, ids, V3_MTP_NEW)
+    R = stats["rounds"]
+    same = np.array_equal(got, model.generate(
+        ids, max_new_tokens=V3_MTP_NEW).cpu().numpy())
+    log(f"  [{card}] {label}, draft-friendly weights: {R} rounds, "
+        f"{stats['hits']} hits, acceptance {stats['acceptance']:.4f}; the "
+        f"call {wall:.2f} ms, {(wall - pre_ms) / R:.3f} ms a round (the "
+        f"prefill's {pre_ms:.2f} ms taken off); {R - one} rounds of two "
+        f"pairs, mla_decode {one}; tokens = greedy generate's: {same}")
+    log(f"  launches ({label}, draft-friendly): {json.dumps(counts_h)}")
+    if stats["hits"] == 0:
+        raise AssertionError(f"{label}: no draft hit with the draft-friendly "
+                             "weights")
+    counts = Counter(counts)
+    counts.update(counts_h)
+    return counts
+
+
+def v3_wiring():
+    """Phase 28 (c): the f32 wiring at V3's widths with the experts cut to
+    ``V3_WIRING_EXPERTS`` (n_group 8 kept: 4 experts a group, top-4 groups,
+    8 experts a token) and the depth to one dense layer, one MoE layer and
+    the MTP depth. The card's kernel route against its own plain route
+    (``plain_kernels``, the units eager, no launch): the logits of a
+    ``V3_WIRING_PROMPT``-token forward within ``V3_WIRING_TOL``, and the
+    greedy tokens of ``generate`` and ``mtp_speculative_generate`` all
+    identical; the kernel route's ``mtp_speculative_generate`` launches
+    exact (``mtp_run``)."""
+    import torch
+
+    from paddle_tpu_torch.ops.hopper import launches, reset_launches
+    from paddle_tpu_torch.speculative import mtp_speculative_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = "phase 28 (c) DeepSeek-V3 f32 wiring"
+    cfg = deepseek_v3_config(num_hidden_layers=2, first_k_dense_replace=1,
+                             n_routed_experts=V3_WIRING_EXPERTS,
+                             dtype="float32")
+    model = v3_model(cfg, 283, phase)
+    ids = torch.from_numpy(np.random.RandomState(282).randint(
+        0, cfg.vocab_size, (1, V3_WIRING_PROMPT))).to(model.device)
+    with torch.no_grad():
+        logits = model(ids)
+    gen = model.generate(ids, max_new_tokens=V3_WIRING_NEW).cpu().numpy()
+    mtp, stats, counts, _, one = mtp_run(model, ids, V3_WIRING_NEW)
+    reset_launches()
+    with eager_units(), plain_kernels(), torch.no_grad():
+        logits_p = model(ids)
+        gen_p = model.generate(ids, max_new_tokens=V3_WIRING_NEW)
+        mtp_p = mtp_speculative_generate(model, ids,
+                                         max_new_tokens=V3_WIRING_NEW)
+    stray = {k: v for k, v in launches.items() if v}
+    err = float((logits - logits_p).abs().max())
+    same = [np.array_equal(a, b) for a, b in (
+        (mtp, gen), (gen_p.cpu().numpy(), gen), (mtp_p.cpu().numpy(), gen))]
+    log(f"  {phase}: logits kernels vs plain max abs err {err:.3e} "
+        f"(tolerance {V3_WIRING_TOL}, |logits| <= "
+        f"{float(logits_p.abs().max()):.3f}); tokens {gen[0].tolist()}; "
+        f"mtp = generate {same[0]}, plain generate = generate {same[1]}, "
+        f"plain mtp = generate {same[2]}; mtp {stats}, mla_decode {one} "
+        f"(= its rounds from one pair); the plain route launched "
+        f"{json.dumps(stray)}")
+    if stray:
+        raise AssertionError(f"{phase}: the plain route launched {stray}")
+    if not err <= V3_WIRING_TOL:
+        raise AssertionError(f"{phase}: logits differ beyond the tolerance")
+    if not all(same):
+        raise AssertionError(f"{phase}: greedy tokens differ")
+    # the draft-friendly weights: hit rounds and rounds of two pairs
+    draft_friendly_(model)
+    gen = model.generate(ids, max_new_tokens=V3_WIRING_NEW).cpu().numpy()
+    mtp, stats, _, _, one = mtp_run(model, ids, V3_WIRING_NEW)
+    with eager_units(), plain_kernels(), torch.no_grad():
+        mtp_p = mtp_speculative_generate(model, ids,
+                                         max_new_tokens=V3_WIRING_NEW)
+    same = [np.array_equal(mtp, gen),
+            np.array_equal(mtp_p.cpu().numpy(), gen)]
+    log(f"  {phase}, draft-friendly weights: mtp {stats}, "
+        f"{stats['rounds'] - one} rounds of two pairs; mtp = generate "
+        f"{same[0]}, plain mtp = generate {same[1]}")
+    if stats["hits"] == 0 or not all(same):
+        raise AssertionError(f"{phase}: the draft-friendly run had no hit "
+                             "or its tokens differ")
+    del model, logits, logits_p
+    release()
+
+
+def serve_deepseek_v3():
+    """Phase 28: DeepSeek-V3 at its published widths, depth cut to
+    ``V3_DEPTH`` plus the MTP depth, bf16, random weights drawn on the card
+    (``v3_model``): (a) the latent engine, (b) ``mtp_speculative_generate``,
+    then the model is freed and (c) the f32 wiring runs. Returns the launch
+    counts of (a) and (b)."""
+    import torch
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = deepseek_v3_config(num_hidden_layers=V3_DEPTH)
+    log(f"phase 28: DeepSeek-V3 (deepseek-ai/DeepSeek-V3 config.json): "
+        f"hidden {cfg.hidden_size}, {cfg.num_attention_heads} heads, q LoRA "
+        f"{cfg.q_lora_rank}, kv LoRA {cfg.kv_lora_rank}, qk "
+        f"{cfg.qk_nope_head_dim} + {cfg.qk_rope_head_dim}, v "
+        f"{cfg.v_head_dim}, {cfg.n_routed_experts} experts of "
+        f"{cfg.moe_intermediate_size} top-{cfg.num_experts_per_tok} in "
+        f"{cfg.n_group} groups (top-{cfg.topk_group}), sigmoid scores, "
+        f"the correction bias, scaling {cfg.routed_scaling_factor}, yarn "
+        f"factor 40; cuts: depth 61 -> {V3_DEPTH} (the 3 dense layers and 1 "
+        f"MoE layer) + {cfg.num_nextn_predict_layers} MTP depth; "
+        f"moe_capacity_factor {cfg.moe_capacity_factor:g} (the capacity is "
+        f"the token count; the published model drops no route)")
+    model = v3_model(cfg, 28, "phase 28")
+    counts = v3_engine(model, card)
+    counts.update(v3_mtp(model, card))
+    del model
+    release()
+    v3_wiring()
+    log(f"phase 28 took {time.perf_counter() - t0:.1f}s")
+    return counts
+
+
+def deepseek_v3_only():
+    """``--deepseek-v3-only``: phase 2's MLA rows at 128 and 24 heads and
+    the width-192 flash forward at 128 heads, then phase 28."""
+    record = make_record({})
+    check_mla_head_rows(record)
+    check_mla_edges()
+    check_flash_mla_128_row(record)
+    serve_deepseek_v3()
+
+
 def tensor_core_sass(lib) -> dict:
     """{kernel name: [HMMA, HGMMA]} of a built library, from one
     ``cuobjdump -sass`` (one section a function): mma.sync and wgmma
@@ -8618,6 +9214,15 @@ def main(argv=None) -> int:
                          "Qwen3-8B, GLM-4-9B (both trunks) and OLMo2-7B at "
                          "depth 4, then their f32 wiring; prints no result "
                          "line")
+    ap.add_argument("--deepseek-v3-only", action="store_true",
+                    help="phase 1, phase 2's MLA decode rows at 128 heads "
+                         "(bf16 and f32, cold and warm), its edges (24 heads "
+                         "among them) and the width-192 flash forward at 128 "
+                         "heads, then phase 28: DeepSeek-V3 at "
+                         "its published widths, depth 4 and the MTP depth, "
+                         "through the latent engine and "
+                         "mtp_speculative_generate, then its f32 wiring; "
+                         "prints no result line")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -8654,7 +9259,8 @@ def main(argv=None) -> int:
                or args.mla_only or args.optimizer_only or args.moe_only
                or args.engine_only or args.autotune_only or args.http_only
                or args.engine_step_only or args.gemma_only
-               or args.gemma_train_only or args.families_only)
+               or args.gemma_train_only or args.families_only
+               or args.deepseek_v3_only)
     sass = {}
     for stem in ("append_attention", "flash_attention", "paged_attention",
                  "paged_attention_narrow", "mla_decode", "decode_tail"):
@@ -8734,6 +9340,10 @@ def main(argv=None) -> int:
         families_only(args.profile)
         log(f"total {time.perf_counter() - t_start:.1f}s")
         return 0
+    if args.deepseek_v3_only:
+        deepseek_v3_only()
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        return 0
     if args.decode_profile_only:
         from paddle_tpu_torch.models.llama import (LlamaConfig,
                                                    LlamaForCausalLM)
@@ -8785,6 +9395,7 @@ def main(argv=None) -> int:
     counts.update(serve_gemma())
     counts.update(train_gemma())
     counts.update(serve_dense_families(args.profile))
+    counts.update(serve_deepseek_v3())
 
     kernels = []
     for name in SOURCES:

@@ -23,6 +23,12 @@
 // share at once, and an SM takes in only its share of that: the work must
 // be spread evenly over all of them. At DeepSeek's widths each 32-column
 // tile costs 544 products of m16n8k16 with q and P as hi + lo terms.
+// At 128 heads (DeepSeek-V2 and V3) a column costs 8 times the operations
+// for the same bytes: with the hi + lo terms, about 480 operations a byte,
+// above the tensor cores' ratio, so the products bound those calls. Each
+// head tile is a block of its own that reads the run's columns again (from
+// L2 after the first): a head tile's grid is a wave of 132 / 8 = 16 blocks,
+// no more than one block an SM in all (`grid_blocks`).
 //
 // Design (bf16 buffers, the serving path):
 // - The TPU kernel runs one grid cell per batch row over the whole buffer
@@ -68,7 +74,7 @@
 // - No atomics and no state across launches: the same inputs give the
 //   same bits, and the two launches may be captured in a CUDA graph.
 // f32 buffers (the wiring checks): the first version's CUDA-core body
-// under the same plan and combine.
+// under the same plan and combine, 16 heads a block on the same z axis.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -83,8 +89,8 @@ namespace {
 constexpr int BN = 32;         // columns per tile, both bodies
 constexpr int MAXR = 512;      // latent width
 constexpr int MAXDR = 128;     // rope width
-constexpr int HT = 16;         // heads of a bf16 block: the m of the products
-constexpr int MAXH_TC = 128;   // heads of the bf16 body (8 head tiles)
+constexpr int HT = 16;         // heads of a block (a head tile): the m of the bf16 products
+constexpr int MAX_HEADS = 128; // heads of either body: 8 head tiles on the grid's z axis
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -519,19 +525,21 @@ mla_decode_tc_kernel(const float* __restrict__ q_lat, const float* __restrict__ 
 
 namespace f32k {               // the f32 body (the first version's)
 constexpr int NT = 256;        // threads per block (8 warps)
-constexpr int MAXH = 16;       // heads per block: two per warp
 constexpr int RS_PAD = 1;      // shared row stride r + 1: an odd number of words
-size_t smem_bytes(int H, int r, int dr) {
-  return sizeof(float) * ((size_t)H * r + (size_t)H * dr + MAXH * (BN + 1) + MAXH +
+// a block's shared memory: its head tile's queries (at most HT heads), P
+// and the rescale of the tile, a c_kv and a k_pe tile
+size_t smem_bytes(int r, int dr) {
+  return sizeof(float) * ((size_t)HT * r + (size_t)HT * dr + HT * (BN + 1) + HT +
                           (size_t)BN * (r + RS_PAD) + (size_t)BN * (dr + RS_PAD));
 }
 }  // namespace f32k
 
-// f32 body (CUDA cores). Block k: run k of the plan for all H <= 16 heads,
-// tiles read synchronously; warp w owns heads w and w + 8 in the scores
-// (lane = column, the online softmax across the warp), thread i latent
-// columns i and i + 256 of every head in the context. Writes the partials
-// as the bf16 body does.
+// f32 body (CUDA cores). Block (k, 1, head tile): run k of the plan for
+// heads 16 z .. 16 z + 15 (those below H), as the bf16 body tiles them,
+// tiles read synchronously; warp w owns heads w and w + 8 of the tile in
+// the scores (lane = column, the online softmax across the warp), thread i
+// latent columns i and i + 256 of every head of the tile in the context.
+// Writes the partials as the bf16 body does.
 __global__ void __launch_bounds__(f32k::NT)
 mla_decode_split_kernel(const float* __restrict__ q_lat, const float* __restrict__ q_pe,
                         const float* __restrict__ ckv, const float* __restrict__ kpe,
@@ -546,25 +554,26 @@ mla_decode_split_kernel(const float* __restrict__ q_lat, const float* __restrict
   __syncthreads();
   const int b = run[0], t_begin = run[1], limit = run[2];
   if (b < 0) return;
+  const int hb = blockIdx.z * HT, NH = min(HT, H - hb);  // the tile's first head, its heads
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);  // [H][r]
-  float* qps = qs + H * r;           // [H][dr]
-  float* ps = qps + H * dr;          // [MAXH][BN + 1] probabilities
-  float* al = ps + MAXH * (BN + 1);  // [MAXH] rescale of this tile
-  float* cks = al + MAXH;            // [BN][r + 1]
+  float* qs = reinterpret_cast<float*>(smem);  // [NH][r]
+  float* qps = qs + HT * r;          // [NH][dr]
+  float* ps = qps + HT * dr;         // [HT][BN + 1] probabilities
+  float* al = ps + HT * (BN + 1);    // [HT] rescale of this tile
+  float* cks = al + HT;              // [BN][r + 1]
   const int RS = r + RS_PAD, DS = dr + RS_PAD;
   float* kps = cks + BN * RS;        // [BN][dr + 1]
 
-  for (int i = tid; i < H * r; i += NT) qs[i] = q_lat[(size_t)b * H * r + i];
-  for (int i = tid; i < H * dr; i += NT) qps[i] = q_pe[(size_t)b * H * dr + i];
+  for (int i = tid; i < NH * r; i += NT) qs[i] = q_lat[((size_t)b * H + hb) * r + i];
+  for (int i = tid; i < NH * dr; i += NT) qps[i] = q_pe[((size_t)b * H + hb) * dr + i];
 
   const int h0 = warp, h1 = warp + 8;
   float m0 = -INFINITY, l0 = 0.f, m1 = -INFINITY, l1 = 0.f;
   const int d0 = tid, d1 = tid + NT;
-  float acc[MAXH][2];
+  float acc[HT][2];
 #pragma unroll
-  for (int h = 0; h < MAXH; ++h) acc[h][0] = acc[h][1] = 0.f;
+  for (int h = 0; h < HT; ++h) acc[h][0] = acc[h][1] = 0.f;
 
   for (int t0 = t_begin; t0 < limit; t0 += BN) {
     __syncthreads();  // the previous tile's readers are done
@@ -581,9 +590,9 @@ mla_decode_split_kernel(const float* __restrict__ q_lat, const float* __restrict
     const int col = t0 + lane;
     const bool vis = col < limit &&
                      (allowed == nullptr || allowed[(size_t)b * T_ + col] != 0);
-    if (h0 < H) {
+    if (h0 < NH) {
       float s0 = 0.f, s1 = 0.f;
-      const bool two = h1 < H;
+      const bool two = h1 < NH;
       const float* crow = cks + lane * RS;
       for (int d = 0; d < r; ++d) {
         const float x = crow[d];
@@ -622,8 +631,8 @@ mla_decode_split_kernel(const float* __restrict__ q_lat, const float* __restrict
 
     // context: the same c_kv tile the scores were taken from
 #pragma unroll
-    for (int h = 0; h < MAXH; ++h) {
-      if (h < H) {
+    for (int h = 0; h < HT; ++h) {
+      if (h < NH) {
         const float a = al[h];
         acc[h][0] *= a;
         acc[h][1] *= a;
@@ -633,8 +642,8 @@ mla_decode_split_kernel(const float* __restrict__ q_lat, const float* __restrict
       const float x0 = d0 < r ? cks[c * RS + d0] : 0.f;
       const float x1 = d1 < r ? cks[c * RS + d1] : 0.f;
 #pragma unroll
-      for (int h = 0; h < MAXH; ++h) {
-        if (h < H) {
+      for (int h = 0; h < HT; ++h) {
+        if (h < NH) {
           const float p = ps[h * (BN + 1) + c];
           acc[h][0] = fmaf(p, x0, acc[h][0]);
           acc[h][1] = fmaf(p, x1, acc[h][1]);
@@ -643,18 +652,18 @@ mla_decode_split_kernel(const float* __restrict__ q_lat, const float* __restrict
     }
   }
 
-  const size_t base = (size_t)blockIdx.x * H;
-  if (lane == 0 && h0 < H) {
+  const size_t base = (size_t)blockIdx.x * H + hb;  // head hb + h at base + h
+  if (lane == 0 && h0 < NH) {
     part_m[base + h0] = m0;
     part_l[base + h0] = l0;
-    if (h1 < H) {
+    if (h1 < NH) {
       part_m[base + h1] = m1;
       part_l[base + h1] = l1;
     }
   }
 #pragma unroll
-  for (int h = 0; h < MAXH; ++h) {
-    if (h < H) {
+  for (int h = 0; h < HT; ++h) {
+    if (h < NH) {
       if (d0 < r) part_acc[(base + h) * r + d0] = acc[h][0];
       if (d1 < r) part_acc[(base + h) * r + d1] = acc[h][1];
     }
@@ -774,7 +783,7 @@ extern "C" int pt_mla_decode(const void* q_lat, const void* q_pe, const void* ck
                              int B, int H, int T_, int r, int dr, int G, int min_tiles,
                              int dtype, void* stream) {
   const bool bf16 = dtype == 1;
-  if (B < 1 || T_ < 1 || H < 1 || H > (bf16 ? MAXH_TC : f32k::MAXH) || r < 1 || r > MAXR ||
+  if (B < 1 || T_ < 1 || H < 1 || H > MAX_HEADS || r < 1 || r > MAXR ||
       dr < 0 || dr > MAXDR || G < B || min_tiles < 1 || (bf16 && (r % 8 != 0 || dr % 8 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -802,9 +811,9 @@ extern "C" int pt_mla_decode(const void* q_lat, const void* q_pe, const void* ck
         ql, qp, tm_c, tm_k, p, a, pm, pl, pa, sp, B, H, T_, r, dr, min_tiles);
   } else {
     static size_t ok_bytes = 0;
-    const size_t smem = f32k::smem_bytes(H, r, dr);
+    const size_t smem = f32k::smem_bytes(r, dr);
     if ((err = allow_smem(mla_decode_split_kernel, smem, ok_bytes))) return err;
-    mla_decode_split_kernel<<<G, f32k::NT, smem, s>>>(
+    mla_decode_split_kernel<<<dim3(G, 1, (H + HT - 1) / HT), f32k::NT, smem, s>>>(
         ql, qp, static_cast<const float*>(ckv), static_cast<const float*>(kpe), p, a, pm, pl, pa,
         sp, B, H, T_, r, dr, min_tiles);
   }

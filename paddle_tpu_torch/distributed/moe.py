@@ -131,12 +131,16 @@ def load_balance_loss(probs, topk_idx):
 
 def _xavier_uniform_(p, fan_in: int, fan_out: int, generator):
     """XavierUniform (``nn/initializer_core.py:85``): U(-l, l) with
-    l = sqrt(6 / (fan_in + fan_out)), drawn in f32 and cast."""
+    l = sqrt(6 / (fan_in + fan_out)), drawn in f32 and cast, one slice of
+    an expert stack's leading dim at a time: the whole stack's f32 draw
+    would need 4 bytes an element beside it (30 GB for DeepSeek-V3's 256
+    experts' w1). On the CPU the values are those of one draw."""
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     gen = generator or default_generator(p.device)
     with torch.no_grad():
-        u = torch.rand(p.shape, generator=gen, device=p.device)
-        p.copy_((u * 2.0 - 1.0) * limit)
+        for part in (p if p.dim() > 2 else [p]):
+            u = torch.rand(part.shape, generator=gen, device=p.device)
+            part.copy_((u * 2.0 - 1.0) * limit)
 
 
 class BaseGate(nn.Module):

@@ -22,15 +22,35 @@ every head); per-head keys and values are re-expanded from the latent by
   absorbed chunks are PyTorch einsums, as the JAX package runs them in
   XLA.
 
+The kernel takes every head count the JAX gate takes (multiples of 8 up
+to 128), so DeepSeek-V2 and V3 decode at their published 128 heads.
+
+DeepSeek-V3's multi-token prediction (``num_nextn_predict_layers = D``):
+``DeepseekMTPLayer`` k fuses ``[RMSNorm(h_prev) | RMSNorm(emb(t_{i+k}))]``
+through ``eh_proj`` (2h -> h) into one more decoder block (layer index
+``num_hidden_layers + k``, so MoE at V3's widths), sharing the main
+embedding and head. ``forward(labels=...)`` adds ``mtp_loss_lambda`` times
+the mean MTP loss and takes the router aux term over the MTP blocks too;
+``generate``, the engine and ``speculative_generate`` ignore the MTP
+modules, and ``speculative.mtp_speculative_generate`` drafts with the
+first depth.
+
+Routing capacity: the MoE layers drop routes past ``moe_capacity_factor``
+(default 2.0, as in the JAX package), where the published V3 drops none.
+At V3's 256 experts and 8 a token that gives a capacity of 1 at one decode
+row, so a 2-token verify would drop routes that one-token decode keeps and
+no greedy identity could hold: to serve V3 as published, set the factor to
+256 / 8 = 32, where the capacity is the token count (``chip_smoke.py``'s
+phase 28 does).
+
 Ported: ``DeepseekV2Config`` with ``tiny_mla`` / ``tiny_v3``,
 ``mla_softmax_scale``, ``_mla_sdpa``, ``_absorbed_tail``,
 ``mla_cached_attention``, ``mla_serving_attention``, ``DeepseekV2Attention``
 (both q variants; the non-cached forward and the two cache dicts),
 ``DeepseekV2DecoderLayer``, ``DeepseekV2Model`` (latent
-``empty_cache_layer``) and ``DeepseekV2ForCausalLM``, whose
-``forward(labels=...)`` is the MoE base's loss (LM loss plus the router
-aux term) for ``num_nextn_predict_layers == 0``. Not ported: multi-token
-prediction (the config raises), LoRA on MLA, ring context parallelism,
+``empty_cache_layer``), ``DeepseekMTPLayer`` and ``DeepseekV2ForCausalLM``
+(the MoE base's loss for ``num_nextn_predict_layers == 0``, the MTP loss
+beside it otherwise). Not ported: LoRA on MLA, ring context parallelism,
 pipeline parallelism and HF loading.
 """
 from __future__ import annotations
@@ -47,7 +67,8 @@ from ..ops.hopper import fused_norm
 from ..ops.hopper.append_attention import chunk_positions
 from ..ops.hopper.flash_attention import flash_attention_bshd
 from ..ops.hopper.mla_decode import mla_decode
-from .llama import _rope_type, _width_norm, _yarn_get_mscale, torch_dtype
+from .llama import (LlamaRMSNorm, _rope_type, _width_norm, _yarn_get_mscale,
+                    causal_lm_loss, torch_dtype)
 from .llama_moe import (LlamaMoEConfig, LlamaMoEDecoderLayer,
                         LlamaMoEForCausalLM, LlamaMoEModel)
 
@@ -62,16 +83,12 @@ class DeepseekV2Config(LlamaMoEConfig):
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
-    # DeepSeek-V3 multi-token prediction: not ported, raises when > 0
+    # DeepSeek-V3 multi-token prediction: D extra depths, each predicting
+    # token t+1+k from [RMSNorm(h_prev) | RMSNorm(emb(t+k))] through a
+    # fusion projection and one decoder block, sharing the main embedding
+    # and head; forward(labels=...) adds mtp_loss_lambda x the mean MTP loss
     num_nextn_predict_layers: int = 0
-
-    def __post_init__(self):
-        super().__post_init__()
-        if self.num_nextn_predict_layers > 0:
-            raise NotImplementedError(
-                "multi-token prediction (num_nextn_predict_layers > 0, "
-                "paddle_tpu/models/deepseek.py:508-615) is not ported to "
-                "paddle_tpu_torch")
+    mtp_loss_lambda: float = 0.3
 
     @staticmethod
     def tiny_mla(**kw):
@@ -355,10 +372,92 @@ class DeepseekV2Model(LlamaMoEModel):
                                     dtype=dt, device=dev)}
 
 
+class DeepseekMTPLayer(tnn.Module):
+    """One DeepSeek-V3 multi-token-prediction depth (``deepseek.py:
+    508-539``): ``[RMSNorm(h_prev) | RMSNorm(emb_next)]`` through ``eh_proj``
+    (2h -> h, no bias, [in, out]), then one decoder block. It owns the two
+    input norms, the projection, the block and the pre-head norm; the
+    embedding and the head are the main model's. The block's RoPE tables
+    are 0-based over the shifted window: exact, RoPE attention being
+    relative."""
+
+    def __init__(self, config: DeepseekV2Config, layer_idx: int,
+                 device=None):
+        super().__init__()
+        self.hnorm = LlamaRMSNorm(config, device=device)
+        self.enorm = LlamaRMSNorm(config, device=device)
+        self.eh_proj = nn.Linear(2 * config.hidden_size, config.hidden_size,
+                                 device=device,
+                                 dtype=torch_dtype(config.dtype))
+        self.block = DeepseekV2DecoderLayer(config, layer_idx, device=device)
+        self.norm = LlamaRMSNorm(config, device=device)
+
+    def fuse(self, h_prev, emb_next):
+        """The block's input, shared by the loss and the draft."""
+        return self.eh_proj(torch.cat([self.hnorm(h_prev),
+                                       self.enorm(emb_next)], dim=-1))
+
+    def forward(self, h_prev, emb_next, cos, sin):
+        return self.block(self.fuse(h_prev, emb_next), cos, sin)
+
+
 class DeepseekV2ForCausalLM(LlamaMoEForCausalLM):
     """DeepSeek-V2 / V3 causal LM: MLA + MoE; served through
     ``ContinuousBatchEngine`` in latent mode, trained through
-    ``forward(input_ids, labels=...)`` (``deepseek.py:560-606`` without
-    multi-token prediction)."""
+    ``forward(input_ids, labels=...)`` (``deepseek.py:553-606``).
+    ``num_nextn_predict_layers = D > 0`` adds ``mtp_layers``: depth k
+    predicts token t+1+k from the previous depth's hidden; the loss becomes
+    ``L_main + mtp_loss_lambda * mean_k L_k``. Inference paths ignore the
+    MTP modules (``speculative.mtp_speculative_generate`` drafts with
+    them)."""
 
     model_cls = DeepseekV2Model
+
+    def _make_extra_modules(self, config, device):
+        D = int(config.num_nextn_predict_layers)
+        self.mtp_layers = (tnn.ModuleList(
+            [DeepseekMTPLayer(config, config.num_hidden_layers + k,
+                              device=device) for k in range(D)])
+            if D else None)
+
+    def forward(self, input_ids, labels=None):
+        """As the MoE base without labels or MTP depths; with both, (loss,
+        None): the main loss, the MTP chain's mean loss times
+        ``mtp_loss_lambda``, and the router aux term over every MoE layer
+        that ran, the MTP blocks' included (``deepseek.py:560-606``)."""
+        cfg = self.config
+        D = int(cfg.num_nextn_predict_layers)
+        if labels is None or not D:
+            return super().forward(input_ids, labels=labels)
+        if cfg.fuse_linear_cross_entropy:
+            raise NotImplementedError(
+                "multi-token prediction computes explicit logits per "
+                "depth; unset fuse_linear_cross_entropy to train with "
+                "num_nextn_predict_layers > 0")
+        S = input_ids.shape[1]
+        if D >= S:
+            raise ValueError(
+                f"num_nextn_predict_layers {D} needs sequences longer "
+                f"than {D} tokens, got {S}")
+        normed, pre = self.llama(input_ids, return_prenorm=True)
+        loss = causal_lm_loss(self.lm_head_logits(normed), labels)
+        # depth k pairs the pre-norm h_{k-1}[:, i] with emb(t_{i+k}) and
+        # targets labels[:, i+k]; the embedding and the rope tables are
+        # taken once at full length and sliced per depth
+        emb_full = self.llama.embed_tokens(input_ids).to(
+            torch_dtype(cfg.dtype))
+        cos_full, sin_full = self.llama._rope(S)
+        h_prev, mtp_total = pre, None
+        for k, layer in enumerate(self.mtp_layers, start=1):
+            n = S - k
+            h_prev = layer(h_prev[:, :n], emb_full[:, k:], cos_full[:n],
+                           sin_full[:n])
+            l_k = causal_lm_loss(self.lm_head_logits(layer.norm(h_prev)),
+                                 labels[:, k:])
+            mtp_total = l_k if mtp_total is None else mtp_total + l_k
+        loss = loss + cfg.mtp_loss_lambda * (mtp_total / D)
+        aux = self.aux_loss(
+            extra_layers=[layer.block for layer in self.mtp_layers])
+        if aux is not None:
+            loss = loss + cfg.router_aux_loss_coef * aux
+        return loss, None

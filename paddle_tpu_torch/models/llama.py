@@ -761,19 +761,27 @@ class LlamaModel(tnn.Module):
             self._rope_cache[seq_len] = pair
         return pair
 
-    def forward(self, input_ids):
-        """Non-cached forward over [B, S] ids; returns the normed hidden."""
+    def forward(self, input_ids, return_prenorm=False):
+        """Non-cached forward over [B, S] ids; returns the normed hidden, or
+        (normed, pre-norm) with ``return_prenorm``: the last layer's output
+        before the final norm, which DeepSeek-V3's multi-token prediction
+        pairs with the next tokens (``llama.py:940-958``)."""
         cos, sin = self._rope(input_ids.shape[1])
         hidden = _scale_embed(self.embed_tokens(input_ids).to(
             torch_dtype(self.config.dtype)), self.config)
         for layer in self.layers:
             hidden = layer(hidden, cos, sin)
+        if return_prenorm:
+            return self.norm(hidden), hidden
         return self.norm(hidden)
 
-    def forward_cached(self, input_ids, kv_caches, rope_len):
+    def forward_cached(self, input_ids, kv_caches, rope_len,
+                       return_prenorm=False):
         """Forward over the static KV caches (one dict per layer, see
         ``generation.cached_attention``). Returns (normed hidden,
-        new caches)."""
+        new caches), or (normed, pre-norm, new caches) with
+        ``return_prenorm`` (the MTP draft reads the pre-norm stream,
+        ``llama.py:960-980``)."""
         cos, sin = self._rope(rope_len)
         hidden = _scale_embed(self.embed_tokens(input_ids).to(
             torch_dtype(self.config.dtype)), self.config)
@@ -782,6 +790,8 @@ class LlamaModel(tnn.Module):
             inner = getattr(layer, "inner", layer)   # unwrap RecomputeLayer
             hidden, c = inner(hidden, cos, sin, cache)
             new_caches.append(c)
+        if return_prenorm:
+            return self.norm(hidden), hidden, new_caches
         return self.norm(hidden), new_caches
 
 
@@ -804,7 +814,13 @@ class LlamaForCausalLM(tnn.Module):
                         nn.Linear(config.hidden_size, config.vocab_size,
                                   device=device,
                                   dtype=torch_dtype(config.dtype)))
+        self._make_extra_modules(config, device)
         self.reset_parameters(generator)
+
+    def _make_extra_modules(self, config, device):
+        """Modules a family adds beside the trunk and the head, made before
+        the weights are drawn (DeepSeek-V3's multi-token-prediction
+        depths)."""
 
     @property
     def device(self) -> torch.device:

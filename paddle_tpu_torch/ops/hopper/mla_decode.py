@@ -10,13 +10,16 @@ optional [B, T] column mask ``allowed``. Row b sees columns t <= pos[b]
 that are allowed. Returns the latent-space context [B, H, r] in f32; a row
 that sees no column returns 0, as the Pallas kernel does.
 
-The Pallas gate ``supported()`` (``mla_decode.py:51-67``) caps the buffer
-at 10 MB of VMEM residency (T <= 8192 at DeepSeek-V2 widths): that cap is
-the TPU's, whose kernel holds a row's whole buffer in VMEM. The CUDA kernel
-streams the buffer from device memory in tiles, so it takes any T; it
-takes up to 16 heads, a latent width up to 512 and a rope width up to 128,
-buffers of float32 or bfloat16 (bf16: both widths multiples of 8 and the
-buffers 16-byte aligned, as its tensor-map copies need).
+The Pallas gate ``supported()`` (``mla_decode.py:51-67``) takes any head
+count with ``H % 8 == 0`` and caps the buffer at 10 MB of VMEM residency
+(T <= 8192 at DeepSeek-V2 widths): that cap is the TPU's, whose kernel
+holds a row's whole buffer in VMEM. The CUDA kernel streams the buffer from
+device memory in tiles, so it takes any T; it takes the gate's head counts
+up to 128 (DeepSeek-V2 and V3), as head tiles of 16 on its grid's z axis
+(a last tile of 8 heads, as at H 8 or 24, has its other rows masked and
+writes nothing for them), a latent width up to 512 and a rope width up to
+128, buffers of float32 or bfloat16 (bf16: both widths multiples of 8 and
+the buffers 16-byte aligned, as its tensor-map copies need).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel (a split pass and a combine pass, counted as one
@@ -24,10 +27,12 @@ launches the kernel (a split pass and a combine pass, counted as one
 shapes alone (``grid_blocks``), or with ``FLAGS_use_autotune`` by the
 search (``autotune.pick``, kernel ``"mla_decode"`` as in the JAX package,
 whose search times its T block) over ``grid_candidates``: from B blocks
-to a few waves of 16-head tiles an SM. The kernel cuts the rows' visible
-prefixes into runs of whole tiles, balanced over its blocks, from the
-lengths on the card (``plan_tiles`` in csrc/mla_decode.cu), so nothing
-waits for ``pos``.
+to a few waves of 16-head tiles an SM. At 128 heads a wave is 132 // 8 =
+16 blocks a head tile: 128 blocks on 132 SMs, one block an SM at most, no
+fuller wave (a redesign that splits more finely is queued). The kernel
+cuts the rows' visible prefixes into runs of whole tiles, balanced over its
+blocks, from the lengths on the card (``plan_tiles`` in
+csrc/mla_decode.cu), so nothing waits for ``pos``.
 """
 from __future__ import annotations
 
@@ -37,10 +42,11 @@ from . import _build, autotune
 
 _STEM = "mla_decode"
 BN = 32            # columns per tile (csrc/mla_decode.cu)
-HEAD_TILE = 16     # heads of a bf16 block: the m of its tensor-core products
+HEAD_TILE = 16     # heads of a block: the m of its tensor-core products
 MIN_TILES = 2      # tiles a run takes at least: 64 columns, 74 KB of bf16
                    # cache read for a 32 KB f32 partial
-MAX_HEADS, MAX_R, MAX_DR = 16, 512, 128
+MAX_HEADS, MAX_R, MAX_DR = 128, 512, 128
+HEAD_STEP = 8      # the head counts the JAX gate takes: multiples of 8
 _ARGTYPES = [_build.VOIDP] * 11 + [_build.INT] * 8 + [_build.VOIDP]
 
 
@@ -114,9 +120,11 @@ def mla_decode(q_lat, q_pe, ckv_buf, kpe_buf, pos, allowed=None):
                    f"{tuple(kpe_buf.shape)} disagree")
     _build.require(kpe_buf.dtype == ckv_buf.dtype,
                    "mla_decode: ckv_buf and kpe_buf must share one dtype")
-    _build.require(H <= MAX_HEADS and r <= MAX_R and dr <= MAX_DR,
-                   f"mla_decode: the kernel takes up to {MAX_HEADS} heads, "
-                   f"latent width {MAX_R} and rope width {MAX_DR}; got H={H} "
+    _build.require(H % HEAD_STEP == 0 and H <= MAX_HEADS and r <= MAX_R
+                   and dr <= MAX_DR,
+                   f"mla_decode: the kernel takes head counts that are "
+                   f"multiples of {HEAD_STEP} up to {MAX_HEADS}, latent width "
+                   f"up to {MAX_R} and rope width up to {MAX_DR}; got H={H} "
                    f"r={r} dr={dr}")
     code = _build.dtype_code(ckv_buf)
     if code == 1:

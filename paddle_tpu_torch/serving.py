@@ -486,7 +486,8 @@ class ContinuousBatchEngine:
             raise NotImplementedError(
                 "engine speculative decoding needs the paged KV layout — the "
                 "latent (MLA) compressed rows have no multi-token ragged "
-                "append path")
+                "append path (use mtp_speculative_generate for MLA "
+                "self-drafting)")
         self.speculative_k = speculative_k or None
         self.speculative_ngram = int(speculative_ngram)
         if prefill_chunk_tokens is not None:

@@ -1,6 +1,7 @@
-"""Speculative decoding: the engine's n-gram drafter and the draft-model
-``speculative_generate``. Counterpart of ``paddle_tpu/speculative.py``
-(``_ngram_next``, ``ngram_propose``, ``:89-290``).
+"""Speculative decoding: the engine's n-gram drafter, the draft-model
+``speculative_generate`` and DeepSeek-V3's self-drafting
+``mtp_speculative_generate``. Counterpart of ``paddle_tpu/speculative.py``
+(``_ngram_next``, ``ngram_propose``, ``:89-446``).
 
 The n-gram drafter is host work only (numpy): it runs between engine
 dispatches on a request's prompt and token history and never touches the
@@ -18,6 +19,18 @@ whose every layer reads one device int32 ``pos``; rollback after a
 rejected suffix writes that scalar in place, and columns past it are
 masked, so the stale entries are inert until overwritten (JAX rebinds a
 new scalar).
+
+``mtp_speculative_generate``: the model's first multi-token-prediction
+depth drafts one token a round from the main model's pre-norm hidden
+stream, keeping a latent cache of its own over the shifted sequence, and
+a 2-token cached verify accepts the draft or corrects it; the output is
+exactly ``model.generate``'s greedy one. Its prefill (the main prompt, then
+the MTP cache seeded with the prompt's pairs) and each round (the MTP block
+over the round's one or two pairs, the draft, the verify) are step units,
+the round keyed on ``(max_len, n)`` as JAX's ``_MTPRoundStep``; a miss is
+rolled back by the host's ``pos``, as above. Every part of a round stays on
+the device (routing, argmax, the verify's tokens), so the whole round is
+one graph; the ``[g0, g1, draft]`` fetch is its one host sync.
 """
 from __future__ import annotations
 
@@ -27,7 +40,7 @@ import numpy as np
 import torch
 
 from .generation import (CACHE_SETS, _cache_buffers, _get_prefill_step,
-                         _memoized_step, _Step)
+                         _lru, _memoized_step, _start_caches, _Step)
 
 
 def _ngram_next(hist: np.ndarray, max_ngram: int):
@@ -263,4 +276,165 @@ def speculative_generate(target, draft, input_ids, max_new_tokens=20,
     if return_stats:
         return out, {"rounds": rounds, "hits": hits,
                      "acceptance": (hits / (rounds * k)) if rounds else 0.0}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MTP self-speculative decoding (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+class _MTPPrefillStep(_Step):
+    """The prompt through the main model, its pre-norm stream kept, then
+    the MTP cache seeded with the prompt's pairs (h_i, t_{i+1}), i < P - 1,
+    at 0-based positions (``speculative.py:380-405``). ``caches``: the
+    main model's latent buffers and, last, the MTP block's. Returns (the
+    greedy first token [1] int32, the last pre-norm hidden [1, 1, h],
+    caches)."""
+
+    cache_arg = 1
+
+    @torch.inference_mode()
+    def eager(self, ids, caches):
+        model = self._model
+        mtp = model.mtp_layers[0]
+        caches = _start_caches(caches, None, ids.device)
+        normed, pre, main = model.llama.forward_cached(
+            ids, caches[:-1], rope_len=self._max_len, return_prenorm=True)
+        t1 = torch.argmax(model.lm_head_logits(normed[:, -1, :]),
+                          dim=-1).to(torch.int32)
+        mtp_cache = caches[-1]
+        P = ids.shape[1]
+        if P > 1:
+            cos, sin = model.llama._rope(self._max_len)
+            x = mtp.fuse(pre[:, :P - 1], _embed(model, ids[:, 1:]))
+            _, mtp_cache = mtp.block(x, cos, sin, kv_cache=mtp_cache)
+        return t1, pre[:, -1:], main + [mtp_cache]
+
+
+class _MTPRoundStep(_Step):
+    """One round (``speculative.py:293-338``): the MTP block over the
+    ``n`` pairs (h_tail rows, toks) extends its cache and drafts one token
+    (one pair: the MLA decode kernel; two: the absorbed einsums), then the
+    2-token cached verify [toks[-1], draft] on the main model. ``caches``
+    as ``_MTPPrefillStep``'s, each at its host-set ``pos``. Returns
+    ([g0, g1, draft] int32, the verify's pre-norm hidden [1, 2, h],
+    caches)."""
+
+    cache_arg = 2
+
+    @torch.inference_mode()
+    def eager(self, h_tail, toks, caches):
+        model = self._model
+        mtp = model.mtp_layers[0]
+        cos, sin = model.llama._rope(self._max_len)
+        x = mtp.fuse(h_tail, _embed(model, toks))
+        h_m, mtp_cache = mtp.block(x, cos, sin, kv_cache=caches[-1])
+        draft = torch.argmax(model.lm_head_logits(mtp.norm(h_m[:, -1, :])),
+                             dim=-1).to(torch.int32)                   # [1]
+        verify = torch.cat([toks[:, -1], draft])[None]                 # [1, 2]
+        normed2, pre2, main = model.llama.forward_cached(
+            verify, caches[:-1], rope_len=self._max_len, return_prenorm=True)
+        g = torch.argmax(model.lm_head_logits(normed2)[0], dim=-1).to(
+            torch.int32)                                               # [2]
+        return torch.cat([g, draft]), pre2, main + [mtp_cache]
+
+
+def _embed(model, ids):
+    """The main embedding of ``ids`` in the compute dtype (the MTP block's
+    input, unscaled as in JAX)."""
+    from .models.llama import torch_dtype
+
+    return model.llama.embed_tokens(ids).to(torch_dtype(model.config.dtype))
+
+
+def _mtp_buffers(model, max_len):
+    """The MTP block's latent buffers for ``max_len`` slots (batch 1), kept
+    on the model as ``generate`` keeps the main ones."""
+    from .models.llama import torch_dtype
+
+    def make():
+        return model.llama.empty_cache_layer(
+            1, max_len, torch_dtype(model.config.dtype))
+
+    return _lru(model, "_mtp_cache_sets", max_len, make, CACHE_SETS)[0]
+
+
+@torch.inference_mode()
+def mtp_speculative_generate(model, input_ids, max_new_tokens=20,
+                             eos_token_id=None, return_stats=False):
+    """Self-speculative greedy decode for DeepSeek models with multi-token
+    prediction (``num_nextn_predict_layers >= 1``), ``speculative.py:
+    341-446``: the first MTP depth drafts one token a round, a 2-token
+    verify accepts or corrects it. Returns the new tokens [1, <=
+    max_new_tokens] in the input's dtype on the model's device, exactly
+    ``model.generate``'s greedy ones.
+
+    Batch 1; ``max_len = P + max_new_tokens + 3``. ``return_stats=True``
+    returns ``(out, stats)``: ``rounds``, ``hits`` (drafts accepted) and
+    ``acceptance`` (hits / rounds). Each round observes its 0/1 hit in
+    ``serving_spec_accepted_tokens`` (engine="mtp")."""
+    from .observability import catalog
+
+    mtp_layers = getattr(model, "mtp_layers", None)
+    if not mtp_layers:
+        raise ValueError(
+            "mtp_speculative_generate needs a model built with "
+            "num_nextn_predict_layers >= 1 (the MTP draft module)")
+    ids, out_dtype = _normalize_request(input_ids)
+    P = ids.shape[1]
+    max_len = P + max_new_tokens + 3
+    if max_len > model.config.max_position_embeddings:
+        raise ValueError(
+            f"prompt+new(+3 speculation slack) = {max_len} exceeds "
+            f"max_position_embeddings "
+            f"{model.config.max_position_embeddings}")
+    dev = model.device
+    accept_hist = catalog.SERVING_SPEC_ACCEPTED.labels(engine="mtp")
+    ids_t = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    mtp_bufs = _mtp_buffers(model, max_len)
+    caches = _cache_buffers(model, 1, max_len, False, owner=model,
+                            maxsize=CACHE_SETS) + [dict(mtp_bufs)]
+    prefill = _memoized_step(model, "_mtp_prefill_steps", max_len,
+                             lambda: _MTPPrefillStep(model, max_len),
+                             maxsize=8)
+    t1, h_tail, caches = prefill(ids_t, caches)
+    emitted = [int(t1[0])]
+    main = caches[:-1]
+    pos_t = torch.zeros((), dtype=torch.int32, device=dev)
+    mtp_pos_t = torch.zeros((), dtype=torch.int32, device=dev)
+    pos_main, pos_mtp = P, max(P - 1, 0)
+    rounds = hits = 0
+    toks = emitted[:]              # tokens pairing the h_tail rows
+    while len(emitted) < max_new_tokens and (
+            eos_token_id is None or emitted[-1] != eos_token_id):
+        n = len(toks)
+        step = _memoized_step(model, "_mtp_round_steps", (max_len, n),
+                              lambda: _MTPRoundStep(model, max_len),
+                              maxsize=8)
+        main = _set_pos(main, pos_t, pos_main)
+        mtp_pos_t.fill_(pos_mtp)
+        g_t, pre2, caches = step(
+            h_tail, torch.tensor([toks], dtype=torch.int32, device=dev),
+            main + [dict(mtp_bufs, pos=mtp_pos_t)])
+        main = caches[:-1]
+        g0, g1, draft = g_t.tolist()     # the round's one host sync
+        rounds += 1
+        pos_mtp += n                     # the MTP stream grew by n pairs
+        if draft == g0:                  # a hit: two tokens from one verify
+            hits += 1
+            emitted.extend([draft, g1])
+            pos_main += 2
+            h_tail, toks = pre2, [draft, g1]
+        else:                            # a miss: the draft's entry is
+            emitted.append(g0)           # stale, the host's pos parks it
+            pos_main += 1
+            h_tail, toks = pre2[:, :1], [g0]
+        accept_hist.observe(1 if draft == g0 else 0)
+        if eos_token_id is not None and eos_token_id in emitted[-2:]:
+            break                        # eos inside a hit pair stops it
+
+    out = _finish(emitted, max_new_tokens, eos_token_id, out_dtype, dev)
+    if return_stats:
+        return out, {"rounds": rounds, "hits": hits,
+                     "acceptance": (hits / rounds) if rounds else 0.0}
     return out

@@ -390,13 +390,15 @@ def test_latent_mode_refuses_speculation(engine_pair):
 
 
 def test_unported_options_raise():
-    """Multi-token prediction stays unported. LongRoPE is ported on the
+    """Multi-token prediction is ported: an MTP config builds, as in JAX,
+    with its depths (``tests/test_torch_deepseek_mtp.py`` holds them to
+    JAX). LongRoPE is ported on the
     trunk's tables: a longrope scaling builds the config, as in JAX, and
     the loader's gate (``validate_rope_scaling``) refuses this one, which
     has no factor lists, with JAX's message. Training is ported: labels
     give a finite (loss, logits) pair."""
-    with pytest.raises(NotImplementedError, match="deepseek.py:508-615"):
-        port_ds.DeepseekV2Config.tiny_mla(num_nextn_predict_layers=1)
+    mtp = port_ds.DeepseekV2Config.tiny_mla(num_nextn_predict_layers=1)
+    assert (mtp.num_nextn_predict_layers, mtp.mtp_loss_lambda) == (1, 0.3)
     cfg = port_ds.DeepseekV2Config.tiny_mla(rope_scaling={
         "rope_type": "longrope", "factor": 2.0})
     with pytest.raises(ValueError, match="short_factor and long_factor"):

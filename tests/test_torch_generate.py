@@ -321,7 +321,8 @@ def test_llama_cuda_routes_launch_counts(on_card, run):
 
 
 def test_mla_cuda_route_launch_counts_and_paged_refusal(on_card):
-    """Run g at small size: the width-48 expanded prefill goes to the flash
+    """Run g at small size (8 heads, the fewest the MLA kernel takes, as
+    the JAX gate): the width-192 expanded prefill goes to the flash
     kernel's MLA counter (the plain version would refuse the "CUDA"
     tensors), every decode step to ``mla_decode``; ``paged=True`` raises
     before any launch."""
@@ -330,6 +331,8 @@ def test_mla_cuda_route_launch_counts_and_paged_refusal(on_card):
 
     model = on_card(deepseek.DeepseekV2ForCausalLM(
         deepseek.DeepseekV2Config.tiny_mla(num_hidden_layers=2,
+                                           num_attention_heads=8,
+                                           num_key_value_heads=8,
                                            qk_nope_head_dim=128,
                                            qk_rope_head_dim=64,
                                            v_head_dim=128),

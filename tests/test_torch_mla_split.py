@@ -359,7 +359,7 @@ def test_mla_cuda_route_f32_dtype_code_and_h8(fake_kernels, monkeypatch):
                                  "dtype_mix", "shape", "allowed", "grad",
                                  "bf16_width"])
 def test_mla_cuda_route_refusals(bad, fake_kernels, monkeypatch):
-    """The wrapper's refusals: at most 16 heads, latent width 512 and rope
+    """The wrapper's refusals: at most 128 heads, latent width 512 and rope
     width 128, f32 queries, one buffer dtype, shapes that agree, allowed of
     [B, T], no input that needs a gradient; and bf16 widths that are
     multiples of 8 (16-byte copies of each row). Nothing launches."""
@@ -368,7 +368,7 @@ def test_mla_cuda_route_refusals(bad, fake_kernels, monkeypatch):
     allowed = None
     err = ValueError
     if bad == "heads":
-        q_lat, q_pe, ckv, kpe = _mla_cuda(H=32)
+        q_lat, q_pe, ckv, kpe = _mla_cuda(H=136)
     elif bad == "latent":
         q_lat, q_pe, ckv, kpe = _mla_cuda(r=640)
     elif bad == "rope":
