@@ -17,6 +17,7 @@ NVIDIA H100.
     python3 chip_smoke.py --gemma-train-only      # their training, phase 26
     python3 chip_smoke.py --families-only         # widths 64 / 96, phase 27
     python3 chip_smoke.py --deepseek-v3-only      # 128 MLA heads, phase 28
+    python3 chip_smoke.py --hf-bridge-only        # the HF bridge, phase 29
 
 Phases (any failure raises, so the script exits non-zero):
 
@@ -482,7 +483,38 @@ Phases (any failure raises, so the script exits non-zero):
    same way and among its edges in bf16 and f32,
    and the width-192 flash forward at 128 heads (``check_flash_mla_128_row``:
    q [1, 512, 128, 192], v 128, causal, V3's softmax scale, SDPA beside).
-29. The kernels line, then the card line, then the result line
+29. The HuggingFace checkpoint bridge (last, after phase 28's models are
+   freed; ``--hf-bridge-only`` runs phase 1 and this phase), bf16, random
+   weights drawn on the card, each HF-layout state dict moved to the host
+   as a checkpoint arrives there, each config a dict of the published
+   ``config.json`` fields written here; the source model's engine tokens
+   on phase 20's three requests (512, 300 and 1024 tokens, 16 new each;
+   graphed, launch counts exact), then the converted model's: tokens
+   identical, counts exact, every parameter bit-equal. (a) Llama-3-8B
+   whole (meta-llama/Meta-Llama-3-8B's fields): ``llama_to_hf`` to the
+   host, the source freed, ``llama_from_hf(state, LLAMA3_8B_JSON)`` onto
+   the card (its config = ``LlamaConfig.llama3_8b``), each parameter
+   against its checkpoint tensor moved to the card one at a time; a
+   forward ``rms_norm`` L + 1 and ``add_rms_norm`` L, the flash kernel L
+   an exact prefill, append attention L a padded one, ``paged_attention``
+   L a decode step (``serving_counts_want``). (b) Phi-3-mini-128k whole
+   (phase 27's shape; microsoft/Phi-3-mini-128k-instruct's fields with
+   phase 27's seeded longrope lists): its fused layout built here (q | k
+   | v rows into ``qkv_proj``, gate | up into ``gate_up_proj``),
+   ``phi3_from_hf``; no attention kernel in a prefill,
+   ``paged_attention_96`` L a decode step. (c) DeepSeek-V2-Lite at its
+   published widths, depth cut 27 -> 4 (the dense layer and three MoE
+   layers; logged): its layout built here (q_pe rows and the k_pe tail
+   interleaved again, the experts split per expert),
+   ``deepseek_from_hf(FakeHF(state, V2_LITE_JSON), config=<the bf16
+   config>)`` (the config ``V2_LITE_JSON`` maps to checked equal), the
+   latent engine; a forward ``rms_norm`` 2 L + 1 and ``add_rms_norm`` L,
+   ``flash_attention_mla`` L an exact prefill, ``mla_decode`` L a decode
+   step. Each load logs its seconds, the host -> device GB/s over the
+   model's bytes, the peak device memory against the model's bytes and
+   the host's peak resident set against its value before (sampled every
+   2 ms); (a) also ``llama_to_hf``'s seconds and device -> host GB/s.
+30. The kernels line, then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -493,6 +525,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import functools
 import gc
 import json
@@ -8799,13 +8832,14 @@ def v3_model(cfg, seed, phase):
     return model
 
 
-def v3_counts_want(L, forwards, exact, steps):
+def v3_counts_want(L, forwards, exact, steps, norms=3):
     """A V3 trunk's launches, from the code: a forward's ``rms_norm`` 3 L + 1
     (each layer's input norm, ``q_a_layernorm`` at 1536, ``kv_a_layernorm``
-    at 512, then the final norm) and ``add_rms_norm`` L (each post-attention
-    norm); ``flash_attention_mla`` L an exact prefill, ``mla_decode`` L a
-    decode step; no other attention kernel."""
-    return {"rms_norm": (3 * L + 1) * forwards, "add_rms_norm": L * forwards,
+    at 512, then the final norm; ``norms`` 2 for V2-Lite's full-rank q) and
+    ``add_rms_norm`` L (each post-attention norm); ``flash_attention_mla`` L
+    an exact prefill, ``mla_decode`` L a decode step; no other attention
+    kernel."""
+    return {"rms_norm": (norms * L + 1) * forwards, "add_rms_norm": L * forwards,
             "flash_attention_mla": L * exact, "mla_decode": L * steps,
             "flash_attention_bshd": 0, "append_attention": 0,
             "paged_attention": 0, "fused_qkv_rope": 0, "fused_epilogue": 0}
@@ -9086,6 +9120,466 @@ def deepseek_v3_only():
     serve_deepseek_v3()
 
 
+
+# --------------------------------------------------------------- phase 29 --
+
+# the fields of meta-llama/Meta-Llama-3-8B's config.json
+LLAMA3_8B_JSON = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 128000,
+    "eos_token_id": 128001, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 8192, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "rope_theta": 500000.0,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "vocab_size": 128256}
+# the fields of microsoft/Phi-3-mini-128k-instruct's config.json, but its
+# 48 + 48 longrope factors: the published lists are not in the repository,
+# so they are phase 27's, drawn from PHI3_FACTOR_SEED (phi3_json)
+PHI3_128K_JSON = {
+    "architectures": ["Phi3ForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 1, "embd_pdrop": 0.0, "eos_token_id": 32000,
+    "hidden_act": "silu", "hidden_size": 3072, "initializer_range": 0.02,
+    "intermediate_size": 8192, "max_position_embeddings": 131072,
+    "model_type": "phi3", "num_attention_heads": 32,
+    "num_hidden_layers": 32, "num_key_value_heads": 32,
+    "original_max_position_embeddings": 4096, "pad_token_id": 32000,
+    "resid_pdrop": 0.0, "rms_norm_eps": 1e-05, "rope_theta": 10000.0,
+    "sliding_window": 262144, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32064}
+# the fields of deepseek-ai/DeepSeek-V2-Lite's config.json
+V2_LITE_JSON = {
+    "architectures": ["DeepseekV2ForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "aux_loss_alpha": 0.001,
+    "bos_token_id": 100000, "eos_token_id": 100001,
+    "first_k_dense_replace": 1, "hidden_act": "silu", "hidden_size": 2048,
+    "initializer_range": 0.02, "intermediate_size": 10944,
+    "kv_lora_rank": 512, "max_position_embeddings": 163840,
+    "model_type": "deepseek_v2", "moe_intermediate_size": 1408,
+    "moe_layer_freq": 1, "n_group": 1, "n_routed_experts": 64,
+    "n_shared_experts": 2, "norm_topk_prob": False,
+    "num_attention_heads": 16, "num_experts_per_tok": 6,
+    "num_hidden_layers": 27, "num_key_value_heads": 16,
+    "pretraining_tp": 1, "q_lora_rank": None, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "rms_norm_eps": 1e-06,
+    "rope_scaling": dict(V2_LITE_YARN), "rope_theta": 10000,
+    "routed_scaling_factor": 1.0, "scoring_func": "softmax",
+    "seq_aux": True, "tie_word_embeddings": False, "topk_group": 1,
+    "topk_method": "greedy", "torch_dtype": "bfloat16", "use_cache": True,
+    "v_head_dim": 128, "vocab_size": 102400}
+# (c): DeepSeek-V2-Lite's depth cut 27 -> 4 (its dense layer, three MoE)
+HF_V2_LITE_DEPTH = 4
+
+
+def phi3_json(scaling):
+    """PHI3_128K_JSON with the longrope lists of ``scaling`` under the
+    published keys ("type", the lists; the original length top-level)."""
+    return dict(PHI3_128K_JSON, rope_scaling={
+        "type": "longrope", "short_factor": list(scaling["short_factor"]),
+        "long_factor": list(scaling["long_factor"])})
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class _RssPeak:
+    """The process's resident set read every 2 ms (``/proc/self/statm``,
+    read only) by a thread over a ``with`` block: ``start`` and ``peak``."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = rss_bytes()
+        self._stop = threading.Event()
+
+        def watch():
+            while not self._stop.wait(0.002):
+                self.peak = max(self.peak, rss_bytes())
+
+        self._thread = threading.Thread(target=watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def to_host(state) -> dict:
+    """Each tensor of an HF-layout state made contiguous on the card, then
+    copied to the host, as a checkpoint would arrive there."""
+    return {k: v.contiguous().cpu() for k, v in state.items()}
+
+
+class FakeHF:
+    """A state dict with its ``config.json`` dict, as
+    ``deepseek_from_hf`` takes a transformers model."""
+
+    def __init__(self, state, config):
+        self._state, self.config = state, config
+
+    def state_dict(self):
+        return self._state
+
+
+def bridge_load(label, card, load):
+    """``load()`` (a ``*_from_hf`` onto the card) with the device's peak
+    and the host's resident set watched: the seconds, the model's bytes
+    over them (host -> device GB/s; the model's construction included),
+    the peak device memory above what was allocated before (collected
+    first), against the model's bytes, and the host's peak RSS against
+    its value before.
+    Returns the model."""
+    import torch
+
+    release()   # what an earlier run left for the collector goes first
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        model = load()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    n = param_bytes(model)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"  [{card}] {label}: loaded in {secs:.3f}s, {n / 1e9:.3f} GB "
+        f"({n / 1e9 / secs:.2f} GB/s host -> device); peak device memory "
+        f"{peak / 2**30:.3f} GiB for the model's {n / 2**30:.3f} GiB "
+        f"(x{peak / n:.4f}); host RSS {rss.start / 2**30:.2f} GiB before, "
+        f"peak {rss.peak / 2**30:.2f} GiB (+{(rss.peak - rss.start) / 2**30:.3f})")
+    return model
+
+
+def same_bits(a, b) -> bool:
+    """Bit equality of two tensors on one device, strides aside."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return bool(torch.equal(a.view(view), b.view(view)))
+
+
+def require_params_equal(label, model, want):
+    """Every parameter of ``model`` bit-equal to ``want(name)`` (a tensor on
+    the card), one tensor at a time."""
+    n = 0
+    for name, p in model.named_parameters():
+        if not same_bits(p.detach(), want(name)):
+            raise AssertionError(f"{label}: {name} differs from its source")
+        n += p.numel()
+    return n
+
+
+def require_tokens_equal(label, got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: request {i} tokens {list(a)} != "
+                                 f"the source model's {list(b)}")
+
+
+def hf_bridge_llama(card):
+    """Phase 29 (a): Llama-3-8B whole, bf16, weights drawn on the card: the
+    source's engine tokens on phase 20's three requests (graphed, counts
+    exact), ``llama_to_hf`` to the host, the source freed,
+    ``llama_from_hf(state, LLAMA3_8B_JSON)`` onto the card (its config =
+    ``LlamaConfig.llama3_8b``), every parameter bit-equal to the state's
+    tensor (moved to the card one at a time), the same requests with the
+    same tokens and exact counts. Returns the counts."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               llama_from_hf, llama_to_hf)
+
+    label = "phase 29 (a) Llama-3-8B"
+    cfg = LlamaConfig.llama3_8b(dtype="bfloat16")
+    src = LlamaForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(290))
+    news = (FAMILY_NEW,) * len(FAMILY_LENS)
+    total = Counter()
+    counts, want, _, _ = serve_family(src, card, f"{label} source",
+                                      FAMILY_LENS, news, 291)
+    total.update(counts)
+    torch.cuda.synchronize()
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        state = llama_to_hf(src)
+        secs = time.perf_counter() - t0
+    n = param_bytes(src)
+    log(f"  [{card}] {label}: llama_to_hf to the host in {secs:.3f}s, "
+        f"{len(state)} tensors, {n / 1e9:.3f} GB ({n / 1e9 / secs:.2f} GB/s "
+        f"device -> host); host RSS +{(rss.peak - rss.start) / 2**30:.2f} "
+        "GiB")
+    del src
+    release()
+    model = bridge_load(f"{label} llama_from_hf", card,
+                        lambda: llama_from_hf(state, LLAMA3_8B_JSON))
+    if dataclasses.asdict(model.config) != dataclasses.asdict(cfg):
+        raise AssertionError(f"{label}: the converted config differs from "
+                             "LlamaConfig.llama3_8b")
+    t0 = time.perf_counter()
+
+    def hf_tensor(name):
+        key = name if name == "lm_head.weight" else name.replace(
+            "llama.", "model.", 1)
+        t = state[key].cuda()
+        return t.t() if t.ndim == 2 and "embed_tokens" not in key else t
+
+    n = require_params_equal(label, model, hf_tensor)
+    log(f"  [{card}] {label}: every parameter ({n / 1e9:.3f}B) bit-equal to "
+        f"its checkpoint tensor, checked on the card in "
+        f"{time.perf_counter() - t0:.2f}s; the converted config = "
+        "LlamaConfig.llama3_8b")
+    del state
+    counts, got, _, _ = serve_family(model, card, f"{label} loaded",
+                                     FAMILY_LENS, news, 291)
+    require_tokens_equal(label, got, want)
+    total.update(counts)
+    log(f"  [{card}] {label}: tokens of the converted model = the "
+        f"source's on all {len(got)} requests")
+    del model
+    release()
+    return total
+
+
+def phi3_checkpoint(model) -> dict:
+    """Phi-3's HF layout of ``model``, as test code (the inverse of
+    ``split_phi3_fused``): q | k | v rows into ``qkv_proj``, gate | up
+    into ``gate_up_proj``, every projection in torch's [out, in]; on the
+    host."""
+    import torch
+
+    with torch.no_grad():
+        return to_host(_phi3_layout(model))
+
+
+def _phi3_layout(model) -> dict:
+    import torch
+
+    m = model.llama
+    state = {"model.embed_tokens.weight": m.embed_tokens.weight,
+             "model.norm.weight": m.norm.weight,
+             "lm_head.weight": model.lm_head.weight.t()}
+    for i, layer in enumerate(m.layers):
+        a, mlp, p = layer.self_attn, layer.mlp, f"model.layers.{i}"
+        state[f"{p}.self_attn.qkv_proj.weight"] = torch.cat(
+            [a.q_proj.weight.t(), a.k_proj.weight.t(), a.v_proj.weight.t()])
+        state[f"{p}.self_attn.o_proj.weight"] = a.o_proj.weight.t()
+        state[f"{p}.mlp.gate_up_proj.weight"] = torch.cat(
+            [mlp.gate_proj.weight.t(), mlp.up_proj.weight.t()])
+        state[f"{p}.mlp.down_proj.weight"] = mlp.down_proj.weight.t()
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            state[f"{p}.{norm}.weight"] = getattr(layer, norm).weight
+    return state
+
+
+def hf_bridge_phi3(card):
+    """Phase 29 (b): Phi-3-mini-128k whole (phase 27's shape and factors):
+    the source's engine tokens on phase 20's three requests, its fused HF
+    layout built here and moved to the host, ``phi3_from_hf`` onto the
+    card, every parameter bit-equal to the source's, the same tokens,
+    ``paged_attention_96`` L a decode step and no attention kernel in a
+    prefill. Returns the counts."""
+    from paddle_tpu_torch.models.phi3 import phi3_from_hf
+
+    label = "phase 29 (b) Phi-3-mini-128k"
+    src, _ = dense_model("Phi-3-mini-128k", 292)
+    news = (FAMILY_NEW,) * len(FAMILY_LENS)
+    total = Counter()
+    counts, want, _, _ = dense_engine_run(src, card, f"{label} source",
+                                          FAMILY_LENS, news, 293)
+    total.update(counts)
+    state = phi3_checkpoint(src)
+    model = bridge_load(
+        f"{label} phi3_from_hf", card,
+        lambda: phi3_from_hf(state, phi3_json(src.config.rope_scaling)))
+    cfg = model.config
+    if (cfg.rope_scaling["long_factor"]
+            != src.config.rope_scaling["long_factor"]
+            or cfg.rope_scaling["original_max_position_embeddings"]
+            != PHI3_ORIG or cfg.max_position_embeddings != PHI3_MAX_POS):
+        raise AssertionError(f"{label}: the longrope scaling did not map")
+    src_params = dict(src.named_parameters())
+    n = require_params_equal(label, model, lambda k: src_params[k].detach())
+    log(f"  [{card}] {label}: every parameter ({n / 1e9:.3f}B) bit-equal to "
+        f"the source's; sliding_window {cfg.sliding_window} (the published "
+        "field, wider than every cache here: the routes of the source)")
+    del src, src_params, state
+    release()
+    counts, got, _, _ = dense_engine_run(model, card, f"{label} loaded",
+                                         FAMILY_LENS, news, 293)
+    require_tokens_equal(label, got, want)
+    total.update(counts)
+    log(f"  [{card}] {label}: tokens of the converted model = the "
+        f"source's on all {len(got)} requests")
+    del model
+    release()
+    return total
+
+
+def interleave_rows(w, dim):
+    """The inverse of ``deinterleave_rows``: the trailing ``dim`` rows from
+    the half-split layout back to interleaved pairs."""
+    import torch
+
+    head, tail = w[:-dim], w[-dim:]
+    pairs = torch.stack([tail[:dim // 2], tail[dim // 2:]], dim=1)
+    return torch.cat([head, pairs.reshape(dim, -1)])
+
+
+def interleave_q(w, n_heads, nope_dim, rope_dim):
+    """The inverse of ``deinterleave_q``, head by head."""
+    import torch
+
+    w = w.reshape(n_heads, nope_dim + rope_dim, -1)
+    half = nope_dim + rope_dim // 2
+    pe = torch.stack([w[:, nope_dim:half], w[:, half:]], dim=2)
+    return torch.cat([w[:, :nope_dim], pe.reshape(n_heads, rope_dim, -1)],
+                     dim=1).reshape(n_heads * (nope_dim + rope_dim), -1)
+
+
+def deepseek_checkpoint(model) -> dict:
+    """DeepSeek-V2's HF layout of ``model``, as test code: q_pe rows and
+    the k_pe tail interleaved again, the grouped experts split back into
+    per-expert gate / up / down, every projection in [out, in]; on the
+    host."""
+    import torch
+
+    with torch.no_grad():
+        return to_host(_deepseek_layout(model))
+
+
+def _deepseek_layout(model) -> dict:
+    cfg = model.config
+    H, dn, dr = (cfg.num_attention_heads, cfg.qk_nope_head_dim,
+                 cfg.qk_rope_head_dim)
+    m = model.llama
+    state = {"model.embed_tokens.weight": m.embed_tokens.weight,
+             "model.norm.weight": m.norm.weight,
+             "lm_head.weight": model.lm_head.weight.t()}
+    for i, layer in enumerate(m.layers):
+        a, p = layer.self_attn, f"model.layers.{i}"
+        state[f"{p}.self_attn.q_proj.weight"] = interleave_q(
+            a.q_proj.weight.t(), H, dn, dr)
+        state[f"{p}.self_attn.kv_a_proj_with_mqa.weight"] = interleave_rows(
+            a.kv_a_proj_with_mqa.weight.t(), dr)
+        state[f"{p}.self_attn.kv_a_layernorm.weight"] = a.kv_a_layernorm.weight
+        state[f"{p}.self_attn.kv_b_proj.weight"] = a.kv_b_proj.weight.t()
+        state[f"{p}.self_attn.o_proj.weight"] = a.o_proj.weight.t()
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            state[f"{p}.{norm}.weight"] = getattr(layer, norm).weight
+        mlp = layer.mlp
+        if not layer.is_moe:
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                state[f"{p}.mlp.{proj}.weight"] = getattr(
+                    mlp, proj).weight.t()
+            continue
+        state[f"{p}.mlp.gate.weight"] = mlp.gate_weight.t()
+        M = mlp.experts.d_hidden
+        for e in range(cfg.n_routed_experts):
+            q = f"{p}.mlp.experts.{e}"
+            state[f"{q}.gate_proj.weight"] = mlp.experts.w1[e, :, :M].t()
+            state[f"{q}.up_proj.weight"] = mlp.experts.w1[e, :, M:].t()
+            state[f"{q}.down_proj.weight"] = mlp.experts.w2[e].t()
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            state[f"{p}.mlp.shared_experts.{proj}.weight"] = getattr(
+                mlp.shared_expert, proj).weight.t()
+    return state
+
+
+def hf_bridge_deepseek(card):
+    """Phase 29 (c): DeepSeek-V2-Lite at its published widths, depth 27 ->
+    4, bf16: the source's latent-engine tokens on phase 20's three
+    requests (counts exact), its HF layout built here (RoPE rows
+    interleaved, experts split) and moved to the host,
+    ``deepseek_from_hf(FakeHF(state, V2_LITE_JSON), config=<the bf16
+    config>)`` onto the card, every parameter bit-equal to the source's,
+    the same tokens, ``flash_attention_mla`` L an exact prefill and
+    ``mla_decode`` L a decode step. Returns the counts."""
+    import torch
+
+    from paddle_tpu_torch.models import DeepseekV2ForCausalLM
+    from paddle_tpu_torch.models.deepseek import (_hf_config_to_deepseek,
+                                                  deepseek_from_hf)
+
+    label = "phase 29 (c) DeepSeek-V2-Lite"
+    cfg = deepseek_config(num_hidden_layers=HF_V2_LITE_DEPTH)
+    src = DeepseekV2ForCausalLM(
+        cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(294))
+    log(f"phase 29 (c): DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite "
+        f"config.json), cut: depth 27 -> {HF_V2_LITE_DEPTH} (the dense layer "
+        f"and three MoE layers), {param_bytes(src) / 1e9:.3f} GB bf16")
+    rng = np.random.RandomState(295)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in FAMILY_LENS]
+    news = [FAMILY_NEW] * len(prompts)
+    n_exact = sum(exact_bucket(n) for n in FAMILY_LENS)
+    L = cfg.num_hidden_layers
+    total, outs = Counter(), {}
+    model = None
+    for run in ("source", "loaded"):
+        if run == "loaded":
+            state = deepseek_checkpoint(src)
+            model = bridge_load(
+                f"{label} deepseek_from_hf", card,
+                lambda: deepseek_from_hf(FakeHF(state, V2_LITE_JSON),
+                                         config=cfg))
+            mapped = dataclasses.replace(
+                _hf_config_to_deepseek(V2_LITE_JSON), dtype=cfg.dtype,
+                num_hidden_layers=HF_V2_LITE_DEPTH)
+            if dataclasses.asdict(mapped) != dataclasses.asdict(cfg):
+                raise AssertionError(f"{label}: the config mapped from "
+                                     "V2_LITE_JSON differs from the phase's")
+            src_params = dict(src.named_parameters())
+            n = require_params_equal(label, model,
+                                     lambda k: src_params[k].detach())
+            log(f"  [{card}] {label}: every parameter ({n / 1e9:.3f}B) "
+                "bit-equal to the source's; the config mapped from "
+                "V2_LITE_JSON = the phase's (f32 -> bf16, depth aside)")
+            del src, src_params, state
+            release()
+        counts, stats, _, _, outs[run] = serve_run(
+            src if run == "source" else model, card, f"{label} {run}",
+            prompts, news, False, max_batch=8, max_len=2048)
+        steps = stats["decode_steps"]
+        require_counts(f"{label} {run}", counts, v3_counts_want(
+            L, steps + len(prompts), n_exact, steps, norms=2))
+        total.update(counts)
+    require_tokens_equal(label, outs["loaded"], outs["source"])
+    log(f"  [{card}] {label}: launch counts exact for {steps} decode steps "
+        f"and {n_exact} exact prefills (flash_attention_mla {L} each, "
+        f"mla_decode {L} a step); tokens of the converted model = the "
+        f"source's on all {len(prompts)} requests")
+    del model
+    release()
+    return total
+
+
+def serve_hf_bridge():
+    """Phase 29: the HF checkpoint bridge on the card, (a) Llama-3-8B,
+    (b) Phi-3-mini-128k, (c) DeepSeek-V2-Lite at depth 4. Returns the
+    launch counts."""
+    t0 = time.perf_counter()
+    card = card_line()
+    total = Counter()
+    times = []
+    for part in (hf_bridge_llama, hf_bridge_phi3, hf_bridge_deepseek):
+        t = time.perf_counter()
+        total.update(part(card))
+        times.append(time.perf_counter() - t)
+    log(f"phase 29 took {time.perf_counter() - t0:.1f}s: (a) {times[0]:.1f}, "
+        f"(b) {times[1]:.1f}, (c) {times[2]:.1f}")
+    return total
+
 def tensor_core_sass(lib) -> dict:
     """{kernel name: [HMMA, HGMMA]} of a built library, from one
     ``cuobjdump -sass`` (one section a function): mma.sync and wgmma
@@ -9223,6 +9717,13 @@ def main(argv=None) -> int:
                          "through the latent engine and "
                          "mtp_speculative_generate, then its f32 wiring; "
                          "prints no result line")
+    ap.add_argument("--hf-bridge-only", action="store_true",
+                    help="phase 1, then phase 29 alone: the HF checkpoint "
+                         "bridge on the card (Llama-3-8B through "
+                         "llama_to_hf / llama_from_hf, Phi-3-mini-128k's "
+                         "fused layout through phi3_from_hf, "
+                         "DeepSeek-V2-Lite at depth 4 through "
+                         "deepseek_from_hf); prints no result line")
     ap.add_argument("--decode-profile-only", action="store_true",
                     help="phase 1, then phase 3's Llama-3-8B decode "
                          "profile alone (8 slots of 512-token prompts, "
@@ -9260,7 +9761,7 @@ def main(argv=None) -> int:
                or args.engine_only or args.autotune_only or args.http_only
                or args.engine_step_only or args.gemma_only
                or args.gemma_train_only or args.families_only
-               or args.deepseek_v3_only)
+               or args.deepseek_v3_only or args.hf_bridge_only)
     sass = {}
     for stem in ("append_attention", "flash_attention", "paged_attention",
                  "paged_attention_narrow", "mla_decode", "decode_tail"):
@@ -9344,6 +9845,10 @@ def main(argv=None) -> int:
         deepseek_v3_only()
         log(f"total {time.perf_counter() - t_start:.1f}s")
         return 0
+    if args.hf_bridge_only:
+        serve_hf_bridge()
+        log(f"total {time.perf_counter() - t_start:.1f}s")
+        return 0
     if args.decode_profile_only:
         from paddle_tpu_torch.models.llama import (LlamaConfig,
                                                    LlamaForCausalLM)
@@ -9396,6 +9901,7 @@ def main(argv=None) -> int:
     counts.update(train_gemma())
     counts.update(serve_dense_families(args.profile))
     counts.update(serve_deepseek_v3())
+    counts.update(serve_hf_bridge())
 
     kernels = []
     for name in SOURCES:

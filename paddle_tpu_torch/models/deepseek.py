@@ -50,8 +50,14 @@ Ported: ``DeepseekV2Config`` with ``tiny_mla`` / ``tiny_v3``,
 ``DeepseekV2DecoderLayer``, ``DeepseekV2Model`` (latent
 ``empty_cache_layer``), ``DeepseekMTPLayer`` and ``DeepseekV2ForCausalLM``
 (the MoE base's loss for ``num_nextn_predict_layers == 0``, the MTP loss
-beside it otherwise). Not ported: LoRA on MLA, ring context parallelism,
-pipeline parallelism and HF loading.
+beside it otherwise), and ``deepseek_from_hf`` (``deepseek.py:660-813``):
+a HuggingFace DeepseekV2 / V3 state dict written in place, the
+interleaved RoPE rows (each head's q_pe rows, the k_pe tail of
+``kv_a_proj_with_mqa``) reordered to the half-split layout on the device
+(``deinterleave_q``, ``deinterleave_rows``), the experts packed; like the
+JAX converter it reads the trunk's keys only, so a V3 checkpoint's MTP
+tensors (``model.layers.{num_hidden_layers}.*``) are left unused. Not
+ported: LoRA on MLA, ring context parallelism, pipeline parallelism.
 """
 from __future__ import annotations
 
@@ -63,14 +69,16 @@ import torch
 from torch import nn as tnn
 
 from .. import nn
+from ..framework.random import default_device
 from ..ops.hopper import fused_norm
 from ..ops.hopper.append_attention import chunk_positions
 from ..ops.hopper.flash_attention import flash_attention_bshd
 from ..ops.hopper.mla_decode import mla_decode
-from .llama import (LlamaRMSNorm, _rope_type, _width_norm, _yarn_get_mscale,
-                    causal_lm_loss, torch_dtype)
+from .llama import (LlamaRMSNorm, _hf_get, _rope_type, _width_norm,
+                    _yarn_get_mscale, causal_lm_loss, torch_dtype,
+                    validate_rope_scaling)
 from .llama_moe import (LlamaMoEConfig, LlamaMoEDecoderLayer,
-                        LlamaMoEForCausalLM, LlamaMoEModel)
+                        LlamaMoEForCausalLM, LlamaMoEModel, _load_grouped)
 
 
 @dataclasses.dataclass
@@ -461,3 +469,134 @@ class DeepseekV2ForCausalLM(LlamaMoEForCausalLM):
         if aux is not None:
             loss = loss + cfg.router_aux_loss_coef * aux
         return loss, None
+
+
+# ---------------------------------------------------------------------------
+# HuggingFace checkpoints (``deepseek.py:660-813``)
+# ---------------------------------------------------------------------------
+
+def deinterleave_rows(w, dim):
+    """The trailing ``dim`` output rows of a torch [out, in] weight from
+    the interleaved pair layout (x0, y0, x1, y1, ...) to the half-split one
+    (x..., y...): the k_pe tail of ``kv_a_proj_with_mqa``."""
+    head, tail = w[:-dim], w[-dim:]
+    tail = tail.reshape(dim // 2, 2, -1)
+    return torch.cat([head, tail[:, 0], tail[:, 1]], dim=0)
+
+
+def deinterleave_q(w, n_heads, nope_dim, rope_dim):
+    """The same reorder on each head's q_pe rows of a q / q_b projection
+    [H (dn + dr), in]: evens then odds after the dn pass-through rows."""
+    w = w.reshape(n_heads, nope_dim + rope_dim, -1)
+    pe = (w[:, nope_dim:].reshape(n_heads, rope_dim // 2, 2, -1)
+          .transpose(1, 2).reshape(n_heads, rope_dim, -1))
+    return torch.cat([w[:, :nope_dim], pe], dim=1).reshape(
+        n_heads * (nope_dim + rope_dim), -1)
+
+
+def _hf_config_to_deepseek(hc) -> DeepseekV2Config:
+    """The config the JAX converter builds when given none: f32, every
+    HF field read with its default (``deepseek.py:678-716``)."""
+    get = _hf_get(hc)
+    moe = get("n_routed_experts") is not None
+    return DeepseekV2Config(
+        vocab_size=get("vocab_size"), hidden_size=get("hidden_size"),
+        intermediate_size=get("intermediate_size"),
+        num_hidden_layers=get("num_hidden_layers"),
+        num_attention_heads=get("num_attention_heads"),
+        num_key_value_heads=get("num_attention_heads"),
+        max_position_embeddings=get("max_position_embeddings"),
+        rms_norm_eps=get("rms_norm_eps"), rope_theta=get("rope_theta"),
+        rope_scaling=(dict(get("rope_scaling"))
+                      if get("rope_scaling") else None),
+        dtype="float32",
+        q_lora_rank=get("q_lora_rank"),
+        kv_lora_rank=get("kv_lora_rank"),
+        qk_nope_head_dim=get("qk_nope_head_dim"),
+        qk_rope_head_dim=get("qk_rope_head_dim"),
+        v_head_dim=get("v_head_dim"),
+        n_routed_experts=(get("n_routed_experts") if moe else 0),
+        n_shared_experts=(get("n_shared_experts", 0) or 0),
+        num_experts_per_tok=(get("num_experts_per_tok") if moe else 2),
+        moe_intermediate_size=get("moe_intermediate_size", 1408),
+        first_k_dense_replace=(get("first_k_dense_replace", 0)
+                               if moe else 10 ** 9),
+        norm_topk_prob=bool(get("norm_topk_prob", False)),
+        routed_scaling_factor=float(get("routed_scaling_factor", 1.0)),
+        moe_scoring_func=str(get("scoring_func", "softmax")),
+        moe_correction_bias=(get("topk_method", "") == "noaux_tc"),
+        n_group=int(get("n_group", 1) or 1),
+        topk_group=int(get("topk_group", 1) or 1),
+        # aux-free checkpoints (noaux_tc) carry aux_loss_alpha 0: the HF
+        # field is the authority, not the config default
+        router_aux_loss_coef=float(get("aux_loss_alpha", 0.0) or 0.0),
+        tie_word_embeddings=bool(get("tie_word_embeddings", False)))
+
+
+def deepseek_from_hf(hf_model, config=None, device=None):
+    """A ``DeepseekV2ForCausalLM`` from a transformers DeepseekV2-style
+    model (anything with ``state_dict()`` and ``config``, an object or a
+    ``config.json`` dict), on ``device``. Without ``config`` it is mapped
+    from the HF one, in f32. Every tensor is written in place; the q_pe
+    rows and the k_pe tail are de-interleaved on the device. As in the
+    JAX converter, only the trunk's keys are read: other tensors (a V3
+    checkpoint's MTP layers) are left unused, and parameters no key
+    writes (a config's own MTP depths) keep their initial values; a
+    missing trunk key raises KeyError, a wrong shape ValueError."""
+    device = default_device(device)
+    sd = hf_model.state_dict()
+    if config is None:
+        config = _hf_config_to_deepseek(hf_model.config)
+    validate_rope_scaling(config.rope_scaling,
+                          max_position=config.max_position_embeddings)
+    model = DeepseekV2ForCausalLM(config, device=device)
+    H, dn, dr = (config.num_attention_heads, config.qk_nope_head_dim,
+                 config.qk_rope_head_dim)
+
+    def q_rows(t):
+        return deinterleave_q(t, H, dn, dr)
+
+    def kv_rows(t):
+        return deinterleave_rows(t, dr)
+
+    plan = {"llama.embed_tokens.weight": ("model.embed_tokens.weight", False),
+            "llama.norm.weight": ("model.norm.weight", False)}
+    if model.lm_head is not None:
+        plan["lm_head.weight"] = ("lm_head.weight", True)
+    transforms, experts = {}, {}
+    for i, layer in enumerate(model.llama.layers):
+        layer = getattr(layer, "inner", layer)
+        hf, ours = f"model.layers.{i}", f"llama.layers.{i}"
+        names = ["kv_a_proj_with_mqa", "kv_b_proj", "o_proj"]
+        if layer.self_attn.q_proj is not None:
+            names.append("q_proj")
+            transforms[f"{ours}.self_attn.q_proj.weight"] = q_rows
+        else:
+            names += ["q_a_proj", "q_b_proj"]
+            transforms[f"{ours}.self_attn.q_b_proj.weight"] = q_rows
+            plan[f"{ours}.self_attn.q_a_layernorm.weight"] = (
+                f"{hf}.self_attn.q_a_layernorm.weight", False)
+        for proj in names:
+            plan[f"{ours}.self_attn.{proj}.weight"] = (
+                f"{hf}.self_attn.{proj}.weight", True)
+        transforms[f"{ours}.self_attn.kv_a_proj_with_mqa.weight"] = kv_rows
+        for norm in ("self_attn.kv_a_layernorm", "input_layernorm",
+                     "post_attention_layernorm"):
+            plan[f"{ours}.{norm}.weight"] = (f"{hf}.{norm}.weight", False)
+        if not layer.is_moe:
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                plan[f"{ours}.mlp.{proj}.weight"] = (
+                    f"{hf}.mlp.{proj}.weight", True)
+            continue
+        plan[f"{ours}.mlp.gate_weight"] = (f"{hf}.mlp.gate.weight", True)
+        if layer.mlp.e_score_correction_bias is not None:
+            plan[f"{ours}.mlp.e_score_correction_bias"] = (
+                f"{hf}.mlp.gate.e_score_correction_bias", False)
+        experts[f"{ours}.mlp.experts"] = f"{hf}.mlp"
+        if layer.mlp.shared_expert is not None:
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                plan[f"{ours}.mlp.shared_expert.{proj}.weight"] = (
+                    f"{hf}.mlp.shared_experts.{proj}.weight", True)
+    return _load_grouped("deepseek_from_hf", model, sd, plan, experts,
+                         transforms=transforms, leftovers=False,
+                         require_covered=False)

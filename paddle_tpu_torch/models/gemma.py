@@ -8,15 +8,16 @@ sqrt(hidden_size) (``scale_embeddings``); head width 256 decoupled from
 hidden / heads, and the head tied to the embedding. On CUDA its attention
 runs the kernels at head width 256: the flash forward for an exact
 prefill, append attention for dense decode and padded prefills, the paged
-kernel in the engine and ``generate_paged``. Not ported: the HF loader
-(``gemma_from_hf``).
+kernel in the engine and ``generate_paged``. A HuggingFace checkpoint
+converts through ``gemma_from_hf`` (``gemma.py:84``: the Llama bridge with
+the three options set, the activation from ``hidden_activation``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from .llama import LlamaConfig, LlamaForCausalLM
+from .llama import LlamaConfig, LlamaForCausalLM, _from_hf, _hf_get
 
 
 @dataclasses.dataclass
@@ -73,3 +74,19 @@ class GemmaForCausalLM(LlamaForCausalLM):
         if not config.tie_word_embeddings:
             raise ValueError("Gemma ties the lm head to the embedding")
         super().__init__(config, device=device, generator=generator)
+
+
+def gemma_from_hf(hf_model_or_state, hf_config=None, device=None,
+                  **config_overrides):
+    """A ``GemmaForCausalLM`` from a transformers Gemma model, or from a
+    state dict and its config, on ``device`` (``gemma.py:84-98``). HF
+    Gemma carries its activation in ``hidden_activation`` (``hidden_act``
+    there is vestigial)."""
+    get = _hf_get(hf_config if hf_config is not None
+                  else hf_model_or_state.config)
+    config_overrides.setdefault(
+        "hidden_act", get("hidden_activation") or "gelu_pytorch_tanh")
+    config_overrides.setdefault("rms_norm_offset", True)
+    config_overrides.setdefault("scale_embeddings", True)
+    return _from_hf(GemmaConfig, GemmaForCausalLM, hf_model_or_state,
+                    hf_config, device=device, **config_overrides)

@@ -16,7 +16,9 @@ Gemma's options (``gemma.py``) plus Gemma2's four, each at the trunk level:
   the band gather);
 - sliding and full attention in turn through the trunk's ``layer_types``.
 
-Not ported: the HF loader (``gemma2_from_hf``).
+A HuggingFace checkpoint converts through ``gemma2_from_hf``
+(``gemma2.py:131``: the Llama bridge with the sandwich norms, the caps,
+the q scalar and the layer schedule from the config).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from torch import nn as tnn
 
 from .gemma import GemmaConfig
 from .llama import (LlamaAttention, LlamaForCausalLM, LlamaMLP, LlamaModel,
-                    LlamaRMSNorm, layer_window)
+                    LlamaRMSNorm, _from_hf, _hf_get, layer_window)
 
 
 @dataclasses.dataclass
@@ -121,3 +123,27 @@ class Gemma2ForCausalLM(LlamaForCausalLM):
         if not config.tie_word_embeddings:
             raise ValueError("Gemma2 ties the lm head to the embedding")
         super().__init__(config, device=device, generator=generator)
+
+
+def gemma2_from_hf(hf_model_or_state, hf_config=None, device=None,
+                   **config_overrides):
+    """A ``Gemma2ForCausalLM`` from a transformers Gemma2 model, or from a
+    state dict and its config, on ``device`` (``gemma2.py:131-160``): the
+    window schedule arrives as ``layer_types`` and a uniform window."""
+    get = _hf_get(hf_config if hf_config is not None
+                  else hf_model_or_state.config)
+    config_overrides.setdefault(
+        "hidden_act", get("hidden_activation") or "gelu_pytorch_tanh")
+    config_overrides.setdefault("rms_norm_offset", True)
+    config_overrides.setdefault("scale_embeddings", True)
+    for key in ("query_pre_attn_scalar", "attn_logit_softcapping",
+                "final_logit_softcapping", "sliding_window"):
+        config_overrides.setdefault(key, get(key))
+    lt = get("layer_types")
+    config_overrides.setdefault("layer_types",
+                                tuple(lt) if lt is not None else None)
+    return _from_hf(Gemma2Config, Gemma2ForCausalLM, hf_model_or_state,
+                    hf_config,
+                    extra_layer_norms=("pre_feedforward_layernorm",
+                                       "post_feedforward_layernorm"),
+                    device=device, **config_overrides)

@@ -18,7 +18,8 @@ in the engine and ``generate_paged`` (JAX's gates send 64 to its einsum
 and ``_sdpa_ref``; the paged decode is its bundled kernel). The block is
 no ``LlamaDecoderLayer``, so it never reaches the fused decode tail.
 Linear weights are [in, out] as in the JAX package (and as transformers'
-Conv1D keeps them). Not ported: the HF loader (``gpt2_from_hf``).
+Conv1D keeps them), so ``gpt2_from_hf`` (``gpt2.py:322``) writes a
+HuggingFace checkpoint's tensors as they are, untransposed.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ from .. import nn
 from ..framework.random import default_device, default_generator
 from ..ops.hopper.append_attention import chunk_positions, plain_width
 from ..ops.hopper.flash_attention import flash_attention_bshd
-from .llama import causal_lm_loss, torch_dtype
+from .llama import (_check_checkpoint, _hf_get, _state_and_config,
+                    _write_plan, causal_lm_loss, torch_dtype)
 
 
 @dataclasses.dataclass
@@ -305,3 +307,39 @@ class GPT2LMHeadModel(tnn.Module):
         from ..generation import generate as _generate
 
         return _generate(self, input_ids, **kw)
+
+
+def gpt2_from_hf(hf_model_or_state, hf_config=None, device=None,
+                 **config_overrides):
+    """A ``GPT2LMHeadModel`` from a transformers GPT2LMHeadModel, or from a
+    state dict and its config, on ``device`` (``gpt2.py:322-374``).
+    Conv1D weights are [in, out], as here: nothing is transposed. The
+    tied ``lm_head.weight`` and the causal-mask buffers are skipped."""
+    device = default_device(device)
+    state, hf_config = _state_and_config(hf_model_or_state, hf_config)
+    get = _hf_get(hf_config)
+    kw = dict(vocab_size=get("vocab_size"),
+              hidden_size=get("n_embd", get("hidden_size")),
+              num_hidden_layers=get("n_layer", get("num_hidden_layers")),
+              num_attention_heads=get("n_head", get("num_attention_heads")),
+              max_position_embeddings=get("n_positions",
+                                          get("max_position_embeddings")),
+              layer_norm_epsilon=get("layer_norm_epsilon", 1e-5))
+    kw.update(config_overrides)
+    cfg = GPT2Config(**kw)
+    model = GPT2LMHeadModel(cfg, device=device)
+    plan = {f"llama.{k}": (f"transformer.{k}", False)
+            for k in ("wte.weight", "wpe.weight", "ln_f.weight",
+                      "ln_f.bias")}
+    for i in range(cfg.num_hidden_layers):
+        for mod in ("ln_1", "ln_2", "attn.c_attn", "attn.c_proj",
+                    "mlp.c_fc", "mlp.c_proj"):
+            for part in ("weight", "bias"):
+                plan[f"llama.h.{i}.{mod}.{part}"] = (
+                    f"transformer.h.{i}.{mod}.{part}", False)
+    _check_checkpoint("gpt2_from_hf", model, state,
+                      [k for k, _ in plan.values()], plan,
+                      aliases=("lm_head.weight",),
+                      skip=(".attn.bias", ".attn.masked_bias"))
+    _write_plan("gpt2_from_hf", model, state, plan)
+    return model

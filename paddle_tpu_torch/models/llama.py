@@ -26,6 +26,13 @@ package routes them to) and on the logits (``final_logit_softcapping``).
 Not ported: context parallelism in the trunk (the port has no process
 group; JAX refuses capped attention there too).
 
+The HuggingFace checkpoint bridge (``hf_config_to_llama``,
+``load_hf_llama``, ``export_hf_llama``, ``llama_from_hf``,
+``llama_to_hf``; ``llama.py:205-230, 1260-1501``) is the one every
+Llama-layout family converts through: a state dict of torch tensors or
+numpy arrays and a config object or ``config.json`` dict in, each tensor
+written into its parameter in place on the model's device.
+
 Parameter names equal the JAX package's (``llama.layers.0.self_attn.
 q_proj.weight``, ``lm_head.weight``, ...), and Linear weights keep Paddle's
 [in, out] layout, so ``weights.from_jax_state`` moves a state across as is.
@@ -37,8 +44,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn as tnn
 
@@ -901,3 +910,326 @@ def causal_lm_loss(logits, labels):
     nll = -logp.gather(-1, torch.where(mask, idx, 0)[..., None])[..., 0]
     nll = torch.where(mask, nll, 0.0)
     return nll.sum() / torch.clamp(mask.float().sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# HuggingFace checkpoint bridge (``llama.py:205-230, 1260-1501``)
+# ---------------------------------------------------------------------------
+#
+# The JAX package converts a checkpoint through f32 numpy and swaps each
+# array in. The port stays in torch and writes every tensor IN PLACE, one at
+# a time: moved to the parameter's device as stored, permuted, transposed
+# and cast there (``param.copy_``), so the device holds the model plus one
+# tensor at most, the host never makes a transposed or upcast copy, and the
+# storage a captured CUDA graph of the model reads stays the same.
+
+#: checkpoint buffers no model represents (recomputed from the config)
+_SKIPPED = ("rotary_emb.inv_freq",)
+
+
+def _hf_get(hf_config):
+    """Uniform accessor over a transformers config object or a raw
+    ``config.json`` dict (``llama.py:214-219``)."""
+    return (hf_config.get if isinstance(hf_config, dict)
+            else lambda k, d=None: getattr(hf_config, k, d))
+
+
+def mapped_rope_scaling(get) -> Optional[dict]:
+    """``rope_scaling`` read through a mapper's ``get``, validated at
+    convert time (``validate_rope_scaling``), as a dict or None
+    (``llama.py:221-230``)."""
+    scaling = get("rope_scaling")
+    if scaling not in (None, {}):
+        validate_rope_scaling(dict(scaling),
+                              max_position=get("max_position_embeddings"))
+    return dict(scaling) if scaling else None
+
+
+def hf_tensor(value) -> torch.Tensor:
+    """A checkpoint value as a torch tensor, copied nowhere: a tensor
+    detached, a numpy array shared (an ml_dtypes bfloat16 array by its
+    bits; a read-only one, a memory-mapped file's, is only read)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach()
+    arr = np.asarray(value)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # non-writable arrays
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(np.ascontiguousarray(arr).view(
+                np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(arr)
+
+
+def _copy_in(target, value, transpose, who, name, fn=None):
+    """Write checkpoint ``value`` into ``target`` (a parameter or a view of
+    one) in place: moved to its device as stored, ``fn`` (a row
+    permutation or reshape) and the transpose applied there, cast by
+    ``copy_``. A wrong shape raises ValueError naming "shape" before
+    anything is moved."""
+    def check(shape):
+        if tuple(shape) != tuple(target.shape):
+            raise ValueError(f"{who}: shape mismatch for {name}: loading "
+                             f"{tuple(shape)} into {tuple(target.shape)}")
+
+    t = hf_tensor(value)
+    if fn is None:
+        check(t.shape[::-1] if transpose else t.shape)
+    t = t.to(target.device)
+    if fn is not None:
+        try:
+            t = fn(t)
+        except RuntimeError as e:   # a reshape of the wrong size
+            raise ValueError(f"{who}: shape mismatch for {name}: {e}") from e
+        check(t.shape[::-1] if transpose else t.shape)
+    with torch.no_grad():
+        target.copy_(t.t() if transpose else t)
+
+
+def _check_checkpoint(who, model, state, keys, covered, aliases=(),
+                      skip=_SKIPPED, leftovers=True, require_covered=True,
+                      ignore_missing_prefixes=()):
+    """The refusals of the JAX loaders, before anything is written: a
+    KeyError for a checkpoint key the plan needs and the state lacks, a
+    ValueError for checkpoint tensors the model cannot represent
+    (``leftovers``; ``aliases`` and keys ending in ``skip`` are allowed),
+    a KeyError for model parameters no plan entry writes (``covered``)."""
+    for key in keys:
+        if key not in state:
+            raise KeyError(f"{who}: checkpoint is missing {key!r}")
+    if leftovers:
+        used = set(keys) | set(aliases)
+        left = [k for k in state
+                if k not in used and not k.endswith(tuple(skip))]
+        if left:
+            raise ValueError(
+                f"{who}: checkpoint tensors this model cannot represent "
+                f"(silently dropping them would change logits): {left[:5]}"
+                f"{'...' if len(left) > 5 else ''}")
+    if require_covered:
+        covered = set(covered)
+        missing = [n for n, _ in model.named_parameters()
+                   if n not in covered
+                   and not n.startswith(tuple(ignore_missing_prefixes))]
+        if missing:
+            raise KeyError(f"{who}: model keys not covered: {missing[:5]}")
+
+
+def _write_plan(who, model, state, plan, transforms=None):
+    """Every ``{param name: (hf key, transpose)}`` entry written in place,
+    one tensor at a time, ``transforms[name]`` applied on the device."""
+    params = dict(model.named_parameters())
+    transforms = transforms or {}
+    for name, (hf_key, transpose) in plan.items():
+        if name not in params:
+            raise KeyError(f"{who}: model has no param {name!r}")
+        _copy_in(params[name], state[hf_key], transpose, who, name,
+                 transforms.get(name))
+
+
+def _exported(param, transpose, dtype=None) -> torch.Tensor:
+    """One parameter as a contiguous CPU tensor in the checkpoint's
+    layout: cast and transposed where it lives, then copied to the host
+    (a CPU parameter is copied, never shared)."""
+    t = param.detach()
+    if dtype is not None:
+        t = t.to(torch_dtype(dtype))
+    if transpose:
+        t = t.t()
+    if t.device.type == "cpu":
+        return t.clone(memory_format=torch.contiguous_format)
+    return t.contiguous().cpu()
+
+
+def hf_config_to_llama(hf_config, **overrides) -> LlamaConfig:
+    """A transformers Llama config (object or ``config.json`` dict) as a
+    ``LlamaConfig`` (``llama.py:1272-1330``), with its refusals: a Gemma
+    checkpoint without the Gemma overrides (its (1 + w) norm deltas and
+    unscaled embeddings would be misread), a per-layer window
+    (``max_window_layers`` below the depth), a rope type or yarn /
+    longrope parameters no table builder takes. HF Llama's
+    ``attention_bias`` also puts a bias on o_proj, which no layer here
+    holds: the flag maps to the q/k/v biases (Qwen2's default) and the
+    loader refuses the leftover o_proj bias."""
+    get = _hf_get(hf_config)
+    if (str(get("model_type", "")).startswith("gemma")
+            and "rms_norm_offset" not in overrides):
+        raise NotImplementedError(
+            "this checkpoint is a Gemma-family model — convert it with "
+            "gemma_from_hf (llama_from_hf would misread its (1+w) norm "
+            "deltas and unscaled embeddings)")
+    scaling = mapped_rope_scaling(get)
+    window = None
+    if get("use_sliding_window", get("sliding_window") is not None
+           and get("model_type") == "mistral"):
+        window = get("sliding_window")
+        # HF Qwen2 windows only the layers >= max_window_layers; the window
+        # here is uniform (0: every layer windowed, exact)
+        mwl = get("max_window_layers", 0) or 0
+        if 0 < mwl < get("num_hidden_layers"):
+            raise NotImplementedError(
+                f"hf_config_to_llama: per-layer sliding window "
+                f"(max_window_layers={mwl}) is not supported — this build "
+                "applies sliding_window uniformly")
+        if mwl >= get("num_hidden_layers"):
+            window = None   # no layer is windowed in the HF semantics
+    kw = dict(
+        vocab_size=get("vocab_size"),
+        hidden_size=get("hidden_size"),
+        intermediate_size=get("intermediate_size"),
+        num_hidden_layers=get("num_hidden_layers"),
+        num_attention_heads=get("num_attention_heads"),
+        num_key_value_heads=get("num_key_value_heads",
+                                get("num_attention_heads")),
+        max_position_embeddings=get("max_position_embeddings"),
+        rms_norm_eps=get("rms_norm_eps", 1e-5),
+        rope_theta=get("rope_theta", 10000.0),
+        rope_scaling=scaling,
+        tie_word_embeddings=bool(get("tie_word_embeddings", False)),
+        attention_bias=bool(get("attention_bias",
+                                get("model_type") == "qwen2")),
+        head_dim=get("head_dim"),
+        partial_rotary_factor=float(get("partial_rotary_factor") or 1.0),
+        sliding_window=window,
+    )
+    kw.update(overrides)
+    return LlamaConfig(**kw)
+
+
+#: the classic per-layer norm pair of the Llama key layout (OLMo2 swaps in
+#: its post-only pair, Gemma2 adds its sandwich norms)
+_DEFAULT_LAYER_NORMS = ("input_layernorm", "post_attention_layernorm")
+
+
+def _hf_llama_plan(model, extra_layer_norms=(), layer_norms=None):
+    """``{param name: (hf key, transpose)}`` of the Llama key layout, the
+    one map the loader and the exporter share (``llama.py:1335-1367``).
+    The untied head maps to ``lm_head.weight``; the loader redirects it
+    for a checkpoint with a tied head."""
+    if layer_norms is None:
+        layer_norms = _DEFAULT_LAYER_NORMS
+    cfg = model.config
+    plan = {"llama.embed_tokens.weight": ("model.embed_tokens.weight", False),
+            "llama.norm.weight": ("model.norm.weight", False)}
+    for i in range(cfg.num_hidden_layers):
+        hf, ours = f"model.layers.{i}", f"llama.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            plan[f"{ours}.self_attn.{proj}.weight"] = (
+                f"{hf}.self_attn.{proj}.weight", True)
+        if cfg.qk_norm:
+            for norm in ("q_norm", "k_norm"):
+                plan[f"{ours}.self_attn.{norm}.weight"] = (
+                    f"{hf}.self_attn.{norm}.weight", False)
+        if cfg.attention_bias:
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                plan[f"{ours}.self_attn.{proj}.bias"] = (
+                    f"{hf}.self_attn.{proj}.bias", False)
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            plan[f"{ours}.mlp.{proj}.weight"] = (f"{hf}.mlp.{proj}.weight",
+                                                 True)
+        for norm in tuple(layer_norms) + tuple(extra_layer_norms):
+            plan[f"{ours}.{norm}.weight"] = (f"{hf}.{norm}.weight", False)
+    if model.lm_head is not None:
+        plan["lm_head.weight"] = ("lm_head.weight", True)
+    return plan
+
+
+def export_hf_llama(model: "LlamaForCausalLM", extra_layer_norms=(),
+                    layer_norms=None, dtype=None):
+    """The reverse of ``load_hf_llama`` (``llama.py:1370-1394``): the
+    model's weights under HF keys, ``{hf key: tensor}``, each a contiguous
+    CPU tensor in torch's [out, in] layout and the parameter's dtype
+    (``dtype`` forces one), ready for ``HFModel.load_state_dict``. A tied
+    model leaves ``lm_head.weight`` out (HF ties it again)."""
+    plan = _hf_llama_plan(model, extra_layer_norms=extra_layer_norms,
+                          layer_norms=layer_norms)
+    params = dict(model.named_parameters())
+    out = {}
+    for name, (hf_key, transpose) in plan.items():
+        if name not in params:
+            raise KeyError(f"export_hf_llama: model has no param {name!r}")
+        out[hf_key] = _exported(params[name], transpose, dtype)
+    return out
+
+
+def load_hf_llama(model: "LlamaForCausalLM", hf_state_dict,
+                  extra_layer_norms=(), layer_norms=None,
+                  ignore_missing_prefixes=()) -> "LlamaForCausalLM":
+    """A HuggingFace Llama-layout state dict (torch tensors or numpy
+    arrays) written into ``model`` in place, on the model's device
+    (``llama.py:1397-1446``): projections transposed from torch's [out,
+    in], ``rotary_emb.inv_freq`` skipped; a tied-in-HF checkpoint feeds an
+    untied head from the embedding, and a tied model accepts the
+    ``lm_head.weight`` alias. Refuses (before writing) a missing key
+    (KeyError), a tensor the model cannot represent (ValueError), a model
+    parameter the plan leaves unwritten (KeyError, unless under
+    ``ignore_missing_prefixes``), and a wrong shape (ValueError)."""
+    plan = _hf_llama_plan(model, extra_layer_norms=extra_layer_norms,
+                          layer_norms=layer_norms)
+    aliases = ()
+    if model.lm_head is None:
+        aliases = ("lm_head.weight",)
+    elif "lm_head.weight" not in hf_state_dict:
+        plan["lm_head.weight"] = ("model.embed_tokens.weight", True)
+    _check_checkpoint("load_hf_llama", model, hf_state_dict,
+                      [k for k, _ in plan.values()], plan, aliases=aliases,
+                      ignore_missing_prefixes=ignore_missing_prefixes)
+    _write_plan("load_hf_llama", model, hf_state_dict, plan)
+    return model
+
+
+def _state_and_config(hf_model_or_state, hf_config):
+    """(state dict, config) of a transformers model, or of a raw state dict
+    with its config."""
+    if hf_config is None:
+        return hf_model_or_state.state_dict(), hf_model_or_state.config
+    return hf_model_or_state, hf_config
+
+
+def _from_hf(config_cls, model_cls, hf_model_or_state, hf_config=None,
+             extra_layer_norms=(), layer_norms=None, device=None,
+             **config_overrides):
+    """The conversion of the Llama-layout families (``llama.py:1449-1465``):
+    map the config, build the model on ``device`` (default: the current
+    CUDA device; it raises where there is none), load."""
+    device = default_device(device)
+    state, hf_config = _state_and_config(hf_model_or_state, hf_config)
+    base = hf_config_to_llama(hf_config, **config_overrides)
+    cfg = (base if config_cls is LlamaConfig
+           else config_cls(**dataclasses.asdict(base)))
+    return load_hf_llama(model_cls(cfg, device=device), state,
+                         extra_layer_norms=extra_layer_norms,
+                         layer_norms=layer_norms)
+
+
+def llama_from_hf(hf_model_or_state, hf_config=None, device=None,
+                  **config_overrides):
+    """A ``LlamaForCausalLM`` from a transformers model, or from a state
+    dict and its config (object or ``config.json`` dict), on ``device``."""
+    return _from_hf(LlamaConfig, LlamaForCausalLM, hf_model_or_state,
+                    hf_config, device=device, **config_overrides)
+
+
+def llama_to_hf(model, dtype=None):
+    """The HF Llama checkpoint layout of every family whose checkpoint IS
+    that layout (Llama, Qwen2, Qwen3, Mistral, Gemma; Gemma2 adds its
+    sandwich norms, OLMo2 its post-only pair; ``llama.py:1475-1501``).
+    Phi-3 (fused projections) and GLM (interleaved rotary rows) refuse:
+    their runtime weights under HF keys would be a wrong checkpoint."""
+    from .gemma2 import Gemma2ForCausalLM
+    from .glm import GlmForCausalLM
+    from .olmo2 import _OLMO2_NORMS, Olmo2ForCausalLM
+    from .phi3 import Phi3ForCausalLM
+
+    if isinstance(model, (GlmForCausalLM, Phi3ForCausalLM)):
+        raise NotImplementedError(
+            f"llama_to_hf: {type(model).__name__} checkpoints are "
+            "TRANSFORMED at load (fused projections / interleaved "
+            "rotary); the reverse transform is not implemented — "
+            "exporting raw runtime weights would be silently wrong")
+    extra, norms = (), None
+    if isinstance(model, Gemma2ForCausalLM):
+        extra = ("pre_feedforward_layernorm", "post_feedforward_layernorm")
+    if isinstance(model, Olmo2ForCausalLM):
+        norms = _OLMO2_NORMS
+    return export_hf_llama(model, extra_layer_norms=extra,
+                           layer_norms=norms, dtype=dtype)

@@ -20,7 +20,10 @@ ran). Autograd differentiates the index dispatch to the gradients of the
 JAX function's dense one-hot einsums: a kept route's token gets its
 expert's gradient, ``gate_weight`` learns through the kept routes'
 weights and the aux value, and a dropped route or one of weight 0 gets
-nothing. Not ported: HF loading.
+nothing. HuggingFace checkpoints of the grouped families load through
+``load_hf_grouped_moe`` (``llama_moe.py:73``): each expert's gate / up /
+down written into its slice of the grouped ``[E, ...]`` weights in place
+(``pack_hf_experts``).
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from ..distributed.moe import (GroupedMLP, compute_capacity,
                                dispatch_positions)
 from ..ops.hopper import fused_norm
 from .llama import (LlamaAttention, LlamaConfig, LlamaForCausalLM, LlamaMLP,
-                    LlamaModel, LlamaRMSNorm, layer_window, torch_dtype)
+                    LlamaModel, LlamaRMSNorm, _check_checkpoint, _write_plan,
+                    hf_tensor, layer_window, torch_dtype)
 
 
 @dataclasses.dataclass
@@ -284,3 +288,135 @@ class LlamaMoEForCausalLM(LlamaForCausalLM):
         if aux is not None:
             loss = loss + self.config.router_aux_loss_coef * aux
         return loss, logits
+
+
+# ---------------------------------------------------------------------------
+# HuggingFace checkpoints of the grouped-expert families
+# ---------------------------------------------------------------------------
+
+_EXPERT_KEYS = ("gate_proj", "up_proj", "down_proj")
+
+
+def _expert_hf_keys(hf_prefix, n_experts, expert_keys=_EXPERT_KEYS):
+    return [f"{hf_prefix}.experts.{e}.{k}.weight"
+            for e in range(n_experts) for k in expert_keys]
+
+
+def pack_hf_experts(take, hf_prefix, n_experts, hidden_size,
+                    expert_keys=_EXPERT_KEYS, experts=None):
+    """A checkpoint's per-expert gate / up / down weights in the grouped
+    [E, ...] layout (``llama_moe.py:155-176``): w1 the fused gate‖up
+    [E, h, 2M], w2 [E, M, h], b1 / b2 zeros. ``take(hf_key, transpose)``
+    gives one checkpoint tensor (transposed to [in, out]); ``expert_keys``
+    names (gate, up, down) in the checkpoint (Mixtral: w1 / w3 / w2).
+    With ``experts`` (a ``GroupedMLP``) each expert's three tensors are
+    written into its slices of w1 / w2 in place, one at a time, and the
+    module's (w1, b1, w2, b2) returned; without, new stacked tensors."""
+    gate_k, up_k, down_k = expert_keys
+
+    def key(e, k):
+        return f"{hf_prefix}.experts.{e}.{k}.weight"
+
+    if experts is None:
+        w1 = torch.stack([torch.cat([take(key(e, gate_k), True),
+                                     take(key(e, up_k), True)], dim=-1)
+                          for e in range(n_experts)])
+        w2 = torch.stack([take(key(e, down_k), True)
+                          for e in range(n_experts)])
+        b1 = w1.new_zeros(n_experts, 1, w1.shape[-1])
+        b2 = w1.new_zeros(n_experts, 1, hidden_size)
+        return w1, b1, w2, b2
+    M = experts.d_hidden
+    with torch.no_grad():
+        for e in range(n_experts):
+            for k, dst in ((gate_k, experts.w1[e, :, :M]),
+                           (up_k, experts.w1[e, :, M:]),
+                           (down_k, experts.w2[e])):
+                src = take(key(e, k), True)
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(
+                        f"{key(e, k)}: shape mismatch, loading "
+                        f"{tuple(src.shape)} into {tuple(dst.shape)}")
+                dst.copy_(src)
+        experts.b1.zero_()
+        experts.b2.zero_()
+    return experts.w1, experts.b1, experts.w2, experts.b2
+
+
+def _load_grouped(who, model, state, plan, experts, expert_keys=_EXPERT_KEYS,
+                  transforms=None, aliases=(), leftovers=True,
+                  require_covered=True):
+    """Refuse, then write a grouped-expert model from ``state``: ``plan``
+    ``{param name: (hf key, transpose)}`` for the plain tensors (with
+    ``transforms[name]`` applied on the device), ``experts``
+    ``{grouped module name: hf prefix}`` packed by ``pack_hf_experts``."""
+    E = model.config.n_routed_experts
+    keys = [k for k, _ in plan.values()]
+    covered = set(plan)
+    for name, prefix in experts.items():
+        keys += _expert_hf_keys(prefix, E, expert_keys)
+        covered.update(f"{name}.{w}" for w in ("w1", "b1", "w2", "b2"))
+    _check_checkpoint(who, model, state, keys, covered, aliases=aliases,
+                      leftovers=leftovers, require_covered=require_covered)
+    _write_plan(who, model, state, plan, transforms)
+    modules = dict(model.named_modules())
+    for name, prefix in experts.items():
+        dev = modules[name].w1.device
+
+        def take(hf_key, transpose, dev=dev):
+            t = hf_tensor(state[hf_key]).to(dev)
+            return t.t() if transpose else t
+
+        pack_hf_experts(take, prefix, E, model.config.hidden_size,
+                        expert_keys=expert_keys, experts=modules[name])
+    return model
+
+
+def load_hf_grouped_moe(model, hf_state_dict, *, attn_biases=False,
+                        qk_norms=False, shared_expert=False,
+                        shared_gate=False, who="load_hf_moe",
+                        mlp_key="mlp", expert_keys=_EXPERT_KEYS):
+    """A HuggingFace state dict of the Qwen-MoE shape written into a
+    grouped-expert model in place (``llama_moe.py:73-152``): embedding,
+    final norm and head (tied-in-HF feeds an untied head from the
+    embedding), per layer the attention (q/k/v biases, per-head q/k norms
+    optional), the router (HF [E, h] -> [h, E]), the experts packed, the
+    shared expert and its sigmoid gate optional. ``mlp_key`` /
+    ``expert_keys`` rename the block (Mixtral: ``block_sparse_moe`` with
+    w1 / w3 / w2). Refusals as ``load_hf_llama``'s."""
+    cfg = model.config
+    plan = {"llama.embed_tokens.weight": ("model.embed_tokens.weight", False),
+            "llama.norm.weight": ("model.norm.weight", False)}
+    if model.lm_head is not None:
+        plan["lm_head.weight"] = (
+            "lm_head.weight" if "lm_head.weight" in hf_state_dict
+            else "model.embed_tokens.weight", True)
+    experts = {}
+    for i in range(cfg.num_hidden_layers):
+        hf, ours = f"model.layers.{i}", f"llama.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            plan[f"{ours}.self_attn.{proj}.weight"] = (
+                f"{hf}.self_attn.{proj}.weight", True)
+        if attn_biases:
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                plan[f"{ours}.self_attn.{proj}.bias"] = (
+                    f"{hf}.self_attn.{proj}.bias", False)
+        if qk_norms:
+            for norm in ("q_norm", "k_norm"):
+                plan[f"{ours}.self_attn.{norm}.weight"] = (
+                    f"{hf}.self_attn.{norm}.weight", False)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            plan[f"{ours}.{norm}.weight"] = (f"{hf}.{norm}.weight", False)
+        plan[f"{ours}.mlp.gate_weight"] = (f"{hf}.{mlp_key}.gate.weight",
+                                           True)
+        experts[f"{ours}.mlp.experts"] = f"{hf}.{mlp_key}"
+        if shared_expert:
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                plan[f"{ours}.mlp.shared_expert.{proj}.weight"] = (
+                    f"{hf}.{mlp_key}.shared_expert.{proj}.weight", True)
+        if shared_gate:   # HF [1, h] -> [h, 1]
+            plan[f"{ours}.mlp.shared_gate_weight"] = (
+                f"{hf}.{mlp_key}.shared_expert_gate.weight", True)
+    return _load_grouped(who, model, hf_state_dict, plan, experts,
+                         expert_keys=expert_keys,
+                         aliases=("lm_head.weight",))

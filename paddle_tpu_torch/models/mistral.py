@@ -5,15 +5,17 @@ v0.1 / v0.2), expressed as a ``LlamaConfig`` specialisation: every path is
 the Llama trunk's, with ``sliding_window`` set. On CUDA the training
 forward and the unpadded prefill run the LocalMask flash kernels
 (``ops/hopper/flash_attention.py``), windowed decode gathers only the
-pages of the band (``generation._paged_window_attention``). HF interop
-(``mistral_from_hf``) is not ported, as for Llama.
+pages of the band (``generation._paged_window_attention``). A
+HuggingFace checkpoint converts through ``mistral_from_hf``
+(``mistral.py:48``: the Llama bridge; ``sliding_window`` maps for
+``model_type`` "mistral").
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from .llama import LlamaConfig, LlamaForCausalLM
+from .llama import LlamaConfig, LlamaForCausalLM, _from_hf
 
 
 @dataclasses.dataclass
@@ -45,3 +47,11 @@ class MistralConfig(LlamaConfig):
 
 class MistralForCausalLM(LlamaForCausalLM):
     """Mistral causal LM — the Llama decoder with sliding-window attention."""
+
+
+def mistral_from_hf(hf_model_or_state, hf_config=None, device=None,
+                    **config_overrides):
+    """A ``MistralForCausalLM`` from a transformers Mistral model, or from a
+    state dict and its config, on ``device`` (``mistral.py:48-52``)."""
+    return _from_hf(MistralConfig, MistralForCausalLM, hf_model_or_state,
+                    hf_config, device=device, **config_overrides)

@@ -4,14 +4,18 @@
 The MoE decoder of ``llama_moe`` the Mixtral way: every layer sparse, no
 shared expert, top-2 of 8 with the softmax over the selected logits (the
 trunk's ``norm_topk_prob=True``), SwiGLU experts in the fused gate‖up
-layout, bias-free GQA attention. Not ported: the HF loader
-(``mixtral_from_hf``).
+layout, bias-free GQA attention. A HuggingFace checkpoint converts
+through ``mixtral_from_hf`` (``mixtral.py:80-125``: ``block_sparse_moe``
+with per-expert w1 / w3 / w2 as gate / up / down).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from .llama_moe import LlamaMoEConfig, LlamaMoEForCausalLM
+from ..framework.random import default_device
+from .llama import _hf_get, _state_and_config, mapped_rope_scaling
+from .llama_moe import (LlamaMoEConfig, LlamaMoEForCausalLM,
+                        load_hf_grouped_moe)
 
 
 @dataclasses.dataclass
@@ -63,3 +67,49 @@ class MixtralForCausalLM(LlamaMoEForCausalLM):
             raise ValueError("Mixtral is sparse from layer 0 "
                              "(first_k_dense_replace=0)")
         super().__init__(config, device=device, generator=generator)
+
+
+def _hf_config_to_mixtral(hf_config, **overrides) -> MixtralConfig:
+    """A transformers Mixtral config as a ``MixtralConfig``
+    (``mixtral.py:80-104``): the expert width is ``intermediate_size``."""
+    get = _hf_get(hf_config)
+    kw = dict(
+        rope_scaling=mapped_rope_scaling(get),
+        vocab_size=get("vocab_size"),
+        hidden_size=get("hidden_size"),
+        intermediate_size=get("intermediate_size"),
+        moe_intermediate_size=get("intermediate_size"),
+        num_hidden_layers=get("num_hidden_layers"),
+        num_attention_heads=get("num_attention_heads"),
+        num_key_value_heads=get("num_key_value_heads"),
+        max_position_embeddings=get("max_position_embeddings"),
+        rms_norm_eps=get("rms_norm_eps", 1e-5),
+        rope_theta=get("rope_theta", 1e6),
+        sliding_window=get("sliding_window"),
+        tie_word_embeddings=bool(get("tie_word_embeddings", False)),
+        n_routed_experts=get("num_local_experts"),
+        num_experts_per_tok=get("num_experts_per_tok"),
+        router_aux_loss_coef=get("router_aux_loss_coef", 0.001),
+    )
+    kw.update(overrides)
+    return MixtralConfig(**kw)
+
+
+def load_hf_mixtral(model: MixtralForCausalLM,
+                    hf_state_dict) -> MixtralForCausalLM:
+    """A transformers MixtralForCausalLM state dict written into ``model``
+    in place (``mixtral.py:107-114``)."""
+    return load_hf_grouped_moe(model, hf_state_dict,
+                               who="load_hf_mixtral",
+                               mlp_key="block_sparse_moe",
+                               expert_keys=("w1", "w3", "w2"))
+
+
+def mixtral_from_hf(hf_model_or_state, hf_config=None, device=None,
+                    **config_overrides):
+    """A ``MixtralForCausalLM`` from a transformers model, or from a state
+    dict and its config, on ``device`` (``mixtral.py:117-125``)."""
+    device = default_device(device)
+    state, hf_config = _state_and_config(hf_model_or_state, hf_config)
+    cfg = _hf_config_to_mixtral(hf_config, **config_overrides)
+    return load_hf_mixtral(MixtralForCausalLM(cfg, device=device), state)

@@ -11,8 +11,9 @@ The Llama trunk with two deviations:
   at widths H D and hk D).
 
 Every other path (caches, engine, beams) is the trunk's; the block is no
-``LlamaDecoderLayer``, so it never reaches the fused decode tail. Not
-ported: the HF loader (``olmo2_from_hf``).
+``LlamaDecoderLayer``, so it never reaches the fused decode tail. A
+HuggingFace checkpoint converts through ``olmo2_from_hf`` (``olmo2.py:98``:
+the Llama bridge with the post-only norm pair, ``_OLMO2_NORMS``).
 """
 from __future__ import annotations
 
@@ -21,7 +22,10 @@ import dataclasses
 from torch import nn as tnn
 
 from .llama import (LlamaAttention, LlamaConfig, LlamaForCausalLM, LlamaMLP,
-                    LlamaModel, LlamaRMSNorm, layer_window)
+                    LlamaModel, LlamaRMSNorm, _from_hf, layer_window)
+
+#: OLMo2's per-layer norms in the checkpoint (``olmo2.py:25``)
+_OLMO2_NORMS = ("post_attention_layernorm", "post_feedforward_layernorm")
 
 
 @dataclasses.dataclass
@@ -91,3 +95,13 @@ class Olmo2ForCausalLM(LlamaForCausalLM):
             raise ValueError("OLMo2 norms the WHOLE projected q/k "
                              "(qk_norm='full')")
         super().__init__(config, device=device, generator=generator)
+
+
+def olmo2_from_hf(hf_model_or_state, hf_config=None, device=None,
+                  **config_overrides):
+    """An ``Olmo2ForCausalLM`` from a transformers Olmo2 model, or from a
+    state dict and its config, on ``device`` (``olmo2.py:98-105``)."""
+    config_overrides.setdefault("qk_norm", "full")
+    return _from_hf(Olmo2Config, Olmo2ForCausalLM, hf_model_or_state,
+                    hf_config, layer_norms=_OLMO2_NORMS, device=device,
+                    **config_overrides)

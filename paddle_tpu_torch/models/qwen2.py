@@ -6,13 +6,14 @@ RoPE base and presets. On CUDA its attention runs the kernels at its head
 width: 128 for Qwen2.5-7B (28 | 4 heads), 64 for Qwen2.5-0.5B (14 | 2, a
 group of 7; the (64, 64) flash forward and append attention, and
 ``paged_attention_64``). The biases keep every layer off the fused decode
-tail, as in JAX. Not ported: the HF loader (``qwen2_from_hf``).
+tail, as in JAX. A HuggingFace checkpoint converts through
+``qwen2_from_hf`` (``qwen2.py:62``: the Llama bridge).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from .llama import LlamaConfig, LlamaForCausalLM
+from .llama import LlamaConfig, LlamaForCausalLM, _from_hf
 
 
 @dataclasses.dataclass
@@ -59,3 +60,11 @@ class Qwen2ForCausalLM(LlamaForCausalLM):
         if not config.attention_bias:
             raise ValueError("Qwen2 uses attention_bias=True")
         super().__init__(config, device=device, generator=generator)
+
+
+def qwen2_from_hf(hf_model_or_state, hf_config=None, device=None,
+                  **config_overrides):
+    """A ``Qwen2ForCausalLM`` from a transformers Qwen2 model, or from a
+    state dict and its config, on ``device`` (``qwen2.py:62-66``)."""
+    return _from_hf(Qwen2Config, Qwen2ForCausalLM, hf_model_or_state,
+                    hf_config, device=device, **config_overrides)

@@ -4,15 +4,16 @@ The Llama trunk with per-head q/k RMSNorm after the head split
 (``qk_norm=True``: two more ``rms_norm`` launches a layer, at width
 ``head_dim``), no projection bias, and ``head_dim`` decoupled from hidden
 / heads (Qwen3-4B: hidden 2560, 32 heads of 128). The q/k norms keep every
-layer off the fused decode tail, as in JAX. Not ported: the HF loader
-(``qwen3_from_hf``).
+layer off the fused decode tail, as in JAX. A HuggingFace checkpoint
+converts through ``qwen3_from_hf`` (``qwen3.py:73``: the Llama bridge with
+the q/k norms).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from .llama import LlamaConfig, LlamaForCausalLM
+from .llama import LlamaConfig, LlamaForCausalLM, _from_hf
 
 
 @dataclasses.dataclass
@@ -65,3 +66,12 @@ class Qwen3ForCausalLM(LlamaForCausalLM):
                 "Qwen3 uses PER-HEAD q/k norms (qk_norm=True); "
                 f"got qk_norm={config.qk_norm!r}")
         super().__init__(config, device=device, generator=generator)
+
+
+def qwen3_from_hf(hf_model_or_state, hf_config=None, device=None,
+                  **config_overrides):
+    """A ``Qwen3ForCausalLM`` from a transformers Qwen3 model, or from a
+    state dict and its config, on ``device`` (``qwen3.py:73-79``)."""
+    config_overrides.setdefault("qk_norm", True)
+    return _from_hf(Qwen3Config, Qwen3ForCausalLM, hf_model_or_state,
+                    hf_config, device=device, **config_overrides)

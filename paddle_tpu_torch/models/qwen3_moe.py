@@ -5,15 +5,19 @@ The MoE decoder of ``llama_moe`` with the Qwen3 attention signature:
 per-head q/k RMSNorm (``qk_norm``, the ``rms_norm`` kernel at width
 ``head_dim``), bias-free projections, ``head_dim`` decoupled from the
 hidden width; a routed FFN with no shared expert and renormalised top-k
-weights, every layer sparse. Not ported: the HF loader
-(``qwen3_moe_from_hf``).
+weights, every layer sparse. A HuggingFace checkpoint converts through
+``qwen3_moe_from_hf`` (``qwen3_moe.py:71-120``: the config map, then
+``load_hf_grouped_moe`` with the q/k norms).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-from .llama_moe import LlamaMoEConfig, LlamaMoEForCausalLM
+from ..framework.random import default_device
+from .llama import _hf_get, _state_and_config, mapped_rope_scaling
+from .llama_moe import (LlamaMoEConfig, LlamaMoEForCausalLM,
+                        load_hf_grouped_moe)
 
 
 @dataclasses.dataclass
@@ -64,3 +68,56 @@ class Qwen3MoeForCausalLM(LlamaMoEForCausalLM):
             raise ValueError("Qwen3-MoE has no shared expert "
                              "(n_shared_experts=0)")
         super().__init__(config, device=device, generator=generator)
+
+
+def _hf_config_to_qwen3_moe(hf_config, **overrides) -> Qwen3MoeConfig:
+    """A transformers Qwen3-MoE config as a ``Qwen3MoeConfig``
+    (``qwen3_moe.py:71-101``); mixed sparse / dense stacks refuse, a yarn
+    scaling is validated and mapped."""
+    get = _hf_get(hf_config)
+    if get("decoder_sparse_step", 1) != 1 or get("mlp_only_layers", []):
+        raise NotImplementedError(
+            "qwen3_moe_from_hf: mixed sparse/dense layer patterns "
+            "(decoder_sparse_step != 1 or mlp_only_layers) are not "
+            "representable; this build supports uniformly-sparse stacks")
+    kw = dict(
+        rope_scaling=mapped_rope_scaling(get),
+        vocab_size=get("vocab_size"),
+        hidden_size=get("hidden_size"),
+        intermediate_size=get("intermediate_size"),
+        num_hidden_layers=get("num_hidden_layers"),
+        num_attention_heads=get("num_attention_heads"),
+        num_key_value_heads=get("num_key_value_heads"),
+        head_dim=get("head_dim"),
+        max_position_embeddings=get("max_position_embeddings"),
+        rms_norm_eps=get("rms_norm_eps", 1e-6),
+        rope_theta=get("rope_theta", 1e6),
+        tie_word_embeddings=bool(get("tie_word_embeddings", False)),
+        n_routed_experts=get("num_experts"),
+        num_experts_per_tok=get("num_experts_per_tok"),
+        moe_intermediate_size=get("moe_intermediate_size"),
+        # the HF class default for configs that omit the key
+        norm_topk_prob=bool(get("norm_topk_prob", False)),
+        router_aux_loss_coef=get("router_aux_loss_coef", 0.001),
+    )
+    kw.update(overrides)
+    return Qwen3MoeConfig(**kw)
+
+
+def load_hf_qwen3_moe(model: Qwen3MoeForCausalLM,
+                      hf_state_dict) -> Qwen3MoeForCausalLM:
+    """A transformers Qwen3MoeForCausalLM state dict written into ``model``
+    in place (``qwen3_moe.py:104-110``: per-head q/k norms, no biases, no
+    shared expert)."""
+    return load_hf_grouped_moe(model, hf_state_dict, qk_norms=True,
+                               who="load_hf_qwen3_moe")
+
+
+def qwen3_moe_from_hf(hf_model_or_state, hf_config=None, device=None,
+                      **config_overrides):
+    """A ``Qwen3MoeForCausalLM`` from a transformers model, or from a state
+    dict and its config, on ``device`` (``qwen3_moe.py:113-120``)."""
+    device = default_device(device)
+    state, hf_config = _state_and_config(hf_model_or_state, hf_config)
+    cfg = _hf_config_to_qwen3_moe(hf_config, **config_overrides)
+    return load_hf_qwen3_moe(Qwen3MoeForCausalLM(cfg, device=device), state)
